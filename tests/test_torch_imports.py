@@ -1,0 +1,53 @@
+"""The port imports torch and numpy, never JAX or the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "mvp_pytorch_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mvp_pytorch_tpu")
+
+
+def package_files():
+    for dirpath, _, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    """In a fresh interpreter (the test process has jax already: conftest),
+    importing the package and every submodule pulls in none of them."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import mvp_pytorch_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert len(names) >= 12, names\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("path", list(package_files()),
+                         ids=lambda p: os.path.relpath(p, PKG))
+def test_no_forbidden_import_in_source(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            continue
+        for m in mods:
+            assert m.split(".")[0] not in FORBIDDEN, (path, m)
