@@ -6,13 +6,18 @@
 Phases, each ended by torch.cuda.synchronize(); any failure raises and the
 script exits non-zero:
 1. print the card (name, power limit) and build the kernels from csrc/;
+   print each kernel's registers and spills (ptxas), its tensor-core
+   instructions (HMMA/HGMMA in the SASS, from cuobjdump) and its resident
+   blocks per SM; fail if the bf16 kernel has no tensor-core instruction;
 2. hold the masked-attention kernel against its plain PyTorch version at the
    main path's shapes (fused L 125, text 75, vision 70; H 12, D 64; B 1,000
    and 8), both dtypes, both layouts, with padded 2-D key masks, 3-D masks,
-   Lk > Lq, fully-masked rows, a bf16 bias and D 32 / 128; tolerances fp32
-   2e-5, bf16 0.05. Time the kernel, the plain version and, as a yardstick
-   the port never calls, F.scaled_dot_product_attention with the same mask,
-   at the main path's batches (1,000 pairs fused; 500 text or images);
+   Lk > Lq, fully-masked rows, a bf16 bias and D 32 / 128, and across the
+   bf16 kernel's 128-row tiles (Lk 200, L 160, B 1, odd lengths 17 / 129 and
+   1 / 1); tolerances fp32 2e-5, bf16 0.05. Time the kernel, the plain
+   version and, as a yardstick the port never calls,
+   F.scaled_dot_product_attention with the same mask, at the main path's
+   batches (1,000 pairs fused; 500 text or images);
 3. two-stage retrieval scoring at MVPTR-base width and depth (hidden 768,
    6+6+6 layers, vocab 86,051, bf16, seeded random weights) at the bench
    geometry: 1,000 images x 5 captions, LA 75, T 20, R 50, K 20/10, encoder
@@ -87,6 +92,37 @@ def attention_bound_ms(b, lq, lk, dtype_name, bias) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_report(path) -> dict:
+    """Kernel name -> its ptxas lines (registers, spills) from the build."""
+    report, name = {}, None
+    with open(path) as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+            elif name and ("registers" in line or "spill" in line):
+                report.setdefault(name, []).append(
+                    " ".join(line.replace("ptxas info    :", "").split()))
+    return report
+
+
+def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
+    """Registers, tensor-core instructions and resident blocks per SM of
+    every kernel; fails unless each bf16 kernel has HMMA/HGMMA in its SASS."""
+    ptxas = ptxas_report(os.path.join(kernels_mod.BUILD, "ptxas.log"))
+    sass = kernels_mod.sass_mma_counts(lib_path)
+    names = sorted(n for n in set(ptxas) | set(sass) if "masked_attention" in n)
+    for name in names:
+        log(f"  {name}: HMMA/HGMMA={sass.get(name, 'missing')}  "
+            + "  ".join(ptxas.get(name, ["no ptxas report"])))
+    tc = [n for n in names if "masked_attention_mma" in n]
+    if not tc or any(sass.get(n, 0) == 0 for n in tc):
+        raise AssertionError("the bf16 kernel has no tensor-core instruction "
+                             f"in its SASS: {[(n, sass.get(n)) for n in tc]}")
+    for dn, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        log(f"  resident blocks per SM, {dn}, D {D}, fp32 bias: "
+            f"{attn.kernel_blocks_per_sm(dt, D)}")
+
+
 def phase2_kernel_vs_plain(torch, attn):
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -140,6 +176,11 @@ def phase2_kernel_vs_plain(torch, attn):
                 ("D=32", 8, 125, 125, dn, layout, "key", 32, "float32"),
                 ("D=128", 8, 125, 125, dn, layout, "query", 128, "float32"),
                 ("no bias", 8, 70, 70, dn, layout, None, D, "float32"),
+                ("Lk>128 75/200", 8, 75, 200, dn, layout, "key", D, "float32"),
+                ("Lq>128 160/160", 8, 160, 160, dn, layout, "query", D, "float32"),
+                ("B=1", 1, 125, 125, dn, layout, "key", D, "float32"),
+                ("odd 17/129", 8, 17, 129, dn, layout, "key", D, "float32"),
+                ("odd 1/1", 8, 1, 1, dn, layout, None, D, "float32"),
             ]
     errors = {}
     for label, b, lq, lk, dn, layout, mk, d, bias_dt in cases:
@@ -380,12 +421,7 @@ def main() -> int:
     _kernels.library()
     log(f"  built {os.path.relpath(lib_path, root)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    ptxas = os.path.join(_kernels.BUILD, "ptxas.log")
-    if os.path.exists(ptxas):
-        with open(ptxas) as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    log("  ptxas: " + line.strip())
+    phase1_kernel_report(torch, attn, _kernels, lib_path)
     torch.cuda.synchronize()
 
     log("phase 2: kernel against plain version")

@@ -28,6 +28,7 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # c_void_p, so ctypes passes full 64-bit addresses
 ENTRY_POINTS = {
     "masked_attention_fwd": [ctypes.c_void_p] * 7,
+    "masked_attention_blocks_per_sm": [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 
 
@@ -105,3 +106,26 @@ def library() -> ctypes.CDLL:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def find_cuobjdump() -> str:
+    path = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    if not os.path.exists(path):
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({path})")
+    return path
+
+
+def sass_mma_counts(lib: str) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in each kernel's SASS in the
+    built library, by mangled kernel name, from `cuobjdump --dump-sass`."""
+    res = subprocess.run([find_cuobjdump(), "--dump-sass", lib],
+                         capture_output=True, text=True, check=True)
+    counts, name = {}, None
+    for line in res.stdout.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            name = line.split(":", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    return counts

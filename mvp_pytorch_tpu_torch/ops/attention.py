@@ -11,7 +11,8 @@ and normalisation run in fp32 before the probabilities are cast to bf16.
 
 `masked_attention` is the entry point the model calls. On a CPU tensor it
 runs the plain version; on a CUDA tensor it launches the hand-written kernel
-`masked_attention_fwd` (csrc/masked_attention.cu) or raises.
+`masked_attention_fwd` (csrc/masked_attention.cu) or raises. bf16 runs on the
+tensor cores, fp32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -103,6 +104,14 @@ def _kernel_attention(q, k, v, bias, layout):
     if k.shape != (b, h, lk, d) or v.shape != k.shape or lk == 0:
         raise ValueError(f"masked_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernel moves rows in 16-byte copies
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+                raise ValueError(
+                    f"masked_attention: bf16 {name} must start 16-byte "
+                    f"aligned with (b, h, l) strides in multiples of 8, got "
+                    f"address {t.data_ptr():#x} strides {t.stride()}")
     bias_ptr, bias_code, bias_strides = None, 0, (0, 0, 0)
     if bias is not None:
         if bias.dtype not in _DTYPE_CODE or bias.device != q.device:
@@ -128,6 +137,17 @@ def _kernel_attention(q, k, v, bias, layout):
                                    ctypes.addressof(arr), stream)
     _kernels.check(err, "masked_attention_fwd")
     return out
+
+
+def kernel_blocks_per_sm(dtype: torch.dtype, d: int,
+                         bias_dtype: torch.dtype = torch.float32) -> int:
+    """Resident blocks per SM of the kernel launched for (dtype, D, bias
+    dtype), as the CUDA occupancy calculator gives it on the current card."""
+    n = ctypes.c_int(0)
+    err = _kernels.library().masked_attention_blocks_per_sm(
+        _DTYPE_CODE[dtype], _DTYPE_CODE[bias_dtype], d, ctypes.byref(n))
+    _kernels.check(err, "masked_attention_blocks_per_sm")
+    return n.value
 
 
 def masked_attention(q, k, v, bias: Optional[torch.Tensor] = None, *,

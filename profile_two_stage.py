@@ -19,7 +19,7 @@ import sys
 import time
 
 CLASSES = (   # first match wins, on the lower-cased kernel name
-    ("attention (masked_attention_fwd)", ("masked_attention_kernel",)),
+    ("attention (masked_attention_fwd)", ("masked_attention",)),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
     ("layer_norm", ("layer_norm",)),
     ("gather / cat / copy", ("index", "gather", "catarray", "copy",

@@ -26,6 +26,13 @@ from mvp_pytorch_tpu_torch.ops.attention import (MASK_VALUE, mask_to_bias,
 B, H, D = 3, 4, 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_one_thread():
+    """torch single-threaded in this process: no intra-op thread pool is left
+    behind for a later test in the same worker that forks."""
+    torch.set_num_threads(1)
+
+
 def make_case(kind: str, seed: int = 0, d: int = D, lq: int = 7):
     """q, k, v in [B, H, L, d] and an fp32 bias, as numpy arrays."""
     r = np.random.RandomState(seed)

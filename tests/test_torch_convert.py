@@ -15,6 +15,13 @@ from mvp_pytorch_tpu_torch.models import RetrievalModel, tiny_config
 FIX = os.path.join(os.path.dirname(__file__), "fixtures", "golden")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_one_thread():
+    """torch single-threaded in this process: no intra-op thread pool is left
+    behind for a later test in the same worker that forks."""
+    torch.set_num_threads(1)
+
+
 def unflatten(flat):
     tree = {}
     for k, v in flat.items():

@@ -6,10 +6,18 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "mvp_pytorch_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mvp_pytorch_tpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_one_thread():
+    """torch single-threaded in this process: no intra-op thread pool is left
+    behind for a later test in the same worker that forks."""
+    torch.set_num_threads(1)
 
 
 def package_files():

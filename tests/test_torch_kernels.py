@@ -23,17 +23,26 @@ from mvp_pytorch_tpu_torch.ops.attention import (_kernel_attention,
                                                  plain_attention_blhd)
 
 B, H = 3, 4
-KINDS = ["mask2d", "mask3d", "lk_gt_lq", "fully_masked", "no_bias"]
+# kind -> (batch, Lq, Lk). The first five fit one 128-key tile of the bf16
+# kernel and span several 32-query and 32-key tiles of the fp32 one; the
+# others cross the bf16 kernel's tiles: keys over two 128-key tiles (online
+# softmax), queries over two 128-query tiles, one batch row, odd lengths
+# (one key past a tile, a single query and key).
+SHAPES = {"mask2d": (B, 75, 75), "mask3d": (B, 75, 75),
+          "lk_gt_lq": (B, 75, 125), "fully_masked": (B, 75, 75),
+          "no_bias": (B, 75, 75), "lk_gt_128": (B, 75, 200),
+          "lq_gt_128": (B, 160, 160), "batch1": (1, 125, 125),
+          "odd": (B, 17, 129), "single": (B, 1, 1)}
+KINDS = list(SHAPES)
 
 
-def make_case(kind, d, lq=75, seed=3):
-    """q, k, v [B, H, L, d] and an fp32 bias (or None), as numpy arrays:
-    more queries than one 32-row tile, keys over several 32-key tiles."""
+def make_case(kind, d, seed=3):
+    """q, k, v [b, H, L, d] and an fp32 bias (or None), as numpy arrays."""
     r = np.random.RandomState(seed)
-    lk = lq + 50 if kind == "lk_gt_lq" else lq
-    q = r.randn(B, H, lq, d).astype(np.float32)
-    k = r.randn(B, H, lk, d).astype(np.float32)
-    v = r.randn(B, H, lk, d).astype(np.float32)
+    b, lq, lk = SHAPES[kind]
+    q = r.randn(b, H, lq, d).astype(np.float32)
+    k = r.randn(b, H, lk, d).astype(np.float32)
+    v = r.randn(b, H, lk, d).astype(np.float32)
     if kind == "fully_masked":
         # multiples of 1/8: q.k is exact in every summation order. Next to
         # the -10000 bias an fp32 score keeps 10 fraction bits, so otherwise
@@ -41,14 +50,17 @@ def make_case(kind, d, lq=75, seed=3):
         q, k = (np.clip(np.round(x * 8) / 8, -4, 4) for x in (q, k))
     if kind == "no_bias":
         return q, k, v, None
-    if kind == "mask3d":
-        mask = (r.rand(B, lq, lk) > 0.3).astype(np.int32)
+    if kind in ("mask3d", "lq_gt_128"):
+        mask = (r.rand(b, lq, lk) > 0.3).astype(np.int32)
         mask[..., 0] = 1
         mask[1, lq // 2] = 0                 # one fully-masked query row
     else:
-        mask = np.ones((B, lk), np.int32)
-        mask[1, lk - 30:] = 0                # padded keys
-        mask[2, lk - 1:] = 0
+        mask = np.ones((b, lk), np.int32)
+        if b > 1 and lk > 1:
+            mask[1, lk - min(30, lk // 2):] = 0  # padded keys
+            mask[2, lk - 1:] = 0
+        elif lk > 1:
+            mask[0, lk - 30:] = 0
         if kind == "fully_masked":
             mask[0] = 0                      # every key of batch row 0
     return q, k, v, mask_to_bias(torch.from_numpy(mask)).numpy()
@@ -56,6 +68,13 @@ def make_case(kind, d, lq=75, seed=3):
 
 def _bhld_to(layout, x):
     return np.ascontiguousarray(x.transpose(0, 2, 1, 3)) if layout == "blhd" else x
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_one_thread():
+    """torch single-threaded in this process: no intra-op thread pool is left
+    behind for a later test in the same worker that forks."""
+    torch.set_num_threads(1)
 
 
 @pytest.fixture
@@ -124,6 +143,22 @@ def test_kernel_wrapper_rejects_what_the_kernel_cannot_take(bad):
         bias = torch.zeros(2, 1, 1, 6)
     with pytest.raises((TypeError, ValueError)):
         _kernel_attention(q, k, k, bias, "bhld")
+
+
+@pytest.mark.parametrize("bad", ["pointer", "stride"])
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+def test_kernel_wrapper_rejects_misaligned_bf16(bad, layout):
+    """The bf16 kernel copies rows in 16-byte pieces: a start address off 16
+    bytes, or rows 68 elements apart (a stride not a multiple of 8), raises
+    before anything reaches the card."""
+    shape = (2, 5, 4, 64)
+    ok = torch.zeros(shape, dtype=torch.bfloat16)
+    if bad == "pointer":
+        q = torch.zeros(ok.numel() + 1, dtype=torch.bfloat16)[1:].view(shape)
+    else:
+        q = torch.zeros(2, 5, 4, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="aligned"):
+        _kernel_attention(q, ok, ok, None, layout)
 
 
 def test_masked_attention_has_no_silent_fallback():

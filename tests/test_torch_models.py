@@ -42,6 +42,13 @@ def unflatten(flat):
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _torch_one_thread():
+    """torch single-threaded in this process: no intra-op thread pool is left
+    behind for a later test in the same worker that forks."""
+    torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def fp32_matmuls():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
