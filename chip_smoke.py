@@ -17,7 +17,14 @@ script exits non-zero:
    1 / 1); tolerances fp32 2e-5, bf16 0.05. Time the kernel, the plain
    version and, as a yardstick the port never calls,
    F.scaled_dot_product_attention with the same mask, at the main path's
-   batches (1,000 pairs fused; 500 text or images);
+   batches (1,000 pairs fused; 500 text or images). Then the attention
+   backward (`MaskedAttentionFn`: the kernel forward, the recompute backward)
+   at the training shapes (B 96; L 125, 75, 70), both dtypes and layouts,
+   padded key masks with a fully-masked row and a 3-D mask: q, k, v and bias
+   grads against torch autograd through the plain version in fp32 on the
+   same values (fp32 1e-4, bf16 0.05); the forward and the backward timed
+   beside the plain version's and, as a yardstick the port never calls,
+   F.scaled_dot_product_attention forward and forward+backward;
 3. two-stage retrieval scoring at MVPTR-base width and depth (hidden 768,
    6+6+6 layers, vocab 86,051, bf16, seeded random weights) at the bench
    geometry: 1,000 images x 5 captions, LA 75, T 20, R 50, K 20/10, encoder
@@ -25,7 +32,16 @@ script exits non-zero:
    6 x (10 + 2 + 70) = 492 times;
 4. the kernel path against the plain path end to end at full width on a few
    padded captions and images: ITM probabilities and global embeddings;
-5. one JSON line of kernel numbers, then the result line.
+5. the retrieval training step at MVPTR-base (bf16 over fp32 weights, both
+   dropouts 0) on one fixed batch of 96 (LA 75, T 20, R 50, hard negatives),
+   AdamW lr 4e-5 with clip 1.0: 3 warm-up steps through `train_retrieval`,
+   then 10 timed `Trainer` steps; exactly 24 kernel launches per step, finite
+   losses and a last loss below the first; step ms, samples/s and peak
+   memory. Then one step's kernel path against its plain path, in fp32 and
+   bf16, with the hard pairs pinned to the kernel run's: the losses and the
+   relative error of the gradients of a query weight of each encoder, the
+   classifier and logit_scale;
+6. one JSON line of kernel numbers, then the result line.
 
 Exits 2 without a result when no CUDA device is visible.
 """
@@ -47,6 +63,21 @@ PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor cores
               "float32": 67e12}      # CUDA cores
 TOL = {"float32": 2e-5, "bfloat16": 0.05}
 E2E_TOL = {"float32": 1e-4, "bfloat16": 0.02}
+# attention grads against fp32 autograd of the plain version: fp32, the same
+# math summed in another order; bf16, the grads rounded to bf16 at |g| ~ 4
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 0.05}
+# one training step, kernel path against plain path (hard pairs pinned):
+# loss abs error, and ||g_kernel - g_plain|| / ||g_plain|| of each named
+# parameter. bf16: the plain path's backward runs through bf16 scores and
+# probabilities, the kernel path's recomputes them in fp32, so a few bf16
+# ulps (2^-8) per element, over 18 layers
+STEP_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (0.02, 0.05)}
+TRAIN_B, TRAIN_WARMUP, TRAIN_TIMED = 96, 3, 10
+GRAD_PARAMS = ("bert.txt_encoder.layer.0.attention.self.query.weight",
+               "bert.vis_encoder.layer.0.attention.self.query.weight",
+               "bert.mul_encoder.layer.0.attention.self.query.weight",
+               "classifier.weight", "logit_scale")
+DEVICE = "cuda"
 H, D = 12, 64
 LENGTHS = {"fused": 125, "text": 75, "vis": 70}
 MAIN_BATCH = {"fused": 1000, "text": 500, "vis": 500}   # pair / encoder batch
@@ -89,6 +120,19 @@ def attention_bound_ms(b, lq, lk, dtype_name, bias) -> tuple:
         nbytes += bias.numel() * bias.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 4.0 * b * H * lq * lk * D / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_bwd_bound_ms(b, lq, lk, dtype_name, bias) -> tuple:
+    """(bound ms, 'bytes' | 'operations') of the backward: q, k, v, the
+    output's grad and the bias read once, dq, dk, dv written once, against
+    10 B H Lq Lk D operations (q.k^T again, g.v^T, p^T.g, ds.k, ds^T.q)."""
+    elem = 2 if dtype_name == "bfloat16" else 4
+    nbytes = elem * H * D * b * (3 * lq + 4 * lk)
+    if bias is not None:
+        nbytes += bias.numel() * bias.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 10.0 * b * H * lq * lk * D / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -241,25 +285,129 @@ def phase2_kernel_vs_plain(torch, attn):
     return errors, timings
 
 
+def phase2_backward(torch, attn):
+    """MaskedAttentionFn's grads against fp32 autograd of the plain version
+    at the training shapes, and the forward/backward times."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def inputs(l, dt, layout, mask_kind):
+        x = [torch.randn(TRAIN_B, l, H, D, device=DEVICE, generator=gen)
+             .to(dt) for _ in range(4)]              # q, k, v, grad of out
+        if layout == "bhld":
+            x = [t.transpose(1, 2).contiguous() for t in x]
+        lens = torch.randint(l // 2, l + 1, (TRAIN_B,), device=DEVICE,
+                             generator=gen)
+        if mask_kind == "query":
+            mask = (torch.rand(TRAIN_B, l, l, device=DEVICE, generator=gen)
+                    > 0.3).to(torch.int32)
+            mask[..., 0] = 1
+            mask[:, l // 2] = 0                      # a fully-masked row
+        else:
+            mask = (torch.arange(l, device=DEVICE)[None, :]
+                    < lens[:, None]).to(torch.int32)
+            mask[0] = 0                              # a fully-masked row
+        return x, attn.mask_to_bias(mask)
+
+    errs = {}
+    for name, l in LENGTHS.items():
+        for dn, dt in dtypes.items():
+            for layout in ("blhd", "bhld"):
+                for mk in (("key", "query") if name == "fused" else ("key",)):
+                    (q, k, v, g), bias = inputs(l, dt, layout, mk)
+                    leaves = [t.requires_grad_() for t in (q, k, v, bias)]
+                    before = attn.masked_attention.launches
+                    out = attn.masked_attention(q, k, v, bias, layout=layout)
+                    if not isinstance(out.grad_fn,
+                                      attn.MaskedAttentionFn._backward_cls):
+                        raise AssertionError("kernel output has no grad_fn")
+                    got = torch.autograd.grad(out, leaves, g)
+                    ref_in = [t.detach().float().requires_grad_()
+                              for t in leaves]
+                    plain = (attn.plain_attention_blhd if layout == "blhd"
+                             else attn.plain_attention)
+                    want = torch.autograd.grad(plain(*ref_in), ref_in,
+                                               g.float())
+                    torch.cuda.synchronize()
+                    if attn.masked_attention.launches != before + 1:
+                        raise AssertionError("the backward launched a kernel")
+                    err = max((a.float() - b).abs().max().item()
+                              for a, b in zip(got, want))
+                    finite = all(bool(torch.isfinite(a).all()) for a in got)
+                    ok = finite and err <= GRAD_TOL[dn]
+                    log(f"  grads vs plain   {name:5s} {mk:5s} B={TRAIN_B} "
+                        f"L={l:<4d} {dn:9s} {layout}  max|err|={err:.3e}  "
+                        f"tol={GRAD_TOL[dn]:g}  {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(
+                            f"attention grads disagree: {name} {mk} {dn} "
+                            f"{layout} err={err} finite={finite}")
+                    errs[(name, dn, layout, mk)] = err
+                    del q, k, v, g, bias, leaves, out, got, ref_in, want
+
+    timings = {}
+    for name, l in LENGTHS.items():
+        for dn, dt in dtypes.items():
+            (q, k, v, g), bias = inputs(l, dt, "blhd", "key")
+            qkv = [t.requires_grad_() for t in (q, k, v)]
+            out = attn.masked_attention(*qkv, bias, layout="blhd")
+            fwd = cuda_ms(lambda: attn.masked_attention(q, k, v, bias,
+                                                        layout="blhd"))
+            bwd = cuda_ms(lambda: torch.autograd.grad(out, qkv, g,
+                                                      retain_graph=True))
+            p_out = attn.plain_attention_blhd(*qkv, bias)
+            plain_bwd = cuda_ms(lambda: torch.autograd.grad(
+                p_out, qkv, g, retain_graph=True))
+            qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            mask_lib = bias.to(dt)
+            sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask_lib))
+            gh = g.transpose(1, 2)
+            sdpa_fb = cuda_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask_lib),
+                (qh, kh, vh), gh))
+            bound, by = attention_bwd_bound_ms(TRAIN_B, l, l, dn, bias)
+            fwd_bound, fwd_by = attention_bound_ms(TRAIN_B, l, l, dn, bias)
+            timings[(name, dn)] = dict(
+                fwd_ms=fwd, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
+                bwd_ms=bwd, plain_bwd_ms=plain_bwd,
+                sdpa_fwd_ms=sdpa_fwd, sdpa_fwd_bwd_ms=sdpa_fb,
+                bwd_bound_ms=bound, bwd_bound_by=by,
+                grad_err=max(v for k_, v in errs.items()
+                             if k_[:2] == (name, dn)))
+            log(f"  time train {name:5s} B={TRAIN_B} L={l} {dn:9s} blhd: "
+                f"kernel fwd {fwd:.4f} ms (bound {fwd_bound:.4f}, {fwd_by})  "
+                f"recompute bwd {bwd:.4f} ms  "
+                f"plain bwd {plain_bwd:.4f} ms  sdpa fwd {sdpa_fwd:.4f} ms  "
+                f"sdpa fwd+bwd {sdpa_fb:.4f} ms  bwd bound {bound:.4f} ms "
+                f"({by})")
+            del q, k, v, g, bias, qkv, out, p_out, qh, kh, vh, gh, mask_lib
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return timings
+
+
 def bench_inputs(torch, cfg, n_img, cpi, la, t, r, seed=0):
     """The bench geometry's inputs (bench.py:99-123), made on the card."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
     n_cap = n_img * cpi
     caps = dict(
         input_ids_a=torch.randint(0, cfg.only_word_size, (n_cap, la),
-                                  device="cuda", generator=gen),
+                                  device=DEVICE, generator=gen),
         attention_mask_a=torch.ones(n_cap, la, dtype=torch.int32,
-                                    device="cuda"),
+                                    device=DEVICE),
         token_type_ids_a=torch.zeros(n_cap, la, dtype=torch.int64,
-                                     device="cuda"))
+                                     device=DEVICE))
     imgs = dict(
         input_ids_b=torch.randint(0, cfg.only_word_size, (n_img, t),
-                                  device="cuda", generator=gen),
+                                  device=DEVICE, generator=gen),
         attention_mask_b=torch.ones(n_img, t + r, dtype=torch.int32,
-                                    device="cuda"),
+                                    device=DEVICE),
         token_type_ids_b=torch.ones(n_img, t, dtype=torch.int64,
-                                    device="cuda"),
-        img_feats=torch.randn(n_img, r, cfg.img_feature_dim, device="cuda",
+                                    device=DEVICE),
+        img_feats=torch.randn(n_img, r, cfg.img_feature_dim, device=DEVICE,
                               generator=gen))
     return caps, imgs
 
@@ -392,6 +540,141 @@ def phase4_end_to_end(torch, attn, layers_mod, ModelConfig, RetrievalModel):
     torch.cuda.synchronize()
 
 
+def train_batch(torch, cfg, seed):
+    """One padded batch of true pairs at the training geometry."""
+    t = 20
+    caps, imgs = bench_inputs(torch, cfg, TRAIN_B, 1, 75, t, 50, seed=seed)
+    caps["attention_mask_a"][1::2, 60:] = 0          # padded captions
+    imgs["attention_mask_b"][1::2, t + 40:] = 0      # padded regions
+    return {**caps, **imgs}
+
+
+@contextlib.contextmanager
+def hard_pairs(model, pinned=None):
+    """Record the hard pairs the model mines, or make it take `pinned`
+    instead (an instance override of `mine_hard_negatives`)."""
+    record, real = [], model.bert.mine_hard_negatives
+
+    def mine(*args, **kw):
+        record.append(pinned if pinned is not None else real(*args, **kw))
+        return record[-1]
+    model.bert.mine_hard_negatives = mine
+    try:
+        yield record
+    finally:
+        del model.bert.mine_hard_negatives
+
+
+def phase5_training(torch, attn, layers_mod, ModelConfig, RetrievalModel):
+    from mvp_pytorch_tpu_torch.tasks.retrieval import (retrieval_loss_fn,
+                                                       train_retrieval)
+    from mvp_pytorch_tpu_torch.training.optim import make_optimizer
+    from mvp_pytorch_tpu_torch.training.trainer import Trainer
+    cfg = base_config(ModelConfig, "bfloat16")
+    per_step = cfg.half_layers * 4       # txt + vis + 2 fusion passes
+    model = RetrievalModel(cfg, device=DEVICE, seed=0)
+    batch = train_batch(torch, cfg, seed=5)
+    torch.cuda.synchronize()
+    opt_kw = dict(schedule="constant", max_grad_norm=1.0)
+
+    attn.masked_attention.launches = 0
+    warm = train_retrieval(model, [batch], TRAIN_WARMUP, learning_rate=4e-5,
+                           max_tag_length=20, hn_mod="hard", logger=log,
+                           log_period=1, **opt_kw)
+    torch.cuda.synchronize()
+    if attn.masked_attention.launches != per_step * TRAIN_WARMUP:
+        raise AssertionError(f"train_retrieval launched the kernel "
+                             f"{attn.masked_attention.launches} times, want "
+                             f"{per_step * TRAIN_WARMUP}")
+
+    trainer = Trainer(model, retrieval_loss_fn(max_tag_length=20,
+                                               hn_mod="hard"),
+                      make_optimizer(model, 4e-5, **opt_kw), seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    history, launches = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        attn.masked_attention.launches = 0
+        history.append(trainer.step(batch))     # ends in a device sync
+        n = attn.masked_attention.launches
+        launches += n
+        if n != per_step:
+            raise AssertionError(f"a training step launched the kernel {n} "
+                                 f"times, want {per_step}")
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_TIMED
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in warm + history]
+    log("  losses " + " ".join(f"{x:.4f}" for x in losses))
+    log(f"  last step clip={history[-1]['clip']:.4f} "
+        f"itm={history[-1]['itm']:.4f} "
+        f"grad_norm={history[-1]['grad_norm']:.4f}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"training losses not finite and falling: "
+                             f"{losses}")
+    log(f"  train step B={TRAIN_B} bf16: {step_s * 1e3:.2f} ms/step  "
+        f"{TRAIN_B / step_s:.1f} samples/s  launches/step={per_step}  "
+        f"peak_mem={peak / 1e9:.2f}GB")
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    for dn in ("float32", "bfloat16"):
+        model = RetrievalModel(base_config(ModelConfig, dn), device=DEVICE,
+                               seed=0)
+        model.train()
+        batch = train_batch(torch, model.config, seed=6)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            out = model.train_step(*(batch[k] for k in (
+                "input_ids_a", "attention_mask_a", "token_type_ids_a",
+                "input_ids_b", "attention_mask_b", "token_type_ids_b",
+                "img_feats")), max_tag_length=20, hn_mod="hard",
+                generator=torch.Generator(device=DEVICE).manual_seed(0))
+            out.total_loss.backward()
+            params = dict(model.named_parameters())
+            return out, {n: params[n].grad.detach().clone()
+                         for n in GRAD_PARAMS}
+
+        before = attn.masked_attention.launches
+        with hard_pairs(model) as mined:
+            k_out, k_grads = step()
+        if attn.masked_attention.launches - before != per_step:
+            raise AssertionError("kernel path did not launch the kernel")
+        with plain_attention_path(layers_mod, attn), hard_pairs(
+                model, pinned=mined[0]):
+            p_out, p_grads = step()
+        torch.cuda.synchronize()
+        if attn.masked_attention.launches - before != per_step:
+            raise AssertionError("plain path launched the kernel")
+        loss_tol, grad_tol = STEP_TOL[dn]
+        for name in ("total_loss", "retrieval_loss", "itm_loss"):
+            a = getattr(k_out, name).item()
+            b = getattr(p_out, name).item()
+            ok = math.isfinite(a) and abs(a - b) <= loss_tol
+            log(f"  train step {dn:9s} {name:14s} kernel={a:.6f} "
+                f"plain={b:.6f} |diff|={abs(a - b):.3e} tol={loss_tol:g} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"train step {dn} {name}: {a} vs {b}")
+        for name in GRAD_PARAMS:
+            a, b = k_grads[name].float(), p_grads[name].float()
+            rel = ((a - b).norm() / b.norm()).item()
+            ok = bool(torch.isfinite(a).all()) and rel <= grad_tol
+            log(f"  train step {dn:9s} grad {name}: "
+                f"|g|={b.norm().item():.4e} rel err={rel:.3e} "
+                f"tol={grad_tol:g} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"train step {dn} grad {name}: {rel}")
+        del model, batch, k_out, p_out, k_grads, p_grads
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return dict(step_ms=step_s * 1e3, samples_per_s=TRAIN_B / step_s,
+                peak_gb=peak / 1e9, launches_per_step=per_step,
+                launches=launches, losses=losses)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -427,6 +710,9 @@ def main() -> int:
     log("phase 2: kernel against plain version")
     errors, timings = phase2_kernel_vs_plain(torch, attn)
     torch.cuda.synchronize()
+    log("phase 2: attention backward against plain autograd, training shapes")
+    bwd_timings = phase2_backward(torch, attn)
+    torch.cuda.synchronize()
 
     log("phase 3: two-stage retrieval scoring, MVPTR-base, bench geometry")
     launches = phase3_two_stage(torch, attn, ModelConfig, RetrievalModel,
@@ -437,15 +723,37 @@ def main() -> int:
     phase4_end_to_end(torch, attn, layers_mod, ModelConfig, RetrievalModel)
     torch.cuda.synchronize()
 
+    log("phase 5: retrieval training step, MVPTR-base, batch 96")
+    train = phase5_training(torch, attn, layers_mod, ModelConfig,
+                            RetrievalModel)
+    torch.cuda.synchronize()
+
     main_t = timings[("fused", "bfloat16")]
     main_err = errors[("fused 2-D padded keys", 1000, "bfloat16", "blhd")]
+    train_t = bwd_timings[("fused", "bfloat16")]
     kernels = {"kernels": [{
         "name": "masked_attention_fwd", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES,
         "launches": launches, "max_abs_err": main_err,
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
-        "library_ms": main_t["library_ms"]}]}
+        "library_ms": main_t["library_ms"],
+        "training": {
+            "launches": train["launches"],
+            "launches_per_step": train["launches_per_step"],
+            "shape": f"B {TRAIN_B} L 125 bf16 blhd",
+            "fwd_ms": train_t["fwd_ms"],
+            "fwd_bound_ms": train_t["fwd_bound_ms"],
+            "bwd_ms": train_t["bwd_ms"],
+            "bwd_plain_ms": train_t["plain_bwd_ms"],
+            "bwd_bound_ms": train_t["bwd_bound_ms"],
+            "bwd_bound_by": train_t["bwd_bound_by"],
+            "bwd_max_abs_err": train_t["grad_err"],
+            "sdpa_fwd_ms": train_t["sdpa_fwd_ms"],
+            "sdpa_fwd_bwd_ms": train_t["sdpa_fwd_bwd_ms"],
+            "step_ms": train["step_ms"],
+            "samples_per_s": train["samples_per_s"],
+            "peak_gb": train["peak_gb"]}}]}
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

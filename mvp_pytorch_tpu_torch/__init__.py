@@ -1,9 +1,11 @@
 """PyTorch / CUDA port of mvp_pytorch_tpu for NVIDIA Hopper.
 
-This slice carries the two-stage retrieval scoring path of `RetrievalModel`:
-the three-encoder `BiEncoder` at inference, its conversion from the JAX
-package's params, and the hand-written masked-attention kernel
-(`csrc/masked_attention.cu`) that every encoder layer runs on the card.
+The port carries the flagship `RetrievalModel`: its training step (the
+three-encoder `BiEncoder` with hard-negative mining, CLIP + ITM + WRA losses,
+AdamW matching optax, a single-device trainer and checkpoints) and its
+two-stage retrieval scoring, the conversion from the JAX package's params, and
+the hand-written masked-attention kernel (`csrc/masked_attention.cu`) that
+every encoder layer runs on the card, forward and under autograd.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; on a CPU
 tensor each kernel wrapper runs its plain PyTorch version.

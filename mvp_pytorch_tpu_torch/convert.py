@@ -96,7 +96,7 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
     sd = {}
     for path, val in flat:
         key, val = _torch_key(path, val, mlp)
-        sd[key] = torch.from_numpy(np.ascontiguousarray(val).reshape(val.shape))
+        sd[key] = torch.from_numpy(np.array(val, copy=True))
     return sd
 
 

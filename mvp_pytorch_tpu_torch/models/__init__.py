@@ -3,7 +3,8 @@
 from .bi_encoder import BiEncoder, BiEncoderOutput, l2_normalize
 from .config import ModelConfig, tiny_config
 from .heads import ClassifierHead
-from .tasks import RetrievalModel
+from .tasks import RetrievalModel, RetrievalTrainOutput
 
 __all__ = ["BiEncoder", "BiEncoderOutput", "ClassifierHead", "ModelConfig",
-           "RetrievalModel", "l2_normalize", "tiny_config"]
+           "RetrievalModel", "RetrievalTrainOutput", "l2_normalize",
+           "tiny_config"]

@@ -1,13 +1,17 @@
-"""Two-stream + fusion backbone ("BiEncoder"), inference path.
+"""Two-stream + fusion backbone ("BiEncoder"), for inference and training.
 
 The JAX package's `mvp_pytorch_tpu/models/bi_encoder.py` in PyTorch: a shared
 embedding table over the wordpiece + phrase vocabulary, three
 `num_hidden_layers // 2`-layer stream encoders (txt / vis / mul), the 2054-d
 region projection appended to the vision stream, the global projections with
-their similarity matrix, and the tag-stripped fusion input
-`[txt_out ; vis_out[:, max_tag_length:]]` (reference
-`oscar/modeling/modeling_vlbert.py:354-875`). Hard-negative mining waits for
-the training slice.
+their similarity matrix, in-batch hard-negative mining (hardest or sampled)
+with the 50/50 hard-image / hard-text slot mix re-encoded by the fusion
+encoder, and the tag-stripped fusion input `[txt_out ; vis_out[:,
+max_tag_length:]]` (reference `oscar/modeling/modeling_vlbert.py:354-875`).
+
+Random choices (sampled negatives, the slot permutation) draw from a
+`torch.Generator` the caller passes; `hn_dice` pins the permutation, as in
+the JAX package. `forward_joint` waits for the NLVR slice.
 """
 
 from __future__ import annotations
@@ -18,8 +22,8 @@ import torch
 from torch import nn
 
 from .config import ModelConfig
-from .layers import (Dense, Embeddings, LayerNorm, Pooler, StreamEncoder,
-                     compute_dtype, init_weights, mask_to_bias)
+from .layers import (Dense, Dropout, Embeddings, LayerNorm, Pooler,
+                     StreamEncoder, compute_dtype, init_weights, mask_to_bias)
 
 
 def l2_normalize(x, dim=-1, eps=1e-12):
@@ -28,12 +32,17 @@ def l2_normalize(x, dim=-1, eps=1e-12):
 
 
 class BiEncoderOutput(NamedTuple):
-    sequence_output: torch.Tensor   # [B, La+R, H] fused output
+    sequence_output: torch.Tensor   # [B, La+R, H] fused output (true pairs)
     pooled_output: torch.Tensor     # [B, H]
+    hard_sequence_output: Optional[torch.Tensor]  # [B, La+R, H] hard pairs
+    hard_pooled_output: Optional[torch.Tensor]    # [B, H]
     txt_output: torch.Tensor        # [B, La, H]
     vis_output: torch.Tensor        # [B, T+R, H]
     sim_mat: torch.Tensor           # [B, B] rows = text, cols = image, fp32
-    mid_joint: Optional[torch.Tensor]
+    hard_txt_index: Optional[torch.Tensor]  # [B] text example per hard slot
+    hard_img_index: Optional[torch.Tensor]  # [B] image example per hard slot
+    mid_joint: Optional[torch.Tensor]       # fusion mid-layer (phrase_layer)
+    mid_hard: Optional[torch.Tensor]
 
 
 class BiEncoder(nn.Module):
@@ -53,7 +62,7 @@ class BiEncoder(nn.Module):
         self.img_embedding = Dense(config.img_feature_dim, h, dt)
         if config.use_img_layernorm:
             self.LayerNorm = LayerNorm(h, config.img_layer_norm_eps, dt)
-        self.img_dropout = nn.Dropout(config.hidden_dropout_prob)
+        self.img_dropout = Dropout(config.hidden_dropout_prob)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -108,13 +117,53 @@ class BiEncoder(nn.Module):
                                     return_at_layer=return_at_layer)
         return seq, self.pooler(seq), mid
 
+    def mine_hard_negatives(self, sim_mat, *, hn_mod: str = "hard",
+                            logit=None, hn_dice=None,
+                            generator: Optional[torch.Generator] = None):
+        """Per output slot s, the (text, image) example of its hard pair.
+
+        hn_mod "hard": the most similar other image per text and other text
+        per image (argmax of sim - 2 I); "sample": a categorical draw over
+        logit * sim - 10000 I. The first n // 2 slots pair text dice[s] with
+        its hard image, the rest pair a hard text with image dice[s], where
+        dice is a random permutation unless `hn_dice` pins it."""
+        n = sim_mat.shape[0]
+        with torch.no_grad():
+            eye = torch.eye(n, dtype=sim_mat.dtype, device=sim_mat.device)
+            if hn_mod == "hard":
+                masked = sim_mat - 2.0 * eye
+                hard_img_index = masked.argmax(dim=1)      # per text
+                hard_txt_index = masked.argmax(dim=0)      # per image
+            elif hn_mod == "sample":
+                masked = logit * sim_mat - 10000.0 * eye
+                hard_img_index = torch.multinomial(
+                    torch.softmax(masked, dim=1), 1, generator=generator)[:, 0]
+                hard_txt_index = torch.multinomial(
+                    torch.softmax(masked.T, dim=1), 1,
+                    generator=generator)[:, 0]
+            else:
+                raise NotImplementedError(hn_mod)
+            dice = (torch.randperm(n, generator=generator,
+                                   device=sim_mat.device)
+                    if hn_dice is None else hn_dice.to(sim_mat.device))
+            is_hard_img = torch.arange(n, device=sim_mat.device) < n // 2
+            txt = torch.where(is_hard_img, dice, hard_txt_index[dice])
+            img = torch.where(is_hard_img, hard_img_index[dice], dice)
+        return txt, img
+
     def forward(self, input_ids_a, attention_mask_a=None,
                 token_type_ids_a=None, input_ids_b=None,
                 attention_mask_b=None, token_type_ids_b=None,
                 img_feats=None, position_ids_a=None, position_ids_b=None,
                 *, max_tag_length: Optional[int] = None, use_b: bool = False,
-                phrase_layer: Optional[int] = None) -> BiEncoderOutput:
-        """The reference BiBertImgModel.forward without hard negatives."""
+                encode_hn: bool = False, hn_mod: str = "hard", logit=None,
+                phrase_layer: Optional[int] = None, hn_dice=None,
+                generator: Optional[torch.Generator] = None
+                ) -> BiEncoderOutput:
+        """The reference BiBertImgModel.forward (modeling_vlbert.py:411-609):
+        both streams, the similarity matrix and the fusion pass; with
+        `encode_hn` also the hard-negative pairs' fusion pass, as one pass
+        over 2B rows when `config.fused_hn_pass`."""
         if attention_mask_a is None:
             attention_mask_a = torch.ones_like(input_ids_a)
         if attention_mask_b is None:
@@ -134,11 +183,44 @@ class BiEncoder(nn.Module):
                 "max_tag_length is required when use_b=False: the fusion "
                 "input strips the tag positions")
         strip = 1 if use_b else max_tag_length
+        only_vis = vis_seq[:, strip:, :]
+        only_vis_mask = attention_mask_b[:, strip:]
         sim_mat = global_txt @ global_img.T
-        seq_out, pooled, mid = self.fuse(
-            txt_seq, attention_mask_a, vis_seq[:, strip:, :],
-            attention_mask_b[:, strip:], return_at_layer=phrase_layer)
+
+        hard_seq = hard_pooled = hard_txt = hard_img = mid_hard = None
+        if not encode_hn:
+            seq_out, pooled, mid_joint = self.fuse(
+                txt_seq, attention_mask_a, only_vis, only_vis_mask,
+                return_at_layer=phrase_layer)
+        else:
+            hard_txt, hard_img = self.mine_hard_negatives(
+                sim_mat, hn_mod=hn_mod, logit=logit, hn_dice=hn_dice,
+                generator=generator)
+            n = sim_mat.shape[0]
+            if self.config.fused_hn_pass:
+                both_seq, both_pooled, both_mid = self.fuse(
+                    torch.cat([txt_seq, txt_seq[hard_txt]], 0),
+                    torch.cat([attention_mask_a, attention_mask_a[hard_txt]],
+                              0),
+                    torch.cat([only_vis, only_vis[hard_img]], 0),
+                    torch.cat([only_vis_mask, only_vis_mask[hard_img]], 0),
+                    return_at_layer=phrase_layer)
+                seq_out, hard_seq = both_seq[:n], both_seq[n:]
+                pooled, hard_pooled = both_pooled[:n], both_pooled[n:]
+                mid_joint = None
+                if both_mid is not None:
+                    mid_joint, mid_hard = both_mid[:n], both_mid[n:]
+            else:
+                hard_seq, hard_pooled, mid_hard = self.fuse(
+                    txt_seq[hard_txt], attention_mask_a[hard_txt],
+                    only_vis[hard_img], only_vis_mask[hard_img],
+                    return_at_layer=phrase_layer)
+                seq_out, pooled, mid_joint = self.fuse(
+                    txt_seq, attention_mask_a, only_vis, only_vis_mask,
+                    return_at_layer=phrase_layer)
         return BiEncoderOutput(
             sequence_output=seq_out, pooled_output=pooled,
+            hard_sequence_output=hard_seq, hard_pooled_output=hard_pooled,
             txt_output=txt_seq, vis_output=vis_seq, sim_mat=sim_mat,
-            mid_joint=mid)
+            hard_txt_index=hard_txt, hard_img_index=hard_img,
+            mid_joint=mid_joint, mid_hard=mid_hard)

@@ -10,6 +10,8 @@ packages' configs carry the same keys.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -74,6 +76,13 @@ class ModelConfig:
     def half_layers(self) -> int:
         """Layers per stream encoder (reference modeling_vlbert.py:360-364)."""
         return self.num_hidden_layers // 2
+
+    def save_pretrained(self, save_directory: str) -> None:
+        """`config.json` in the JAX package's format."""
+        os.makedirs(save_directory, exist_ok=True)
+        with open(os.path.join(save_directory, "config.json"), "w") as f:
+            f.write(json.dumps(dataclasses.asdict(self), indent=2,
+                               sort_keys=True) + "\n")
 
     @classmethod
     def from_dict(cls, d: dict, **overrides: Any) -> "ModelConfig":

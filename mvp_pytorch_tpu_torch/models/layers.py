@@ -10,10 +10,17 @@ compute runs in `config.dtype`. In bf16 a `Dense` casts its input, weight and
 bias to bf16 (as flax `nn.Dense(dtype=bf16)` does), embeddings are gathered
 from the bf16-cast table and summed in bf16, and LayerNorm takes its
 statistics in fp32 and returns the compute type.
+
+Training: `Dropout` draws its masks from a `torch.Generator` the caller
+hands over with `dropout_generator`, never from torch's global generator. With
+`attention_probs_dropout_prob == 0` a training forward takes the attention
+kernel, as inference does; a nonzero attention-prob dropout takes the plain
+path (the kernel draws no random numbers).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -24,9 +31,9 @@ from ..ops.attention import mask_to_bias, masked_attention
 from .config import ModelConfig
 
 __all__ = [
-    "ACT2FN", "Dense", "LayerNorm", "Embeddings", "SelfAttention",
+    "ACT2FN", "Dense", "Dropout", "LayerNorm", "Embeddings", "SelfAttention",
     "AttentionBlock", "TransformerLayer", "StreamEncoder", "Pooler",
-    "mask_to_bias", "compute_dtype",
+    "mask_to_bias", "compute_dtype", "dropout_generator",
 ]
 
 
@@ -49,6 +56,40 @@ ACT2FN = {
     "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
     "gelu_exact": F.gelu,
 }
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose masks come from `self.generator`, which
+    `dropout_generator` sets. Training with p > 0 and no generator raises."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("dropout in training needs a generator: wrap "
+                               "the forward in dropout_generator(model, gen)")
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
+                                              generator=self.generator)
+        return x * keep / (1.0 - self.p)
+
+
+@contextlib.contextmanager
+def dropout_generator(module: nn.Module, generator: Optional[torch.Generator]):
+    """Every `Dropout` under `module` draws from `generator` inside the
+    block."""
+    drops = [m for m in module.modules() if isinstance(m, Dropout)]
+    for m in drops:
+        m.generator = generator
+    try:
+        yield
+    finally:
+        for m in drops:
+            m.generator = None
 
 
 class Dense(nn.Linear):
@@ -89,7 +130,7 @@ class Embeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(config.type_vocab_size, h)
         self.LayerNorm = LayerNorm(h, config.layer_norm_eps,
                                    compute_dtype(config))
-        self.dropout = nn.Dropout(config.hidden_dropout_prob)
+        self.dropout = Dropout(config.hidden_dropout_prob)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
         dt = compute_dtype(self.config)
@@ -120,7 +161,7 @@ class SelfAttention(nn.Module):
         self.query = Dense(h, h, dt)
         self.key = Dense(h, h, dt)
         self.value = Dense(h, h, dt)
-        self.dropout = nn.Dropout(config.attention_probs_dropout_prob)
+        self.dropout = Dropout(config.attention_probs_dropout_prob)
 
     def forward(self, hidden, bias):
         cfg = self.config
@@ -155,7 +196,7 @@ class SelfOutput(nn.Module):
         self.dense = Dense(in_features, config.hidden_size, dt)
         self.LayerNorm = LayerNorm(config.hidden_size, config.layer_norm_eps,
                                    dt)
-        self.dropout = nn.Dropout(config.hidden_dropout_prob)
+        self.dropout = Dropout(config.hidden_dropout_prob)
 
     def forward(self, x, residual):
         return self.LayerNorm(self.dropout(self.dense(x)) + residual)

@@ -9,10 +9,15 @@ Additive-bias masking with the reference's finite -10000 (reference
 scores, the scale and the bias stay bf16, the max is taken in bf16, and exp
 and normalisation run in fp32 before the probabilities are cast to bf16.
 
-`masked_attention` is the entry point the model calls. On a CPU tensor it
-runs the plain version; on a CUDA tensor it launches the hand-written kernel
-`masked_attention_fwd` (csrc/masked_attention.cu) or raises. bf16 runs on the
-tensor cores, fp32 on the CUDA cores.
+`masked_attention` is the entry point the model calls, for inference and
+for training. It always goes through `MaskedAttentionFn`, a
+`torch.autograd.Function`. Its forward runs the plain version on a CPU tensor;
+on a CUDA tensor it launches the hand-written kernel `masked_attention_fwd`
+(csrc/masked_attention.cu) or raises. bf16 runs on the tensor cores, fp32 on
+the CUDA cores. Its backward is the JAX package's `_attn_bwd` (git 8625894^,
+`mvp_pytorch_tpu/ops/attention.py:200-218`) in plain PyTorch: it saves only
+q, k, v and the bias, recomputes the probabilities in fp32 and launches no
+kernel.
 """
 
 from __future__ import annotations
@@ -150,9 +155,58 @@ def kernel_blocks_per_sm(dtype: torch.dtype, d: int,
     return n.value
 
 
+def _attention_grads(q, k, v, bias, g, layout, bias_grad: bool):
+    """The JAX package's `_attn_bwd` (git 8625894^, ops/attention.py:200-218):
+    recompute the probabilities in fp32 from q, k and the bias, then
+    dv = p^T.g, ds = p * (g.v^T - sum(g.v^T * p)), dq = ds.k * D^-1/2,
+    dk = ds^T.q * D^-1/2 and, when `bias_grad`, dbias = ds summed over the
+    dims where the bias broadcasts. Grads come back in their inputs' dtypes."""
+    x, y = ("bqhd", "bkhd") if layout == "blhd" else ("bhqd", "bhkd")
+    scale = q.shape[-1] ** -0.5
+    q32, k32, v32, g32 = (t.float() for t in (q, k, v, g))
+    scores = torch.einsum(f"{x},{y}->bhqk", q32, k32) * scale
+    if bias is not None:
+        scores = scores + bias.float()
+    p = torch.softmax(scores, dim=-1)
+    dp = torch.einsum(f"{x},{y}->bhqk", g32, v32)
+    dv = torch.einsum(f"bhqk,{x}->{y}", p, g32)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum(f"bhqk,{y}->{x}", ds, k32) * scale
+    dk = torch.einsum(f"bhqk,{x}->{y}", ds, q32) * scale
+    dbias = ds.sum_to_size(bias.shape).to(bias.dtype) if bias_grad else None
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+class MaskedAttentionFn(torch.autograd.Function):
+    """Differentiable masked attention: forward on the kernel (CUDA) or the
+    plain version (CPU), backward by recompute (`_attention_grads`). Saves
+    q, k, v and the bias only, never the [B, H, Lq, Lk] probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, layout):
+        if q.device.type == "cuda":
+            out = _kernel_attention(q, k, v, bias, layout)
+            masked_attention.launches += 1
+        else:
+            fn = plain_attention_blhd if layout == "blhd" else plain_attention
+            out = fn(q, k, v, bias)
+        if any(ctx.needs_input_grad[:4]):
+            ctx.save_for_backward(q, k, v, bias)
+        ctx.layout = layout
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        grads = _attention_grads(q, k, v, bias, g, ctx.layout,
+                                 ctx.needs_input_grad[3])
+        return (*grads, None)
+
+
 def masked_attention(q, k, v, bias: Optional[torch.Tensor] = None, *,
                      layout: str = "bhld") -> torch.Tensor:
-    """softmax(q.k^T * D^-1/2 + bias).v in the given layout.
+    """softmax(q.k^T * D^-1/2 + bias).v in the given layout, differentiable
+    in q, k, v and the bias.
 
     layout "bhld": q [B, H, Lq, D], k and v [B, H, Lk, D], out [B, H, Lq, D].
     layout "blhd": q [B, Lq, H, D], k and v [B, Lk, H, D], out [B, Lq, H, D].
@@ -163,14 +217,9 @@ def masked_attention(q, k, v, bias: Optional[torch.Tensor] = None, *,
     """
     if layout not in ("bhld", "blhd"):
         raise ValueError(f"unknown layout {layout!r}")
-    if q.device.type == "cpu":
-        fn = plain_attention_blhd if layout == "blhd" else plain_attention
-        return fn(q, k, v, bias)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"masked_attention: no kernel for {q.device}")
-    out = _kernel_attention(q, k, v, bias, layout)
-    masked_attention.launches += 1
-    return out
+    return MaskedAttentionFn.apply(q, k, v, bias, layout)
 
 
 masked_attention.launches = 0

@@ -1,1 +1,2 @@
-"""Tasks of the port: two-stage retrieval scoring and its rank algebra."""
+"""Tasks of the port: retrieval training, two-stage retrieval scoring and
+its rank algebra."""

@@ -1,6 +1,13 @@
-"""Two-stage retrieval scoring on already-tensorized arrays.
+"""Retrieval training and two-stage retrieval scoring on already-tensorized
+arrays.
 
-The default branch of the JAX package's `tasks/retrieval.py` `two_stage_eval`
+`train_retrieval` is the counterpart of the JAX package's retrieval task
+(`tasks/retrieval.py` `main` with `tasks/common.py` `TrainLoop.run`) without
+the dataset plumbing: it runs `RetrievalModel.train_step` under AdamW and the
+single-device `Trainer` over in-memory batches, logs the metrics and saves a
+checkpoint every `ckpt_period` steps, resuming from the newest one.
+
+`two_stage_scoring` is the default branch of the JAX package's `tasks/retrieval.py` `two_stage_eval`
 (:93-290; not streaming, not cross-image, no caption index), on the model's
 device:
 1. each caption goes through `encode_text_full` once, each image through
@@ -17,17 +24,22 @@ The dataset-driven command line waits for the port of `data/`.
 from __future__ import annotations
 
 import time
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..training.checkpoint import CheckpointManager
+from ..training.metrics import MetricLogger, MetricsWriter
+from ..training.optim import make_optimizer
+from ..training.trainer import Trainer
 from .retrieval_eval import (coarse_ranks, evaluate_ranks, fine_ranks_i2t,
                              fine_ranks_t2i, mask_shortlist_misses)
 
 CAPTION_KEYS = ("input_ids_a", "attention_mask_a", "token_type_ids_a")
 IMAGE_KEYS = ("input_ids_b", "attention_mask_b", "token_type_ids_b",
               "img_feats")
+PHRASE_KEYS = ("phrase_index", "image_index")
 
 
 def _on(device, arrays: Mapping, keys):
@@ -134,3 +146,82 @@ def two_stage_scoring(model, caps: Mapping, imgs: Mapping, caps_per_img: int,
     return {"coarse": coarse, "fine": fine, "i2t_cands": i2t_np,
             "t2i_cands": t2i_np, "scores": scores_np,
             "n_pairs": int(cap_idx.shape[0]), "seconds": stages.seconds}
+
+
+def retrieval_loss_fn(*, max_tag_length: int = 20, hn_mod: str = "hard",
+                      no_itm: bool = False,
+                      phrase_layer: Optional[int] = None):
+    """The Trainer's loss_fn for `RetrievalModel.train_step`: the total loss,
+    with the CLIP, ITM and (with phrase spans in the batch) WRA losses as
+    metrics."""
+    def loss_fn(model, batch, generator):
+        out = model.train_step(
+            *(batch[k] for k in CAPTION_KEYS + IMAGE_KEYS),
+            *(batch.get(k) for k in PHRASE_KEYS),
+            max_tag_length=max_tag_length, hn_mod=hn_mod, no_itm=no_itm,
+            phrase_layer=phrase_layer, generator=generator)
+        metrics = {"clip": out.retrieval_loss, "itm": out.itm_loss}
+        if out.wra_loss is not None:
+            metrics["wra"] = out.wra_loss
+        return out.total_loss, metrics
+    return loss_fn
+
+
+def train_retrieval(model, batches: Sequence[Mapping], steps: int, *,
+                    learning_rate: float = 2e-5, warmup_steps: int = 0,
+                    schedule: str = "linear", weight_decay: float = 0.01,
+                    max_grad_norm: Optional[float] = 1.0,
+                    grad_accum: int = 1, seed: int = 0,
+                    max_tag_length: int = 20, hn_mod: str = "hard",
+                    no_itm: bool = False, phrase_layer: Optional[int] = None,
+                    output_dir: Optional[str] = None, ckpt_period: int = 0,
+                    keep: int = 3, log_period: int = 0,
+                    logger=print) -> List[Dict[str, float]]:
+    """Train `model` for `steps` steps, cycling over `batches` (dicts of the
+    caption and image arrays, plus `phrase_index` / `image_index` for the
+    WRA loss; numpy arrays or tensors). Returns each step's metrics.
+
+    With `output_dir`, metrics go to `metrics.jsonl` there, a checkpoint is
+    saved every `ckpt_period` steps and after the last, and training resumes
+    from the newest checkpoint found there. The model is left in eval
+    mode."""
+    keys = CAPTION_KEYS + IMAGE_KEYS
+    batches = [_on(model.device, b, keys + tuple(k for k in PHRASE_KEYS
+                                                 if k in b))
+               for b in batches]
+    optimizer = make_optimizer(
+        model, learning_rate, warmup_steps=warmup_steps, total_steps=steps,
+        schedule=schedule, weight_decay=weight_decay,
+        max_grad_norm=max_grad_norm)
+    trainer = Trainer(model, retrieval_loss_fn(
+        max_tag_length=max_tag_length, hn_mod=hn_mod, no_itm=no_itm,
+        phrase_layer=phrase_layer), optimizer, grad_accum=grad_accum,
+        seed=seed)
+    ckpt = writer = None
+    if output_dir is not None:
+        ckpt = CheckpointManager(output_dir, keep=keep)
+        writer = MetricsWriter(output_dir)
+        latest = ckpt.latest()
+        if latest is not None:
+            meta = ckpt.restore(latest[1], model, optimizer)
+            trainer.step_count = int(meta.get("step", latest[0]))
+    meter, history = MetricLogger(), []
+    try:
+        while trainer.step_count < steps:
+            metrics = trainer.step(
+                batches[trainer.step_count % len(batches)])
+            step = trainer.step_count
+            history.append(metrics)
+            meter.update(**metrics)
+            if writer is not None:
+                writer.write(step, metrics)
+            if log_period and step % log_period == 0:
+                logger(f"step {step}  {meter}")
+            if ckpt is not None and ((ckpt_period and step % ckpt_period == 0)
+                                     or step == steps):
+                ckpt.save(step, model, optimizer, config=model.config)
+    finally:
+        if writer is not None:
+            writer.close()
+        model.eval()
+    return history

@@ -1,0 +1,76 @@
+"""Single-device trainer: the JAX package's `training/trainer.py` step
+without the mesh, ZeRO, tensor and pipeline parallelism.
+
+The loss_fn contract: loss_fn(model, batch, generator) -> (loss, metrics),
+where `batch` maps names to tensors with the batch first and `generator` is a
+`torch.Generator` on the model's device, derived from (seed, step, micro
+batch), from which every random draw of the step comes. Gradients land on the
+model's fp32 master parameters; the model computes in its config's dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from .optim import AdamW, global_norm
+
+LossFn = Callable[[torch.nn.Module, Mapping[str, torch.Tensor],
+                   torch.Generator],
+                  Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+
+class Trainer:
+    def __init__(self, model: torch.nn.Module, loss_fn: LossFn,
+                 optimizer: AdamW, *, grad_accum: int = 1, seed: int = 0):
+        self.model = model
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.grad_accum = max(1, grad_accum)
+        self.seed = seed
+        self.step_count = 0
+        self.device = next(model.parameters()).device
+
+    def generator(self, step: int, micro: int = 0) -> torch.Generator:
+        seed = np.random.SeedSequence([self.seed, step, micro])
+        return torch.Generator(device=self.device).manual_seed(
+            int(seed.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+
+    def step(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, float]:
+        """One optimizer step over `batch`, split into `grad_accum` micro
+        batches whose gradients, loss and metrics are averaged. Returns the
+        metrics, the loss and the global norm of the unclipped gradients."""
+        self.model.train()
+        params = list(self.model.parameters())
+        for p in params:
+            p.grad = None
+        n = self.grad_accum
+        size = next(iter(batch.values())).shape[0]
+        if size % n:
+            raise ValueError(f"batch {size} is not divisible by grad_accum "
+                             f"{n}")
+        m = size // n
+        loss_sum, metric_sums = 0.0, {}
+        for i in range(n):
+            mb = batch if n == 1 else {k: v[i * m:(i + 1) * m]
+                                       for k, v in batch.items()}
+            loss, metrics = self.loss_fn(self.model, mb,
+                                         self.generator(self.step_count, i))
+            loss.backward()
+            loss_sum = loss_sum + loss.detach()
+            for k, v in metrics.items():
+                metric_sums[k] = metric_sums.get(k, 0.0) + v.detach()
+        if n > 1:
+            for p in params:
+                if p.grad is not None:
+                    p.grad.mul_(1.0 / n)
+            loss_sum = loss_sum * (1.0 / n)
+            metric_sums = {k: v * (1.0 / n) for k, v in metric_sums.items()}
+        gnorm = global_norm(p.grad for p in params if p.grad is not None)
+        self.optimizer.step()
+        self.step_count += 1
+        out = {k: float(v) for k, v in metric_sums.items()}
+        out.update(loss=float(loss_sum), grad_norm=float(gnorm))
+        return out

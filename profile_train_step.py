@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Where the time of the port's retrieval training step goes, on the card.
+
+    python3 profile_train_step.py
+
+Builds MVPTR-base (bf16 over fp32 weights, both dropouts 0, seeded random
+weights) as chip_smoke.py phase 5 does, takes 3 warm-up steps on one batch of
+96 (LA 75, T 20, R 50, hard negatives), then profiles 3 steps with
+torch.profiler. Each step runs the forward, the backward and the optimizer
+under their own record_function labels. Prints, as one JSON object: the step
+time with and without the profiler, the device time of each part of the
+step and of the attention's recompute backward (`MaskedAttentionFnBackward`),
+the device time by kernel class (the attention forward is the kernel's own
+class), the top kernels, and the device's busy and idle share of the
+profiled window.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+STEPS_WARM, STEPS_PROF = 3, 3
+PARTS = ("forward", "backward", "optimizer")
+
+
+def device_us(event) -> float:
+    """Device time of the kernels an op (and its children) launched."""
+    for attr in ("device_time_total", "cuda_time_total"):
+        if hasattr(event, attr):
+            return getattr(event, attr)
+    return 0.0
+
+
+def main() -> int:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    if not torch.cuda.is_available():
+        print("profile_train_step: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from chip_smoke import TRAIN_B, base_config, card_line, train_batch
+    from profile_two_stage import busy_us, classify
+    from mvp_pytorch_tpu_torch.models import ModelConfig, RetrievalModel
+    from mvp_pytorch_tpu_torch.tasks.retrieval import retrieval_loss_fn
+    from mvp_pytorch_tpu_torch.training.optim import make_optimizer
+
+    card = card_line()
+    print(card, flush=True)
+    cfg = base_config(ModelConfig, "bfloat16")
+    model = RetrievalModel(cfg, device="cuda", seed=0)
+    model.train()
+    batch = train_batch(torch, cfg, seed=5)
+    loss_fn = retrieval_loss_fn(max_tag_length=20, hn_mod="hard")
+    opt = make_optimizer(model, 4e-5, schedule="constant", max_grad_norm=1.0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        with record_function("forward"):
+            loss, _ = loss_fn(model, batch, gen)
+        with record_function("backward"):
+            loss.backward()
+        with record_function("optimizer"):
+            opt.step()
+        return loss
+
+    for _ in range(STEPS_WARM):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS_PROF):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / STEPS_PROF * 1e3
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS_PROF):
+            step()
+        torch.cuda.synchronize()
+        step_ms_prof = (time.perf_counter() - t0) / STEPS_PROF * 1e3
+    # device events, without the ranges that mark the parts of the step
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and e.name not in PARTS]
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no device events")
+    by_class, by_name = {}, {}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        by_class[classify(e.name)] = by_class.get(classify(e.name), 0.0) + us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+    # device time of the kernels launched under each host-side range; the
+    # backward runs on autograd's threads, outside the "backward" range, so
+    # it is what the forward and the optimizer leave of the kernels' total
+    per_op = dict.fromkeys(("forward", "optimizer",
+                            "attention backward (recompute)"), 0.0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name in ("forward", "optimizer"):
+            per_op[e.name] += device_us(e)
+        elif e.name == "MaskedAttentionFnBackward":
+            per_op["attention backward (recompute)"] += device_us(e)
+    start = min(e.time_range.start for e in prof.events())
+    end = max(e.time_range.end for e in prof.events())
+    window = end - start
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    total_kernel = sum(by_class.values())
+    per_op["backward"] = total_kernel - per_op["forward"] - per_op["optimizer"]
+    n = STEPS_PROF
+    out = {
+        "card": card, "batch": TRAIN_B, "steps_profiled": n,
+        "step_ms_unprofiled": step_ms, "step_ms_profiled": step_ms_prof,
+        "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
+        "device_idle_share": 1.0 - busy / window,
+        "device_ms_per_step_by_part": {k: v / 1e3 / n for k, v in
+                                       per_op.items()},
+        "kernel_ms_per_step_by_class": {k: v / 1e3 / n for k, v in sorted(
+            by_class.items(), key=lambda kv: -kv[1])},
+        "kernel_share_by_class": {k: v / total_kernel for k, v in sorted(
+            by_class.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms_per_step": {k[:120]: v / 1e3 / n for k, v in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:15]},
+    }
+    print(json.dumps(out, indent=1), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

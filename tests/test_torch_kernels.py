@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from mvp_pytorch_tpu_torch.ops import _kernels
-from mvp_pytorch_tpu_torch.ops.attention import (_kernel_attention,
+from mvp_pytorch_tpu_torch.ops.attention import (MaskedAttentionFn,
+                                                 _kernel_attention,
                                                  mask_to_bias,
                                                  masked_attention,
                                                  plain_attention,
@@ -122,6 +123,40 @@ def test_masked_attention_kernel_reads_strided_views(cuda):
     torch.testing.assert_close(got.float(),
                                plain_attention_blhd(q, k, v, bias).float(),
                                atol=0.05, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 0.05)])
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+@pytest.mark.parametrize("kind", ["mask2d", "mask3d", "lk_gt_lq",
+                                  "fully_masked"])
+def test_masked_attention_grads_match_plain_autograd(cuda, kind, layout,
+                                                     dtype, atol):
+    """A CUDA output has the Function's grad_fn (the kernel's output used to
+    come back detached), and its q, k, v and bias grads match torch autograd
+    through the plain version in fp32 on the same values. The backward
+    launches no kernel."""
+    q, k, v, bias = make_case(kind, 64)
+    args = [torch.from_numpy(_bhld_to(layout, x)).to(cuda, dtype)
+            .requires_grad_() for x in (q, k, v)]
+    tb = torch.from_numpy(bias).to(cuda).requires_grad_()
+    before = masked_attention.launches
+    out = masked_attention(*args, tb, layout=layout)
+    assert isinstance(out.grad_fn, MaskedAttentionFn._backward_cls)
+    g = torch.randn(out.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(0))
+    grads = torch.autograd.grad(out, (*args, tb), g.to(dtype))
+    torch.cuda.synchronize()
+    assert masked_attention.launches == before + 1
+    ref_in = [a.detach().float().requires_grad_() for a in (*args, tb)]
+    plain = plain_attention_blhd if layout == "blhd" else plain_attention
+    want = torch.autograd.grad(plain(*ref_in), ref_in, g.to(dtype).float())
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), grads, want):
+        assert a.dtype == (torch.float32 if name == "dbias" else dtype)
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a.float(), b, atol=atol, rtol=0,
+                                   msg=lambda m, n=name: f"{n}: {m}")
 
 
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "last_dim", "shape",

@@ -333,7 +333,8 @@ def test_stream_encoder_bias_list_and_mid_readout(golden):
 
 def test_attention_dropout_takes_the_plain_path_in_training():
     from mvp_pytorch_tpu_torch.models import tiny_config
-    from mvp_pytorch_tpu_torch.models.layers import SelfAttention
+    from mvp_pytorch_tpu_torch.models.layers import (SelfAttention,
+                                                     dropout_generator)
     torch.manual_seed(0)
     layer = SelfAttention(tiny_config(attention_probs_dropout_prob=0.5))
     x = torch.randn(2, 5, 32)
@@ -341,9 +342,45 @@ def test_attention_dropout_takes_the_plain_path_in_training():
         layer.eval()
         ref = layer(x, None)
         layer.train()
-        dropped = layer(x, None)
+        with dropout_generator(layer, torch.Generator().manual_seed(0)):
+            dropped = layer(x, None)
     assert torch.isfinite(dropped).all()
     assert not torch.allclose(dropped, ref)
+
+
+def test_training_without_prob_dropout_takes_the_kernel_path(monkeypatch):
+    """attention_probs_dropout_prob 0: a training forward goes through
+    masked_attention (the kernel's wrapper), as inference does."""
+    from mvp_pytorch_tpu_torch.models import layers, tiny_config
+    calls, real = [], layers.masked_attention
+
+    def counting(*args, **kw):
+        calls.append(kw.get("layout"))
+        return real(*args, **kw)
+    monkeypatch.setattr(layers, "masked_attention", counting)
+    layer = layers.SelfAttention(tiny_config(hidden_dropout_prob=0.1))
+    layer.train()
+    out = layer(torch.randn(2, 5, 32), None)
+    out.sum().backward()
+    assert calls == ["blhd"]
+    assert layer.query.weight.grad is not None
+
+
+def test_dropout_draws_from_the_callers_generator():
+    from mvp_pytorch_tpu_torch.models.layers import Dropout, dropout_generator
+    drop = Dropout(0.5)
+    x = torch.ones(64)
+    assert drop.eval()(x) is x
+    drop.train()
+    with pytest.raises(RuntimeError, match="generator"):
+        drop(x)
+    outs = []
+    for _ in range(2):
+        with dropout_generator(drop, torch.Generator().manual_seed(7)):
+            outs.append(drop(x))
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+    assert set(outs[0].unique().tolist()) <= {0.0, 2.0}
+    assert drop.generator is None
 
 
 def test_mlp_classifier_is_initialised_from_the_seed():
