@@ -2,13 +2,15 @@
 """Drive the PyTorch/CUDA port (mvp_pytorch_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sweep float32   # phase 3 alone, in one dtype
 
 Phases, each ended by torch.cuda.synchronize(); any failure raises and the
 script exits non-zero:
 1. print the card (name, power limit) and build the kernels from csrc/;
    print each kernel's registers and spills (ptxas), its tensor-core
    instructions (HMMA/HGMMA in the SASS, from cuobjdump) and its resident
-   blocks per SM; fail if the bf16 kernel has no tensor-core instruction;
+   blocks per SM; fail if a bf16 or an fp32 (3xTF32) kernel has no
+   tensor-core instruction;
 2. hold the masked-attention kernel against its plain PyTorch version at the
    main path's shapes (fused L 125, text 75, vision 70; H 12, D 64; B 1,000
    and 8), both dtypes, both layouts, with padded 2-D key masks, 3-D masks,
@@ -26,10 +28,12 @@ script exits non-zero:
    beside the plain version's and, as a yardstick the port never calls,
    F.scaled_dot_product_attention forward and forward+backward;
 3. two-stage retrieval scoring at MVPTR-base width and depth (hidden 768,
-   6+6+6 layers, vocab 86,051, bf16, seeded random weights) at the bench
+   6+6+6 layers, vocab 86,051, seeded random weights) at the bench
    geometry: 1,000 images x 5 captions, LA 75, T 20, R 50, K 20/10, encoder
-   batch 500, pair batch 1,000; the kernel must be launched exactly
-   6 x (10 + 2 + 70) = 492 times;
+   batch 500, pair batch 1,000: two sweeps in bf16, then one in fp32 (the
+   default `ModelConfig.dtype`; matmuls in full fp32, TF32 off), each after
+   a warm-up on a subset; every sweep must launch the kernel exactly
+   6 x (10 + 2 + 70) = 492 times; pairs/s and peak memory;
 4. the kernel path against the plain path end to end at full width on a few
    padded captions and images: ITM probabilities and global embeddings;
 5. the retrieval training step at MVPTR-base (bf16 over fp32 weights, both
@@ -41,7 +45,12 @@ script exits non-zero:
    bf16, with the hard pairs pinned to the kernel run's: the losses and the
    relative error of the gradients of a query weight of each encoder, the
    classifier and logit_scale;
-6. one JSON line of kernel numbers, then the result line.
+6. one JSON line of kernel numbers (the bf16 kernel, then the fp32 one),
+   then the result line.
+
+With `--sweep DTYPE` only phase 3 runs, in that dtype (bf16: two sweeps,
+fp32: one), and the last line is a JSON object of its numbers; run from a
+copy of another tree, the script drives that tree's package.
 
 Exits 2 without a result when no CUDA device is visible.
 """
@@ -60,7 +69,10 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor cores
-              "float32": 67e12}      # CUDA cores
+              "float32": 495e12}     # dense TF32 tensor cores
+# tensor-core passes per product: fp32 at fp32 accuracy takes three TF32
+# passes (3xTF32: lo.hi + hi.lo + hi.hi)
+PASSES = {"bfloat16": 1, "float32": 3}
 TOL = {"float32": 2e-5, "bfloat16": 0.05}
 E2E_TOL = {"float32": 1e-4, "bfloat16": 0.02}
 # attention grads against fp32 autograd of the plain version: fp32, the same
@@ -113,26 +125,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def attention_bound_ms(b, lq, lk, dtype_name, bias) -> tuple:
     """(bound ms, 'bytes' | 'operations'): q, k, v, out and the bias read or
-    written once, against 4 B H Lq Lk D operations at the type's peak."""
+    written once, against 4 B H Lq Lk D operations per pass at the type's
+    tensor-core peak."""
     elem = 2 if dtype_name == "bfloat16" else 4
     nbytes = elem * H * D * b * (2 * lq + 2 * lk)
     if bias is not None:
         nbytes += bias.numel() * bias.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 4.0 * b * H * lq * lk * D / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = (PASSES[dtype_name] * 4.0 * b * H * lq * lk * D
+             / PEAK_FLOPS[dtype_name] * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def attention_bwd_bound_ms(b, lq, lk, dtype_name, bias) -> tuple:
     """(bound ms, 'bytes' | 'operations') of the backward: q, k, v, the
     output's grad and the bias read once, dq, dk, dv written once, against
-    10 B H Lq Lk D operations (q.k^T again, g.v^T, p^T.g, ds.k, ds^T.q)."""
+    10 B H Lq Lk D operations per pass (q.k^T again, g.v^T, p^T.g, ds.k,
+    ds^T.q)."""
     elem = 2 if dtype_name == "bfloat16" else 4
     nbytes = elem * H * D * b * (3 * lq + 4 * lk)
     if bias is not None:
         nbytes += bias.numel() * bias.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 10.0 * b * H * lq * lk * D / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = (PASSES[dtype_name] * 10.0 * b * H * lq * lk * D
+             / PEAK_FLOPS[dtype_name] * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -151,17 +167,21 @@ def ptxas_report(path) -> dict:
 
 def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
     """Registers, tensor-core instructions and resident blocks per SM of
-    every kernel; fails unless each bf16 kernel has HMMA/HGMMA in its SASS."""
+    every kernel; fails unless each bf16 and each fp32 (3xTF32) kernel has
+    HMMA/HGMMA in its SASS (TF32 shows as HMMA.1684.F32.TF32)."""
     ptxas = ptxas_report(os.path.join(kernels_mod.BUILD, "ptxas.log"))
     sass = kernels_mod.sass_mma_counts(lib_path)
     names = sorted(n for n in set(ptxas) | set(sass) if "masked_attention" in n)
     for name in names:
         log(f"  {name}: HMMA/HGMMA={sass.get(name, 'missing')}  "
             + "  ".join(ptxas.get(name, ["no ptxas report"])))
-    tc = [n for n in names if "masked_attention_mma" in n]
-    if not tc or any(sass.get(n, 0) == 0 for n in tc):
-        raise AssertionError("the bf16 kernel has no tensor-core instruction "
-                             f"in its SASS: {[(n, sass.get(n)) for n in tc]}")
+    for dn, key in (("bf16", "masked_attention_mma"),
+                    ("fp32", "masked_attention_3xtf32")):
+        tc = [n for n in names if key in n]
+        if not tc or any(sass.get(n, 0) == 0 for n in tc):
+            raise AssertionError(
+                f"a {dn} kernel has no tensor-core instruction in its SASS: "
+                f"{[(n, sass.get(n)) for n in tc]}")
     for dn, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         log(f"  resident blocks per SM, {dn}, D {D}, fp32 bias: "
             f"{attn.kernel_blocks_per_sm(dt, D)}")
@@ -278,7 +298,8 @@ def phase2_kernel_vs_plain(torch, attn):
                                        bound_by=by)
             log(f"  time {name:5s} B={b} L={l} {dn:9s} blhd: kernel "
                 f"{ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms "
-                f"(|sdpa-plain| {lib_err:.2e})  bound {bound:.4f} ms ({by})")
+                f"(|sdpa-plain| {lib_err:.2e})  bound {bound:.4f} ms ({by})  "
+                f"bound/kernel {bound / ms:.3f}  kernel/sdpa {ms / lib_ms:.3f}")
             del q, k, v, bias, qh, kh, vh, mask_lib
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -378,7 +399,8 @@ def phase2_backward(torch, attn):
                 grad_err=max(v for k_, v in errs.items()
                              if k_[:2] == (name, dn)))
             log(f"  time train {name:5s} B={TRAIN_B} L={l} {dn:9s} blhd: "
-                f"kernel fwd {fwd:.4f} ms (bound {fwd_bound:.4f}, {fwd_by})  "
+                f"kernel fwd {fwd:.4f} ms (bound {fwd_bound:.4f}, {fwd_by}; "
+                f"kernel/sdpa {fwd / sdpa_fwd:.3f})  "
                 f"recompute bwd {bwd:.4f} ms  "
                 f"plain bwd {plain_bwd:.4f} ms  sdpa fwd {sdpa_fwd:.4f} ms  "
                 f"sdpa fwd+bwd {sdpa_fb:.4f} ms  bwd bound {bound:.4f} ms "
@@ -420,10 +442,13 @@ def base_config(ModelConfig, dtype):
 
 
 def phase3_two_stage(torch, attn, ModelConfig, RetrievalModel,
-                     two_stage_scoring):
+                     two_stage_scoring, dtype="bfloat16", reps=2):
+    """`reps` full sweeps at the bench geometry in `dtype`, after a warm-up
+    on a subset; each must launch the kernel exactly 492 times. Returns the
+    last sweep's launches, the pairs/s of every sweep and the peak memory."""
     n_img, cpi, la, t, r = 1000, 5, 75, 20, 50
     k_i2t, k_t2i, eb, sb = 20, 10, 500, 1000
-    cfg = base_config(ModelConfig, "bfloat16")
+    cfg = base_config(ModelConfig, dtype)
     assert (cfg.hidden_size, cfg.half_layers, cfg.num_attention_heads,
             cfg.intermediate_size, cfg.img_feature_dim) == (768, 6, 12, 3072,
                                                              2054)
@@ -431,7 +456,7 @@ def phase3_two_stage(torch, attn, ModelConfig, RetrievalModel,
     model = RetrievalModel(cfg, device="cuda", seed=0)
     caps, imgs = bench_inputs(torch, cfg, n_img, cpi, la, t, r)
     torch.cuda.synchronize()
-    log(f"  model + inputs ready in {time.perf_counter() - t0:.1f} s "
+    log(f"  {dtype}: model + inputs ready in {time.perf_counter() - t0:.1f} s "
         f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params)")
 
     # warm-up at the same batch shapes on a subset (excluded from the count)
@@ -442,7 +467,8 @@ def phase3_two_stage(torch, attn, ModelConfig, RetrievalModel,
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    for rep in range(2):
+    pairs_per_s = []
+    for rep in range(reps):
         attn.masked_attention.launches = 0
         res = two_stage_scoring(model, caps, imgs, cpi, k_i2t, k_t2i, eb, sb,
                                 max_tag_length=t)
@@ -454,11 +480,13 @@ def phase3_two_stage(torch, attn, ModelConfig, RetrievalModel,
         sec = res["seconds"]
         sweep = sum(sec[s] for s in ("encode_text", "encode_image", "coarse",
                                      "rerank"))
-        log(f"  two-stage run {rep + 1}: pairs={res['n_pairs']} "
+        pairs_per_s.append(res["n_pairs"] / sweep)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  two-stage {dtype} run {rep + 1}: pairs={res['n_pairs']} "
             f"launches={launches} (want {want})  "
             + "  ".join(f"{s}={v:.4f}s" for s, v in sec.items())
-            + f"  sweep={sweep:.4f}s  pairs/s={res['n_pairs'] / sweep:.1f}"
-            + f"  peak_mem={torch.cuda.max_memory_allocated() / 1e9:.2f}GB")
+            + f"  sweep={sweep:.4f}s  pairs/s={pairs_per_s[-1]:.1f}"
+            + f"  peak_mem={peak:.2f}GB")
         if launches != want or want != 492:
             raise AssertionError(f"masked_attention launched {launches} "
                                  f"times, want {want} (= 492)")
@@ -475,7 +503,7 @@ def phase3_two_stage(torch, attn, ModelConfig, RetrievalModel,
     del model, caps, imgs
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return launches
+    return dict(launches=launches, pairs_per_s=pairs_per_s, peak_gb=peak)
 
 
 @contextlib.contextmanager
@@ -675,7 +703,12 @@ def phase5_training(torch, attn, layers_mod, ModelConfig, RetrievalModel):
                 launches=launches, losses=losses)
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--sweep", choices=("bfloat16", "float32"),
+                        help="run phase 3 alone, in this dtype")
+    args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -704,6 +737,15 @@ def main() -> int:
     _kernels.library()
     log(f"  built {os.path.relpath(lib_path, root)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    if args.sweep:
+        log(f"phase 3 alone: two-stage retrieval scoring, {args.sweep}, "
+            f"package at {root}")
+        sweep = phase3_two_stage(torch, attn, ModelConfig, RetrievalModel,
+                                 two_stage_scoring, args.sweep,
+                                 reps=2 if args.sweep == "bfloat16" else 1)
+        print(json.dumps({"sweep": args.sweep, "card": card, **sweep}),
+              flush=True)
+        return 0
     phase1_kernel_report(torch, attn, _kernels, lib_path)
     torch.cuda.synchronize()
 
@@ -715,8 +757,10 @@ def main() -> int:
     torch.cuda.synchronize()
 
     log("phase 3: two-stage retrieval scoring, MVPTR-base, bench geometry")
-    launches = phase3_two_stage(torch, attn, ModelConfig, RetrievalModel,
-                            two_stage_scoring)
+    sweep = phase3_two_stage(torch, attn, ModelConfig, RetrievalModel,
+                             two_stage_scoring, "bfloat16", reps=2)
+    sweep32 = phase3_two_stage(torch, attn, ModelConfig, RetrievalModel,
+                               two_stage_scoring, "float32", reps=1)
     torch.cuda.synchronize()
 
     log("phase 4: kernel path against plain path, end to end")
@@ -731,10 +775,12 @@ def main() -> int:
     main_t = timings[("fused", "bfloat16")]
     main_err = errors[("fused 2-D padded keys", 1000, "bfloat16", "blhd")]
     train_t = bwd_timings[("fused", "bfloat16")]
+    t32 = timings[("fused", "float32")]
+    train32 = bwd_timings[("fused", "float32")]
     kernels = {"kernels": [{
         "name": "masked_attention_fwd", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": launches, "max_abs_err": main_err,
+        "launches": sweep["launches"], "max_abs_err": main_err,
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
@@ -753,7 +799,25 @@ def main() -> int:
             "sdpa_fwd_bwd_ms": train_t["sdpa_fwd_bwd_ms"],
             "step_ms": train["step_ms"],
             "samples_per_s": train["samples_per_s"],
-            "peak_gb": train["peak_gb"]}}]}
+            "peak_gb": train["peak_gb"]}}, {
+        # the fp32 kernels (3xTF32) behind the same entry point; launches
+        # and pairs/s from the fp32 sweep of phase 3
+        "name": "masked_attention_fwd fp32 (3xTF32)", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": REPLACES,
+        "launches": sweep32["launches"],
+        "max_abs_err": errors[("fused 2-D padded keys", 1000, "float32",
+                               "blhd")],
+        "ms": t32["ms"], "plain_ms": t32["plain_ms"],
+        "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
+        "library_ms": t32["library_ms"],
+        "sweep_pairs_per_s": sweep32["pairs_per_s"][0],
+        "sweep_peak_gb": sweep32["peak_gb"],
+        "training": {
+            "shape": f"B {TRAIN_B} L 125 fp32 blhd",
+            "fwd_ms": train32["fwd_ms"],
+            "fwd_bound_ms": train32["fwd_bound_ms"],
+            "fwd_bound_by": train32["fwd_bound_by"],
+            "sdpa_fwd_ms": train32["sdpa_fwd_ms"]}}]}
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -763,4 +827,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -13,8 +13,9 @@ and normalisation run in fp32 before the probabilities are cast to bf16.
 for training. It always goes through `MaskedAttentionFn`, a
 `torch.autograd.Function`. Its forward runs the plain version on a CPU tensor;
 on a CUDA tensor it launches the hand-written kernel `masked_attention_fwd`
-(csrc/masked_attention.cu) or raises. bf16 runs on the tensor cores, fp32 on
-the CUDA cores. Its backward is the JAX package's `_attn_bwd` (git 8625894^,
+(csrc/masked_attention.cu) or raises. Both dtypes run on the tensor cores:
+bf16 in bf16, fp32 in three TF32 passes (3xTF32). Its backward is the JAX
+package's `_attn_bwd` (git 8625894^,
 `mvp_pytorch_tpu/ops/attention.py:200-218`) in plain PyTorch: it saves only
 q, k, v and the bias, recomputes the probabilities in fp32 and launches no
 kernel.
@@ -109,14 +110,14 @@ def _kernel_attention(q, k, v, bias, layout):
     if k.shape != (b, h, lk, d) or v.shape != k.shape or lk == 0:
         raise ValueError(f"masked_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if q.dtype == torch.bfloat16:
-        # the tensor-core kernel moves rows in 16-byte copies
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
-                raise ValueError(
-                    f"masked_attention: bf16 {name} must start 16-byte "
-                    f"aligned with (b, h, l) strides in multiples of 8, got "
-                    f"address {t.data_ptr():#x} strides {t.stride()}")
+    # the kernels move rows in 16-byte copies: 8 bf16 or 4 fp32 elements
+    per16 = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(s % per16 for s in t.stride()[:3]):
+            raise ValueError(
+                f"masked_attention: {q.dtype} {name} must start 16-byte "
+                f"aligned with (b, h, l) strides in multiples of {per16}, "
+                f"got address {t.data_ptr():#x} strides {t.stride()}")
     bias_ptr, bias_code, bias_strides = None, 0, (0, 0, 0)
     if bias is not None:
         if bias.dtype not in _DTYPE_CODE or bias.device != q.device:

@@ -24,11 +24,10 @@ from mvp_pytorch_tpu_torch.ops.attention import (MaskedAttentionFn,
                                                  plain_attention_blhd)
 
 B, H = 3, 4
-# kind -> (batch, Lq, Lk). The first five fit one 128-key tile of the bf16
-# kernel and span several 32-query and 32-key tiles of the fp32 one; the
-# others cross the bf16 kernel's tiles: keys over two 128-key tiles (online
-# softmax), queries over two 128-query tiles, one batch row, odd lengths
-# (one key past a tile, a single query and key).
+# kind -> (batch, Lq, Lk). The first five fit one 128-key tile of the
+# kernels (bf16 and fp32 tile alike); the others cross the tiles: keys over
+# two 128-key tiles (online softmax), queries over two 128-query tiles, one
+# batch row, odd lengths (one key past a tile, a single query and key).
 SHAPES = {"mask2d": (B, 75, 75), "mask3d": (B, 75, 75),
           "lk_gt_lq": (B, 75, 125), "fully_masked": (B, 75, 75),
           "no_bias": (B, 75, 75), "lk_gt_128": (B, 75, 200),
@@ -180,18 +179,22 @@ def test_kernel_wrapper_rejects_what_the_kernel_cannot_take(bad):
         _kernel_attention(q, k, k, bias, "bhld")
 
 
-@pytest.mark.parametrize("bad", ["pointer", "stride"])
+@pytest.mark.parametrize(
+    "bad,dtype,pitch",
+    [("pointer", torch.bfloat16, 68), ("stride", torch.bfloat16, 68),
+     ("pointer", torch.float32, 65), ("stride", torch.float32, 65)],
+    ids=["pointer", "stride", "pointer-fp32", "stride-fp32"])
 @pytest.mark.parametrize("layout", ["bhld", "blhd"])
-def test_kernel_wrapper_rejects_misaligned_bf16(bad, layout):
-    """The bf16 kernel copies rows in 16-byte pieces: a start address off 16
-    bytes, or rows 68 elements apart (a stride not a multiple of 8), raises
-    before anything reaches the card."""
+def test_kernel_wrapper_rejects_misaligned_bf16(bad, layout, dtype, pitch):
+    """Both kernels copy rows in 16-byte pieces: a start address off 16
+    bytes, or rows `pitch` elements apart (a stride not a multiple of 8 bf16
+    or 4 fp32 elements), raises before anything reaches the card."""
     shape = (2, 5, 4, 64)
-    ok = torch.zeros(shape, dtype=torch.bfloat16)
+    ok = torch.zeros(shape, dtype=dtype)
     if bad == "pointer":
-        q = torch.zeros(ok.numel() + 1, dtype=torch.bfloat16)[1:].view(shape)
+        q = torch.zeros(ok.numel() + 1, dtype=dtype)[1:].view(shape)
     else:
-        q = torch.zeros(2, 5, 4, 68, dtype=torch.bfloat16)[..., :64]
+        q = torch.zeros(2, 5, 4, pitch, dtype=dtype)[..., :64]
     with pytest.raises(ValueError, match="aligned"):
         _kernel_attention(q, ok, ok, None, layout)
 
