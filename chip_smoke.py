@@ -10,7 +10,8 @@ script exits non-zero:
    print each kernel's registers and spills (ptxas), its tensor-core
    instructions (HMMA/HGMMA in the SASS, from cuobjdump) and its resident
    blocks per SM; fail if a bf16 or an fp32 (3xTF32) kernel has no
-   tensor-core instruction;
+   tensor-core instruction, or a dropout instantiation another count than
+   its p = 0 twin;
 2. hold the masked-attention kernel against its plain PyTorch version at the
    main path's shapes (fused L 125, text 75, vision 70; H 12, D 64; B 1,000
    and 8), both dtypes, both layouts, with padded 2-D key masks, 3-D masks,
@@ -26,7 +27,15 @@ script exits non-zero:
    grads against torch autograd through the plain version in fp32 on the
    same values (fp32 1e-4, bf16 0.05); the forward and the backward timed
    beside the plain version's and, as a yardstick the port never calls,
-   F.scaled_dot_product_attention forward and forward+backward;
+   F.scaled_dot_product_attention forward and forward+backward. Then the
+   attention-prob dropout (p 0.1) inside the kernel, both dtypes and
+   layouts: the kernel's mask read back (q = k = 0, v = I at Lk = D = 64, so
+   each output row is keep / (64 (1 - p))) equal bit for bit to the plain
+   hash's at B 96, L 125, with a keep share within 0.002 of 0.9; the dropout
+   kernel against the plain dropout version at the training shapes
+   (fp32 2e-5, bf16 0.05) and its backward against fp32 autograd of the
+   plain dropout version (fp32 1e-4, bf16 0.05); the dropout kernel timed
+   beside the p = 0 kernel and F.scaled_dot_product_attention(dropout_p=0.1);
 3. two-stage retrieval scoring at MVPTR-base width and depth (hidden 768,
    6+6+6 layers, vocab 86,051, seeded random weights) at the bench
    geometry: 1,000 images x 5 captions, LA 75, T 20, R 50, K 20/10, encoder
@@ -36,16 +45,32 @@ script exits non-zero:
    6 x (10 + 2 + 70) = 492 times; pairs/s and peak memory;
 4. the kernel path against the plain path end to end at full width on a few
    padded captions and images: ITM probabilities and global embeddings;
-5. the retrieval training step at MVPTR-base (bf16 over fp32 weights, both
-   dropouts 0) on one fixed batch of 96 (LA 75, T 20, R 50, hard negatives),
-   AdamW lr 4e-5 with clip 1.0: 3 warm-up steps through `train_retrieval`,
-   then 10 timed `Trainer` steps; exactly 24 kernel launches per step, finite
-   losses and a last loss below the first; step ms, samples/s and peak
-   memory. Then one step's kernel path against its plain path, in fp32 and
-   bf16, with the hard pairs pinned to the kernel run's: the losses and the
-   relative error of the gradients of a query weight of each encoder, the
-   classifier and logit_scale;
-6. one JSON line of kernel numbers (the bf16 kernel, then the fp32 one),
+5. the retrieval training step at MVPTR-base (bf16 over fp32 weights, the
+   config's dropouts 0.1 / 0.1) on one fixed batch of 96 (LA 75, T 20, R 50,
+   hard negatives), AdamW lr 4e-5 with clip 1.0: 3 warm-up steps through
+   `train_retrieval`, then 10 timed `Trainer` steps; exactly 24 kernel
+   launches per step, all of them the dropout instantiation, finite losses
+   and a last loss below the first; step ms, samples/s and peak memory.
+   Then one step's kernel path against its plain path (the same dropout
+   masks, drawn from the same generator), in fp32 and bf16, with the hard
+   pairs pinned to the kernel run's: the losses and the relative error of
+   the gradients of a query weight of each encoder, the classifier and
+   logit_scale;
+6. the pretraining step (`BiPretrainModel`, the five losses) at MVPTR-base
+   in bf16 at the config's dropouts 0.1 / 0.1, on bench.py's pretraining
+   geometry (bench.py:416-440: B 96, LA 75 = 70 text + 5 phrase slots, T 20,
+   R 50, 8 masked text and 3 masked tag positions, max_pred 20 / 10, phrase
+   span [9, 14], image span [75, 125], WRA 'sample', hard negatives), half
+   the captions and images padded, AdamW lr 1e-4: 3 warm-up steps through
+   `train_pretrain`, then 10 timed `Trainer` steps; exactly 24 kernel
+   launches per step, all of them the dropout instantiation, no call of the
+   plain attention, finite losses and a last loss below the first; step ms,
+   samples/s and peak memory. Then one step at dropouts 0 with the QA heads
+   (3,129 answers, QA-pair relation), the slot permutation, the WRA pick and
+   negative and the hard pairs pinned: kernel path against plain path, in
+   fp32 and bf16, on the seven losses and five named gradients (phase 5's
+   tolerances);
+7. one JSON line of kernel numbers (the bf16 kernel, then the fp32 one),
    then the result line.
 
 With `--sweep DTYPE` only phase 3 runs, in that dtype (bf16: two sweeps,
@@ -89,6 +114,15 @@ GRAD_PARAMS = ("bert.txt_encoder.layer.0.attention.self.query.weight",
                "bert.vis_encoder.layer.0.attention.self.query.weight",
                "bert.mul_encoder.layer.0.attention.self.query.weight",
                "classifier.weight", "logit_scale")
+PRETRAIN_GRAD_PARAMS = ("bert.embeddings.word_embeddings.weight",
+                        "cls.predictions.transform.dense.weight",
+                        "half_mlm.transform.dense.weight",
+                        "bert.vis_encoder.layer.0.attention.self.query.weight",
+                        "bert.mul_encoder.layer.0.attention.self.query.weight")
+PRETRAIN_LOSSES = ("total_loss", "vis_mlm_loss", "retrieval_loss",
+                   "masked_lm_loss", "itm_loss", "qa_loss", "wra_loss")
+DROP_P = 0.1                         # ModelConfig's default dropouts
+KEEP_SHARE_TOL = 0.002
 DEVICE = "cuda"
 H, D = 12, 64
 LENGTHS = {"fused": 125, "text": 75, "vis": 70}
@@ -110,11 +144,16 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device ms per call of `fn`. The card first sleeps for about 50 ms,
+    long enough for the host to queue all `iters` calls, so that the events
+    time the device running them back to back, not the host's enqueue rate
+    (at B 96 a call's host work is longer than its kernel)."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -168,7 +207,8 @@ def ptxas_report(path) -> dict:
 def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
     """Registers, tensor-core instructions and resident blocks per SM of
     every kernel; fails unless each bf16 and each fp32 (3xTF32) kernel has
-    HMMA/HGMMA in its SASS (TF32 shows as HMMA.1684.F32.TF32)."""
+    HMMA/HGMMA in its SASS (TF32 shows as HMMA.1684.F32.TF32) and each
+    dropout instantiation has as many as its p = 0 twin."""
     ptxas = ptxas_report(os.path.join(kernels_mod.BUILD, "ptxas.log"))
     sass = kernels_mod.sass_mma_counts(lib_path)
     names = sorted(n for n in set(ptxas) | set(sass) if "masked_attention" in n)
@@ -182,6 +222,16 @@ def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
             raise AssertionError(
                 f"a {dn} kernel has no tensor-core instruction in its SASS: "
                 f"{[(n, sass.get(n)) for n in tc]}")
+    # each dropout instantiation (template argument kDrop = true, "Lb1E" in
+    # the mangled name) runs the same products as its p = 0 twin
+    drops = [n for n in names if "Lb1EE" in n]
+    if len(drops) != len(names) // 2:
+        raise AssertionError(f"{len(drops)} dropout kernels of {len(names)}")
+    for n in drops:
+        twin = n.replace("Lb1EE", "Lb0EE")
+        if sass.get(n) != sass.get(twin) or twin not in sass:
+            raise AssertionError(f"dropout kernel {n} has {sass.get(n)} "
+                                 f"HMMA, its p = 0 twin {sass.get(twin)}")
     for dn, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         log(f"  resident blocks per SM, {dn}, D {D}, fp32 bias: "
             f"{attn.kernel_blocks_per_sm(dt, D)}")
@@ -411,6 +461,153 @@ def phase2_backward(torch, attn):
     return timings
 
 
+def phase2_dropout(torch, attn):
+    """Attention-prob dropout inside the kernel: the mask read back bit for
+    bit, the dropout kernel and its backward against the plain dropout
+    version at the training shapes, and its time beside the p = 0 kernel and
+    SDPA with the same dropout."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def new_seed():
+        return torch.randint(-2 ** 63, 2 ** 63 - 1, (1,), dtype=torch.int64,
+                             device=DEVICE, generator=gen)
+
+    # the mask: q = k = 0 gives uniform probabilities 1/64 over Lk = D = 64
+    # keys, v = I per (b, h) copies each probability to its own dim
+    lq, lk = LENGTHS["fused"], D
+    for dn, dt in dtypes.items():
+        for layout in ("bhld", "blhd"):
+            seed = new_seed()
+            q = torch.zeros(TRAIN_B, H, lq, D, device=DEVICE, dtype=dt)
+            k = torch.zeros(TRAIN_B, H, lk, D, device=DEVICE, dtype=dt)
+            v = torch.eye(lk, device=DEVICE, dtype=dt).expand(
+                TRAIN_B, H, lk, D).contiguous()
+            if layout == "blhd":
+                q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            before = attn.masked_attention.dropout_launches
+            out = attn.masked_attention(q, k, v, layout=layout,
+                                        dropout_p=DROP_P, seed=seed)
+            torch.cuda.synchronize()
+            if attn.masked_attention.dropout_launches != before + 1:
+                raise AssertionError("the dropout kernel was not launched")
+            if layout == "blhd":
+                out = out.transpose(1, 2)
+            got = out > 0
+            want = attn.dropout_keep(seed, DROP_P, (TRAIN_B, H, lq, lk))
+            mismatched = int((got != want).sum())
+            share = got.float().mean().item()
+            value = torch.tensor(1.0 / lk / (1.0 - DROP_P)).to(dt).float()
+            bad_value = int((out.float()[got] != value.to(DEVICE)).sum())
+            ok = (mismatched == 0 and bad_value == 0
+                  and abs(share - (1 - DROP_P)) <= KEEP_SHARE_TOL)
+            log(f"  dropout mask     {dn:9s} {layout}  B={TRAIN_B} Lq={lq} "
+                f"Lk={lk}: {got.numel()} elements, {mismatched} differ from "
+                f"the plain hash, keep share {share:.6f} "
+                f"(want {1 - DROP_P} +- {KEEP_SHARE_TOL}), {bad_value} kept "
+                f"values off 1/(Lk (1-p))  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"dropout mask {dn} {layout}: "
+                                     f"{mismatched} differ, share {share}")
+            del q, k, v, out, got, want
+
+    def inputs(l, dt, layout):
+        x = [torch.randn(TRAIN_B, l, H, D, device=DEVICE, generator=gen)
+             for _ in range(4)]                      # q, k, v, grad of out
+        # q and k in multiples of 1/8: q.k is exact in every summation order,
+        # as the fully-masked fp32 row needs (phase2_kernel_vs_plain's qkv)
+        x[:2] = [torch.clamp(torch.round(t * 8) / 8, -4, 4) for t in x[:2]]
+        x = [t.to(dt) for t in x]
+        if layout == "bhld":
+            x = [t.transpose(1, 2).contiguous() for t in x]
+        lens = torch.randint(l // 2, l + 1, (TRAIN_B,), device=DEVICE,
+                             generator=gen)
+        mask = (torch.arange(l, device=DEVICE)[None, :]
+                < lens[:, None]).to(torch.int32)
+        mask[0] = 0                                  # a fully-masked row
+        return x, attn.mask_to_bias(mask)
+
+    errs = {}
+    for name, l in LENGTHS.items():
+        for dn, dt in dtypes.items():
+            for layout in ("blhd", "bhld"):
+                (q, k, v, g), bias = inputs(l, dt, layout)
+                seed = new_seed()
+                plain = (attn.plain_attention_blhd if layout == "blhd"
+                         else attn.plain_attention)
+                leaves = [t.requires_grad_() for t in (q, k, v, bias)]
+                out = attn.masked_attention(*leaves[:3], leaves[3],
+                                            layout=layout, dropout_p=DROP_P,
+                                            seed=seed)
+                want = plain(q.detach(), k.detach(), v.detach(), bias.detach(),
+                             DROP_P, seed)
+                got_g = torch.autograd.grad(out, leaves, g)
+                ref_in = [t.detach().float().requires_grad_() for t in leaves]
+                want_g = torch.autograd.grad(plain(*ref_in, DROP_P, seed),
+                                             ref_in, g.float())
+                torch.cuda.synchronize()
+                f_err = (out.float() - want.float()).abs().max().item()
+                b_err = max((a.float() - b).abs().max().item()
+                            for a, b in zip(got_g, want_g))
+                finite = (bool(torch.isfinite(out.float()).all())
+                          and all(bool(torch.isfinite(a).all())
+                                  for a in got_g))
+                ok = finite and f_err <= TOL[dn] and b_err <= GRAD_TOL[dn]
+                log(f"  dropout vs plain {name:5s} B={TRAIN_B} L={l:<4d} "
+                    f"{dn:9s} {layout}  fwd max|err|={f_err:.3e} "
+                    f"(tol {TOL[dn]:g})  grads max|err|={b_err:.3e} "
+                    f"(tol {GRAD_TOL[dn]:g})  {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(
+                        f"dropout kernel disagrees: {name} {dn} {layout} "
+                        f"fwd {f_err} grads {b_err} finite={finite}")
+                errs[(name, dn, layout)] = (f_err, b_err)
+                del q, k, v, g, bias, leaves, out, want, got_g, ref_in, want_g
+
+    timings = {}
+    for name, l in LENGTHS.items():
+        for dn, dt in dtypes.items():
+            (q, k, v, _), bias = inputs(l, dt, "blhd")
+            seed = new_seed()
+            drop_ms = cuda_ms(lambda: attn.masked_attention(
+                q, k, v, bias, layout="blhd", dropout_p=DROP_P, seed=seed))
+            p0_ms = cuda_ms(lambda: attn.masked_attention(q, k, v, bias,
+                                                          layout="blhd"))
+            plain_ms = cuda_ms(lambda: attn.plain_attention_blhd(
+                q, k, v, bias, DROP_P, seed), iters=5)
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            mask_lib = bias.to(dt)
+            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask_lib, dropout_p=DROP_P))
+            # the recompute backward with and without the mask regeneration
+            qkv = [t.requires_grad_() for t in (q, k, v)]
+            g = torch.randn_like(q)
+            out_d = attn.masked_attention(*qkv, bias, layout="blhd",
+                                          dropout_p=DROP_P, seed=seed)
+            out_0 = attn.masked_attention(*qkv, bias, layout="blhd")
+            bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                out_d, qkv, g, retain_graph=True), iters=5)
+            bwd_p0_ms = cuda_ms(lambda: torch.autograd.grad(
+                out_0, qkv, g, retain_graph=True), iters=5)
+            bound, by = attention_bound_ms(TRAIN_B, l, l, dn, bias)
+            timings[(name, dn)] = dict(
+                ms=drop_ms, p0_ms=p0_ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                bound_ms=bound, bound_by=by, bwd_ms=bwd_ms,
+                bwd_p0_ms=bwd_p0_ms,
+                max_abs_err=max(errs[(name, dn, lay)][0]
+                                for lay in ("blhd", "bhld")))
+            log(f"  time dropout {name:5s} B={TRAIN_B} L={l} {dn:9s} blhd: "
+                f"kernel p=0.1 {drop_ms:.4f} ms  p=0 {p0_ms:.4f} ms "
+                f"(ratio {drop_ms / p0_ms:.3f})  plain {plain_ms:.4f} ms  "
+                f"sdpa p=0.1 {sdpa_ms:.4f} ms  bound {bound:.4f} ms ({by})  "
+                f"recompute bwd p=0.1 {bwd_ms:.4f} ms  p=0 {bwd_p0_ms:.4f} ms")
+            del q, k, v, g, qkv, out_d, out_0, bias, qh, kh, vh, mask_lib
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return timings
+
+
 def bench_inputs(torch, cfg, n_img, cpi, la, t, r, seed=0):
     """The bench geometry's inputs (bench.py:99-123), made on the card."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -434,11 +631,12 @@ def bench_inputs(torch, cfg, n_img, cpi, la, t, r, seed=0):
     return caps, imgs
 
 
-def base_config(ModelConfig, dtype):
-    """MVPTR-base with the 86,051-row vocabulary (__graft_entry__.py:25-30)."""
+def base_config(ModelConfig, dtype, dropout=0.0, **kw):
+    """MVPTR-base with the 86,051-row vocabulary (__graft_entry__.py:25-30);
+    `dropout` sets both dropouts (the config's default is 0.1)."""
     return ModelConfig(vocab_size=86051, only_word_size=30522, dtype=dtype,
-                       hidden_dropout_prob=0.0,
-                       attention_probs_dropout_prob=0.0)
+                       hidden_dropout_prob=dropout,
+                       attention_probs_dropout_prob=dropout, **kw)
 
 
 def phase3_two_stage(torch, attn, ModelConfig, RetrievalModel,
@@ -509,10 +707,10 @@ def phase3_two_stage(torch, attn, ModelConfig, RetrievalModel,
 @contextlib.contextmanager
 def plain_attention_path(layers_mod, attn):
     """Route the model's attention through the plain version (on the card)."""
-    def plain(q, k, v, bias=None, *, layout="bhld"):
+    def plain(q, k, v, bias=None, *, layout="bhld", dropout_p=0.0, seed=None):
         fn = (attn.plain_attention_blhd if layout == "blhd"
               else attn.plain_attention)
-        return fn(q, k, v, bias)
+        return fn(q, k, v, bias, dropout_p, seed)
     saved = layers_mod.masked_attention
     layers_mod.masked_attention = plain
     try:
@@ -580,11 +778,14 @@ def train_batch(torch, cfg, seed):
 @contextlib.contextmanager
 def hard_pairs(model, pinned=None):
     """Record the hard pairs the model mines, or make it take `pinned`
-    instead (an instance override of `mine_hard_negatives`)."""
+    instead (an instance override of `mine_hard_negatives`). The real mining
+    runs either way, so that it takes the same draws from the generator and
+    the dropout masks after it stay the same."""
     record, real = [], model.bert.mine_hard_negatives
 
     def mine(*args, **kw):
-        record.append(pinned if pinned is not None else real(*args, **kw))
+        mined = real(*args, **kw)
+        record.append(pinned if pinned is not None else mined)
         return record[-1]
     model.bert.mine_hard_negatives = mine
     try:
@@ -593,45 +794,89 @@ def hard_pairs(model, pinned=None):
         del model.bert.mine_hard_negatives
 
 
+def reset_counts(attn):
+    attn.masked_attention.launches = 0
+    attn.masked_attention.dropout_launches = 0
+    attn.plain_attention.calls = 0
+
+
+def check_counts(attn, want, what):
+    """Every launch since `reset_counts` was the dropout instantiation, there
+    were `want` of them, and the plain version never ran."""
+    got = attn.masked_attention.launches
+    drop = attn.masked_attention.dropout_launches
+    plain = attn.plain_attention.calls
+    if got != want or drop != want or plain != 0:
+        raise AssertionError(f"{what} launched the kernel {got} times ({drop} "
+                             f"with dropout) and the plain version {plain} "
+                             f"times; want {want}, {want} and 0")
+
+
+def timed_steps(torch, attn, trainer, batch, per_step):
+    """TRAIN_TIMED Trainer steps, each of which must launch the dropout
+    kernel `per_step` times and the plain version never. Returns the
+    metrics, the launches and the seconds per step."""
+    torch.cuda.reset_peak_memory_stats()
+    history, launches = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        reset_counts(attn)
+        history.append(trainer.step(batch))     # ends in a device sync
+        check_counts(attn, per_step, "a training step")
+        launches += attn.masked_attention.launches
+    torch.cuda.synchronize()
+    return history, launches, (time.perf_counter() - t0) / TRAIN_TIMED
+
+
+def compare_step(torch, what, dn, k_out, p_out, loss_names, k_grads, p_grads):
+    """One step's kernel path against its plain path: each loss within
+    STEP_TOL's loss tolerance, each named gradient within its relative
+    tolerance."""
+    loss_tol, grad_tol = STEP_TOL[dn]
+    for name in loss_names:
+        a = getattr(k_out, name).item()
+        b = getattr(p_out, name).item()
+        ok = math.isfinite(a) and abs(a - b) <= loss_tol
+        log(f"  {what} {dn:9s} {name:14s} kernel={a:.6f} plain={b:.6f} "
+            f"|diff|={abs(a - b):.3e} tol={loss_tol:g} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{what} {dn} {name}: {a} vs {b}")
+    for name in k_grads:
+        a, b = k_grads[name].float(), p_grads[name].float()
+        rel = ((a - b).norm() / b.norm()).item()
+        ok = bool(torch.isfinite(a).all()) and rel <= grad_tol
+        log(f"  {what} {dn:9s} grad {name}: |g|={b.norm().item():.4e} "
+            f"rel err={rel:.3e} tol={grad_tol:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{what} {dn} grad {name}: {rel}")
+
+
 def phase5_training(torch, attn, layers_mod, ModelConfig, RetrievalModel):
     from mvp_pytorch_tpu_torch.tasks.retrieval import (retrieval_loss_fn,
                                                        train_retrieval)
     from mvp_pytorch_tpu_torch.training.optim import make_optimizer
     from mvp_pytorch_tpu_torch.training.trainer import Trainer
-    cfg = base_config(ModelConfig, "bfloat16")
+    cfg = base_config(ModelConfig, "bfloat16", DROP_P)
     per_step = cfg.half_layers * 4       # txt + vis + 2 fusion passes
     model = RetrievalModel(cfg, device=DEVICE, seed=0)
     batch = train_batch(torch, cfg, seed=5)
     torch.cuda.synchronize()
     opt_kw = dict(schedule="constant", max_grad_norm=1.0)
 
-    attn.masked_attention.launches = 0
+    reset_counts(attn)
     warm = train_retrieval(model, [batch], TRAIN_WARMUP, learning_rate=4e-5,
                            max_tag_length=20, hn_mod="hard", logger=log,
                            log_period=1, **opt_kw)
     torch.cuda.synchronize()
-    if attn.masked_attention.launches != per_step * TRAIN_WARMUP:
-        raise AssertionError(f"train_retrieval launched the kernel "
-                             f"{attn.masked_attention.launches} times, want "
-                             f"{per_step * TRAIN_WARMUP}")
+    check_counts(attn, per_step * TRAIN_WARMUP, "train_retrieval")
 
     trainer = Trainer(model, retrieval_loss_fn(max_tag_length=20,
                                                hn_mod="hard"),
                       make_optimizer(model, 4e-5, **opt_kw), seed=1)
-    torch.cuda.reset_peak_memory_stats()
-    history, launches = [], 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_TIMED):
-        attn.masked_attention.launches = 0
-        history.append(trainer.step(batch))     # ends in a device sync
-        n = attn.masked_attention.launches
-        launches += n
-        if n != per_step:
-            raise AssertionError(f"a training step launched the kernel {n} "
-                                 f"times, want {per_step}")
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / TRAIN_TIMED
+    history, launches, step_s = timed_steps(torch, attn, trainer, batch,
+                                            per_step)
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss"] for m in warm + history]
     log("  losses " + " ".join(f"{x:.4f}" for x in losses))
@@ -641,15 +886,19 @@ def phase5_training(torch, attn, layers_mod, ModelConfig, RetrievalModel):
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         raise AssertionError(f"training losses not finite and falling: "
                              f"{losses}")
-    log(f"  train step B={TRAIN_B} bf16: {step_s * 1e3:.2f} ms/step  "
-        f"{TRAIN_B / step_s:.1f} samples/s  launches/step={per_step}  "
+    log(f"  train step B={TRAIN_B} bf16, dropouts {DROP_P}: "
+        f"{step_s * 1e3:.2f} ms/step  {TRAIN_B / step_s:.1f} samples/s  "
+        f"launches/step={per_step} (all with dropout)  "
         f"peak_mem={peak / 1e9:.2f}GB")
     del trainer, model
     torch.cuda.empty_cache()
 
+    # the same step on both paths: the same generator draws the same
+    # dropout masks (hidden: bernoulli_; attention: the kernel's seed and the
+    # plain version's hash of it)
     for dn in ("float32", "bfloat16"):
-        model = RetrievalModel(base_config(ModelConfig, dn), device=DEVICE,
-                               seed=0)
+        model = RetrievalModel(base_config(ModelConfig, dn, DROP_P),
+                               device=DEVICE, seed=0)
         model.train()
         batch = train_batch(torch, model.config, seed=6)
 
@@ -676,31 +925,147 @@ def phase5_training(torch, attn, layers_mod, ModelConfig, RetrievalModel):
         torch.cuda.synchronize()
         if attn.masked_attention.launches - before != per_step:
             raise AssertionError("plain path launched the kernel")
-        loss_tol, grad_tol = STEP_TOL[dn]
-        for name in ("total_loss", "retrieval_loss", "itm_loss"):
-            a = getattr(k_out, name).item()
-            b = getattr(p_out, name).item()
-            ok = math.isfinite(a) and abs(a - b) <= loss_tol
-            log(f"  train step {dn:9s} {name:14s} kernel={a:.6f} "
-                f"plain={b:.6f} |diff|={abs(a - b):.3e} tol={loss_tol:g} "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"train step {dn} {name}: {a} vs {b}")
-        for name in GRAD_PARAMS:
-            a, b = k_grads[name].float(), p_grads[name].float()
-            rel = ((a - b).norm() / b.norm()).item()
-            ok = bool(torch.isfinite(a).all()) and rel <= grad_tol
-            log(f"  train step {dn:9s} grad {name}: "
-                f"|g|={b.norm().item():.4e} rel err={rel:.3e} "
-                f"tol={grad_tol:g} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"train step {dn} grad {name}: {rel}")
+        compare_step(torch, "train step", dn, k_out, p_out,
+                     ("total_loss", "retrieval_loss", "itm_loss"), k_grads,
+                     p_grads)
         del model, batch, k_out, p_out, k_grads, p_grads
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return dict(step_ms=step_s * 1e3, samples_per_s=TRAIN_B / step_s,
                 peak_gb=peak / 1e9, launches_per_step=per_step,
                 launches=launches, losses=losses)
+
+
+QA_ANSWERS = 3129                    # VQA v2's answer set
+
+
+def pretrain_batch(torch, cfg, seed, qa=False):
+    """bench.py's pretraining batch (bench.py:416-440) made on the card:
+    `train_batch`'s padded captions and images, 8 labelled text positions
+    and 3 labelled tag positions, phrase span [9, 14) and image span
+    [75, 125); with `qa`, answers and QA-pair labels with -1 rows."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1000)
+    batch = train_batch(torch, cfg, seed)
+    b, la = batch["input_ids_a"].shape
+    tr = batch["attention_mask_b"].shape[1]                # tags + regions
+
+    def labels(width, pos):
+        lab = torch.full((b, width), -1, dtype=torch.int64, device=DEVICE)
+        lab[:, pos] = torch.randint(0, cfg.only_word_size,
+                                    (b, pos.stop - pos.start), device=DEVICE,
+                                    generator=gen)
+        return lab
+    batch.update(
+        lm_label_ids_a=labels(la, slice(1, 9)),
+        lm_label_ids_b=labels(tr, slice(1, 4)),
+        phrase_index=torch.tensor([[9, 14]], device=DEVICE).repeat(b, 1),
+        # the fused sequence is [text (LA) ; regions (R)]
+        image_index=torch.tensor([[la, la + batch["img_feats"].shape[1]]],
+                                 device=DEVICE).repeat(b, 1))
+    if qa:
+        batch["qa_ans"] = torch.randint(0, QA_ANSWERS, (b,), device=DEVICE,
+                                        generator=gen)
+        batch["qa_ans"][::7] = -1
+        batch["qa_is_next"] = torch.randint(0, 2, (b,), device=DEVICE,
+                                            generator=gen)
+        batch["qa_is_next"][::5] = -1
+    return batch
+
+
+def phase6_pretraining(torch, attn, layers_mod, ModelConfig):
+    """`BiPretrainModel` trained at MVPTR-base in bf16 at the config's
+    dropouts, then one step at dropouts 0 on both paths."""
+    from mvp_pytorch_tpu_torch.models import BiPretrainModel
+    from mvp_pytorch_tpu_torch.tasks.pretrain import (PRETRAIN_KEYS,
+                                                      pretrain_loss_fn,
+                                                      train_pretrain)
+    from mvp_pytorch_tpu_torch.training.optim import make_optimizer
+    from mvp_pytorch_tpu_torch.training.trainer import Trainer
+    t_phase = time.perf_counter()
+    if ModelConfig().attention_probs_dropout_prob != DROP_P or \
+            ModelConfig().hidden_dropout_prob != DROP_P:
+        raise AssertionError("the config's default dropouts are not 0.1")
+    cfg = base_config(ModelConfig, "bfloat16", DROP_P)
+    per_step = cfg.half_layers * 4       # txt + vis + 2 fusion passes
+    model = BiPretrainModel(cfg, device=DEVICE, seed=0)
+    batch = pretrain_batch(torch, cfg, seed=7)
+    torch.cuda.synchronize()
+    log(f"  model + batch ready in {time.perf_counter() - t_phase:.1f} s "
+        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params)")
+    step_kw = dict(max_tag_length=20, hn_mod="hard", phrase_mod="sample",
+                   max_pred_a=20, max_pred_b=10)
+    opt_kw = dict(schedule="constant", max_grad_norm=1.0)
+
+    reset_counts(attn)
+    warm = train_pretrain(model, [batch], TRAIN_WARMUP, learning_rate=1e-4,
+                          logger=log, log_period=1, **opt_kw, **step_kw)
+    torch.cuda.synchronize()
+    check_counts(attn, per_step * TRAIN_WARMUP, "train_pretrain")
+
+    trainer = Trainer(model, pretrain_loss_fn(**step_kw),
+                      make_optimizer(model, 1e-4, **opt_kw), seed=1)
+    history, launches, step_s = timed_steps(torch, attn, trainer, batch,
+                                            per_step)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in warm + history]
+    log("  losses " + " ".join(f"{x:.4f}" for x in losses))
+    log("  last step " + " ".join(f"{k}={v:.4f}"
+                                  for k, v in history[-1].items()))
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"pretraining losses not finite and falling: "
+                             f"{losses}")
+    log(f"  pretrain step B={TRAIN_B} bf16, dropouts {DROP_P}: "
+        f"{step_s * 1e3:.2f} ms/step  {TRAIN_B / step_s:.1f} samples/s  "
+        f"launches/step={per_step} (all with dropout, plain version 0)  "
+        f"peak_mem={peak / 1e9:.2f}GB")
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+
+    # one step at dropouts 0 with every loss (QA heads on), kernel path
+    # against plain path, the draws and the hard pairs pinned
+    for dn in ("float32", "bfloat16"):
+        cfg0 = base_config(ModelConfig, dn, qa_answer_size=QA_ANSWERS)
+        model = BiPretrainModel(cfg0, qa_pairs=True, device=DEVICE, seed=0)
+        model.train()
+        batch = pretrain_batch(torch, cfg0, seed=8, qa=True)
+        dice = torch.randperm(TRAIN_B, device=DEVICE, generator=torch.Generator(
+            device=DEVICE).manual_seed(9))
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            out = model.train_step(
+                *(batch[k] for k in PRETRAIN_KEYS), hn_dice=dice, wra_pick=1,
+                wra_neg_offset=1,
+                generator=torch.Generator(device=DEVICE).manual_seed(0),
+                **step_kw)
+            out.total_loss.backward()
+            params = dict(model.named_parameters())
+            return out, {n: params[n].grad.detach().clone()
+                         for n in PRETRAIN_GRAD_PARAMS}
+
+        reset_counts(attn)
+        with hard_pairs(model) as mined:
+            k_out, k_grads = step()
+        torch.cuda.synchronize()
+        if (attn.masked_attention.launches != per_step
+                or attn.masked_attention.dropout_launches != 0):
+            raise AssertionError("kernel path did not launch the p = 0 kernel")
+        with plain_attention_path(layers_mod, attn), hard_pairs(
+                model, pinned=mined[0]):
+            p_out, p_grads = step()
+        torch.cuda.synchronize()
+        if attn.masked_attention.launches != per_step:
+            raise AssertionError("plain path launched the kernel")
+        compare_step(torch, "pretrain step", dn, k_out, p_out,
+                     PRETRAIN_LOSSES, k_grads, p_grads)
+        del model, batch, k_out, p_out, k_grads, p_grads
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 6 took {seconds:.1f} s")
+    return dict(step_ms=step_s * 1e3, samples_per_s=TRAIN_B / step_s,
+                peak_gb=peak / 1e9, launches_per_step=per_step,
+                launches=launches, losses=losses, seconds=seconds)
 
 
 def main(argv) -> int:
@@ -755,6 +1120,9 @@ def main(argv) -> int:
     log("phase 2: attention backward against plain autograd, training shapes")
     bwd_timings = phase2_backward(torch, attn)
     torch.cuda.synchronize()
+    log("phase 2: attention-prob dropout inside the kernel")
+    drop_timings = phase2_dropout(torch, attn)
+    torch.cuda.synchronize()
 
     log("phase 3: two-stage retrieval scoring, MVPTR-base, bench geometry")
     sweep = phase3_two_stage(torch, attn, ModelConfig, RetrievalModel,
@@ -772,11 +1140,17 @@ def main(argv) -> int:
                             RetrievalModel)
     torch.cuda.synchronize()
 
+    log("phase 6: pretraining step, MVPTR-base, batch 96, dropouts 0.1")
+    pre = phase6_pretraining(torch, attn, layers_mod, ModelConfig)
+    torch.cuda.synchronize()
+
     main_t = timings[("fused", "bfloat16")]
     main_err = errors[("fused 2-D padded keys", 1000, "bfloat16", "blhd")]
     train_t = bwd_timings[("fused", "bfloat16")]
     t32 = timings[("fused", "float32")]
     train32 = bwd_timings[("fused", "float32")]
+    drop_t = drop_timings[("fused", "bfloat16")]
+    drop32 = drop_timings[("fused", "float32")]
     kernels = {"kernels": [{
         "name": "masked_attention_fwd", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -799,7 +1173,24 @@ def main(argv) -> int:
             "sdpa_fwd_bwd_ms": train_t["sdpa_fwd_bwd_ms"],
             "step_ms": train["step_ms"],
             "samples_per_s": train["samples_per_s"],
-            "peak_gb": train["peak_gb"]}}, {
+            "peak_gb": train["peak_gb"]},
+        "pretraining": {
+            "launches": pre["launches"],
+            "launches_per_step": pre["launches_per_step"],
+            "dropout_launches_per_step": pre["launches_per_step"],
+            "step_ms": pre["step_ms"],
+            "samples_per_s": pre["samples_per_s"],
+            "peak_gb": pre["peak_gb"],
+            "dropout_shape": f"B {TRAIN_B} L 125 bf16 blhd p {DROP_P}",
+            "dropout_ms": drop_t["ms"], "p0_ms": drop_t["p0_ms"],
+            "dropout_plain_ms": drop_t["plain_ms"],
+            "dropout_max_abs_err": drop_t["max_abs_err"],
+            "dropout_bound_ms": drop_t["bound_ms"],
+            "dropout_bound_by": drop_t["bound_by"],
+            "sdpa_dropout_ms": drop_t["sdpa_ms"],
+            "dropout_bwd_ms": drop_t["bwd_ms"],
+            "p0_bwd_ms": drop_t["bwd_p0_ms"],
+            "seconds": pre["seconds"]}}, {
         # the fp32 kernels (3xTF32) behind the same entry point; launches
         # and pairs/s from the fp32 sweep of phase 3
         "name": "masked_attention_fwd fp32 (3xTF32)", "route": "cuda",
@@ -817,7 +1208,14 @@ def main(argv) -> int:
             "fwd_ms": train32["fwd_ms"],
             "fwd_bound_ms": train32["fwd_bound_ms"],
             "fwd_bound_by": train32["fwd_bound_by"],
-            "sdpa_fwd_ms": train32["sdpa_fwd_ms"]}}]}
+            "sdpa_fwd_ms": train32["sdpa_fwd_ms"]},
+        "dropout": {
+            "shape": f"B {TRAIN_B} L 125 fp32 blhd p {DROP_P}",
+            "ms": drop32["ms"], "p0_ms": drop32["p0_ms"],
+            "plain_ms": drop32["plain_ms"],
+            "max_abs_err": drop32["max_abs_err"],
+            "bound_ms": drop32["bound_ms"], "bound_by": drop32["bound_by"],
+            "sdpa_ms": drop32["sdpa_ms"]}}]}
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,12 @@ numpy arrays) maps onto the reference's torch state-dict keys, which the
 port's modules carry: dense kernels are transposed to torch's [out, in],
 LayerNorm `scale` becomes `weight`, embedding tables and the raw `[H, H]`
 global projections load as they are. The mapping is this package's own copy
-of the JAX package's `convert.export_state_dict` rules.
+of the JAX package's `convert.export_state_dict` rules, for the retrieval
+model (`bert`, `classifier`, `logit_scale`) and the pretraining model (also
+`cls_predictions`, `half_mlm`, `cls_seq_relationship` and, where the tree has
+them, `qa_head` and `qa_seq_relation`). The tied LM decoders have no params
+in a flax tree; `BiPretrainModel.load_state_dict` takes care of the
+reference's `decoder.weight` copies.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ _LAYER_SUFFIX = {
 }
 
 _ENCODERS = ("txt_encoder", "vis_encoder", "mul_encoder")
+# flax LM head -> its torch prefix
+_LM_HEADS = {"cls_predictions": "cls.predictions", "half_mlm": "half_mlm"}
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()) -> Iterator[Tuple[tuple, np.ndarray]]:
@@ -56,6 +63,22 @@ def _torch_key(path: tuple, val: np.ndarray, mlp_classifier: bool):
     """One flax path -> (torch key, value), or KeyError if it has no place."""
     if path == ("logit_scale",):
         return "logit_scale", val
+    if path[0] in _LM_HEADS:
+        base, p = _LM_HEADS[path[0]], path[1:]
+        if p == ("bias",):
+            return f"{base}.bias", val
+        if len(p) == 3 and p[0] == "transform" and p[1] in ("dense",
+                                                            "LayerNorm"):
+            kind = "dense" if p[1] == "dense" else "norm"
+            suf, val = _leaf(kind, p[2], val)
+            return f"{base}.transform.{p[1]}.{suf}", val
+    if path[:2] == ("cls_seq_relationship", "seq_relationship") \
+            and len(path) == 3:
+        suf, val = _leaf("dense", path[2], val)
+        return f"cls.seq_relationship.{suf}", val
+    if path[0] in ("qa_head", "qa_seq_relation") and len(path) == 2:
+        suf, val = _leaf("dense", path[1], val)
+        return f"{path[0]}.{suf}", val
     if path[0] == "classifier":
         suf, val = _leaf("dense", path[-1], val)
         if mlp_classifier:
@@ -89,8 +112,8 @@ def _torch_key(path: tuple, val: np.ndarray, mlp_classifier: bool):
 
 
 def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A flax params tree of a full model (`bert`, `classifier`,
-    `logit_scale`) -> the reference's torch state dict."""
+    """A flax params tree of a full model (`bert`, `classifier` or the
+    pretraining heads, `logit_scale`) -> the reference's torch state dict."""
     flat = list(_flatten(params))
     mlp = any(p[:2] == ("classifier", "dense") for p, _ in flat)
     sd = {}
@@ -104,9 +127,11 @@ def load_jax_params(model: torch.nn.Module, params: Mapping[str, Any]):
     """Load flax params into `model` with `load_state_dict(strict=True)`.
 
     `model` is a `RetrievalModel` (params hold `bert`, `classifier`,
-    `logit_scale`) or a bare `BiEncoder` (params are the `bert` subtree). A
-    flax path with no place in the port, or a port parameter the params do
-    not cover, raises."""
+    `logit_scale`), a `BiPretrainModel` (params hold `bert`, the pretraining
+    heads, `logit_scale`; `qa_head` exactly when `qa_answer_size > 0` and
+    `qa_seq_relation` exactly when the model has `qa_pairs`) or a bare
+    `BiEncoder` (params are the `bert` subtree). A flax path with no place
+    in the port, or a port parameter the params do not cover, raises."""
     if hasattr(model, "bert"):
         sd = jax_params_to_state_dict(params)
     else:

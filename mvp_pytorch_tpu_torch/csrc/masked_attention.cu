@@ -98,6 +98,20 @@
 //     tiles of 128, normalised after p.v. Keys past Lk get probability 0.
 //   The wrapper checks that q, k, v and out are 16-byte aligned and that their
 //   (b, h, l) strides are multiples of 4 elements; the launch checks it again.
+//
+// Attention-prob dropout (both dtypes, both kernels of each): the JAX package
+// leaves its fused kernel for XLA einsums when it trains with attention
+// dropout (mvp_pytorch_tpu/models/layers.py:129-152); here the kernel carries
+// it. The mask is a counter-based hash of the launch's 64-bit seed, read from
+// the device through a pointer, and the flat element index
+// ((b H + h) Lq + i) Lk + j (`DropMask`; `dropout_hash` in
+// mvp_pytorch_tpu_torch/ops/attention.py computes the same bits, so the
+// backward regenerates the mask). The row max and sum take the undropped
+// probabilities; the probabilities that meet v are multiplied by
+// keep / (1 - p) in fp32, before the bf16 kernel rounds them to bf16.
+// Dropout is a template parameter (kDrop) of every kernel, never a branch in
+// the unrolled key loops: the kDrop = false instantiations are the kernels
+// without dropout. The hash is about a dozen integer operations a score.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -115,10 +129,48 @@ struct Params {
   int64_t q_s[3], k_s[3], v_s[3], o_s[3], b_s[3];  // strides of dims b, h, l
   int B, H, Lq, Lk;
   float scale;
+  const void* seed;         // one int64 on the device; null without dropout
+  uint32_t drop_threshold;  // a hash below it drops its element: round(p 2^32)
+  float drop_scale;         // 1 / (1 - p)
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// The dropout mask of one launch: factor(e) is keep(e) / (1 - p) for the flat
+// element index e. The hash: the index's low word xor the seed's low word,
+// plus 0x9E3779B9 times (high word xor the seed's high word), then a 32-bit
+// multiply-xorshift mixer, all in uint32 arithmetic (mod 2^32).
+struct DropMask {
+  uint32_t s0, s1, threshold;
+  float scale;
+  __device__ __forceinline__ float factor(uint64_t e) const {
+    const uint32_t lo = static_cast<uint32_t>(e), hi = static_cast<uint32_t>(e >> 32);
+    uint32_t x = (lo ^ s0) + (hi ^ s1) * 0x9E3779B9u;
+    x ^= x >> 16;
+    x *= 0x7FEB352Du;
+    x ^= x >> 15;
+    x *= 0x846CA68Bu;
+    x ^= x >> 16;
+    return x >= threshold ? scale : 0.f;
+  }
+};
+
+// flat dropout index of (bh, query q, key k0 + 2t) for the rows g, g + 8 of a
+// warp: ((b H + h) Lq + q) Lk + k0 + 2t; a thread's keys add 8j and 8j + 1
+__device__ __forceinline__ void drop_rows(uint64_t (&rb)[2], const Params& p, int64_t bh,
+                                          int q, int k0, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    rb[r] = static_cast<uint64_t>(bh * p.Lq + q + 8 * r) * static_cast<uint64_t>(p.Lk)
+            + static_cast<uint64_t>(k0 + 2 * t);
+}
+
+__device__ __forceinline__ DropMask drop_mask(const Params& p) {
+  const uint64_t s = *static_cast<const uint64_t*>(p.seed);
+  return {static_cast<uint32_t>(s), static_cast<uint32_t>(s >> 32), p.drop_threshold,
+          p.drop_scale};
+}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor-core kernel
@@ -339,6 +391,7 @@ struct Work {
   bf16* out;        // first query row of the tile
   const void* bias; // bias at (b, h), or null
   int q0, mq;       // first query, queries in the tile
+  int64_t bh;       // b H + h, for the dropout's element index
 };
 
 template <typename TB>
@@ -350,6 +403,7 @@ __device__ __forceinline__ Work work_of(const Params& p, int64_t tile) {
   Work w;
   w.q0 = qt * kBlockM;
   w.mq = min(kBlockM, p.Lq - w.q0);
+  w.bh = static_cast<int64_t>(b) * p.H + h;
   w.q = static_cast<const bf16*>(p.q) + b * p.q_s[0] + h * p.q_s[1] + w.q0 * p.q_s[2];
   w.k = static_cast<const bf16*>(p.k) + b * p.k_s[0] + h * p.k_s[1];
   w.v = static_cast<const bf16*>(p.v) + b * p.v_s[0] + h * p.v_s[1];
@@ -370,12 +424,13 @@ __device__ __forceinline__ float bias_at(const Work& w, int k0, int j, int nk) {
 // q.k^T, the scores and their softmax for the warp's 16 rows of one key
 // tile: pk holds the probabilities rounded to bf16 (kExact: normalised over
 // the row; else exp(s - m_new), with m_r, l_r and o rescaled: the online
-// softmax).
-template <typename TB, int D, bool kExact>
+// softmax). With kDrop each probability is first multiplied by its dropout
+// factor; m_r and l_r take the undropped ones.
+template <typename TB, int D, bool kExact, bool kDrop>
 __device__ __forceinline__ void softmax_tile(
     uint32_t (&pk)[Tile<D>::NN][2], float (&o)[Tile<D>::ND][4], float (&m_r)[2],
     float (&l_r)[2], const bf16* st, const Params& prm, const Work& w, int k0,
-    int nk, int row0, int lane) {
+    int nk, int row0, int lane, const DropMask& dm) {
   constexpr int NN = Tile<D>::NN;
   const int g = lane / 4, t = lane % 4;
   // a per-query bias is read through its strides; rows past Lq repeat the last
@@ -396,11 +451,24 @@ __device__ __forceinline__ void softmax_tile(
     exp_tile<D>(sb, p, mx, sum);
     // normalised before the rounding to bf16, in the reference's order
     const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+    if constexpr (kDrop) {
+      uint64_t rb[2];
+      drop_rows(rb, prm, w.bh, w.q0 + row0 + g, k0, t);
 #pragma unroll
-    for (int j = 0; j < NN; ++j)
+      for (int j = 0; j < NN; ++j)
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-        pk[j][r] = pack_bf16(p[j][2 * r] * inv[r], p[j][2 * r + 1] * inv[r]);
+        for (int r = 0; r < 2; ++r) {
+          const uint64_t e = rb[r] + 8 * j;
+          pk[j][r] = pack_bf16(p[j][2 * r] * inv[r] * dm.factor(e),
+                               p[j][2 * r + 1] * inv[r] * dm.factor(e + 1));
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NN; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          pk[j][r] = pack_bf16(p[j][2 * r] * inv[r], p[j][2 * r + 1] * inv[r]);
+    }
   } else {
     float m_new[2];
 #pragma unroll
@@ -417,10 +485,22 @@ __device__ __forceinline__ void softmax_tile(
         o[j][2 * r + 1] *= corr;
       }
     }
+    if constexpr (kDrop) {
+      uint64_t rb[2];
+      drop_rows(rb, prm, w.bh, w.q0 + row0 + g, k0, t);
 #pragma unroll
-    for (int j = 0; j < NN; ++j)
+      for (int j = 0; j < NN; ++j)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) pk[j][r] = pack_bf16(p[j][2 * r], p[j][2 * r + 1]);
+        for (int r = 0; r < 2; ++r) {
+          const uint64_t e = rb[r] + 8 * j;
+          pk[j][r] = pack_bf16(p[j][2 * r] * dm.factor(e), p[j][2 * r + 1] * dm.factor(e + 1));
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NN; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) pk[j][r] = pack_bf16(p[j][2 * r], p[j][2 * r + 1]);
+    }
   }
 }
 
@@ -454,7 +534,7 @@ __device__ __forceinline__ void store_out(const float (&o)[Tile<D>::ND][4],
 // takes tiles blockIdx.x, blockIdx.x + gridDim.x, ... and keeps two stages of
 // shared memory, so the copies of the next tile are in flight while it
 // computes this one.
-template <typename TB, int D>
+template <typename TB, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
 masked_attention_mma_kernel(Params p) {
   constexpr int ND = Tile<D>::ND;
@@ -468,6 +548,8 @@ masked_attention_mma_kernel(Params p) {
   const int nk = p.Lk;
   const bool bias_row = p.bias == nullptr || p.b_s[2] == 0;  // broadcast over queries
   const int64_t n_tiles = static_cast<int64_t>((p.Lq + kBlockM - 1) / kBlockM) * p.H * p.B;
+  DropMask dm{};
+  if constexpr (kDrop) dm = drop_mask(p);
 
   // copies of one tile into a stage: q and k one group, v the next
   auto issue = [&](const Work& w, bf16* st) {
@@ -508,7 +590,8 @@ masked_attention_mma_kernel(Params p) {
     uint32_t pk[NN][2];
     float o[ND][4];
     float m_r[2], l_r[2];
-    if (active) softmax_tile<TB, D, true>(pk, o, m_r, l_r, st, p, w, 0, nk, row0, lane);
+    if (active)
+      softmax_tile<TB, D, true, kDrop>(pk, o, m_r, l_r, st, p, w, 0, nk, row0, lane, dm);
 
     cp_async_wait<2>();
     __syncthreads();  // v of this tile is in
@@ -530,7 +613,7 @@ masked_attention_mma_kernel(Params p) {
 
 // Lk > 128: one block per (b, h, query tile) walks the keys in tiles of 128
 // with the online softmax.
-template <typename TB, int D>
+template <typename TB, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
 masked_attention_mma_online_kernel(Params p) {
   constexpr int ND = Tile<D>::ND;
@@ -544,6 +627,8 @@ masked_attention_mma_online_kernel(Params p) {
   const Work w = work_of<TB>(p, blockIdx.x);
   const bool active = row0 < w.mq;  // warp-uniform: the warp has query rows
   const bool bias_row = p.bias == nullptr || p.b_s[2] == 0;
+  DropMask dm{};
+  if constexpr (kDrop) dm = drop_mask(p);
 
   load_tile<D>(st + Tile<D>::kQ, w.q, p.q_s[2], w.mq, (w.mq + 15) / 16 * 16, tid);
   float o[ND][4];
@@ -567,7 +652,8 @@ masked_attention_mma_online_kernel(Params p) {
     __syncthreads();  // q, k and the bias row are in
 
     uint32_t pk[NN][2];
-    if (active) softmax_tile<TB, D, false>(pk, o, m_r, l_r, st, p, w, k0, nk, row0, lane);
+    if (active)
+      softmax_tile<TB, D, false, kDrop>(pk, o, m_r, l_r, st, p, w, k0, nk, row0, lane, dm);
 
     cp_async_wait<0>();
     __syncthreads();  // v is in
@@ -589,18 +675,18 @@ bool aligned16(const void* ptr, const int64_t* strides) {
 }
 
 // resident blocks per SM of the persistent kernel, after allowing its shared memory
-template <typename TB, int D>
+template <typename TB, int D, bool kDrop = false>
 cudaError_t blocks_per_sm(int* n) {
   constexpr int bytes = smem_bytes<D>(2);
-  auto kernel = masked_attention_mma_kernel<TB, D>;
+  auto kernel = masked_attention_mma_kernel<TB, D, kDrop>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, kernel, kThreads, bytes);
 }
 
-template <typename TB, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+template <typename TB, int D, bool kDrop>
+cudaError_t launch_k(const Params& p, cudaStream_t stream) {
   if (!aligned16(p.q, p.q_s) || !aligned16(p.k, p.k_s) || !aligned16(p.v, p.v_s)
       || !aligned16(p.out, p.o_s))
     return cudaErrorMisalignedAddress;
@@ -608,7 +694,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   if (n_tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   if (p.Lk > kBlockN) {
     constexpr int bytes = smem_bytes<D>(1);
-    auto kernel = masked_attention_mma_online_kernel<TB, D>;
+    auto kernel = masked_attention_mma_online_kernel<TB, D, kDrop>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
@@ -623,7 +709,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   if (dev >= 64) return cudaErrorInvalidDevice;
   if (resident[dev] == 0) {
     int per_sm = 0, sms = 0;
-    err = blocks_per_sm<TB, D>(&per_sm);
+    err = blocks_per_sm<TB, D, kDrop>(&per_sm);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
@@ -631,12 +717,19 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     resident[dev] = per_sm * sms;
   }
   constexpr int bytes = smem_bytes<D>(2);
-  auto kernel = masked_attention_mma_kernel<TB, D>;
+  auto kernel = masked_attention_mma_kernel<TB, D, kDrop>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int64_t grid = n_tiles < resident[dev] ? n_tiles : resident[dev];
   kernel<<<static_cast<unsigned>(grid), kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// the dropout instantiation when the launch has a seed
+template <typename TB, int D>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  return p.seed != nullptr ? launch_k<TB, D, true>(p, stream)
+                           : launch_k<TB, D, false>(p, stream);
 }
 
 }  // namespace tc
@@ -857,6 +950,7 @@ struct Work {
   float* out;       // first query row of the tile
   const void* bias; // bias at (b, h), or null
   int q0, mq;       // first query, queries in the tile
+  int64_t bh;       // b H + h, for the dropout's element index
 };
 
 template <typename TB>
@@ -868,6 +962,7 @@ __device__ __forceinline__ Work work_of(const Params& p, int64_t tile) {
   Work w;
   w.q0 = qt * kBlockM;
   w.mq = min(kBlockM, p.Lq - w.q0);
+  w.bh = static_cast<int64_t>(b) * p.H + h;
   w.q = static_cast<const float*>(p.q) + b * p.q_s[0] + h * p.q_s[1] + w.q0 * p.q_s[2];
   w.k = static_cast<const float*>(p.k) + b * p.k_s[0] + h * p.k_s[1];
   w.v = static_cast<const float*>(p.v) + b * p.v_s[0] + h * p.v_s[1];
@@ -887,12 +982,14 @@ __device__ __forceinline__ float bias_at(const Work& w, int k0, int j, int nk) {
 
 // q.k^T, the scores and their softmax for the warp's 16 rows of one key
 // tile, in place in s: kExact, normalised over the row; else exp(s - m_new),
-// with m_r, l_r and o rescaled (the online softmax).
-template <typename TB, int D, bool kExact>
+// with m_r, l_r and o rescaled (the online softmax). With kDrop each
+// probability is then multiplied by its dropout factor; m_r and l_r take the
+// undropped ones.
+template <typename TB, int D, bool kExact, bool kDrop>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[NN][4], float (&o)[Tile<D>::ND][4], float (&m_r)[2], float (&l_r)[2],
     const float* st, const Params& prm, const Work& w, int k0, int nk, int row0,
-    int lane) {
+    int lane, const DropMask& dm) {
   const int g = lane / 4, t = lane % 4;
   // a per-query bias is read through its strides; rows past Lq repeat the last
   const bool row_bias = w.bias != nullptr && prm.b_s[2] != 0;
@@ -931,6 +1028,14 @@ __device__ __forceinline__ void softmax_tile(
       }
     }
   }
+  if constexpr (kDrop) {
+    uint64_t rb[2];
+    drop_rows(rb, prm, w.bh, w.q0 + row0 + g, k0, t);
+#pragma unroll
+    for (int j = 0; j < NN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= dm.factor(rb[e / 2] + 8 * j + e % 2);
+  }
 }
 
 // the warp's 16 output rows, times f per row, in 16-byte stores (o as
@@ -958,7 +1063,7 @@ __device__ __forceinline__ void store_out(const float (&o)[Tile<D>::ND][4],
 // shared memory it issues the next tile's copies before it computes this one;
 // with one, the next q and k are copied during p.v and the next v during the
 // next scores.
-template <typename TB, int D>
+template <typename TB, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
 masked_attention_3xtf32_kernel(Params p) {
   using T = Tile<D>;
@@ -971,6 +1076,8 @@ masked_attention_3xtf32_kernel(Params p) {
   const int nk = p.Lk;
   const bool bias_row = p.bias == nullptr || p.b_s[2] == 0;  // broadcast over queries
   const int64_t n_tiles = static_cast<int64_t>((p.Lq + kBlockM - 1) / kBlockM) * p.H * p.B;
+  DropMask dm{};
+  if constexpr (kDrop) dm = drop_mask(p);
 
   // copies of one tile into a stage: q and k one group, v the next
   auto issue_qk = [&](const Work& w, float* st) {
@@ -1020,7 +1127,7 @@ masked_attention_3xtf32_kernel(Params p) {
     float s[NN][4];
     float o[T::ND][4];
     float m_r[2], l_r[2];
-    if (active) softmax_tile<TB, D, true>(s, o, m_r, l_r, st, p, w, 0, nk, row0, lane);
+    if (active) softmax_tile<TB, D, true, kDrop>(s, o, m_r, l_r, st, p, w, 0, nk, row0, lane, dm);
 
     if constexpr (T::kStages == 1) {
       __syncthreads();  // every warp is done with q, k and the bias row
@@ -1052,7 +1159,7 @@ masked_attention_3xtf32_kernel(Params p) {
 
 // Lk > 128: one block per (b, h, query tile) walks the keys in tiles of 128
 // with the online softmax.
-template <typename TB, int D>
+template <typename TB, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
 masked_attention_3xtf32_online_kernel(Params p) {
   using T = Tile<D>;
@@ -1065,6 +1172,8 @@ masked_attention_3xtf32_online_kernel(Params p) {
   const Work w = work_of<TB>(p, blockIdx.x);
   const bool active = row0 < w.mq;  // warp-uniform: the warp has query rows
   const bool bias_row = p.bias == nullptr || p.b_s[2] == 0;
+  DropMask dm{};
+  if constexpr (kDrop) dm = drop_mask(p);
 
   load_tile<D, T::PQK>(st + T::kQ, w.q, p.q_s[2], w.mq, (w.mq + 15) / 16 * 16, tid);
   float o[T::ND][4];
@@ -1087,7 +1196,8 @@ masked_attention_3xtf32_online_kernel(Params p) {
     __syncthreads();  // q, k and the bias row are in
 
     float s[NN][4];
-    if (active) softmax_tile<TB, D, false>(s, o, m_r, l_r, st, p, w, k0, nk, row0, lane);
+    if (active)
+      softmax_tile<TB, D, false, kDrop>(s, o, m_r, l_r, st, p, w, k0, nk, row0, lane, dm);
 
     tc::cp_async_wait<0>();
     __syncthreads();  // v is in
@@ -1108,18 +1218,18 @@ bool aligned16(const void* ptr, const int64_t* strides) {
 }
 
 // resident blocks per SM of the persistent kernel, after allowing its shared memory
-template <typename TB, int D>
+template <typename TB, int D, bool kDrop = false>
 cudaError_t blocks_per_sm(int* n) {
   constexpr int bytes = smem_bytes<D>(Tile<D>::kStages);
-  auto kernel = masked_attention_3xtf32_kernel<TB, D>;
+  auto kernel = masked_attention_3xtf32_kernel<TB, D, kDrop>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, kernel, kThreads, bytes);
 }
 
-template <typename TB, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+template <typename TB, int D, bool kDrop>
+cudaError_t launch_k(const Params& p, cudaStream_t stream) {
   if (!aligned16(p.q, p.q_s) || !aligned16(p.k, p.k_s) || !aligned16(p.v, p.v_s)
       || !aligned16(p.out, p.o_s))
     return cudaErrorMisalignedAddress;
@@ -1127,7 +1237,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   if (n_tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   if (p.Lk > kBlockN) {
     constexpr int bytes = smem_bytes<D>(1);
-    auto kernel = masked_attention_3xtf32_online_kernel<TB, D>;
+    auto kernel = masked_attention_3xtf32_online_kernel<TB, D, kDrop>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
@@ -1142,7 +1252,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   if (dev >= 64) return cudaErrorInvalidDevice;
   if (resident[dev] == 0) {
     int per_sm = 0, sms = 0;
-    err = blocks_per_sm<TB, D>(&per_sm);
+    err = blocks_per_sm<TB, D, kDrop>(&per_sm);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
@@ -1150,12 +1260,19 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     resident[dev] = per_sm * sms;
   }
   constexpr int bytes = smem_bytes<D>(Tile<D>::kStages);
-  auto kernel = masked_attention_3xtf32_kernel<TB, D>;
+  auto kernel = masked_attention_3xtf32_kernel<TB, D, kDrop>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int64_t grid = n_tiles < resident[dev] ? n_tiles : resident[dev];
   kernel<<<static_cast<unsigned>(grid), kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// the dropout instantiation when the launch has a seed
+template <typename TB, int D>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  return p.seed != nullptr ? launch_k<TB, D, true>(p, stream)
+                           : launch_k<TB, D, false>(p, stream);
 }
 
 }  // namespace tf32
@@ -1209,10 +1326,15 @@ cudaError_t dispatch(const Op& op, int dtype, int bias_dtype, int d) {
 //   dims: B, H, Lq, Lk, D, dtype (0 fp32, 1 bf16), bias dtype (0 fp32, 1 bf16;
 //         read only when bias is not null), then the (b, h, l) strides, in
 //         elements, of q, k, v, out and bias.
+//   seed: null (no dropout), or one int64 on the device: attention-prob
+//         dropout, dropping an element whose hash is below drop_threshold
+//         (round(p 2^32)) and scaling the kept ones by drop_scale (1 / (1 - p)).
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* bias, void* out,
-                                    const void* dims_ptr, void* stream_ptr) {
+                                    const void* dims_ptr, void* stream_ptr,
+                                    const void* seed, uint32_t drop_threshold,
+                                    float drop_scale) {
   const int64_t* dims = static_cast<const int64_t*>(dims_ptr);
   Params p;
   p.q = q;
@@ -1231,6 +1353,9 @@ extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
   for (int t = 0; t < 5; ++t)
     for (int i = 0; i < 3; ++i) strides[t][i] = dims[7 + 3 * t + i];
   p.scale = 1.0f / sqrtf(static_cast<float>(d));
+  p.seed = seed;
+  p.drop_threshold = drop_threshold;
+  p.drop_scale = drop_scale;
   if (p.B <= 0 || p.H <= 0 || p.Lq <= 0 || p.Lk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Launch op{&p, static_cast<cudaStream_t>(stream_ptr)};

@@ -3,8 +3,10 @@
 from .bi_encoder import BiEncoder, BiEncoderOutput, l2_normalize
 from .config import ModelConfig, tiny_config
 from .heads import ClassifierHead
+from .pretrain import BiPretrainModel, PretrainOutput
 from .tasks import RetrievalModel, RetrievalTrainOutput
 
-__all__ = ["BiEncoder", "BiEncoderOutput", "ClassifierHead", "ModelConfig",
+__all__ = ["BiEncoder", "BiEncoderOutput", "BiPretrainModel",
+           "ClassifierHead", "ModelConfig", "PretrainOutput",
            "RetrievalModel", "RetrievalTrainOutput", "l2_normalize",
            "tiny_config"]

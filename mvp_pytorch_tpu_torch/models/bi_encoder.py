@@ -72,6 +72,11 @@ class BiEncoder(nn.Module):
         self.txt_proj.normal_(0.0, std, generator=generator)
         self.vis_proj.normal_(0.0, std, generator=generator)
 
+    def word_table(self) -> torch.Tensor:
+        """The shared [vocab_size, H] embedding table, for the tied LM
+        heads."""
+        return self.embeddings.word_table()
+
     def encode_text(self, input_ids_a, attention_mask_a=None,
                     token_type_ids_a=None, position_ids_a=None):
         """Text stream -> (seq [B, La, H], global [B, H] fp32)."""

@@ -1,4 +1,7 @@
-"""Prediction heads. This slice carries `ClassifierHead` only."""
+"""Prediction heads, the JAX package's `models/heads.py`: the classifier,
+and the pretraining heads (`PredictionHeadTransform`, the tied
+`LMPredictionHead`, `SeqRelationshipHead`). `QAPredictionHead` and
+`MRFMRCHeads` come with the task models that use them."""
 
 from __future__ import annotations
 
@@ -9,7 +12,57 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ModelConfig
-from .layers import Dense, compute_dtype, init_weights
+from .layers import ACT2FN, Dense, LayerNorm, compute_dtype, init_weights
+
+
+class PredictionHeadTransform(nn.Module):
+    """dense -> activation -> LayerNorm, in the compute dtype (reference
+    modeling_bert.py:477-490)."""
+
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        dt = compute_dtype(config)
+        self.dense = Dense(config.hidden_size, config.hidden_size, dt)
+        self.act = ACT2FN[config.hidden_act]
+        self.LayerNorm = LayerNorm(config.hidden_size, config.layer_norm_eps,
+                                   dt)
+
+    def forward(self, hidden):
+        return self.LayerNorm(self.act(self.dense(hidden)))
+
+
+class LMPredictionHead(nn.Module):
+    """transform -> decoder tied to the first `only_word_size` rows of the
+    word embedding table, plus a bias; fp32 logits (reference
+    BertLMPredictionHead(only_vocab=True), modeling_bert.py:492-516).
+
+    The decoder is the table itself, passed in at call time, so phrase rows
+    are never predicted and nothing needs re-tying after a load. The
+    reference's state dict stores the tie as `decoder.weight`, a copy of
+    those rows; `BiPretrainModel.load_state_dict` checks and drops it."""
+
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        self.n = config.only_word_size
+        self.transform = PredictionHeadTransform(config)
+        self.bias = nn.Parameter(torch.zeros(self.n))
+
+    def forward(self, hidden, word_table):
+        h = self.transform(hidden)
+        logits = h @ word_table[:self.n].to(h.dtype).T
+        return logits.float() + self.bias
+
+
+class SeqRelationshipHead(Dense):
+    """The ITM (image-text match) head over the pooled output: a dense layer
+    to `num_contrast_classes` in the compute dtype, fp32 logits."""
+
+    def __init__(self, config: ModelConfig):
+        super().__init__(config.hidden_size, config.num_contrast_classes,
+                         compute_dtype(config))
+
+    def forward(self, pooled):
+        return super().forward(pooled).float()
 
 
 class ClassifierHead(nn.Module):

@@ -12,10 +12,14 @@ from the bf16-cast table and summed in bf16, and LayerNorm takes its
 statistics in fp32 and returns the compute type.
 
 Training: `Dropout` draws its masks from a `torch.Generator` the caller
-hands over with `dropout_generator`, never from torch's global generator. With
-`attention_probs_dropout_prob == 0` a training forward takes the attention
-kernel, as inference does; a nonzero attention-prob dropout takes the plain
-path (the kernel draws no random numbers).
+hands over with `dropout_generator`, never from torch's global generator.
+Attention always goes through `masked_attention`, at any dropout: in a
+training forward `SelfAttention` draws one int64 seed per call from its
+`Dropout`'s generator (on the model's device, with no host sync), and the
+kernel drops attention probabilities by a hash of that seed and each
+element's index (the JAX layer leaves its kernel for einsums there,
+`mvp_pytorch_tpu/models/layers.py:143-152`; the function is the same, the
+random stream is not).
 """
 
 from __future__ import annotations
@@ -33,12 +37,23 @@ from .config import ModelConfig
 __all__ = [
     "ACT2FN", "Dense", "Dropout", "LayerNorm", "Embeddings", "SelfAttention",
     "AttentionBlock", "TransformerLayer", "StreamEncoder", "Pooler",
-    "mask_to_bias", "compute_dtype", "dropout_generator",
+    "mask_to_bias", "compute_dtype", "dropout_generator", "resolve_device",
 ]
 
 
 def compute_dtype(config: ModelConfig) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[config.dtype]
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU. Asking for CUDA where there is none raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA was asked for but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path")
+    return device
 
 
 def _gelu(x):
@@ -67,15 +82,24 @@ class Dropout(nn.Module):
         self.p = p
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x):
-        if not self.training or self.p == 0:
-            return x
+    def _generator(self) -> torch.Generator:
         if self.generator is None:
             raise RuntimeError("dropout in training needs a generator: wrap "
                                "the forward in dropout_generator(model, gen)")
+        return self.generator
+
+    def forward(self, x):
+        if not self.training or self.p == 0:
+            return x
         keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
-                                              generator=self.generator)
+                                              generator=self._generator())
         return x * keep / (1.0 - self.p)
+
+    def seed(self, device) -> torch.Tensor:
+        """A one-element int64 tensor on `device`, drawn from the generator:
+        the seed of a kernel's dropout mask."""
+        return torch.randint(-2 ** 63, 2 ** 63 - 1, (1,), dtype=torch.int64,
+                             device=device, generator=self._generator())
 
 
 @contextlib.contextmanager
@@ -132,6 +156,11 @@ class Embeddings(nn.Module):
                                    compute_dtype(config))
         self.dropout = Dropout(config.hidden_dropout_prob)
 
+    def word_table(self) -> torch.Tensor:
+        """The [vocab_size, H] word embedding table, which the tied LM heads
+        read at call time."""
+        return self.word_embeddings.weight
+
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
         dt = compute_dtype(self.config)
         if token_type_ids is None:
@@ -173,17 +202,10 @@ class SelfAttention(nn.Module):
         q = split4(self.query(hidden))
         k = split4(self.key(hidden))
         v = split4(self.value(hidden))
-        if self.training and cfg.attention_probs_dropout_prob > 0:
-            # attention-prob dropout takes the plain path (the kernel has no
-            # random numbers), as the JAX layer does (layers.py:143-152)
-            scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
-            scores = scores * cfg.head_dim ** -0.5
-            if bias is not None:
-                scores = scores + bias.float()
-            probs = self.dropout(torch.softmax(scores, dim=-1))
-            ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
-        else:
-            ctx = masked_attention(q, k, v, bias, layout="blhd")
+        p = self.dropout.p if self.training else 0.0
+        seed = self.dropout.seed(q.device) if p > 0 else None
+        ctx = masked_attention(q, k, v, bias, layout="blhd", dropout_p=p,
+                               seed=seed)
         return ctx.reshape(b, l, cfg.hidden_size)
 
 

@@ -15,19 +15,8 @@ from ..ops.masked import cross_entropy
 from .bi_encoder import BiEncoder
 from .config import ModelConfig
 from .heads import ClassifierHead
-from .layers import Dropout, dropout_generator
+from .layers import Dropout, dropout_generator, resolve_device
 from .pretrain import wra_hard_loss
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks for
-    the CPU. Asking for CUDA where there is none raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA was asked for but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run the plain PyTorch path")
-    return device
 
 
 class RetrievalTrainOutput(NamedTuple):

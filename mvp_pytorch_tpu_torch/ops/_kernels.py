@@ -25,9 +25,11 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # entry point name -> its argument types; every pointer and the stream is a
-# c_void_p, so ctypes passes full 64-bit addresses
+# c_void_p, so ctypes passes full 64-bit addresses (masked_attention_fwd then
+# takes the dropout threshold as a uint32 and its scale as a float)
 ENTRY_POINTS = {
-    "masked_attention_fwd": [ctypes.c_void_p] * 7,
+    "masked_attention_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_uint32,
+                                                     ctypes.c_float],
     "masked_attention_blocks_per_sm": [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 

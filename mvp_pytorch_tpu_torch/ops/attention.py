@@ -17,8 +17,19 @@ on a CUDA tensor it launches the hand-written kernel `masked_attention_fwd`
 bf16 in bf16, fp32 in three TF32 passes (3xTF32). Its backward is the JAX
 package's `_attn_bwd` (git 8625894^,
 `mvp_pytorch_tpu/ops/attention.py:200-218`) in plain PyTorch: it saves only
-q, k, v and the bias, recomputes the probabilities in fp32 and launches no
-kernel.
+q, k, v, the bias and the dropout seed, recomputes the probabilities in fp32
+and launches no kernel.
+
+Attention-prob dropout (inverted, as flax `nn.Dropout` does it) runs inside
+the kernel and the plain version alike. Its mask is a counter-based hash of a
+per-call 64-bit seed (a one-element int64 tensor on the inputs' device, read
+by the kernel through a pointer) and the flat element index
+((b H + h) Lq + i) Lk + j of the [B, H, Lq, Lk] probabilities: an element is
+dropped when `dropout_hash` is below round(p 2^32). The kernel, the plain
+version and the backward compute the same bits, so the backward regenerates
+the forward's mask. The row max and sum take the undropped probabilities;
+the probabilities that meet v are multiplied by keep / (1 - p) in fp32. Its
+random stream is not JAX's.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ MASK_VALUE = -10000.0  # finite, matches the reference numerics; safe in bf16
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+_M32 = 0xFFFFFFFF
 
 
 def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -48,13 +60,81 @@ def mask_to_bias(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return (1.0 - ext.to(dtype)) * MASK_VALUE
 
 
-def _softmax_probs(scores: torch.Tensor, v_dtype) -> torch.Tensor:
-    """Softmax of [.., Lq, Lk] scores as the JAX reference takes it."""
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for x in [0, 2^32), in int64 with no overflow: x is
+    split into 16-bit halves, so no product exceeds 2^48."""
+    return ((x & 0xFFFF) * c + (((x >> 16) * (c & 0xFFFF)) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """The hash's 32-bit multiply-xorshift mixer on int64 values in
+    [0, 2^32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _seed_words(seed: torch.Tensor):
+    s = seed.reshape(())
+    return s & _M32, (s >> 32) & _M32
+
+
+def dropout_hash(seed: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """The dropout hash of flat element indices `index` (int64, >= 0) under a
+    one-element int64 `seed`, as int64 values in [0, 2^32): the index's low
+    word xor the seed's low word, plus 0x9E3779B9 times its high word xor
+    the seed's high word, then a 32-bit multiply-xorshift mixer. The kernel
+    (`DropMask` in csrc/masked_attention.cu) computes the same bits in
+    uint32 arithmetic."""
+    s0, s1 = _seed_words(seed)
+    x = ((index & _M32) ^ s0) + _mul32((index >> 32) ^ s1, 0x9E3779B9)
+    return _mix32(x & _M32)
+
+
+def dropout_threshold(p: float) -> int:
+    """Hashes below round(p 2^32) drop their element."""
+    return round(p * 2 ** 32)
+
+
+def dropout_keep(seed: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """The bool keep mask of [B, H, Lq, Lk] probabilities under `seed`:
+    `dropout_hash` of their flat indices. Below 2^32 elements every high
+    word is 0, so the high word's term is one value for the whole mask."""
+    n = 1
+    for x in shape:
+        n *= x
+    index = torch.arange(n, dtype=torch.int64, device=seed.device)
+    if n <= 2 ** 32:
+        s0, s1 = _seed_words(seed)
+        h = _mix32(((index ^ s0) + _mul32(s1, 0x9E3779B9)) & _M32)
+    else:
+        h = dropout_hash(seed, index)
+    return (h >= dropout_threshold(p)).view(shape)
+
+
+def _apply_dropout(probs: torch.Tensor, dropout_p: float, seed):
+    """fp32 probabilities [B, H, Lq, Lk] times keep / (1 - p)."""
+    if dropout_p == 0:
+        return probs
+    keep = dropout_keep(seed, dropout_p, probs.shape)
+    return probs * keep.to(probs.dtype) * (1.0 / (1.0 - dropout_p))
+
+
+def _softmax_probs(scores: torch.Tensor, v_dtype, dropout_p: float = 0.0,
+                   seed=None) -> torch.Tensor:
+    """Softmax of [B, H, Lq, Lk] scores as the JAX reference takes it, then
+    the dropout in fp32, then the cast to v's dtype."""
     if scores.dtype == torch.bfloat16:
         m = scores.amax(dim=-1, keepdim=True)
         p = torch.exp((scores - m).float())
-        return (p / p.sum(dim=-1, keepdim=True)).to(torch.bfloat16)
-    return torch.softmax(scores, dim=-1).to(v_dtype)
+        probs = p / p.sum(dim=-1, keepdim=True)
+    else:
+        probs = torch.softmax(scores, dim=-1)
+    probs = _apply_dropout(probs, dropout_p, seed)
+    return probs.to(torch.bfloat16 if scores.dtype == torch.bfloat16
+                    else v_dtype)
 
 
 def _scores(q, k, bias, eq):
@@ -71,22 +151,48 @@ def _scores(q, k, bias, eq):
     return scores
 
 
-def plain_attention(q, k, v, bias: Optional[torch.Tensor] = None):
+def plain_attention(q, k, v, bias: Optional[torch.Tensor] = None,
+                    dropout_p: float = 0.0,
+                    seed: Optional[torch.Tensor] = None):
     """q: [B, H, Lq, D]; k, v: [B, H, Lk, D]; bias broadcastable to
-    [B, H, Lq, Lk]. Returns [B, H, Lq, D] in q's dtype."""
-    probs = _softmax_probs(_scores(q, k, bias, "bhqd,bhkd->bhqk"), v.dtype)
+    [B, H, Lq, Lk]; attention-prob dropout `dropout_p` under `seed`. Returns
+    [B, H, Lq, D] in q's dtype."""
+    plain_attention.calls += 1
+    probs = _softmax_probs(_scores(q, k, bias, "bhqd,bhkd->bhqk"), v.dtype,
+                           dropout_p, seed)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
-def plain_attention_blhd(q, k, v, bias: Optional[torch.Tensor] = None):
+def plain_attention_blhd(q, k, v, bias: Optional[torch.Tensor] = None,
+                         dropout_p: float = 0.0,
+                         seed: Optional[torch.Tensor] = None):
     """The same function with q: [B, Lq, H, D], k, v: [B, Lk, H, D]; returns
-    [B, Lq, H, D]."""
-    probs = _softmax_probs(_scores(q, k, bias, "bqhd,bkhd->bhqk"), v.dtype)
+    [B, Lq, H, D]. The dropout mask is indexed as in [B, H, Lq, Lk]."""
+    plain_attention.calls += 1
+    probs = _softmax_probs(_scores(q, k, bias, "bqhd,bkhd->bhqk"), v.dtype,
+                           dropout_p, seed)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _kernel_attention(q, k, v, bias, layout):
-    """Launch `masked_attention_fwd` on CUDA tensors (no fallback)."""
+# calls of the plain version, in either layout (a card run of the kernel
+# path leaves it at 0)
+plain_attention.calls = 0
+
+
+def _check_seed(seed, device):
+    if (not isinstance(seed, torch.Tensor) or seed.dtype != torch.int64
+            or seed.numel() != 1 or seed.device != device):
+        got = (seed if not isinstance(seed, torch.Tensor)
+               else (seed.dtype, tuple(seed.shape), seed.device))
+        raise ValueError(f"masked_attention: dropout needs `seed`, a "
+                         f"one-element int64 tensor on {device}, got {got}")
+
+
+def _kernel_attention(q, k, v, bias, layout, dropout_p: float = 0.0,
+                      seed: Optional[torch.Tensor] = None):
+    """Launch `masked_attention_fwd` on CUDA tensors (no fallback). With
+    `dropout_p` > 0 the kernel's dropout instantiation reads the seed through
+    its pointer."""
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"masked_attention: q, k, v must share a dtype in "
                         f"{list(_DTYPE_CODE)}, got {q.dtype}, {k.dtype}, "
@@ -136,11 +242,17 @@ def _kernel_attention(q, k, v, bias, layout):
         dims += t.stride()[:3]
     dims += bias_strides
     arr = (ctypes.c_int64 * len(dims))(*dims)
+    seed_ptr, threshold, scale = None, 0, 1.0
+    if dropout_p > 0:
+        _check_seed(seed, q.device)
+        seed_ptr = seed.data_ptr()
+        threshold, scale = dropout_threshold(dropout_p), 1.0 / (1.0 - dropout_p)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = _kernels.library()
     err = lib.masked_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                    bias_ptr, o.data_ptr(),
-                                   ctypes.addressof(arr), stream)
+                                   ctypes.addressof(arr), stream, seed_ptr,
+                                   threshold, scale)
     _kernels.check(err, "masked_attention_fwd")
     return out
 
@@ -156,12 +268,16 @@ def kernel_blocks_per_sm(dtype: torch.dtype, d: int,
     return n.value
 
 
-def _attention_grads(q, k, v, bias, g, layout, bias_grad: bool):
-    """The JAX package's `_attn_bwd` (git 8625894^, ops/attention.py:200-218):
-    recompute the probabilities in fp32 from q, k and the bias, then
-    dv = p^T.g, ds = p * (g.v^T - sum(g.v^T * p)), dq = ds.k * D^-1/2,
+def _attention_grads(q, k, v, bias, g, layout, bias_grad: bool,
+                     dropout_p: float = 0.0, seed=None):
+    """The JAX package's `_attn_bwd` (git 8625894^, ops/attention.py:200-218),
+    with the forward's dropout mask regenerated from `seed` by the plain
+    hash: recompute the probabilities p in fp32 from q, k and the bias, then,
+    with keep / (1 - p_drop) as m (1 without dropout), dv = (p m)^T.g,
+    dp = (g.v^T) m, ds = p * (dp - sum(dp * p)), dq = ds.k * D^-1/2,
     dk = ds^T.q * D^-1/2 and, when `bias_grad`, dbias = ds summed over the
-    dims where the bias broadcasts. Grads come back in their inputs' dtypes."""
+    dims where the bias broadcasts. Grads come back in their inputs'
+    dtypes."""
     x, y = ("bqhd", "bkhd") if layout == "blhd" else ("bhqd", "bhkd")
     scale = q.shape[-1] ** -0.5
     q32, k32, v32, g32 = (t.float() for t in (q, k, v, g))
@@ -170,7 +286,12 @@ def _attention_grads(q, k, v, bias, g, layout, bias_grad: bool):
         scores = scores + bias.float()
     p = torch.softmax(scores, dim=-1)
     dp = torch.einsum(f"{x},{y}->bhqk", g32, v32)
-    dv = torch.einsum(f"bhqk,{x}->{y}", p, g32)
+    pd = p
+    if dropout_p > 0:
+        m = dropout_keep(seed, dropout_p, p.shape).float() * (
+            1.0 / (1.0 - dropout_p))
+        pd, dp = p * m, dp * m
+    dv = torch.einsum(f"bhqk,{x}->{y}", pd, g32)
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
     dq = torch.einsum(f"bhqk,{y}->{x}", ds, k32) * scale
     dk = torch.einsum(f"bhqk,{x}->{y}", ds, q32) * scale
@@ -181,46 +302,62 @@ def _attention_grads(q, k, v, bias, g, layout, bias_grad: bool):
 class MaskedAttentionFn(torch.autograd.Function):
     """Differentiable masked attention: forward on the kernel (CUDA) or the
     plain version (CPU), backward by recompute (`_attention_grads`). Saves
-    q, k, v and the bias only, never the [B, H, Lq, Lk] probabilities."""
+    q, k, v, the bias and the dropout seed only, never the [B, H, Lq, Lk]
+    probabilities or the mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, layout):
+    def forward(ctx, q, k, v, bias, layout, dropout_p, seed):
         if q.device.type == "cuda":
-            out = _kernel_attention(q, k, v, bias, layout)
+            out = _kernel_attention(q, k, v, bias, layout, dropout_p, seed)
             masked_attention.launches += 1
+            if dropout_p > 0:
+                masked_attention.dropout_launches += 1
         else:
             fn = plain_attention_blhd if layout == "blhd" else plain_attention
-            out = fn(q, k, v, bias)
+            out = fn(q, k, v, bias, dropout_p, seed)
         if any(ctx.needs_input_grad[:4]):
-            ctx.save_for_backward(q, k, v, bias)
+            ctx.save_for_backward(q, k, v, bias, seed)
         ctx.layout = layout
+        ctx.dropout_p = dropout_p
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias = ctx.saved_tensors
+        q, k, v, bias, seed = ctx.saved_tensors
         grads = _attention_grads(q, k, v, bias, g, ctx.layout,
-                                 ctx.needs_input_grad[3])
-        return (*grads, None)
+                                 ctx.needs_input_grad[3], ctx.dropout_p, seed)
+        return (*grads, None, None, None)
 
 
 def masked_attention(q, k, v, bias: Optional[torch.Tensor] = None, *,
-                     layout: str = "bhld") -> torch.Tensor:
+                     layout: str = "bhld", dropout_p: float = 0.0,
+                     seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q.k^T * D^-1/2 + bias).v in the given layout, differentiable
-    in q, k, v and the bias.
+    in q, k, v and the bias, with attention-prob dropout `dropout_p` drawn
+    from `seed` (a one-element int64 tensor on the inputs' device).
 
     layout "bhld": q [B, H, Lq, D], k and v [B, H, Lk, D], out [B, H, Lq, D].
     layout "blhd": q [B, Lq, H, D], k and v [B, Lk, H, D], out [B, Lq, H, D].
     bias: [B, 1|H, 1|Lq, Lk], fp32 or bf16, or None.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and adds one to `masked_attention.launches`) or raises.
+    (and adds one to `masked_attention.launches`, and with dropout to
+    `masked_attention.dropout_launches`) or raises.
     """
     if layout not in ("bhld", "blhd"):
         raise ValueError(f"unknown layout {layout!r}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"masked_attention: no kernel for {q.device}")
-    return MaskedAttentionFn.apply(q, k, v, bias, layout)
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"masked_attention: dropout_p {dropout_p} not in "
+                         f"[0, 1)")
+    if dropout_p > 0:
+        _check_seed(seed, q.device)
+    else:
+        seed = None
+    return MaskedAttentionFn.apply(q, k, v, bias, layout, float(dropout_p),
+                                   seed)
 
 
 masked_attention.launches = 0
+masked_attention.dropout_launches = 0

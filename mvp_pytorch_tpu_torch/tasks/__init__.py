@@ -1,2 +1,2 @@
 """Tasks of the port: retrieval training, two-stage retrieval scoring and
-its rank algebra."""
+its rank algebra, and pretraining."""

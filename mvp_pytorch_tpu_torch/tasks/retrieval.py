@@ -4,8 +4,9 @@ arrays.
 `train_retrieval` is the counterpart of the JAX package's retrieval task
 (`tasks/retrieval.py` `main` with `tasks/common.py` `TrainLoop.run`) without
 the dataset plumbing: it runs `RetrievalModel.train_step` under AdamW and the
-single-device `Trainer` over in-memory batches, logs the metrics and saves a
-checkpoint every `ckpt_period` steps, resuming from the newest one.
+single-device `Trainer` over in-memory batches (`training/loop.py`), logs the
+metrics and saves a checkpoint every `ckpt_period` steps, resuming from the
+newest one.
 
 `two_stage_scoring` is the default branch of the JAX package's `tasks/retrieval.py` `two_stage_eval`
 (:93-290; not streaming, not cross-image, no caption index), on the model's
@@ -26,13 +27,9 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Mapping, Optional, Sequence
 
-import numpy as np
 import torch
 
-from ..training.checkpoint import CheckpointManager
-from ..training.metrics import MetricLogger, MetricsWriter
-from ..training.optim import make_optimizer
-from ..training.trainer import Trainer
+from ..training.loop import batch_on, train_on_batches
 from .retrieval_eval import (coarse_ranks, evaluate_ranks, fine_ranks_i2t,
                              fine_ranks_t2i, mask_shortlist_misses)
 
@@ -40,15 +37,6 @@ CAPTION_KEYS = ("input_ids_a", "attention_mask_a", "token_type_ids_a")
 IMAGE_KEYS = ("input_ids_b", "attention_mask_b", "token_type_ids_b",
               "img_feats")
 PHRASE_KEYS = ("phrase_index", "image_index")
-
-
-def _on(device, arrays: Mapping, keys):
-    out = {}
-    for k in keys:
-        v = arrays[k]
-        out[k] = (v if isinstance(v, torch.Tensor)
-                  else torch.from_numpy(np.asarray(v))).to(device)
-    return out
 
 
 class _Stages:
@@ -84,8 +72,8 @@ def two_stage_scoring(model, caps: Mapping, imgs: Mapping, caps_per_img: int,
     number of pairs scored and each stage's seconds."""
     device = model.device
     stages = _Stages(device)
-    caps = _on(device, caps, CAPTION_KEYS)
-    imgs = _on(device, imgs, IMAGE_KEYS)
+    caps = batch_on(device, caps, CAPTION_KEYS)
+    imgs = batch_on(device, imgs, IMAGE_KEYS)
     n_cap = caps["input_ids_a"].shape[0]
     n_img = imgs["input_ids_b"].shape[0]
     k_i2t, k_t2i = min(k_i2t, n_cap), min(k_t2i, n_img)
@@ -185,43 +173,13 @@ def train_retrieval(model, batches: Sequence[Mapping], steps: int, *,
     saved every `ckpt_period` steps and after the last, and training resumes
     from the newest checkpoint found there. The model is left in eval
     mode."""
-    keys = CAPTION_KEYS + IMAGE_KEYS
-    batches = [_on(model.device, b, keys + tuple(k for k in PHRASE_KEYS
-                                                 if k in b))
-               for b in batches]
-    optimizer = make_optimizer(
-        model, learning_rate, warmup_steps=warmup_steps, total_steps=steps,
-        schedule=schedule, weight_decay=weight_decay,
-        max_grad_norm=max_grad_norm)
-    trainer = Trainer(model, retrieval_loss_fn(
-        max_tag_length=max_tag_length, hn_mod=hn_mod, no_itm=no_itm,
-        phrase_layer=phrase_layer), optimizer, grad_accum=grad_accum,
-        seed=seed)
-    ckpt = writer = None
-    if output_dir is not None:
-        ckpt = CheckpointManager(output_dir, keep=keep)
-        writer = MetricsWriter(output_dir)
-        latest = ckpt.latest()
-        if latest is not None:
-            meta = ckpt.restore(latest[1], model, optimizer)
-            trainer.step_count = int(meta.get("step", latest[0]))
-    meter, history = MetricLogger(), []
-    try:
-        while trainer.step_count < steps:
-            metrics = trainer.step(
-                batches[trainer.step_count % len(batches)])
-            step = trainer.step_count
-            history.append(metrics)
-            meter.update(**metrics)
-            if writer is not None:
-                writer.write(step, metrics)
-            if log_period and step % log_period == 0:
-                logger(f"step {step}  {meter}")
-            if ckpt is not None and ((ckpt_period and step % ckpt_period == 0)
-                                     or step == steps):
-                ckpt.save(step, model, optimizer, config=model.config)
-    finally:
-        if writer is not None:
-            writer.close()
-        model.eval()
-    return history
+    return train_on_batches(
+        model, retrieval_loss_fn(max_tag_length=max_tag_length,
+                                 hn_mod=hn_mod, no_itm=no_itm,
+                                 phrase_layer=phrase_layer),
+        batches, steps, learning_rate=learning_rate,
+        warmup_steps=warmup_steps, schedule=schedule,
+        weight_decay=weight_decay, max_grad_norm=max_grad_norm,
+        grad_accum=grad_accum, seed=seed, output_dir=output_dir,
+        ckpt_period=ckpt_period, keep=keep, log_period=log_period,
+        logger=logger)

@@ -1,2 +1,3 @@
 """Training core of the port: AdamW matching optax, the single-device
-trainer, metric meters and step checkpoints."""
+trainer, the loop over in-memory batches, metric meters and step
+checkpoints."""

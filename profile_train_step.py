@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of the port's retrieval training step goes, on the card.
+"""Where the time of the port's training step goes, on the card.
 
-    python3 profile_train_step.py
+    python3 profile_train_step.py                    # retrieval, dropouts 0
+    python3 profile_train_step.py --model pretrain   # pretraining, dropouts 0.1
+    python3 profile_train_step.py --model retrieval --dropout 0.1
 
-Builds MVPTR-base (bf16 over fp32 weights, both dropouts 0, seeded random
-weights) as chip_smoke.py phase 5 does, takes 3 warm-up steps on one batch of
-96 (LA 75, T 20, R 50, hard negatives), then profiles 3 steps with
-torch.profiler. Each step runs the forward, the backward and the optimizer
+Builds MVPTR-base (bf16 over fp32 weights, seeded random weights) as
+chip_smoke.py phase 5 (`RetrievalModel`) or phase 6 (`BiPretrainModel`)
+does, both dropouts at `--dropout` (default 0 for retrieval, the setting
+of its earlier profiles, and the config's 0.1 for pretraining), takes 3 warm-up steps on
+one batch of 96 (LA 75, T 20, R 50, hard negatives; pretraining: bench.py's
+labels and spans), then profiles 3 steps with torch.profiler. Each step runs the forward, the backward and the optimizer
 under their own record_function labels. Prints, as one JSON object: the step
 time with and without the profiler, the device time of each part of the
 step and of the attention's recompute backward (`MaskedAttentionFnBackward`),
@@ -34,7 +38,15 @@ def device_us(event) -> float:
     return 0.0
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--model", choices=("retrieval", "pretrain"),
+                        default="retrieval")
+    parser.add_argument("--dropout", type=float, default=None,
+                        help="both dropouts (default: 0 retrieval, 0.1 "
+                             "pretrain)")
+    args = parser.parse_args(argv)
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -43,20 +55,34 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from chip_smoke import TRAIN_B, base_config, card_line, train_batch
+    from chip_smoke import (TRAIN_B, base_config, card_line, pretrain_batch,
+                            train_batch)
     from profile_two_stage import busy_us, classify
-    from mvp_pytorch_tpu_torch.models import ModelConfig, RetrievalModel
+    from mvp_pytorch_tpu_torch.models import (BiPretrainModel, ModelConfig,
+                                              RetrievalModel)
+    from mvp_pytorch_tpu_torch.tasks.pretrain import pretrain_loss_fn
     from mvp_pytorch_tpu_torch.tasks.retrieval import retrieval_loss_fn
     from mvp_pytorch_tpu_torch.training.optim import make_optimizer
 
     card = card_line()
     print(card, flush=True)
-    cfg = base_config(ModelConfig, "bfloat16")
-    model = RetrievalModel(cfg, device="cuda", seed=0)
+    pretrain = args.model == "pretrain"
+    dropout = args.dropout if args.dropout is not None else (
+        0.1 if pretrain else 0.0)
+    cfg = base_config(ModelConfig, "bfloat16", dropout)
+    if pretrain:
+        model = BiPretrainModel(cfg, device="cuda", seed=0)
+        batch = pretrain_batch(torch, cfg, seed=7)
+        loss_fn = pretrain_loss_fn(max_tag_length=20, hn_mod="hard",
+                                   phrase_mod="sample")
+        lr = 1e-4
+    else:
+        model = RetrievalModel(cfg, device="cuda", seed=0)
+        batch = train_batch(torch, cfg, seed=5)
+        loss_fn = retrieval_loss_fn(max_tag_length=20, hn_mod="hard")
+        lr = 4e-5
     model.train()
-    batch = train_batch(torch, cfg, seed=5)
-    loss_fn = retrieval_loss_fn(max_tag_length=20, hn_mod="hard")
-    opt = make_optimizer(model, 4e-5, schedule="constant", max_grad_norm=1.0)
+    opt = make_optimizer(model, lr, schedule="constant", max_grad_norm=1.0)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def step():
@@ -115,7 +141,8 @@ def main() -> int:
     per_op["backward"] = total_kernel - per_op["forward"] - per_op["optimizer"]
     n = STEPS_PROF
     out = {
-        "card": card, "batch": TRAIN_B, "steps_profiled": n,
+        "card": card, "model": args.model, "dropout": dropout,
+        "batch": TRAIN_B, "steps_profiled": n,
         "step_ms_unprofiled": step_ms, "step_ms_profiled": step_ms_prof,
         "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / window,
@@ -133,4 +160,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

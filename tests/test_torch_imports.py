@@ -36,7 +36,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
-        "assert len(names) >= 12, names\n"
+        "assert len(names) >= 22, names\n"
+        "for n in ('models.pretrain', 'models.heads', 'tasks.pretrain',\n"
+        "          'training.loop'):\n"
+        "    assert p.__name__ + '.' + n in names, n\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

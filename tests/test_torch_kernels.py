@@ -18,7 +18,7 @@ import torch
 from mvp_pytorch_tpu_torch.ops import _kernels
 from mvp_pytorch_tpu_torch.ops.attention import (MaskedAttentionFn,
                                                  _kernel_attention,
-                                                 mask_to_bias,
+                                                 dropout_keep, mask_to_bias,
                                                  masked_attention,
                                                  plain_attention,
                                                  plain_attention_blhd)
@@ -155,6 +155,71 @@ def test_masked_attention_grads_match_plain_autograd(cuda, kind, layout,
         assert a.dtype == (torch.float32 if name == "dbias" else dtype)
         assert torch.isfinite(a).all(), name
         torch.testing.assert_close(a.float(), b, atol=atol, rtol=0,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+def card_seed(value):
+    return torch.tensor([value], dtype=torch.int64, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+@pytest.mark.parametrize("lk,d,off", [(64, 64, 0), (128, 128, 0),
+                                      (200, 64, 0), (200, 64, 128)],
+                         ids=["lk64", "lk128", "lk200-first", "lk200-second"])
+def test_dropout_mask_reads_back_equal_to_the_plain_hash(cuda, lk, d, off,
+                                                         layout, dtype):
+    """q = k = 0 gives every key probability 1/Lk; v holds one-hot rows for
+    keys off .. off + d, so out[b, h, i, j] > 0 exactly where key off + j of
+    row i is kept. Lk 200 runs the online (two key tiles) kernel, read at
+    both tiles."""
+    b, lq, p = 3, 75, 0.1
+    q = torch.zeros(b, H, lq, d, device=cuda, dtype=dtype)
+    k = torch.zeros(b, H, lk, d, device=cuda, dtype=dtype)
+    v = torch.zeros(b, H, lk, d, device=cuda, dtype=dtype)
+    v[:, :, off + torch.arange(d), torch.arange(d)] = 1
+    if layout == "blhd":
+        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    seed = card_seed(-123456789)
+    before = masked_attention.dropout_launches
+    out = masked_attention(q, k, v, layout=layout, dropout_p=p, seed=seed)
+    torch.cuda.synchronize()
+    assert masked_attention.dropout_launches == before + 1
+    if layout == "blhd":
+        out = out.transpose(1, 2)
+    want = dropout_keep(seed, p, (b, H, lq, lk))[..., off:off + d]
+    assert torch.equal(out > 0, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,grad_atol",
+                         [(torch.float32, 2e-5, 1e-4),
+                          (torch.bfloat16, 0.05, 0.05)])
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_dropout_kernel_matches_plain(cuda, kind, layout, dtype, atol,
+                                      grad_atol):
+    """The dropout kernel against the plain dropout version on the same
+    seed (the kernel's tolerances), and the backward (which regenerates the
+    mask) against fp32 autograd of the plain dropout version."""
+    q, k, v, bias = make_case(kind, 64)
+    args = [torch.from_numpy(_bhld_to(layout, x)).to(cuda, dtype)
+            .requires_grad_() for x in (q, k, v)]
+    tb = None if bias is None else torch.from_numpy(bias).to(cuda)
+    seed = card_seed(2 ** 40 + 7)
+    plain = plain_attention_blhd if layout == "blhd" else plain_attention
+    out = masked_attention(*args, tb, layout=layout, dropout_p=0.1, seed=seed)
+    want = plain(*(a.detach() for a in args), tb, 0.1, seed)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=0)
+    g = torch.randn(out.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(0))
+    grads = torch.autograd.grad(out, args, g.to(dtype))
+    ref = [a.detach().float().requires_grad_() for a in args]
+    want_g = torch.autograd.grad(plain(*ref, tb, 0.1, seed), ref,
+                                 g.to(dtype).float())
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want_g):
+        torch.testing.assert_close(a.float(), b, atol=grad_atol, rtol=0,
                                    msg=lambda m, n=name: f"{n}: {m}")
 
 
