@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sweep float32   # phase 3 alone, in one dtype
+    python3 chip_smoke.py --cli             # phase 7 alone
 
 Phases, each ended by torch.cuda.synchronize(); any failure raises and the
 script exits non-zero:
@@ -70,12 +71,33 @@ script exits non-zero:
    negative and the hard pairs pinned: kernel path against plain path, in
    fp32 and bf16, on the seven losses and five named gradients (phase 5's
    tolerances);
-7. one JSON line of kernel numbers (the bf16 kernel, then the fp32 one),
+7. the retrieval command line (`tasks.retrieval.main`) at MVPTR-base on a
+   root it writes under `_smoke/` with the port's `tsv_writer` at
+   bench.py:99-105's Flickr30k test geometry (1,000 images x 5 captions,
+   50 regions x 2,054 fp32 and 50 tags an image, captions past LA 75 =
+   70 text + 5 phrase slots): 13 batches of 96 fetched into memory and
+   trained with `train_retrieval` (bf16, the config's dropouts 0.1 / 0.1,
+   the CLI's default lr 4e-5, linear decay); then 26 steps through the CLI
+   and its process loader (4 forked workers),
+   each step launching the dropout kernel exactly 24 times and the plain
+   attention never, the losses finite and the last five below the first
+   (from seeded weights they fall to chance and stay there), step 1's loss
+   equal to the in-memory run's (the loader delivered the sampler's batch); samples/s over steps
+   6-26 beside the in-memory steps 4-13 (target ratio 0.90, not a failure),
+   the main thread's data ms a step, the workers' ms a batch, the H2D copy's
+   device ms and whether the native decode is on; then the CLI's eval of
+   the trained checkpoint (K 20 / 10, encoder batch 500, rerank batch
+   1,000): exactly 492 launches, and ranks, candidates and fine scores
+   (within 1e-6) equal to `two_stage_scoring` on the dataset's arrays in
+   memory. The root is deleted at the end;
+8. one JSON line of kernel numbers (the bf16 kernel, then the fp32 one),
    then the result line.
 
 With `--sweep DTYPE` only phase 3 runs, in that dtype (bf16: two sweeps,
 fp32: one), and the last line is a JSON object of its numbers; run from a
-copy of another tree, the script drives that tree's package.
+copy of another tree, the script drives that tree's package. With `--cli`
+only phases 1 (the build) and 7 run, the last line a JSON object of phase
+7's numbers.
 
 Exits 2 without a result when no CUDA device is visible.
 """
@@ -1068,11 +1090,302 @@ def phase6_pretraining(torch, attn, layers_mod, ModelConfig):
                 launches=launches, losses=losses, seconds=seconds)
 
 
+# phase 7: the retrieval command line on a generated root at the real widths
+# (bench.py:99-105's Flickr30k test geometry)
+CLI_IMAGES, CLI_CAPS, CLI_REGIONS, CLI_TAGS = 1000, 5, 50, 50
+CLI_VOCAB, CLI_WORDS_PER_CAP, CLI_PHRASES = 30522, 90, 1000
+CLI_MEM_STEPS, CLI_STEPS, CLI_TIMED_FROM = 13, 26, 6   # CLI steps 6-26 timed
+CLI_MEM_TIMED_FROM = 4
+CLI_ARGS = ["--max_seq_length", "70", "--max_phrases", "5",   # LA 75
+            "--max_tag_length", "20", "--max_img_seq_length", "50",
+            "--dtype", "bfloat16", "--seed", "11"]
+CLI_PLATFORM = []                    # a CPU rehearsal sets ["--platform", "cpu"]
+CLI_EVAL_ARGS = ["--eval_batch_size", "500", "--rerank_batch_size", "1000",
+                 "--num_captions_per_img_val", "20",
+                 "--num_images_per_cap_val", "10"]
+SCORE_TOL = 1e-6
+
+
+def write_cli_root(root, seed=0):
+    """A retrieval root at the real widths, written with the port's own
+    `tsv_writer`: a 30,522-word vocab, CLI_IMAGES images of CLI_REGIONS
+    regions x 2,054 fp32 features and CLI_TAGS tags each (predictions.tsv +
+    imageid2idx.json), CLI_CAPS captions an image of CLI_WORDS_PER_CAP words
+    (more than LA 75 holds) with phrases from id2phrase.json
+    (captions.json). An image's first five tags also open each of its
+    captions. Returns the paths and the bytes written."""
+    import base64
+    from mvp_pytorch_tpu_torch.data.tsv import tsv_writer
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    words = [f"w{i}" for i in range(CLI_VOCAB - len(specials))]
+    paths = {"vocab": os.path.join(root, "vocab.txt"),
+             "features": os.path.join(root, "features", "predictions.tsv"),
+             "captions": os.path.join(root, "captions.json"),
+             "id2phrase": os.path.join(root, "id2phrase.json")}
+    with open(paths["vocab"], "w") as f:
+        f.write("\n".join(specials + words) + "\n")
+    phrases = [[words[int(a)], words[int(b)]]
+               for a, b in rng.integers(0, len(words), (CLI_PHRASES, 2))]
+    with open(paths["id2phrase"], "w") as f:
+        json.dump({str(CLI_VOCAB + i): p for i, p in enumerate(phrases)}, f)
+    keys = [f"img_{i:05d}" for i in range(CLI_IMAGES)]
+    tag_words = words[:2000]
+    tags = {k: [tag_words[int(t)] for t in rng.integers(0, 2000, CLI_TAGS)]
+            for k in keys}
+    nbytes = [0]
+
+    def rows():
+        for k in keys:
+            feats = rng.standard_normal((CLI_REGIONS, 2054), np.float32)
+            nbytes[0] += feats.nbytes
+            yield [k, json.dumps({
+                "feature": base64.b64encode(feats.tobytes()).decode(),
+                "predictions": tags[k]})]
+    tsv_writer(rows(), paths["features"])
+    with open(os.path.join(root, "features", "imageid2idx.json"), "w") as f:
+        json.dump({k: i for i, k in enumerate(keys)}, f)
+    caps = {}
+    for k in keys:
+        caps[k] = []
+        for _ in range(CLI_CAPS):
+            filler = rng.integers(0, len(words), CLI_WORDS_PER_CAP - 5)
+            caps[k].append({
+                "text": " ".join(tags[k][:5] + [words[int(w)] for w in filler]),
+                "phrases": [phrases[int(j)]
+                            for j in rng.integers(0, CLI_PHRASES, 8)]})
+    with open(paths["captions"], "w") as f:
+        json.dump(caps, f)
+    return paths, nbytes[0], os.path.getsize(paths["features"])
+
+
+@contextlib.contextmanager
+def counted_steps(attn, per_step, what):
+    """Every `Trainer.step` inside must launch the dropout kernel exactly
+    `per_step` times and the plain attention never; yields the running
+    launch total."""
+    from mvp_pytorch_tpu_torch.training.trainer import Trainer
+    real, total = Trainer.step, [0]
+
+    def step(self, batch):
+        reset_counts(attn)
+        out = real(self, batch)
+        check_counts(attn, per_step, what)
+        total[0] += attn.masked_attention.launches
+        return out
+    Trainer.step = step
+    try:
+        yield total
+    finally:
+        Trainer.step = real
+
+
+def mean(xs):
+    return sum(xs) / len(xs)
+
+
+def phase7_cli(torch, attn, sweep_pairs_per_s=None):
+    """The retrieval command line (`tasks.retrieval.main`) at MVPTR-base on a
+    generated root: in-memory baseline, CLI training through the process
+    loader, CLI eval against `two_stage_scoring` in memory."""
+    import gc
+    import shutil
+    from mvp_pytorch_tpu_torch import native
+    from mvp_pytorch_tpu_torch.data.datasets import (FeatureStore,
+                                                     RetrievalDataset,
+                                                     load_phrase_vocab)
+    from mvp_pytorch_tpu_torch.data.loader import BatchSampler
+    from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
+    from mvp_pytorch_tpu_torch.models import ModelConfig, RetrievalModel
+    from mvp_pytorch_tpu_torch.tasks import retrieval as ret
+    from mvp_pytorch_tpu_torch.tasks.common import build_config, tensorize_cfg
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke",
+                        "phase7")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        paths, feat_bytes, tsv_bytes = write_cli_root(root)
+        log(f"  root: {CLI_IMAGES} images x {CLI_CAPS} captions, "
+            f"{CLI_REGIONS} regions x 2054 fp32 ({feat_bytes / 1e6:.1f} MB of "
+            f"features, {tsv_bytes / 1e6:.1f} MB of TSV) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        data = ["--captions_json", paths["captions"],
+                "--feature_tsv", paths["features"],
+                "--id2phrase", paths["id2phrase"]]
+        args = ret.get_args(["--output_dir", root] + data + CLI_ARGS
+                            + CLI_PLATFORM)
+        tokenizer = FastBertTokenizer(paths["vocab"])
+        log(f"  native tokenizer and feature decode: {native.available()} "
+            f"(tokenizer native_active={tokenizer.native_active})")
+
+        dataset = RetrievalDataset(
+            paths["captions"], FeatureStore(paths["features"]), tokenizer,
+            sg2id=load_phrase_vocab(paths["id2phrase"]),
+            cfg=tensorize_cfg(args))
+        fetch = ret.RetrievalFetch(dataset, use_phrase=False)
+        sampler = BatchSampler(len(dataset), TRAIN_B, seed=args.seed)
+
+        # 2. in-memory baseline: the same batches, fetched first
+        t0 = time.perf_counter()
+        batches = [fetch(sampler.batch_at(s)) for s in range(CLI_MEM_STEPS)]
+        fetch_ms = (time.perf_counter() - t0) * 1e3 / CLI_MEM_STEPS
+        shapes = {k: v.shape for k, v in batches[0].items()}
+        log(f"  a batch fetched on the main thread: {fetch_ms:.1f} ms; "
+            f"shapes {shapes}")
+        if (shapes["input_ids_a"] != (TRAIN_B, 75)
+                or shapes["attention_mask_b"] != (TRAIN_B, 70)
+                or shapes["img_feats"] != (TRAIN_B, CLI_REGIONS, 2054)):
+            raise AssertionError(f"batch shapes {shapes}")
+        cfg = build_config(args, tokenizer, num_labels=2)
+        per_step = cfg.half_layers * 4
+        model = RetrievalModel(cfg, device=DEVICE, seed=args.seed)
+        with counted_steps(attn, per_step, "an in-memory step") as total:
+            torch.cuda.reset_peak_memory_stats()
+            mem = ret.train_retrieval(
+                model, batches, CLI_MEM_STEPS, learning_rate=args.learning_rate,
+                weight_decay=args.weight_decay, seed=args.seed,
+                max_tag_length=args.max_tag_length, hn_mod="hard")
+        mem_peak = torch.cuda.max_memory_allocated() / 1e9
+        mem_first = mem[0]["loss"]
+        mem_ms = mean([m["step_ms"] for m in mem[CLI_MEM_TIMED_FROM - 1:]])
+        mem_sps = TRAIN_B / mem_ms * 1e3
+        log(f"  in memory: {CLI_MEM_STEPS} steps, {total[0]} launches; steps "
+            f"{CLI_MEM_TIMED_FROM}-{CLI_MEM_STEPS}: {mem_ms:.2f} ms/step "
+            f"{mem_sps:.1f} samples/s, peak {mem_peak:.2f} GB; losses "
+            + " ".join(f"{m['loss']:.4f}" for m in mem))
+        del model, batches, mem
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3. training through the CLI and the process loader
+        out = os.path.join(root, "cli_train")
+        argv = (["--output_dir", out, "--do_train", "--max_steps",
+                 str(CLI_STEPS), "--train_batch_size", str(TRAIN_B),
+                 "--log_period", "1", "--ckpt_period", str(CLI_STEPS),
+                 "--num_workers", "4", "--worker_start_method", "fork",
+                 "--data_dir", root] + data + CLI_ARGS + CLI_PLATFORM)
+        log("  python -m mvp_pytorch_tpu_torch.tasks.retrieval "
+            + " ".join(os.path.relpath(a, root) if a.startswith(root) else a
+                       for a in argv))
+        with counted_steps(attn, per_step, "a CLI training step") as total:
+            torch.cuda.reset_peak_memory_stats()
+            hist = ret.main(argv)["train"]
+        cli_peak = torch.cuda.max_memory_allocated() / 1e9
+        cli_launches = total[0]
+        losses = [m["loss"] for m in hist]
+        timed = hist[CLI_TIMED_FROM - 1:]
+        cli_ms = mean([m["step_ms"] for m in timed])
+        cli_sps = TRAIN_B / cli_ms * 1e3
+        data_ms = mean([m["data_ms"] for m in timed])
+        worker_ms = mean([m["worker_ms"] for m in timed])
+        h2d_ms = mean([m.get("h2d_ms", float("nan")) for m in timed])
+        # from seeded weights every caption and image starts with the same
+        # [CLS], whose symmetry 26 steps do not break on real-format data:
+        # the losses fall from their start to chance, ln B + ln 2, and stay
+        # there (phase 5's batch, random ids at every position, learns)
+        chance = math.log(TRAIN_B) + math.log(2)
+        log("  CLI losses " + " ".join(f"{x:.4f}" for x in losses)
+            + f" (chance {chance:.4f})")
+        if (len(hist) != CLI_STEPS or not all(map(math.isfinite, losses))
+                or mean(losses[-5:]) >= losses[0]):
+            raise AssertionError(f"CLI training losses not finite and "
+                                 f"falling: {losses}")
+        # step 1 is the in-memory run's step 1 (same weights, batch, dropout
+        # draws and learning rate): the loader delivered that batch intact
+        log(f"  step 1 loss: CLI {losses[0]:.6f}, in memory {mem_first:.6f}")
+        if abs(losses[0] - mem_first) > STEP_TOL["bfloat16"][0]:
+            raise AssertionError("the CLI's first batch is not the sampler's")
+        ratio = cli_sps / mem_sps
+        log(f"  CLI: {CLI_STEPS} steps, {cli_launches} launches (24 a step, "
+            f"all with dropout, plain 0); steps {CLI_TIMED_FROM}-{CLI_STEPS}: "
+            f"{cli_ms:.2f} ms/step {cli_sps:.1f} samples/s, peak "
+            f"{cli_peak:.2f} GB; main thread data {data_ms:.3f} ms/step, "
+            f"worker {worker_ms:.1f} ms/batch, H2D {h2d_ms:.3f} ms/batch")
+        log(f"  CLI samples/s / in-memory samples/s = {cli_sps:.1f} / "
+            f"{mem_sps:.1f} = {ratio:.3f} (target 0.90)")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. eval through the CLI from the trained checkpoint
+        ckpt = os.path.join(out, f"checkpoint-{CLI_STEPS:07d}")
+        shutil.copy(paths["vocab"], ckpt)
+        argv = (["--output_dir", os.path.join(root, "cli_eval"),
+                 "--model_name_or_path", ckpt, "--do_eval", "--dtype",
+                 "bfloat16"] + data + CLI_EVAL_ARGS + CLI_PLATFORM)
+        reset_counts(attn)
+        res = ret.main(argv)["eval"]
+        torch.cuda.synchronize()
+        got = (attn.masked_attention.launches,
+               attn.masked_attention.dropout_launches,
+               attn.plain_attention.calls)
+        sec = res["seconds"]
+        sweep = sum(sec[s] for s in ("encode_text", "encode_image", "coarse",
+                                     "rerank"))
+        pairs_per_s = res["n_pairs"] / sweep
+        log(f"  CLI eval: {got[0]} launches ({got[1]} with dropout, plain "
+            f"{got[2]}), pairs={res['n_pairs']}  "
+            + "  ".join(f"{k}={v:.4f}s" for k, v in sec.items())
+            + f"  pairs/s={pairs_per_s:.1f}"
+            + (f" (phase 3 bf16 sweep: {sweep_pairs_per_s:.1f})"
+               if sweep_pairs_per_s else ""))
+        log(f"    coarse {json.dumps(res['coarse'])}")
+        log(f"    fine   {json.dumps(res['fine'])}")
+        ek = dict(zip(CLI_EVAL_ARGS[::2], map(int, CLI_EVAL_ARGS[1::2])))
+        n_cap = CLI_IMAGES * CLI_CAPS
+        want = cfg.half_layers * (
+            math.ceil(n_cap / ek["--eval_batch_size"])
+            + math.ceil(CLI_IMAGES / ek["--eval_batch_size"])
+            + math.ceil(res["n_pairs"] / ek["--rerank_batch_size"]))
+        if got != (want, 0, 0) or (DEVICE == "cuda" and want != 492):
+            raise AssertionError(f"CLI eval launched {got}, want "
+                                 f"({want} = 492, 0, 0)")
+        model = RetrievalModel(ModelConfig.from_pretrained(ckpt,
+                                                           dtype="bfloat16"),
+                               device=DEVICE)
+        model.load_state_dict(torch.load(
+            os.path.join(ckpt, "pytorch_model.bin"), map_location=DEVICE,
+            weights_only=True))
+        ref = ret.two_stage_scoring(
+            model, ret.port_names(dataset.caption_arrays()),
+            ret.port_names(dataset.image_arrays()), CLI_CAPS,
+            ek["--num_captions_per_img_val"], ek["--num_images_per_cap_val"],
+            ek["--eval_batch_size"], ek["--rerank_batch_size"],
+            max_tag_length=args.max_tag_length)
+        score_err = float(np.abs(ref["scores"] - res["scores"]).max())
+        same = (ref["coarse"] == res["coarse"] and ref["fine"] == res["fine"]
+                and np.array_equal(ref["i2t_cands"], res["i2t_cands"])
+                and np.array_equal(ref["t2i_cands"], res["t2i_cands"]))
+        log(f"  CLI eval against two_stage_scoring in memory: ranks and "
+            f"candidates {'equal' if same else 'DIFFER'}, max|score diff| "
+            f"{score_err:.3e} (tol {SCORE_TOL:g})")
+        if not same or score_err > SCORE_TOL:
+            raise AssertionError("CLI eval differs from two_stage_scoring")
+        del model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 7 took {seconds:.1f} s")
+    return dict(native=native.available(), launches=cli_launches,
+                launches_per_step=per_step, eval_launches=got[0],
+                samples_per_s=cli_sps, step_ms=cli_ms, peak_gb=cli_peak,
+                in_memory_samples_per_s=mem_sps, in_memory_step_ms=mem_ms,
+                ratio=ratio, main_data_ms=data_ms, worker_ms=worker_ms,
+                h2d_ms=h2d_ms, main_fetch_ms=fetch_ms,
+                eval_pairs_per_s=pairs_per_s, eval_score_err=score_err,
+                losses=losses, seconds=seconds)
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--sweep", choices=("bfloat16", "float32"),
                         help="run phase 3 alone, in this dtype")
+    parser.add_argument("--cli", action="store_true",
+                        help="run phase 7 (the retrieval command line) alone")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1111,6 +1424,11 @@ def main(argv) -> int:
         print(json.dumps({"sweep": args.sweep, "card": card, **sweep}),
               flush=True)
         return 0
+    if args.cli:
+        log("phase 7 alone: the retrieval command line, MVPTR-base, B 96")
+        cli = phase7_cli(torch, attn)
+        print(json.dumps({"cli": cli, "card": card}), flush=True)
+        return 0
     phase1_kernel_report(torch, attn, _kernels, lib_path)
     torch.cuda.synchronize()
 
@@ -1142,6 +1460,11 @@ def main(argv) -> int:
 
     log("phase 6: pretraining step, MVPTR-base, batch 96, dropouts 0.1")
     pre = phase6_pretraining(torch, attn, layers_mod, ModelConfig)
+    torch.cuda.synchronize()
+
+    log("phase 7: the retrieval command line, MVPTR-base, B 96, generated "
+        "root")
+    cli = phase7_cli(torch, attn, sweep["pairs_per_s"][-1])
     torch.cuda.synchronize()
 
     main_t = timings[("fused", "bfloat16")]
@@ -1190,7 +1513,8 @@ def main(argv) -> int:
             "sdpa_dropout_ms": drop_t["sdpa_ms"],
             "dropout_bwd_ms": drop_t["bwd_ms"],
             "p0_bwd_ms": drop_t["bwd_p0_ms"],
-            "seconds": pre["seconds"]}}, {
+            "seconds": pre["seconds"]},
+        "cli": {k: v for k, v in cli.items() if k != "losses"}}, {
         # the fp32 kernels (3xTF32) behind the same entry point; launches
         # and pairs/s from the fp32 sweep of phase 3
         "name": "masked_attention_fwd fp32 (3xTF32)", "route": "cuda",

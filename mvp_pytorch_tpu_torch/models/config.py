@@ -91,6 +91,13 @@ class ModelConfig:
         kwargs.update({k: v for k, v in overrides.items() if k in known})
         return cls(**kwargs)
 
+    @classmethod
+    def from_pretrained(cls, directory: str, **overrides: Any
+                        ) -> "ModelConfig":
+        """The `config.json` of a checkpoint directory, with `overrides`."""
+        with open(os.path.join(directory, "config.json")) as f:
+            return cls.from_dict(json.load(f), **overrides)
+
 
 def tiny_config(**overrides: Any) -> ModelConfig:
     """Tiny config for unit tests: hidden 32, 4 heads, 2+2+2 layers."""

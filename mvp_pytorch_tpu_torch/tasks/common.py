@@ -1,0 +1,294 @@
+"""Shared command-line plumbing for the port's task drivers: the JAX
+package's `tasks/common.py` on one device, without JAX.
+
+`add_common_args` declares the flags; `check_args` makes each flag of a
+later port item raise, naming the item (ROADMAP.md queue 1); `run_device`
+picks the device (CUDA unless `--platform cpu`; no card raises);
+`build_config`, `load_params_or_init`, `restore_training_settings`,
+`tensorize_cfg` and `synth_root` build what a driver needs; `TrainLoop` trains
+over the dataset with the process loader (`data/loader.py`) through
+`training/loop.py`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ..data.loader import BatchSampler, ProcessLoader
+from ..data.tensorize import TensorizeConfig
+from ..models.config import ModelConfig
+from ..models.layers import resolve_device
+from ..training.checkpoint import ARGS_NAME, WEIGHTS_NAME
+from ..training.loop import run_training
+
+# flag -> (value that means "off", the ROADMAP queue 1 item it waits for)
+LATER_ITEMS = {
+    "model_parallel": (1, "item 6 (parallelism on torch.distributed)"),
+    "sequence_parallel": (False, "item 6 (parallelism on torch.distributed)"),
+    "pipeline_parallel": (1, "item 6 (parallelism on torch.distributed)"),
+    "fsdp": (False, "item 6 (parallelism on torch.distributed)"),
+    "coarse_block": (0, "item 6 (sharded retrieval, --coarse_block)"),
+    "async_ckpt": (False, "item 8 (AsyncSaver)"),
+    "profile_dir": (None, "item 8 (training/profiler.py)"),
+}
+
+
+def add_common_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--model_name_or_path", type=str, default=None,
+                        help="checkpoint dir (config.json + "
+                             "pytorch_model.bin + vocab.txt)")
+    parser.add_argument("--output_dir", type=str, required=True)
+    parser.add_argument("--data_dir", type=str, default=None)
+    parser.add_argument("--synthetic", action="store_true",
+                        help="generate synthetic data into output_dir/synth")
+    parser.add_argument("--do_train", action="store_true")
+    parser.add_argument("--do_eval", action="store_true")
+    parser.add_argument("--seed", type=int, default=88)
+    parser.add_argument("--train_batch_size", type=int, default=32)
+    parser.add_argument("--eval_batch_size", type=int, default=64)
+    parser.add_argument("--learning_rate", type=float, default=4e-5)
+    parser.add_argument("--weight_decay", type=float, default=0.05)
+    parser.add_argument("--warmup_steps", type=int, default=0)
+    parser.add_argument("--max_steps", type=int, default=100)
+    parser.add_argument("--num_train_epochs", type=float, default=None,
+                        help="train for N epochs of the dataset instead of "
+                             "--max_steps (steps/epoch = ceil(len(dataset) / "
+                             "batch)); overrides --max_steps")
+    parser.add_argument("--max_grad_norm", type=float, default=1.0)
+    parser.add_argument("--adam_epsilon", type=float, default=1e-8)
+    parser.add_argument("--classifier", type=str, default=None,
+                        choices=["linear", "mlp"])
+    parser.add_argument("--cls_hidden_scale", type=int, default=None)
+    parser.add_argument("--scheduler", type=str, default="linear",
+                        choices=["linear", "constant", "cosine"])
+    parser.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    parser.add_argument("--max_seq_length", type=int, default=35)
+    parser.add_argument("--max_tag_length", type=int, default=20)
+    parser.add_argument("--max_img_seq_length", type=int, default=50)
+    parser.add_argument("--max_phrases", type=int, default=5)
+    parser.add_argument("--img_feature_dim", type=int, default=2054)
+    parser.add_argument("--dtype", type=str, default="bfloat16",
+                        choices=["float32", "bfloat16"])
+    parser.add_argument("--log_period", type=int, default=10)
+    parser.add_argument("--ckpt_period", type=int, default=200)
+    parser.add_argument("--num_workers", type=int, default=4,
+                        help="loader worker processes (at least 1, at most "
+                             "the host's CPU count)")
+    parser.add_argument("--worker_start_method", type=str, default="fork",
+                        choices=["fork", "spawn", "forkserver"],
+                        help="how the loader starts its workers: fork shares "
+                             "the dataset without pickling it; spawn starts "
+                             "them clean (a parent with threads that must "
+                             "not be forked)")
+    parser.add_argument("--tiny", action="store_true",
+                        help="tiny model for smoke tests")
+    parser.add_argument("--platform", type=str, default=None,
+                        choices=["cpu", "cuda"],
+                        help="cpu runs the plain PyTorch path; otherwise the "
+                             "driver runs on the card and raises without one")
+    parser.add_argument("--hidden_dropout_prob", type=float, default=None)
+    parser.add_argument("--attention_dropout_prob", type=float, default=None)
+    parser.add_argument("--use_img_layernorm", type=int, default=None,
+                        choices=[0, 1])
+    parser.add_argument("--img_layer_norm_eps", type=float, default=None)
+    # flags of later port items: accepted so that they can raise by name
+    parser.add_argument("--model_parallel", type=int, default=1)
+    parser.add_argument("--sequence_parallel", action="store_true")
+    parser.add_argument("--pipeline_parallel", type=int, default=1)
+    parser.add_argument("--fsdp", action="store_true")
+    parser.add_argument("--async_ckpt", action="store_true")
+    parser.add_argument("--profile_dir", type=str, default=None)
+
+
+def check_args(args) -> None:
+    """Raise for a flag whose port item has not landed."""
+    for flag, (off, item) in LATER_ITEMS.items():
+        if getattr(args, flag, off) not in (off, None):
+            raise NotImplementedError(
+                f"--{flag} is not ported yet: it waits for ROADMAP.md queue "
+                f"1 {item}")
+
+
+def run_device(args) -> torch.device:
+    """CUDA unless `--platform cpu`; CUDA without a card raises."""
+    return resolve_device("cpu" if args.platform == "cpu" else "cuda")
+
+
+def synth_root(args, **kw) -> dict:
+    """Synthetic data under output_dir/synth (idempotent)."""
+    from ..data.synthetic import make_synthetic_root
+    return make_synthetic_root(os.path.join(args.output_dir, "synth"), **kw)
+
+
+# train-time flags that define the tensorization/model contract: at eval
+# time these must match training or features silently diverge (reference
+# restore_training_settings, run_retrieval.py:885-899)
+RESTORE_KEYS = ("max_seq_length", "max_tag_length", "max_img_seq_length",
+                "max_phrases", "img_feature_dim", "use_b_text", "b_as_list",
+                "use_img_layernorm", "img_layer_norm_eps")
+
+
+def restore_training_settings(args, argv=None, extra_keys=(), logger=None):
+    """Eval-time readback of the checkpoint's training_args.json.
+
+    For an eval-only invocation pointed at a trained checkpoint, restores
+    the train-time tensorization/preprocessing flags so eval features
+    cannot silently mismatch training. Explicitly-passed CLI flags win;
+    every restored or kept-overridden flag is logged. No-op when training
+    (a fresh run may change the contract on purpose) or when the
+    checkpoint has no args snapshot."""
+    if getattr(args, "do_train", False) or not args.model_name_or_path:
+        return args
+    path = os.path.join(args.model_name_or_path, ARGS_NAME)
+    if not os.path.exists(path):
+        return args
+    with open(path) as f:
+        saved = json.load(f)
+    given = list(argv) if argv is not None else sys.argv[1:]
+    for k in tuple(RESTORE_KEYS) + tuple(extra_keys):
+        if k not in saved or not hasattr(args, k):
+            continue
+        cur = getattr(args, k)
+        # both argparse spellings count as explicit: "--key value" and
+        # "--key=value"
+        if any(a == f"--{k}" or a.startswith(f"--{k}=") for a in given):
+            if logger and cur != saved[k]:
+                logger.info(f"training_args: keeping explicit --{k}={cur} "
+                            f"(checkpoint trained with {saved[k]})")
+            continue
+        if cur != saved[k]:
+            if logger:
+                logger.info(f"training_args: restored train-time "
+                            f"{k}={saved[k]} (default was {cur})")
+            setattr(args, k, saved[k])
+    return args
+
+
+def tensorize_cfg(args) -> TensorizeConfig:
+    return TensorizeConfig(
+        max_seq_length=args.max_seq_length,
+        max_tag_length=args.max_tag_length,
+        max_img_seq_length=args.max_img_seq_length,
+        max_phrases=args.max_phrases,
+        img_feature_dim=args.img_feature_dim)
+
+
+def build_config(args, tokenizer, **overrides) -> ModelConfig:
+    """The checkpoint's config with the explicit CLI knobs, or MVPTR-base
+    (the vocabulary at least 86,051 rows: the phrase ids follow the
+    wordpieces), or with `--tiny` a 64-wide test model."""
+    cli = {}
+    if args.hidden_dropout_prob is not None:
+        cli["hidden_dropout_prob"] = args.hidden_dropout_prob
+    if args.attention_dropout_prob is not None:
+        cli["attention_probs_dropout_prob"] = args.attention_dropout_prob
+    if args.classifier is not None:
+        cli["classifier"] = args.classifier
+    if args.cls_hidden_scale is not None:
+        cli["cls_hidden_scale"] = args.cls_hidden_scale
+    if args.use_img_layernorm is not None:
+        cli["use_img_layernorm"] = bool(args.use_img_layernorm)
+    if args.img_layer_norm_eps is not None:
+        cli["img_layer_norm_eps"] = args.img_layer_norm_eps
+    if args.model_name_or_path:
+        return ModelConfig.from_pretrained(args.model_name_or_path,
+                                           dtype=args.dtype,
+                                           **{**cli, **overrides})
+    base = dict(vocab_size=max(tokenizer.vocab_size, 86051),
+                only_word_size=tokenizer.vocab_size,
+                img_feature_dim=args.img_feature_dim, dtype=args.dtype)
+    if args.tiny:
+        base.update(hidden_size=64, num_hidden_layers=4,
+                    num_attention_heads=4, intermediate_size=128,
+                    vocab_size=tokenizer.vocab_size + 64,
+                    max_position_embeddings=128)
+    base.update(cli)
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
+def load_params_or_init(args, model, logger=None):
+    """Load `pytorch_model.bin` (a reference state dict) from
+    `--model_name_or_path` if it has one, strictly; otherwise keep the
+    weights the model was seeded with."""
+    if args.model_name_or_path:
+        path = os.path.join(args.model_name_or_path, WEIGHTS_NAME)
+        if os.path.exists(path):
+            model.load_state_dict(torch.load(path, map_location=model.device,
+                                             weights_only=True), strict=True)
+            if logger:
+                logger.info(f"loaded {path}")
+    return model
+
+
+class TrainLoop:
+    """Sampler + process loader + trainer + checkpoint/resume + metrics.
+
+    `fetch(indices)` returns a batch of numpy arrays under the names
+    `loss_fn` reads; `num_examples` is the dataset's length."""
+
+    def __init__(self, args, model, loss_fn, fetch: Callable,
+                 num_examples: int, logger):
+        self.args = args
+        self.model = model
+        self.loss_fn = loss_fn
+        self.fetch = fetch
+        self.num_examples = num_examples
+        self.logger = logger
+        self.loader: Optional[ProcessLoader] = None
+        if args.num_train_epochs:
+            spe = max(1, -(-num_examples // args.train_batch_size))
+            args.max_steps = int(spe * args.num_train_epochs)
+            logger.info(f"num_train_epochs={args.num_train_epochs}: {spe} "
+                        f"steps/epoch -> max_steps={args.max_steps}")
+
+    def _batches(self, start_step: int) -> ProcessLoader:
+        args = self.args
+        sampler = BatchSampler(self.num_examples, args.train_batch_size,
+                               seed=args.seed)
+        self.loader = ProcessLoader(
+            self.fetch, sampler, start_step=start_step,
+            num_workers=max(1, min(args.num_workers, os.cpu_count() or 1)),
+            device=self.model.device,
+            multiprocessing_context=args.worker_start_method)
+        return self.loader
+
+    def run(self, eval_hook: Optional[Callable[[int], Optional[Dict]]] = None):
+        """Train to `--max_steps`; at each checkpoint run `eval_hook(step)`
+        and append its result to eval_logs.json. Returns each step's
+        metrics."""
+        args = self.args
+
+        def on_checkpoint(step):
+            if eval_hook is None:
+                return
+            res = eval_hook(step)
+            if res:
+                path = os.path.join(args.output_dir, "eval_logs.json")
+                logs = []
+                if os.path.exists(path):
+                    with open(path) as f:
+                        logs = json.load(f)
+                logs.append({"step": step, **res})
+                with open(path, "w") as f:
+                    json.dump(logs, f, indent=2)
+
+        return run_training(
+            self.model, self.loss_fn, self._batches, args.max_steps,
+            learning_rate=args.learning_rate,
+            warmup_steps=args.warmup_steps, schedule=args.scheduler,
+            weight_decay=args.weight_decay, eps=args.adam_epsilon,
+            max_grad_norm=args.max_grad_norm,
+            grad_accum=args.gradient_accumulation_steps, seed=args.seed,
+            output_dir=args.output_dir,
+            metrics_dir=os.path.join(args.output_dir, "train_logs"),
+            ckpt_period=args.ckpt_period, log_period=args.log_period,
+            logger=self.logger.info, saved_args=vars(args),
+            on_checkpoint=on_checkpoint,
+            timing=lambda: self.loader.timing())

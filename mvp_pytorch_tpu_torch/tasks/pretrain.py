@@ -12,7 +12,8 @@ A batch maps the model's argument names (`input_ids_a`, `attention_mask_a`,
 `token_type_ids_a`, `lm_label_ids_a`, `input_ids_b`, `attention_mask_b`,
 `token_type_ids_b`, `lm_label_ids_b`, `img_feats`, `phrase_index`,
 `image_index`, optionally `qa_ans` and `qa_is_next`) to arrays with the batch
-first. The dataset-driven command line waits for the port of `data/`.
+first. The dataset-driven command line waits for the port of the
+pretraining datasets (`PretrainDataset`, ROADMAP.md queue 1 item 2b).
 """
 
 from __future__ import annotations

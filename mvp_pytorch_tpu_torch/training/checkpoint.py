@@ -8,7 +8,10 @@ directory, holding
 - `config.json`: the model config, in the JAX package's format;
 - `optimizer.pt`: the optimizer's state (moments and step count, which is
   also the schedule's position);
-- `train_meta.json`: the step.
+- `train_meta.json`: the step;
+- `training_args.json`, when the caller gives its arguments: the command
+  line's settings, which an eval-only run restores
+  (`tasks/common.py` `restore_training_settings`).
 
 The output directory's `last_checkpoint` file names the newest one; older
 ones beyond `keep` are removed. Every file is written to a temporary name and
@@ -29,6 +32,7 @@ WEIGHTS_NAME = "pytorch_model.bin"
 OPT_NAME = "optimizer.pt"
 LAST_CHECKPOINT = "last_checkpoint"
 TRAIN_STATE_NAME = "train_meta.json"
+ARGS_NAME = "training_args.json"
 
 
 def _retry(fn, tries: int = 5, delay: float = 1.0):
@@ -74,7 +78,7 @@ class CheckpointManager:
         return os.path.join(self.output_dir, f"checkpoint-{step:07d}")
 
     def save(self, step: int, model: torch.nn.Module, optimizer=None,
-             config=None) -> str:
+             config=None, args: Optional[dict] = None) -> str:
         d = self._ckpt_dir(step)
         os.makedirs(d, exist_ok=True)
         if config is not None:
@@ -86,6 +90,10 @@ class CheckpointManager:
             _retry(lambda: _atomic_save(opt, os.path.join(d, OPT_NAME)))
         _retry(lambda: _atomic_write_text(
             os.path.join(d, TRAIN_STATE_NAME), json.dumps({"step": step})))
+        if args is not None:
+            _retry(lambda: _atomic_write_text(
+                os.path.join(d, ARGS_NAME),
+                json.dumps(args, indent=2, sort_keys=True, default=str)))
         _retry(lambda: _atomic_write_text(
             os.path.join(self.output_dir, LAST_CHECKPOINT),
             os.path.basename(d)))

@@ -36,9 +36,12 @@ def test_import_leaves_jax_out_of_sys_modules():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
-        "assert len(names) >= 22, names\n"
+        "assert len(names) >= 33, names\n"
         "for n in ('models.pretrain', 'models.heads', 'tasks.pretrain',\n"
-        "          'training.loop'):\n"
+        "          'training.loop', 'native', 'data.tokenization',\n"
+        "          'data.tsv', 'data.tensorize', 'data.datasets',\n"
+        "          'data.synthetic', 'data.loader', 'utils.logger',\n"
+        "          'tasks.common', 'tasks.retrieval'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

@@ -403,8 +403,9 @@ def test_train_pretrain_checkpoints_and_resumes(golden, tmp_path):
     kw = dict(learning_rate=1e-3, warmup_steps=1, schedule="constant",
               max_tag_length=mt, seed=4, **TRAJ_KW)
     straight = train_pretrain(port_model(golden), batches, 3, **kw)
+    # the losses, the gradient norm and the loop's host timings
     assert set(straight[0]) == {"loss", "vis_mlm", "clip", "mlm", "itm",
-                                "wra", "grad_norm"}
+                                "wra", "grad_norm", "data_ms", "step_ms"}
     out = str(tmp_path / "run")
     first = train_pretrain(port_model(golden), batches, 2, output_dir=out,
                            ckpt_period=1, keep=1, **kw)
