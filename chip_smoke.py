@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --sweep float32   # phase 3 alone, in one dtype
     python3 chip_smoke.py --cli             # phase 7 alone
+    python3 chip_smoke.py --pretrain_cli    # phase 8 alone
 
 Phases, each ended by torch.cuda.synchronize(); any failure raises and the
 script exits non-zero:
@@ -90,14 +91,35 @@ script exits non-zero:
    1,000): exactly 492 launches, and ranks, candidates and fine scores
    (within 1e-6) equal to `two_stage_scoring` on the dataset's arrays in
    memory. The root is deleted at the end;
-8. one JSON line of kernel numbers (the bf16 kernel, then the fp32 one),
+8. the pretraining command line (`tasks.pretrain.main`) at MVPTR-base on
+   phase 7's root plus a corpus of 5 rows an image (5,000 rows of 90-word
+   captions with 8 phrases; every other row a QA pair whose answer is one
+   of the image's tags) and a tag2id.json: LA 75, T 20, R 50, bf16, the
+   config's dropouts 0.1 / 0.1, lr 1e-4, hard negatives, WRA 'sample',
+   mask_prob 0.15. The first batch's masked shares of text tokens and of
+   regions within 0.15 +- 0.02, the region labels on exactly the zeroed
+   regions; the process loader's batch at the first step of epoch 1 equal
+   to the fetch with epoch 1 and unlike epoch 0's masks of the same rows.
+   13 masked batches fetched into memory and trained with `train_pretrain`;
+   one dropout-0 step on the first of them, kernel path against plain path:
+   in fp32 the six losses and five named gradients (phase 5's fp32
+   tolerances), in bf16 the losses (0.02) with the gradients printed beside
+   each path's distance from the fp32 gradient; 26 steps through
+   the CLI and its process loader (4 forked workers), each launching the
+   dropout kernel exactly 24 times and the plain attention never, finite
+   losses, the last five below the first, step 1's loss equal to the
+   in-memory run's; samples/s over steps 6-26 beside the in-memory steps
+   4-13 (target ratio 0.90, not a failure), main-thread data ms, worker ms
+   and H2D ms; then 3 CLI steps with `--use_qa --qa_answer_size 3129
+   --use_qa_pairs`, finite QA losses. The root is deleted at the end;
+9. one JSON line of kernel numbers (the bf16 kernel, then the fp32 one),
    then the result line.
 
 With `--sweep DTYPE` only phase 3 runs, in that dtype (bf16: two sweeps,
 fp32: one), and the last line is a JSON object of its numbers; run from a
 copy of another tree, the script drives that tree's package. With `--cli`
 only phases 1 (the build) and 7 run, the last line a JSON object of phase
-7's numbers.
+7's numbers; with `--pretrain_cli`, phases 1 and 8.
 
 Exits 2 without a result when no CUDA device is visible.
 """
@@ -1106,14 +1128,18 @@ CLI_EVAL_ARGS = ["--eval_batch_size", "500", "--rerank_batch_size", "1000",
 SCORE_TOL = 1e-6
 
 
-def write_cli_root(root, seed=0):
+def write_cli_root(root, seed=0, corpus=False):
     """A retrieval root at the real widths, written with the port's own
     `tsv_writer`: a 30,522-word vocab, CLI_IMAGES images of CLI_REGIONS
     regions x 2,054 fp32 features and CLI_TAGS tags each (predictions.tsv +
     imageid2idx.json), CLI_CAPS captions an image of CLI_WORDS_PER_CAP words
     (more than LA 75 holds) with phrases from id2phrase.json
     (captions.json). An image's first five tags also open each of its
-    captions. Returns the paths and the bytes written."""
+    captions. With `corpus`, also a pretraining corpus of CLI_CAPS rows an
+    image, [image_id, caption, 8 phrases (JSON), answer id, answer]:
+    captions as above, every other row a QA pair whose answer is one of the
+    image's tags (corpus.tsv), and tag2id.json over the tag words. Returns
+    the paths and the bytes written."""
     import base64
     from mvp_pytorch_tpu_torch.data.tsv import tsv_writer
     rng = np.random.default_rng(seed)
@@ -1157,6 +1183,23 @@ def write_cli_root(root, seed=0):
                             for j in rng.integers(0, CLI_PHRASES, 8)]})
     with open(paths["captions"], "w") as f:
         json.dump(caps, f)
+    if corpus:
+        paths["corpus"] = os.path.join(root, "corpus.tsv")
+        paths["tag2id"] = os.path.join(root, "tag2id.json")
+        rows = []
+        for k in keys:
+            for j in range(CLI_CAPS):
+                filler = rng.integers(0, len(words), CLI_WORDS_PER_CAP - 5)
+                answer = (tags[k][int(rng.integers(0, CLI_TAGS))]
+                          if len(rows) % 2 else "")
+                rows.append([
+                    k, " ".join(tags[k][:5] + [words[int(w)] for w in filler]),
+                    json.dumps([phrases[int(p)] for p in
+                                rng.integers(0, CLI_PHRASES, 8)]),
+                    int(rng.integers(0, QA_ANSWERS)), answer])
+        tsv_writer(rows, paths["corpus"])
+        with open(paths["tag2id"], "w") as f:
+            json.dump({t: i for i, t in enumerate(tag_words)}, f)
     return paths, nbytes[0], os.path.getsize(paths["features"])
 
 
@@ -1379,6 +1422,274 @@ def phase7_cli(torch, attn, sweep_pairs_per_s=None):
                 losses=losses, seconds=seconds)
 
 
+# phase 8: the pretraining command line on a generated corpus at the real
+# widths (phase 7's root plus a corpus.tsv and a tag2id.json)
+PRE_ARGS = ["--max_seq_length", "70", "--max_phrases", "5",   # LA 75
+            "--max_tag_length", "20", "--max_img_seq_length", "50",
+            "--dtype", "bfloat16", "--seed", "11",
+            "--hidden_dropout_prob", str(DROP_P),
+            "--attention_dropout_prob", str(DROP_P), "--learning_rate", "1e-4"]
+PRE_QA_STEPS = 3
+MASK_SHARE, MASK_SHARE_TOL = 0.15, 0.02     # --mask_prob's default
+
+
+def mask_shares(batch, max_tag_length):
+    """The masked share of the real text tokens (labelled positions over the
+    tokens before the phrase span) and of the regions (rows whose features
+    masking zeroed, geometry kept); also whether the region labels sit
+    exactly on the zeroed rows."""
+    lab_a = np.asarray(batch["lm_label_ids_a"])
+    text = int((np.asarray(batch["phrase_index"])[:, 0] - 1).sum())
+    zeroed = (np.asarray(batch["img_feats"])[:, :, :-6] == 0).all(-1)
+    region_labels = np.asarray(batch["lm_label_ids_b"])[:, max_tag_length:] >= 0
+    return (float((lab_a >= 0).sum()) / text, float(zeroed.mean()),
+            bool(np.array_equal(zeroed, region_labels)))
+
+
+def phase8_pretrain_cli(torch, attn, layers_mod):
+    """The pretraining command line (`tasks.pretrain.main`) at MVPTR-base on
+    a generated corpus: the masks made in the workers, an in-memory
+    baseline, one kernel-vs-plain step on the first real batch, CLI training
+    through the process loader, and a short QA run."""
+    import dataclasses
+    import gc
+    import shutil
+    from mvp_pytorch_tpu_torch.data.loader import BatchSampler, ProcessLoader
+    from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
+    from mvp_pytorch_tpu_torch.models import BiPretrainModel
+    from mvp_pytorch_tpu_torch.tasks import pretrain as pre
+    from mvp_pytorch_tpu_torch.tasks.common import build_config
+    from mvp_pytorch_tpu_torch.training.loop import batch_on
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke",
+                        "phase8")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        paths, feat_bytes, tsv_bytes = write_cli_root(root, corpus=True)
+        n_rows = CLI_IMAGES * CLI_CAPS
+        log(f"  root: {CLI_IMAGES} images, {n_rows} corpus rows (every other "
+            f"a QA pair), {CLI_REGIONS} regions x 2054 fp32 "
+            f"({feat_bytes / 1e6:.1f} MB of features, {tsv_bytes / 1e6:.1f} "
+            f"MB of TSV) written in {time.perf_counter() - t0:.1f} s")
+        data = ["--corpus_tsv", paths["corpus"],
+                "--feature_tsv", paths["features"],
+                "--id2phrase", paths["id2phrase"], "--tag2id", paths["tag2id"]]
+        args = pre.get_args(["--output_dir", root] + data + PRE_ARGS
+                            + CLI_PLATFORM)
+        tokenizer = FastBertTokenizer(paths["vocab"])
+        cfg = build_config(args, tokenizer, qa_answer_size=0)
+        dataset = pre.build_dataset(args, tokenizer, cfg)
+        fetch = pre.PretrainFetch(dataset)
+        sampler = BatchSampler(len(dataset), TRAIN_B, seed=args.seed)
+        step_kw = dict(max_tag_length=args.max_tag_length,
+                       hn_mod=args.hn_mod, phrase_mod=args.phrase_mod,
+                       max_pred_a=args.max_pred_a, max_pred_b=args.max_pred_b)
+
+        # 1. the masks: the shares in the first batch; epochs differ, and the
+        # loader's worker masks a step of epoch 1 as epoch 1
+        t0 = time.perf_counter()
+        batches = [fetch(sampler.batch_at(s), sampler.epoch_at(s))
+                   for s in range(CLI_MEM_STEPS)]
+        fetch_ms = (time.perf_counter() - t0) * 1e3 / CLI_MEM_STEPS
+        shapes = {k: v.shape for k, v in batches[0].items()}
+        log(f"  a batch fetched and masked on the main thread: "
+            f"{fetch_ms:.1f} ms; shapes {shapes}")
+        la = args.max_seq_length + args.max_phrases
+        if (shapes["input_ids_a"] != (TRAIN_B, la)
+                or shapes["lm_label_ids_b"] != (TRAIN_B, 70)
+                or shapes["img_feats"] != (TRAIN_B, CLI_REGIONS, 2054)
+                or {"is_next", "is_img_match", "qa_ans"} & set(shapes)):
+            raise AssertionError(f"batch shapes {shapes}")
+        text_share, region_share, labels_on_regions = mask_shares(
+            batches[0], args.max_tag_length)
+        log(f"  first batch: masked share of text tokens {text_share:.4f}, "
+            f"of regions {region_share:.4f} (want {MASK_SHARE} +- "
+            f"{MASK_SHARE_TOL}); tag labels on exactly the masked regions: "
+            f"{labels_on_regions}")
+        if (abs(text_share - MASK_SHARE) > MASK_SHARE_TOL
+                or abs(region_share - MASK_SHARE) > MASK_SHARE_TOL
+                or not labels_on_regions):
+            raise AssertionError("the first batch's masks are off")
+        spe = sampler.epoch_len // TRAIN_B
+        idx = sampler.batch_at(spe)
+        loader = ProcessLoader(fetch, sampler, start_step=spe, num_workers=1,
+                               device=DEVICE, multiprocessing_context="fork")
+        for step, got in loader:
+            got = {k: v.cpu().numpy() for k, v in got.items()}
+            break
+        loader.close()
+        want1, want0 = fetch(idx, 1), fetch(idx, 0)
+        same1 = all(np.array_equal(got[k], want1[k]) for k in want1)
+        differ0 = not np.array_equal(got["lm_label_ids_a"],
+                                     want0["lm_label_ids_a"])
+        log(f"  loader at step {step} (epoch {sampler.epoch_at(step)}): "
+            f"equal to fetch(indices, 1): {same1}; text masks differ from "
+            f"epoch 0's on the same rows: {differ0}")
+        if step != spe or sampler.epoch_at(step) != 1 or not (same1 and differ0):
+            raise AssertionError("the loader did not mask by epoch")
+        del loader, got, want0, want1
+
+        # 2. in-memory baseline on the same batches
+        per_step = cfg.half_layers * 4
+        model = BiPretrainModel(cfg, device=DEVICE, seed=args.seed)
+        with counted_steps(attn, per_step, "an in-memory step") as total:
+            torch.cuda.reset_peak_memory_stats()
+            mem = pre.train_pretrain(
+                model, batches, CLI_MEM_STEPS, learning_rate=args.learning_rate,
+                weight_decay=args.weight_decay, seed=args.seed, **step_kw)
+        mem_peak = torch.cuda.max_memory_allocated() / 1e9
+        mem_first = mem[0]["loss"]
+        mem_ms = mean([m["step_ms"] for m in mem[CLI_MEM_TIMED_FROM - 1:]])
+        mem_sps = TRAIN_B / mem_ms * 1e3
+        log(f"  in memory: {CLI_MEM_STEPS} steps, {total[0]} launches; steps "
+            f"{CLI_MEM_TIMED_FROM}-{CLI_MEM_STEPS}: {mem_ms:.2f} ms/step "
+            f"{mem_sps:.1f} samples/s, peak {mem_peak:.2f} GB; losses "
+            + " ".join(f"{m['loss']:.4f}" for m in mem))
+        del model, mem
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 3. one step at dropouts 0 on the first real batch, kernel path
+        # against plain path, the draws and the hard pairs pinned: in fp32
+        # every loss and gradient is held; in bf16 the losses are held and
+        # the gradients printed beside each path's distance from the fp32
+        # gradient (on real masks both bf16 paths sit about 0.06 from it, so
+        # their gap is bf16 rounding, not the kernel)
+        batch = batch_on(DEVICE, batches[0])
+        dice = torch.randperm(TRAIN_B, device=DEVICE, generator=torch.Generator(
+            device=DEVICE).manual_seed(9))
+        ref = None
+        for dn in ("float32", "bfloat16"):
+            cfg0 = dataclasses.replace(cfg, dtype=dn, hidden_dropout_prob=0.0,
+                                       attention_probs_dropout_prob=0.0)
+            model = BiPretrainModel(cfg0, device=DEVICE, seed=args.seed)
+            model.train()
+
+            def step():
+                model.zero_grad(set_to_none=True)
+                out = model.train_step(
+                    *(batch.get(k) for k in pre.PRETRAIN_KEYS), hn_dice=dice,
+                    wra_pick=1, wra_neg_offset=1,
+                    generator=torch.Generator(device=DEVICE).manual_seed(0),
+                    **step_kw)
+                out.total_loss.backward()
+                params = dict(model.named_parameters())
+                return out, {n: params[n].grad.detach().float().clone()
+                             for n in PRETRAIN_GRAD_PARAMS}
+
+            reset_counts(attn)
+            with hard_pairs(model) as mined:
+                k_out, k_grads = step()
+            torch.cuda.synchronize()
+            if (attn.masked_attention.launches != per_step
+                    or attn.masked_attention.dropout_launches != 0):
+                raise AssertionError("kernel path did not launch the p = 0 "
+                                     "kernel")
+            with plain_attention_path(layers_mod, attn), hard_pairs(
+                    model, pinned=mined[0]):
+                p_out, p_grads = step()
+            torch.cuda.synchronize()
+            if attn.masked_attention.launches != per_step:
+                raise AssertionError("plain path launched the kernel")
+            losses_held = [n for n in PRETRAIN_LOSSES if n != "qa_loss"]
+            if ref is None:
+                compare_step(torch, "real batch", dn, k_out, p_out,
+                             losses_held, k_grads, p_grads)
+                ref = p_grads
+            else:
+                compare_step(torch, "real batch", dn, k_out, p_out,
+                             losses_held, {}, {})
+                def rel(a, b):
+                    return ((a - b).norm() / b.norm()).item()
+                for n in PRETRAIN_GRAD_PARAMS:
+                    log(f"  real batch {dn:9s} grad {n}: kernel vs plain "
+                        f"{rel(k_grads[n], p_grads[n]):.3e}; from the fp32 "
+                        f"gradient: kernel {rel(k_grads[n], ref[n]):.3e}, "
+                        f"plain {rel(p_grads[n], ref[n]):.3e} (printed)")
+            del model, k_out, p_out, k_grads, p_grads
+            gc.collect()
+            torch.cuda.empty_cache()
+        del batch, batches, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. training through the CLI and the process loader
+        out = os.path.join(root, "cli_train")
+        common = ["--train_batch_size", str(TRAIN_B), "--log_period", "1",
+                  "--num_workers", "4", "--worker_start_method", "fork",
+                  "--data_dir", root] + data + PRE_ARGS + CLI_PLATFORM
+        argv = (["--output_dir", out, "--max_steps", str(CLI_STEPS),
+                 "--ckpt_period", str(CLI_STEPS)] + common)
+        log("  python -m mvp_pytorch_tpu_torch.tasks.pretrain "
+            + " ".join(os.path.relpath(a, root) if a.startswith(root) else a
+                       for a in argv))
+        with counted_steps(attn, per_step, "a CLI pretraining step") as total:
+            torch.cuda.reset_peak_memory_stats()
+            hist = pre.main(argv)["train"]
+        cli_peak = torch.cuda.max_memory_allocated() / 1e9
+        cli_launches = total[0]
+        losses = [m["loss"] for m in hist]
+        timed = hist[CLI_TIMED_FROM - 1:]
+        cli_ms = mean([m["step_ms"] for m in timed])
+        cli_sps = TRAIN_B / cli_ms * 1e3
+        data_ms = mean([m["data_ms"] for m in timed])
+        worker_ms = mean([m["worker_ms"] for m in timed])
+        h2d_ms = mean([m.get("h2d_ms", float("nan")) for m in timed])
+        log("  CLI losses " + " ".join(f"{x:.4f}" for x in losses))
+        names = ("vis_mlm", "clip", "mlm", "itm", "wra")
+        for when, m in (("first", hist[0]), ("last", hist[-1])):
+            log(f"  {when} step: " + " ".join(f"{k}={m[k]:.4f}"
+                                              for k in names))
+        if (len(hist) != CLI_STEPS or not all(map(math.isfinite, losses))
+                or mean(losses[-5:]) >= losses[0]):
+            raise AssertionError(f"CLI pretraining losses not finite and "
+                                 f"falling: {losses}")
+        log(f"  step 1 loss: CLI {losses[0]:.6f}, in memory {mem_first:.6f}")
+        if abs(losses[0] - mem_first) > STEP_TOL["bfloat16"][0]:
+            raise AssertionError("the CLI's first batch is not the sampler's")
+        ratio = cli_sps / mem_sps
+        log(f"  CLI: {CLI_STEPS} steps, {cli_launches} launches (24 a step, "
+            f"all with dropout, plain 0); steps {CLI_TIMED_FROM}-{CLI_STEPS}: "
+            f"{cli_ms:.2f} ms/step {cli_sps:.1f} samples/s, peak "
+            f"{cli_peak:.2f} GB; main thread data {data_ms:.3f} ms/step, "
+            f"worker {worker_ms:.1f} ms/batch, H2D {h2d_ms:.3f} ms/batch")
+        log(f"  CLI samples/s / in-memory samples/s = {cli_sps:.1f} / "
+            f"{mem_sps:.1f} = {ratio:.3f} (target 0.90)")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 5. the QA heads through the CLI: a few steps
+        argv = (["--output_dir", os.path.join(root, "cli_qa"), "--max_steps",
+                 str(PRE_QA_STEPS), "--ckpt_period", "0", "--use_qa",
+                 "--qa_answer_size", str(QA_ANSWERS), "--use_qa_pairs"]
+                + common)
+        with counted_steps(attn, per_step, "a CLI QA step") as qa_total:
+            qa_hist = pre.main(argv)["train"]
+        qa = [m.get("qa", float("nan")) for m in qa_hist]
+        log(f"  CLI with --use_qa --use_qa_pairs: {len(qa_hist)} steps, "
+            f"{qa_total[0]} launches; qa losses "
+            + " ".join(f"{x:.4f}" for x in qa))
+        if len(qa_hist) != PRE_QA_STEPS or not all(map(math.isfinite, qa)):
+            raise AssertionError(f"the QA run's qa losses: {qa}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 8 took {seconds:.1f} s")
+    return dict(launches=cli_launches, launches_per_step=per_step,
+                qa_launches=qa_total[0], samples_per_s=cli_sps,
+                step_ms=cli_ms, peak_gb=cli_peak,
+                in_memory_samples_per_s=mem_sps, in_memory_step_ms=mem_ms,
+                in_memory_peak_gb=mem_peak, ratio=ratio, main_data_ms=data_ms,
+                worker_ms=worker_ms, h2d_ms=h2d_ms, main_fetch_ms=fetch_ms,
+                text_mask_share=text_share, region_mask_share=region_share,
+                first_step={k: hist[0][k] for k in ("loss",) + names},
+                last_step={k: hist[-1][k] for k in ("loss",) + names},
+                qa_losses=qa, seconds=seconds)
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1386,6 +1697,9 @@ def main(argv) -> int:
                         help="run phase 3 alone, in this dtype")
     parser.add_argument("--cli", action="store_true",
                         help="run phase 7 (the retrieval command line) alone")
+    parser.add_argument("--pretrain_cli", action="store_true",
+                        help="run phase 8 (the pretraining command line) "
+                             "alone")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1429,6 +1743,11 @@ def main(argv) -> int:
         cli = phase7_cli(torch, attn)
         print(json.dumps({"cli": cli, "card": card}), flush=True)
         return 0
+    if args.pretrain_cli:
+        log("phase 8 alone: the pretraining command line, MVPTR-base, B 96")
+        pcli = phase8_pretrain_cli(torch, attn, layers_mod)
+        print(json.dumps({"pretrain_cli": pcli, "card": card}), flush=True)
+        return 0
     phase1_kernel_report(torch, attn, _kernels, lib_path)
     torch.cuda.synchronize()
 
@@ -1465,6 +1784,11 @@ def main(argv) -> int:
     log("phase 7: the retrieval command line, MVPTR-base, B 96, generated "
         "root")
     cli = phase7_cli(torch, attn, sweep["pairs_per_s"][-1])
+    torch.cuda.synchronize()
+
+    log("phase 8: the pretraining command line, MVPTR-base, B 96, generated "
+        "corpus")
+    pcli = phase8_pretrain_cli(torch, attn, layers_mod)
     torch.cuda.synchronize()
 
     main_t = timings[("fused", "bfloat16")]
@@ -1514,7 +1838,8 @@ def main(argv) -> int:
             "dropout_bwd_ms": drop_t["bwd_ms"],
             "p0_bwd_ms": drop_t["bwd_p0_ms"],
             "seconds": pre["seconds"]},
-        "cli": {k: v for k, v in cli.items() if k != "losses"}}, {
+        "cli": {k: v for k, v in cli.items() if k != "losses"},
+        "pretrain_cli": pcli}, {
         # the fp32 kernels (3xTF32) behind the same entry point; launches
         # and pairs/s from the fp32 sweep of phase 3
         "name": "masked_attention_fwd fp32 (3xTF32)", "route": "cuda",

@@ -1,7 +1,8 @@
-"""The retrieval dataset over the TSV feature-store contract: this package's
-copy of the JAX package's `data/datasets.py` parts that retrieval reads
-(`load_phrase_vocab`, `tags_for_text_a`, `phrases_to_ids`, `FeatureStore`,
-`RetrievalDataset`). The other datasets come with their tasks.
+"""The datasets over the TSV feature-store contract: this package's copy of
+the JAX package's `data/datasets.py` parts that retrieval and pretraining
+read (`load_phrase_vocab`, `tags_for_text_a`, `phrases_to_ids`,
+`FeatureStore`, `RetrievalDataset`, `PretrainDataset`,
+`MultiCorpusPretrainDataset`). The other datasets come with their tasks.
 
 Parity targets:
 - feature store: `predictions.tsv` rows = [image_id, json{"feature":
@@ -10,9 +11,13 @@ Parity targets:
   `oscar/datasets/general_dataset.py:157-166`).
 - RetrievalDataset <- `oscar/run_retrieval.py:24-296`: per-image caption
   lists, phrase lookup, train positives, eval enumeration.
+- PretrainDataset <- `oscar/oscar_datasets_ml/oscar_tsv4.py:22-377`:
+  caption+tags+features corpus with masking at fetch time, keyed on
+  (seed, epoch, index); MultiCorpusPretrainDataset puts several behind one
+  index space (:25-99).
 
 The arrays keep the JAX package's names (`input_mask_a`, `segment_ids_a`,
-`img_feat`, ...); the retrieval task maps them onto the model's.
+`img_feat`, ...); the tasks map them onto the model's.
 """
 
 from __future__ import annotations
@@ -20,12 +25,15 @@ from __future__ import annotations
 import base64
 import json
 import os
+import random
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .. import native as _native
-from .tensorize import TensorizeConfig, collate, tensorize_example
+from .tensorize import (PretrainExample, TensorizeConfig, collate,
+                        convert_example_to_features,
+                        convert_qa_example_to_features, tensorize_example)
 from .tsv import TSVFile
 
 
@@ -243,3 +251,229 @@ class RetrievalDataset:
         batch = collate(exs)
         return {k: batch[k] for k in
                 ("input_ids_b", "input_mask_b", "segment_ids_b", "img_feat")}
+
+
+class PretrainDataset:
+    """Corpus TSV rows: [image_id, caption, json phrases(optional),
+    qa_answer_id(optional), qa_answer_text(optional)] + FeatureStore
+    regions/tags. Masking happens at fetch time with a per-(seed, index,
+    epoch) rng for determinism.
+
+    QA-contrastive support (reference oscar_datasets_ml2/oscar_tsv4.py):
+    rows with a non-empty 5th column are QA pairs (caption = question,
+    col 5 = answer text). With `qa_pairs=True`, each QA row keeps its true
+    answer with prob 0.5 (qa_is_next=0) or swaps in a random answer from
+    the QA pool (qa_is_next=1; reference get_random_qa :539-557); non-QA
+    rows emit qa_is_next=-1 (ignored by the loss). `only_qa`/`only_cap`
+    filter the corpus (:145-147); `exclude_ids` drops rows whose image id
+    is in the set (the Flickr test-id exclusion, :154-162)."""
+
+    def __init__(self, corpus_tsv: str, features: FeatureStore, tokenizer,
+                 sg2id: Optional[Dict[tuple, int]] = None,
+                 cfg: TensorizeConfig = TensorizeConfig(),
+                 tag2id: Optional[Dict[str, int]] = None,
+                 phrase_vocab_size: int = 0, seed: int = 0,
+                 mask_prob: float = 0.15, mask_visual: bool = True,
+                 qa_pairs: bool = False, only_qa: bool = False,
+                 only_cap: bool = False,
+                 exclude_ids: Optional[set] = None,
+                 gt_labels_json: Optional[str] = None,
+                 visual_learning: bool = False,
+                 restrict_to_features: bool = False):
+        # use_gtlabels (reference oscar_tsv4.py:201-207): when a
+        # ground-truth label map {image_id: [class, ...]} is provided,
+        # its (deduplicated) classes replace the predicted tags
+        self.gt_labels = None
+        if gt_labels_json:
+            with open(gt_labels_json) as f:
+                self.gt_labels = json.load(f)
+        self.tsv = TSVFile(corpus_tsv)
+        self.features = features
+        self.tokenizer = tokenizer
+        self.sg2id = sg2id
+        self.cfg = cfg
+        self.tag2id = tag2id or {}
+        self.phrase_vocab_size = phrase_vocab_size
+        self.seed = seed
+        self.mask_prob = mask_prob
+        self.mask_visual = mask_visual
+        # emit masked-region supervision (reference --visual_learning,
+        # oscar_tsv4.py:343-356); tag2id must then be the raw class map
+        self.visual_learning = visual_learning
+        self.epoch = 0
+        self.qa_pairs = qa_pairs
+        self._index: Optional[List[int]] = None   # row filter (None = all)
+        self._qa_answers: List[str] = []          # negative-sampling pool
+        if (qa_pairs or only_qa or only_cap or exclude_ids
+                or restrict_to_features):
+            assert not (only_qa and only_cap)
+            keep, n_excluded = [], 0
+            for i in range(len(self.tsv)):
+                row = self.tsv.seek(i)
+                is_qa = len(row) > 4 and bool(row[4])
+                if exclude_ids and row[0] in exclude_ids:
+                    n_excluded += 1
+                    continue
+                if (only_qa and not is_qa) or (only_cap and is_qa):
+                    continue
+                # chunked feature TSVs: each chunk's dataset keeps only
+                # the corpus rows whose image lives in that chunk (the
+                # reference's datasets_with_splits role, oscar_tsv4.py:
+                # 44-45,96-100) — without this, N chunks over one corpus
+                # would duplicate every caption N times and KeyError on
+                # images from other chunks
+                if restrict_to_features and row[0] not in self.features:
+                    continue
+                keep.append(i)
+                if is_qa:
+                    self._qa_answers.append(row[4])
+            self._index = keep
+            self.n_excluded = n_excluded
+
+    def __len__(self):
+        return len(self._index) if self._index is not None else len(self.tsv)
+
+    def __getitem__(self, index: int,
+                    epoch: Optional[int] = None) -> Dict[str, np.ndarray]:
+        ep = self.epoch if epoch is None else epoch
+        row_id = self._index[index] if self._index is not None else index
+        row = self.tsv.seek(row_id)
+        image_id, caption = row[0], row[1]
+        phrases = json.loads(row[2]) if len(row) > 2 and row[2] else []
+        qa_ans = int(row[3]) if len(row) > 3 and row[3] else -1
+        qa_answer_text = row[4] if len(row) > 4 and row[4] else None
+        feats, tags = self.features.get(image_id)
+        # gt labels feed ONLY the tag text stream (tokens_b); od_tags must
+        # stay the predicted PER-REGION list — random_visual labels masked
+        # region i with tag2id[od_tags[i]], so substituting a deduped
+        # class list would mislabel the masked-region objective
+        text_b_tags = tags
+        if self.gt_labels is not None and image_id in self.gt_labels:
+            text_b_tags = list(dict.fromkeys(self.gt_labels[image_id]))
+        tokens_a = self.tokenizer.tokenize(caption)
+        tokens_b = self.tokenizer.tokenize(" ".join(text_b_tags))
+        rng = random.Random(f"{self.seed}:{ep}:{index}")
+
+        if self.qa_pairs and qa_answer_text is not None:
+            # 50/50 true pair vs random-answer swap (reference random_sent
+            # QA branch, oscar_tsv4.py:428-440)
+            qa_is_next = 0
+            if rng.random() > 0.5 and len(self._qa_answers) > 1:
+                swapped = self._qa_answers[
+                    rng.randrange(len(self._qa_answers))]
+                if swapped != qa_answer_text:
+                    qa_answer_text = swapped
+                    qa_is_next = 1
+            ex = PretrainExample(
+                tokens_a=tokens_a, tokens_b=tokens_b, img_feat=feats,
+                od_tags=[t.lower() for t in tags],
+                phrase_nodes=phrases_to_ids(phrases, self.sg2id),
+                qa_ans=qa_ans,
+                qa_answer_tokens=self.tokenizer.tokenize(qa_answer_text),
+                qa_is_next=qa_is_next, guid=row_id)
+            return convert_qa_example_to_features(
+                ex, self.tokenizer, cfg=self.cfg, tag2id=self.tag2id,
+                phrase_vocab_size=self.phrase_vocab_size, rng=rng,
+                mask_prob=self.mask_prob, mask_visual=self.mask_visual)
+
+        ex = PretrainExample(
+            tokens_a=tokens_a, tokens_b=tokens_b, img_feat=feats,
+            od_tags=[t.lower() for t in tags],
+            phrase_nodes=phrases_to_ids(phrases, self.sg2id),
+            qa_ans=qa_ans, guid=row_id)
+        return convert_example_to_features(
+            ex, self.tokenizer, cfg=self.cfg, tag2id=self.tag2id,
+            phrase_vocab_size=self.phrase_vocab_size, rng=rng,
+            mask_prob=self.mask_prob, mask_visual=self.mask_visual,
+            visual_learning=self.visual_learning)
+
+    def fetch(self, indices: np.ndarray,
+              epoch: Optional[int] = None) -> Dict[str, np.ndarray]:
+        return collate([self.__getitem__(int(i), epoch) for i in indices])
+
+
+class MultiCorpusPretrainDataset:
+    """Multiple pretraining corpora behind one index space.
+
+    Parity target: the reference's yaml-driven multi-corpus loading
+    (oscar_tsv4.py:25-99 — `corpus` name list, per-corpus feature TSVs,
+    chunked `datasets_with_splits`, sg_file, phrase_vocab_size). Our yaml:
+
+        corpora:
+          - name: coco
+            corpus_tsv: .../coco_corpus.tsv
+            feature_tsv: .../coco/predictions.tsv
+          - name: cc
+            corpus_tsv: .../cc_corpus.tsv
+            feature_tsv: .../cc/predictions.tsv   # or a list of chunks
+        id2phrase: .../id2phrase.json
+        tag2id: .../tag2id.json
+        phrase_vocab_size: 55529
+    """
+
+    def __init__(self, datasets: Sequence["PretrainDataset"]):
+        assert datasets
+        self.datasets = list(datasets)
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    @classmethod
+    def from_yaml(cls, yaml_path: str, tokenizer, cfg=None, seed: int = 0,
+                  mask_prob: float = 0.15, mask_visual: bool = True,
+                  qa_pairs: bool = False, only_qa: bool = False,
+                  only_cap: bool = False, exclude_ids: Optional[set] = None,
+                  gt_labels_json: Optional[str] = None,
+                  feature_dim: int = 2054, visual_learning: bool = False,
+                  override_tag2id: Optional[Dict[str, int]] = None):
+        from ..utils.misc import load_from_yaml_file
+        spec = load_from_yaml_file(yaml_path)
+        cfg = cfg or TensorizeConfig()
+        sg2id = (load_phrase_vocab(spec["id2phrase"])
+                 if spec.get("id2phrase") else None)
+        tag2id = {}
+        if spec.get("tag2id"):
+            with open(spec["tag2id"]) as f:
+                raw = json.load(f)
+            tag2id = {t: tokenizer.vocab.get(t, 1) for t in raw}
+        pvs = int(spec.get("phrase_vocab_size", 0))
+        # yaml key fk_test_id: newline-separated image ids excluded from
+        # every corpus (reference Flickr30k test exclusion, ml2 :50,154-162)
+        # — merged with any caller-supplied exclude set (CLI
+        # --exclude_ids_file)
+        if spec.get("fk_test_id"):
+            with open(spec["fk_test_id"]) as f:
+                yaml_excl = {ln.strip() for ln in f if ln.strip()}
+            exclude_ids = (yaml_excl | exclude_ids) if exclude_ids \
+                else yaml_excl
+        if override_tag2id is not None:
+            tag2id = override_tag2id
+        datasets = []
+        for c in spec["corpora"]:
+            feats = c["feature_tsv"]
+            feat_list = feats if isinstance(feats, list) else [feats]
+            for chunk in feat_list:   # chunked feature TSVs
+                datasets.append(PretrainDataset(
+                    c["corpus_tsv"],
+                    FeatureStore(chunk, feature_dim=feature_dim), tokenizer,
+                    sg2id=sg2id, cfg=cfg, tag2id=tag2id,
+                    phrase_vocab_size=pvs, seed=seed, mask_prob=mask_prob,
+                    mask_visual=mask_visual, qa_pairs=qa_pairs,
+                    only_qa=only_qa, only_cap=only_cap,
+                    exclude_ids=exclude_ids,
+                    gt_labels_json=gt_labels_json,
+                    visual_learning=visual_learning,
+                    # each chunk covers a SUBSET of the corpus images
+                    restrict_to_features=len(feat_list) > 1))
+        return cls(datasets)
+
+    def __len__(self):
+        return int(self._offsets[-1])
+
+    def __getitem__(self, index: int,
+                    epoch: Optional[int] = None) -> Dict[str, np.ndarray]:
+        d = int(np.searchsorted(self._offsets, index, side="right") - 1)
+        return self.datasets[d].__getitem__(index - int(self._offsets[d]),
+                                            epoch)
+
+    def fetch(self, indices: np.ndarray,
+              epoch: Optional[int] = None) -> Dict[str, np.ndarray]:
+        return collate([self.__getitem__(int(i), epoch) for i in indices])

@@ -10,7 +10,8 @@ skip. Each process owns its sampler (no lock: no threads share it).
 whose host thread is the bottleneck (it launches the step's kernels), so
 that the main thread does almost nothing per step:
 - worker processes (not threads, which would take the interpreter lock
-  from the launch loop) run `fetch(indices)` for whole batches. Worker w
+  from the launch loop) run `fetch(indices, epoch)` for whole batches
+  (`fetch(indices)` when `fetch` takes no `epoch`: `_epoch_aware`). Worker w
   owns the steps start + w, start + w + W, ... and a ring of shared-memory
   slots; it writes each batch into a free slot and sends only
   (step, slot, its milliseconds) through its queue;
@@ -35,6 +36,7 @@ clean, which a parent holding threads that must not be forked needs.
 
 from __future__ import annotations
 
+import inspect
 import multiprocessing
 import queue
 import time
@@ -118,6 +120,24 @@ class BatchSampler:
         return (step * self.global_batch) // self.epoch_len
 
 
+def _epoch_aware(fetch: Callable) -> Callable[[np.ndarray, int], Dict]:
+    """`fetch` under the (indices, epoch) calling convention (the JAX
+    package's `data/loader.py` `_epoch_aware`).
+
+    A dataset whose masking rng is keyed on the epoch takes
+    `fetch(indices, epoch)`: the loader must pass the sampler's epoch, or
+    every epoch repeats epoch 0's masks (the reference re-masks each epoch
+    through its per-`__getitem__` random state and
+    `DistributedSampler.set_epoch`). Any other fetch gets `fetch(indices)`."""
+    try:
+        takes_epoch = "epoch" in inspect.signature(fetch).parameters
+    except (TypeError, ValueError):
+        takes_epoch = False
+    if takes_epoch:
+        return lambda idx, epoch: fetch(idx, epoch)
+    return lambda idx, epoch: fetch(idx)
+
+
 def _layout(batch: Dict[str, np.ndarray]):
     """[(key, shape, dtype string, byte offset)] at aligned offsets, and the
     slot's size in bytes."""
@@ -135,14 +155,16 @@ def _slot_name(tag: str, worker: int, slot: int) -> str:
 
 def _worker(wid: int, n_workers: int, fetch, sampler, start_step: int,
             n_slots: int, tag: str, q, free, stop) -> None:
-    """Worker process: fetch the steps start + wid + k n_workers into the
+    """Worker process: fetch the steps start + wid + k n_workers (each with
+    its epoch, where `fetch` takes one) into the
     slot ring, sending ("spec", layout, size) once, then ("batch", step,
     slot, fetch ms, fill ms) per batch, or ("error", traceback)."""
     shms = []
     try:
+        call = _epoch_aware(fetch)
         step = start_step + wid
         t0 = time.perf_counter()
-        batch = fetch(sampler.batch_at(step))
+        batch = call(sampler.batch_at(step), sampler.epoch_at(step))
         fetch_ms = (time.perf_counter() - t0) * 1e3
         layout, size = _layout(batch)
         for s in range(n_slots):
@@ -168,7 +190,7 @@ def _worker(wid: int, n_workers: int, fetch, sampler, start_step: int,
             slot = (slot + 1) % n_slots
             step += n_workers
             t0 = time.perf_counter()
-            batch = fetch(sampler.batch_at(step))
+            batch = call(sampler.batch_at(step), sampler.epoch_at(step))
             fetch_ms = (time.perf_counter() - t0) * 1e3
     except BaseException:  # noqa: BLE001 - reported to the consumer
         q.put(("error", traceback.format_exc()))
@@ -181,12 +203,13 @@ class ProcessLoader:
     """Single-use iterator of (step, batch) from `start_step` on, where
     batch maps the names of `fetch`'s arrays to tensors on `device`.
 
-    `fetch(indices) -> {name: numpy array}` must give the same shapes and
-    dtypes at every step. After each step, `timing()` gives the worker's
+    `fetch(indices[, epoch]) -> {name: numpy array}` must give the same
+    shapes and dtypes at every step; a fetch that takes `epoch` gets the
+    sampler's epoch of the step. After each step, `timing()` gives the worker's
     milliseconds for the batch just yielded and, on CUDA, its copy's device
     milliseconds (read it once the step has synchronised)."""
 
-    def __init__(self, fetch: Callable[[np.ndarray], Dict[str, np.ndarray]],
+    def __init__(self, fetch: Callable[..., Dict[str, np.ndarray]],
                  sampler: BatchSampler, *, start_step: int = 0,
                  num_workers: int = 4, device="cpu",
                  multiprocessing_context: str = "fork",

@@ -125,6 +125,8 @@ class PretrainOutput(NamedTuple):
     qa_loss: Optional[torch.Tensor]
     wra_loss: Optional[torch.Tensor]
     sim_mat: torch.Tensor
+    # with debug_mlm: the text MLM's (top-1 prediction, labels, weights)
+    mlm_debug: Optional[tuple] = None
 
 
 class PretrainingHeads(nn.Module):
@@ -222,7 +224,8 @@ class BiPretrainModel(nn.Module):
                    phrase_layer: Optional[int] = None, hn_dice=None,
                    generator: Optional[torch.Generator] = None,
                    wra_pick: Optional[int] = None,
-                   wra_neg_offset: Optional[int] = None) -> PretrainOutput:
+                   wra_neg_offset: Optional[int] = None,
+                   debug_mlm: bool = False) -> PretrainOutput:
         """The JAX `BiPretrainModel.__call__`:
         1. tag MLM over the vision stream's labelled positions
            (`lm_label_ids_b`, -1 = unlabelled, at most `max_pred_b`);
@@ -238,7 +241,10 @@ class BiPretrainModel(nn.Module):
 
         Dropout follows the module's training mode. Every random draw comes
         from `generator`; `hn_dice`, `wra_pick` and `wra_neg_offset` pin
-        the slot permutation, the WRA slot pick and the WRA negative."""
+        the slot permutation, the WRA slot pick and the WRA negative. With
+        `debug_mlm` the output's `mlm_debug` holds the text MLM's top-1
+        prediction, labels and weights at its gathered positions (the JAX
+        package's `debug_mlm` intermediates, for `--mlm_debug`)."""
         # clamped at 100 (CLIP's guard; the reference has none)
         scale = torch.exp(torch.clamp(self.logit_scale, max=math.log(100.0)))
         with dropout_generator(self, generator):
@@ -263,8 +269,10 @@ class BiPretrainModel(nn.Module):
         la = input_ids_a.shape[1]
         mlm_h, mlm_labels, mlm_w = gather_masked_positions(
             out.sequence_output[:, :la], lm_label_ids_a, max_pred_a)
-        masked_lm_loss = masked_cross_entropy(
-            self.cls.predictions(mlm_h, table), mlm_labels, mlm_w)
+        mlm_logits = self.cls.predictions(mlm_h, table)
+        masked_lm_loss = masked_cross_entropy(mlm_logits, mlm_labels, mlm_w)
+        mlm_debug = ((mlm_logits.argmax(-1), mlm_labels, mlm_w)
+                     if debug_mlm else None)
 
         # labels 0 = true pair, 1 = hard pair (the retrieval model's are
         # the other way round)
@@ -317,7 +325,7 @@ class BiPretrainModel(nn.Module):
             total_loss=total, vis_mlm_loss=vis_mlm_loss,
             retrieval_loss=retrieval_loss, masked_lm_loss=masked_lm_loss,
             itm_loss=itm_loss, qa_loss=qa_loss, wra_loss=wra_loss,
-            sim_mat=out.sim_mat)
+            sim_mat=out.sim_mat, mlm_debug=mlm_debug)
 
     def forward(self, *args, **kwargs) -> PretrainOutput:
         return self.train_step(*args, **kwargs)

@@ -37,7 +37,7 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """-log_softmax(logits)[label] in fp32, labels clipped into range."""
     v = logits.shape[-1]
     logp = F.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, labels.clamp(0, v - 1)[..., None])[..., 0]
+    return -logp.gather(-1, labels.clamp(0, v - 1).long()[..., None])[..., 0]
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

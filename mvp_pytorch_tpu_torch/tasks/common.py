@@ -106,9 +106,10 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--profile_dir", type=str, default=None)
 
 
-def check_args(args) -> None:
-    """Raise for a flag whose port item has not landed."""
-    for flag, (off, item) in LATER_ITEMS.items():
+def check_args(args, later_items=None) -> None:
+    """Raise for a flag whose port item has not landed (`LATER_ITEMS`, and a
+    driver's own `later_items` of the same form)."""
+    for flag, (off, item) in {**LATER_ITEMS, **(later_items or {})}.items():
         if getattr(args, flag, off) not in (off, None):
             raise NotImplementedError(
                 f"--{flag} is not ported yet: it waits for ROADMAP.md queue "
