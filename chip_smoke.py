@@ -5,6 +5,7 @@
     python3 chip_smoke.py --sweep float32   # phase 3 alone, in one dtype
     python3 chip_smoke.py --cli             # phase 7 alone
     python3 chip_smoke.py --pretrain_cli    # phase 8 alone
+    python3 chip_smoke.py --finetune_cli    # phase 9 alone
 
 Phases, each ended by torch.cuda.synchronize(); any failure raises and the
 script exits non-zero:
@@ -112,14 +113,50 @@ script exits non-zero:
    4-13 (target ratio 0.90, not a failure), main-thread data ms, worker ms
    and H2D ms; then 3 CLI steps with `--use_qa --qa_answer_size 3129
    --use_qa_pairs`, finite QA losses. The root is deleted at the end;
-9. one JSON line of kernel numbers (the bf16 kernel, then the fp32 one),
+9. VQA, SNLI-VE and referring-expression fine-tuning through their command
+   lines (`tasks.vqa`, `tasks.ve`, `tasks.re_task`) at MVPTR-base, bf16 over
+   fp32 weights, the config's dropouts 0.1 / 0.1, LA 40 (35 + 5 phrase
+   slots), T 20, R 50, on a root written under `_smoke/` like phase 7's
+   (1,000 images, region boxes in the last 6 feature dims) with 2,000 VQA
+   questions over 3,129 answers (up to 10 soft scores each), 3,000 SNLI-VE
+   hypotheses, 1,000 expressions whose gt box is a region's and up to 20
+   detections an image, each following `data/synthetic.py`'s learnable rule.
+   First the kernel at the fine-tuning shapes (fused L 90 and text L 40 at
+   B 64 and 32, bf16, p 0.1 and 0): against the plain version (0.05) and
+   timed beside the plain version and SDPA. (a) VQA (QA head, bce, B 32, lr
+   5e-5): on the first real batch at dropout 0, kernel path against plain
+   path (logits and loss fp32 1e-4; bf16 logits 4 bf16 ulps at the largest
+   |logit|, bf16 loss 1e-4 of the loss, each path's distance from fp32
+   printed; the relative error of five named gradients fp32 1e-3, bf16
+   printed beside each path's distance from fp32); 13 steps in memory, then 26 through the CLI and its process loader
+   (4 forked workers), each launching the dropout kernel exactly 18 times (6
+   layers x text, vision, one fusion pass) and the plain attention never,
+   finite losses, step 1's loss equal to the in-memory run's; the CLI's
+   eval and `--test_jsonl` of the checkpoint over 1,000 questions: 18 p = 0
+   launches a batch, logits within 1e-6 of the model's forward on the
+   dataset's arrays in memory, the same VQA accuracy, one answer a question
+   from label2ans; 3 CLI steps with `--loss_type kl --adjust_loss_step 2
+   --adjust_dp_step 2`: kl before step 2 and bce from it, the hidden
+   dropouts 0.1 then 0.3 while the kernel's p stays 0.1. (b) SNLI-VE
+   (B 64, lr 4e-5, `--mask_training --freeze_steps 5`): 13 CLI steps of 18
+   launches, every `bert.*` parameter bitwise unchanged through step 5 and
+   changed after it, the classifier moving from step 1, the CLI's eval
+   accuracy over 1,000 pairs equal to the forward in memory; 3 steps with
+   `--use_single`. (c) RE (`REModel` mod 1, `--phrase_layer 2`, B 32,
+   `--det_json`): 13 CLI steps of 18 launches, `re_accuracy` and the two
+   detection-grounded accuracies equal to those of the forward in memory; 3
+   steps at `--loss_mod 3`. Step ms, samples/s, peak memory, main-thread
+   data ms, worker ms and the VQA feed ratio (target 0.90, not a failure)
+   are reported. The root is deleted at the end;
+10. one JSON line of kernel numbers (the bf16 kernel, then the fp32 one),
    then the result line.
 
 With `--sweep DTYPE` only phase 3 runs, in that dtype (bf16: two sweeps,
 fp32: one), and the last line is a JSON object of its numbers; run from a
 copy of another tree, the script drives that tree's package. With `--cli`
 only phases 1 (the build) and 7 run, the last line a JSON object of phase
-7's numbers; with `--pretrain_cli`, phases 1 and 8.
+7's numbers; with `--pretrain_cli`, phases 1 and 8; with `--finetune_cli`,
+phases 1 and 9.
 
 Exits 2 without a result when no CUDA device is visible.
 """
@@ -1128,7 +1165,7 @@ CLI_EVAL_ARGS = ["--eval_batch_size", "500", "--rerank_batch_size", "1000",
 SCORE_TOL = 1e-6
 
 
-def write_cli_root(root, seed=0, corpus=False):
+def write_cli_root(root, seed=0, corpus=False, finetune=False):
     """A retrieval root at the real widths, written with the port's own
     `tsv_writer`: a 30,522-word vocab, CLI_IMAGES images of CLI_REGIONS
     regions x 2,054 fp32 features and CLI_TAGS tags each (predictions.tsv +
@@ -1138,8 +1175,10 @@ def write_cli_root(root, seed=0, corpus=False):
     captions. With `corpus`, also a pretraining corpus of CLI_CAPS rows an
     image, [image_id, caption, 8 phrases (JSON), answer id, answer]:
     captions as above, every other row a QA pair whose answer is one of the
-    image's tags (corpus.tsv), and tag2id.json over the tag words. Returns
-    the paths and the bytes written."""
+    image's tags (corpus.tsv), and tag2id.json over the tag words. With
+    `finetune`, each region's last 6 feature dims are a valid box [x1, y1,
+    x2, y2, w, h] and `write_finetune_files` adds the VQA, SNLI-VE and RE
+    files. Returns the paths and the bytes written."""
     import base64
     from mvp_pytorch_tpu_torch.data.tsv import tsv_writer
     rng = np.random.default_rng(seed)
@@ -1160,11 +1199,16 @@ def write_cli_root(root, seed=0, corpus=False):
     tag_words = words[:2000]
     tags = {k: [tag_words[int(t)] for t in rng.integers(0, 2000, CLI_TAGS)]
             for k in keys}
-    nbytes = [0]
+    nbytes, boxes = [0], {}
 
     def rows():
         for k in keys:
             feats = rng.standard_normal((CLI_REGIONS, 2054), np.float32)
+            if finetune:
+                xy = rng.uniform(0.0, 0.5, (CLI_REGIONS, 2))
+                wh = rng.uniform(0.05, 0.5, (CLI_REGIONS, 2))
+                feats[:, -6:] = np.concatenate([xy, xy + wh, wh], 1)
+                boxes[k] = feats[:, -6:-2].copy()
             nbytes[0] += feats.nbytes
             yield [k, json.dumps({
                 "feature": base64.b64encode(feats.tobytes()).decode(),
@@ -1200,7 +1244,31 @@ def write_cli_root(root, seed=0, corpus=False):
         tsv_writer(rows, paths["corpus"])
         with open(paths["tag2id"], "w") as f:
             json.dump({t: i for i, t in enumerate(tag_words)}, f)
+    if finetune:
+        paths.update(write_finetune_files(root, rng, words, phrases, tags,
+                                          boxes))
     return paths, nbytes[0], os.path.getsize(paths["features"])
+
+
+@contextlib.contextmanager
+def around_steps(before=None, after=None):
+    """`before(trainer)` and `after(trainer, metrics)` around every
+    `Trainer.step` inside (nested: the inner one runs inside the outer)."""
+    from mvp_pytorch_tpu_torch.training.trainer import Trainer
+    real = Trainer.step
+
+    def step(self, batch):
+        if before is not None:
+            before(self)
+        out = real(self, batch)
+        if after is not None:
+            after(self, out)
+        return out
+    Trainer.step = step
+    try:
+        yield
+    finally:
+        Trainer.step = real
 
 
 @contextlib.contextmanager
@@ -1208,20 +1276,13 @@ def counted_steps(attn, per_step, what):
     """Every `Trainer.step` inside must launch the dropout kernel exactly
     `per_step` times and the plain attention never; yields the running
     launch total."""
-    from mvp_pytorch_tpu_torch.training.trainer import Trainer
-    real, total = Trainer.step, [0]
+    total = [0]
 
-    def step(self, batch):
-        reset_counts(attn)
-        out = real(self, batch)
+    def after(trainer, metrics):
         check_counts(attn, per_step, what)
         total[0] += attn.masked_attention.launches
-        return out
-    Trainer.step = step
-    try:
+    with around_steps(lambda trainer: reset_counts(attn), after):
         yield total
-    finally:
-        Trainer.step = real
 
 
 def mean(xs):
@@ -1240,7 +1301,7 @@ def phase7_cli(torch, attn, sweep_pairs_per_s=None):
                                                      load_phrase_vocab)
     from mvp_pytorch_tpu_torch.data.loader import BatchSampler
     from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
-    from mvp_pytorch_tpu_torch.models import ModelConfig, RetrievalModel
+    from mvp_pytorch_tpu_torch.models import RetrievalModel
     from mvp_pytorch_tpu_torch.tasks import retrieval as ret
     from mvp_pytorch_tpu_torch.tasks.common import build_config, tensorize_cfg
     t_phase = time.perf_counter()
@@ -1384,12 +1445,7 @@ def phase7_cli(torch, attn, sweep_pairs_per_s=None):
         if got != (want, 0, 0) or (DEVICE == "cuda" and want != 492):
             raise AssertionError(f"CLI eval launched {got}, want "
                                  f"({want} = 492, 0, 0)")
-        model = RetrievalModel(ModelConfig.from_pretrained(ckpt,
-                                                           dtype="bfloat16"),
-                               device=DEVICE)
-        model.load_state_dict(torch.load(
-            os.path.join(ckpt, "pytorch_model.bin"), map_location=DEVICE,
-            weights_only=True))
+        model = load_checkpoint(torch, RetrievalModel, ckpt)
         ref = ret.two_stage_scoring(
             model, ret.port_names(dataset.caption_arrays()),
             ret.port_names(dataset.image_arrays()), CLI_CAPS,
@@ -1690,6 +1746,718 @@ def phase8_pretrain_cli(torch, attn, layers_mod):
                 qa_losses=qa, seconds=seconds)
 
 
+# phase 9: VQA, SNLI-VE and referring-expression fine-tuning through their
+# command lines on phase 7's features with task files at the real widths
+FT_QUESTIONS, FT_EVAL, FT_VE_PAIRS, FT_MAX_DET = 2000, 1000, 3000, 20
+FT_B = {"vqa": 32, "ve": 64, "re": 32}
+FT_LR = {"vqa": "5e-5", "ve": "4e-5", "re": "4e-5"}
+FT_STEPS, FT_SHORT = 13, 3                  # VE / RE CLI steps; short runs
+FT_ARGS = ["--max_seq_length", "35", "--max_phrases", "5",   # LA 40
+           "--max_tag_length", "20", "--max_img_seq_length", "50",
+           "--dtype", "bfloat16", "--seed", "11",
+           "--hidden_dropout_prob", str(DROP_P),
+           "--attention_dropout_prob", str(DROP_P)]
+FT_EVAL_B = 64
+# the VQA real batch in bf16, kernel path against plain path: the logits
+# leave the QA decoder in bf16, so their gap is held in bf16 ulps at the
+# batch's largest |logit|; the loss sums the BCE of 3,129 answers (about
+# 2,300 at init), so its gap is held relative to the loss
+FT_BF16_LOGIT_ULPS, FT_BF16_LOSS_REL = 4, 1e-4
+FT_GRAD_PARAMS = ("cls.predictions.decoder.weight",
+                  "cls.predictions.transform.dense.weight",
+                  "bert.txt_encoder.layer.0.attention.self.query.weight",
+                  "bert.vis_encoder.layer.0.attention.self.query.weight",
+                  "bert.mul_encoder.layer.0.attention.self.query.weight")
+# attention shapes of the fine-tuning steps: (name, B, L)
+FT_SHAPES = (("fused", 64, 90), ("fused", 32, 90), ("text", 64, 40),
+             ("text", 32, 40))
+
+
+def write_finetune_files(root, rng, words, phrases, tags, boxes):
+    """The task files over `write_cli_root`'s images, by the learnable rules
+    of the port's `data/synthetic.py`: FT_QUESTIONS VQA questions whose
+    answer (of QA_ANSWERS) is set by the image's first tag, each with up to
+    10 soft scores (`vqa.jsonl`; the first FT_EVAL in `vqa_val.jsonl`) and
+    `label2ans.json`; FT_VE_PAIRS SNLI-VE hypotheses, entailment naming one
+    of the image's tags, contradiction a tag word it lacks, neutral a word
+    that is no tag (`ve.jsonl`; the first FT_EVAL in `ve_val.jsonl`); one
+    expression an image whose gt box is its largest region's (`re.json`),
+    and up to FT_MAX_DET detections an image, one of them near the gt box
+    (`re_dets.json`)."""
+    keys = sorted(tags)
+    tag_words = words[:2000]
+    tag_index = {t: i for i, t in enumerate(tag_words)}
+    plain_words = words[2000:]
+
+    def text(n):
+        return " ".join(plain_words[int(w)]
+                        for w in rng.integers(0, len(plain_words), n))
+
+    def some_phrases():
+        return [phrases[int(j)] for j in rng.integers(0, len(phrases), 4)]
+
+    out = {k: os.path.join(root, f) for k, f in (
+        ("vqa", "vqa.jsonl"), ("vqa_val", "vqa_val.jsonl"),
+        ("label2ans", "label2ans.json"), ("ve", "ve.jsonl"),
+        ("ve_val", "ve_val.jsonl"), ("re", "re.json"),
+        ("re_dets", "re_dets.json"))}
+    lines = []
+    for q in range(FT_QUESTIONS):
+        k = keys[q % len(keys)]
+        ans = [tag_index[tags[k][0]] % QA_ANSWERS]
+        for a in rng.integers(0, QA_ANSWERS, int(rng.integers(0, 10))):
+            if int(a) not in ans:
+                ans.append(int(a))
+        scores = [1.0] + [float(s) for s in rng.choice([0.3, 0.6, 0.9],
+                                                         len(ans) - 1)]
+        lines.append(json.dumps({"question_id": q, "image_id": k,
+                                 "question": text(12), "labels": ans,
+                                 "scores": scores,
+                                 "phrases": some_phrases()}))
+    for name, n in (("vqa", FT_QUESTIONS), ("vqa_val", FT_EVAL)):
+        with open(out[name], "w") as f:
+            f.write("\n".join(lines[:n]) + "\n")
+    with open(out["label2ans"], "w") as f:
+        json.dump([f"answer_{i}" for i in range(QA_ANSWERS)], f)
+    lines = []
+    labels = ("contradiction", "neutral", "entailment")
+    for i in range(FT_VE_PAIRS):
+        k, lab = keys[i % len(keys)], labels[i % 3]
+        if lab == "entailment":
+            word = tags[k][int(rng.integers(0, len(tags[k])))]
+        elif lab == "contradiction":
+            absent = sorted(set(tag_words) - set(tags[k]))
+            word = absent[int(rng.integers(0, len(absent)))]
+        else:
+            word = text(1)
+        lines.append(json.dumps({
+            "pairID": f"p{i}", "Flickr30K_ID": k,
+            "sentence2": f"{text(3)} {word} {text(2)}", "gold_label": lab,
+            "phrases": some_phrases()}))
+    for name, n in (("ve", FT_VE_PAIRS), ("ve_val", FT_EVAL)):
+        with open(out[name], "w") as f:
+            f.write("\n".join(lines[:n]) + "\n")
+    items, dets = [], {}
+    expression = text(6)
+    for k in keys:
+        b = boxes[k]
+        gt = b[int(((b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])).argmax())]
+        items.append({"image_id": k, "expression": expression,
+                      "gt_box": [float(v) for v in gt],
+                      "phrases": some_phrases()})
+        w, h = gt[2] - gt[0], gt[3] - gt[1]
+        near = [gt[0] + 0.05 * w, gt[1] + 0.05 * h, gt[2] - 0.05 * w,
+                gt[3] - 0.05 * h]
+        n = int(rng.integers(4, FT_MAX_DET + 1))
+        xy = rng.uniform(0.0, 0.5, (n - 1, 2))
+        wh = rng.uniform(0.05, 0.5, (n - 1, 2))
+        boxes_k = np.concatenate([xy, xy + wh], 1).tolist()
+        boxes_k.insert(int(rng.integers(0, n)), [float(v) for v in near])
+        dets[k] = boxes_k
+    with open(out["re"], "w") as f:
+        json.dump(items, f)
+    with open(out["re_dets"], "w") as f:
+        json.dump(dets, f)
+    return out
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 values (8 significant bits) at |x|."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def padded_forward(model, arrays, batch_size, **kw):
+    """The drivers' padded eval (`tasks.common.predict`) over a dataset's
+    arrays fetched at once, not chunk by chunk as the drivers fetch them;
+    fp32 numpy."""
+    from mvp_pytorch_tpu_torch.tasks.common import INPUT_NAMES, predict
+
+    class InMemory:
+        def __len__(self):
+            return len(arrays["input_ids_a"])
+
+        def fetch(self, idx):
+            return {k: arrays[k][idx] for k in INPUT_NAMES}
+    return predict(model, InMemory(), batch_size,
+                   lambda m, *x: m(*x, **kw))[0]
+
+
+def finetune_attention_times(torch, attn):
+    """The kernel at the fine-tuning steps' attention shapes (bf16, blhd,
+    padded 2-D key masks), at p 0.1 and p 0: its max abs error against the
+    plain version on the same inputs and seed, its ms, the plain version's
+    ms, SDPA's ms with the same mask and dropout, and the bound."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    out = {}
+    for name, b, l in FT_SHAPES:
+        q, k, v = (torch.randn(b, l, H, D, device=DEVICE, generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+        lens = torch.randint(l // 2, l + 1, (b,), device=DEVICE,
+                             generator=gen)
+        bias = attn.mask_to_bias((torch.arange(l, device=DEVICE)[None, :]
+                                  < lens[:, None]).to(torch.int32))
+        seed = torch.randint(-2 ** 63, 2 ** 63 - 1, (1,), dtype=torch.int64,
+                             device=DEVICE, generator=gen)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        bound, by = attention_bound_ms(b, l, l, "bfloat16", bias)
+        for p in (DROP_P, 0.0):
+            s = seed if p else None
+            got = attn.masked_attention(q, k, v, bias, layout="blhd",
+                                        dropout_p=p, seed=s)
+            want = attn.plain_attention_blhd(q, k, v, bias, p, s)
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= TOL["bfloat16"]:
+                raise AssertionError(f"kernel vs plain {name} B {b} L {l} "
+                                     f"p {p}: {err}")
+            row = dict(
+                max_abs_err=err, bound_ms=bound, bound_by=by,
+                ms=cuda_ms(lambda: attn.masked_attention(
+                    q, k, v, bias, layout="blhd", dropout_p=p, seed=s)),
+                plain_ms=cuda_ms(lambda: attn.plain_attention_blhd(
+                    q, k, v, bias, p, s), iters=5),
+                sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=bias.to(torch.bfloat16),
+                    dropout_p=p)))
+            out[f"{name} B {b} L {l} p {p:g}"] = row
+            log(f"  kernel {name:5s} B={b} L={l} bf16 p={p:g}: max|err| "
+                f"{err:.3e}  kernel {row['ms']:.4f} ms  plain "
+                f"{row['plain_ms']:.4f} ms  sdpa {row['sdpa_ms']:.4f} ms  "
+                f"bound {bound:.4f} ms ({by})")
+        del q, k, v, qh, kh, vh, bias, got, want
+    torch.cuda.synchronize()
+    return out
+
+
+def cli_numbers(hist, b, peak, timed_from=CLI_TIMED_FROM):
+    """step ms, samples/s, main-thread data ms and, through the loader,
+    worker ms and H2D ms over the steps from `timed_from` on."""
+    timed = hist[timed_from - 1:]
+    ms = mean([m["step_ms"] for m in timed])
+    out = dict(step_ms=ms, samples_per_s=b / ms * 1e3, peak_gb=peak,
+               main_data_ms=mean([m["data_ms"] for m in timed]))
+    for k in ("worker_ms", "h2d_ms"):
+        if k in timed[0]:
+            out[k] = mean([m[k] for m in timed])
+    return out
+
+
+def check_losses(hist, steps, what):
+    losses = [m["loss"] for m in hist]
+    log(f"  {what} losses " + " ".join(f"{x:.4f}" for x in losses))
+    if len(hist) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{what}: losses {losses}")
+    return losses
+
+
+def phase9_vqa(torch, attn, layers_mod, paths, root):
+    """(a) VQA: kernel path against plain path on the first real batch,
+    13 steps in memory, 26 through the CLI, the CLI's eval and test output
+    against the model's forward in memory, and the kl -> bce and dropout
+    schedules."""
+    import dataclasses
+    import gc
+    import shutil
+    from mvp_pytorch_tpu_torch.data.datasets import VQADataset
+    from mvp_pytorch_tpu_torch.data.loader import BatchSampler
+    from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
+    from mvp_pytorch_tpu_torch.models import VQAModel
+    from mvp_pytorch_tpu_torch.models.layers import hidden_dropouts
+    from mvp_pytorch_tpu_torch.tasks import vqa
+    from mvp_pytorch_tpu_torch.tasks.common import (MODEL_KEYS, TaskFetch,
+                                                    build_config,
+                                                    tensorize_cfg)
+    from mvp_pytorch_tpu_torch.data.datasets import (FeatureStore,
+                                                     load_phrase_vocab)
+    from mvp_pytorch_tpu_torch.training.loop import batch_on, train_on_batches
+    b = FT_B["vqa"]
+    data = ["--train_jsonl", paths["vqa"], "--feature_tsv", paths["features"],
+            "--id2phrase", paths["id2phrase"], "--label2ans",
+            paths["label2ans"], "--data_dir", root]
+    common = (data + FT_ARGS + CLI_PLATFORM
+              + ["--learning_rate", FT_LR["vqa"], "--train_batch_size", str(b),
+                 "--log_period", "1", "--num_workers", "4",
+                 "--worker_start_method", "fork"])
+    args = vqa.get_args(["--output_dir", root] + common)
+    tokenizer = FastBertTokenizer(paths["vocab"])
+    cfg = build_config(args, tokenizer, num_labels=QA_ANSWERS,
+                       loss_type="bce")
+    per_step = cfg.half_layers * 3           # text, vision, one fusion pass
+    dataset = VQADataset(paths["vqa"], FeatureStore(paths["features"]),
+                         tokenizer, QA_ANSWERS,
+                         sg2id=load_phrase_vocab(paths["id2phrase"]),
+                         cfg=tensorize_cfg(args))
+    fetch = TaskFetch(dataset)
+    sampler = BatchSampler(len(dataset), b, seed=args.seed)
+    t0 = time.perf_counter()
+    batches = [fetch(sampler.batch_at(s)) for s in range(CLI_MEM_STEPS)]
+    fetch_ms = (time.perf_counter() - t0) * 1e3 / CLI_MEM_STEPS
+    shapes = {k: v.shape for k, v in batches[0].items()}
+    log(f"  vqa: a batch fetched on the main thread: {fetch_ms:.1f} ms; "
+        f"shapes {shapes}")
+    if (shapes["input_ids_a"] != (b, 40) or shapes["attention_mask_b"]
+            != (b, 70) or shapes["img_feats"] != (b, CLI_REGIONS, 2054)
+            or shapes["label"] != (b, QA_ANSWERS)):
+        raise AssertionError(f"vqa batch shapes {shapes}")
+
+    # 1. the first real batch at dropout 0: kernel path against plain path
+    batch = batch_on(DEVICE, batches[0])
+    ref = None
+    for dn in ("float32", "bfloat16"):
+        model = VQAModel(dataclasses.replace(
+            cfg, dtype=dn, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0), device=DEVICE, seed=args.seed)
+        model.train()
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            loss, logits = model(*(batch[k] for k in MODEL_KEYS),
+                                 labels=batch["label"], max_tag_length=20)
+            loss.backward()
+            params = dict(model.named_parameters())
+            return ((loss.detach(), logits.detach()),
+                    {n: params[n].grad.detach().float().clone()
+                     for n in FT_GRAD_PARAMS})
+
+        reset_counts(attn)
+        (k_loss, k_logits), k_grads = step()
+        torch.cuda.synchronize()
+        if (attn.masked_attention.launches != per_step
+                or attn.masked_attention.dropout_launches != 0):
+            raise AssertionError("vqa kernel path did not launch the p = 0 "
+                                 "kernel")
+        with plain_attention_path(layers_mod, attn):
+            (p_loss, p_logits), p_grads = step()
+        torch.cuda.synchronize()
+        if attn.masked_attention.launches != per_step:
+            raise AssertionError("vqa plain path launched the kernel")
+        tol = E2E_TOL[dn]
+        for name, a, c in (("logits", k_logits, p_logits),
+                           ("loss", k_loss, p_loss)):
+            gap = (a - c).abs().max().item()
+            if ref is None:
+                ok = bool(torch.isfinite(a).all()) and gap <= tol
+                log(f"  vqa real batch {dn:9s} {name}: max|kernel-plain| "
+                    f"{gap:.3e} tol {tol:g} {'ok' if ok else 'FAIL'}")
+            else:
+                scale = c.abs().max().item()
+                if name == "logits":
+                    lim = FT_BF16_LOGIT_ULPS * bf16_ulp(scale)
+                    rule = (f"{FT_BF16_LOGIT_ULPS} bf16 ulps at max|logit| "
+                            f"{scale:.3f}")
+                else:
+                    lim = FT_BF16_LOSS_REL * scale
+                    rule = f"{FT_BF16_LOSS_REL:g} of the loss {scale:.3f}"
+                ok = bool(torch.isfinite(a).all()) and gap <= lim
+                log(f"  vqa real batch {dn:9s} {name}: max|kernel-plain| "
+                    f"{gap:.3e} tol {lim:.3e} ({rule}) "
+                    f"{'ok' if ok else 'FAIL'}; from fp32 (printed): kernel "
+                    f"{(a - ref[name]).abs().max().item():.3e}, plain "
+                    f"{(c - ref[name]).abs().max().item():.3e}")
+            if not ok:
+                raise AssertionError(f"vqa real batch {dn} {name}")
+
+        def rel(a, c):
+            return ((a - c).norm() / c.norm()).item()
+        for n in FT_GRAD_PARAMS:
+            r = rel(k_grads[n], p_grads[n])
+            if ref is None:
+                ok = bool(torch.isfinite(k_grads[n]).all()) and r <= 1e-3
+                log(f"  vqa real batch {dn:9s} grad {n}: rel err {r:.3e} "
+                    f"tol 0.001 {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"vqa real batch {dn} grad {n}: {r}")
+            else:
+                log(f"  vqa real batch {dn:9s} grad {n}: kernel vs plain "
+                    f"{r:.3e}; from the fp32 gradient: kernel "
+                    f"{rel(k_grads[n], ref[n]):.3e}, plain "
+                    f"{rel(p_grads[n], ref[n]):.3e} (printed)")
+        ref = ref or dict(p_grads, logits=p_logits, loss=p_loss)
+        del model, k_grads, p_grads, k_logits, p_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    del batch, ref
+
+    # 2. in memory: the same batches
+    model = VQAModel(cfg, device=DEVICE, seed=args.seed)
+    with counted_steps(attn, per_step, "a vqa in-memory step") as total:
+        torch.cuda.reset_peak_memory_stats()
+        mem = train_on_batches(model, vqa.vqa_loss_fn(args, cfg), batches,
+                               CLI_MEM_STEPS, learning_rate=args.learning_rate,
+                               weight_decay=args.weight_decay, seed=args.seed)
+    mem_n = cli_numbers(mem, b, torch.cuda.max_memory_allocated() / 1e9,
+                        CLI_MEM_TIMED_FROM)
+    check_losses(mem, CLI_MEM_STEPS, "vqa in memory")
+    log(f"  vqa in memory: {total[0]} launches; {mem_n['step_ms']:.2f} "
+        f"ms/step {mem_n['samples_per_s']:.1f} samples/s, peak "
+        f"{mem_n['peak_gb']:.2f} GB")
+    del model, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the CLI and its process loader
+    out = os.path.join(root, "vqa_train")
+    argv = (["--output_dir", out, "--do_train", "--max_steps",
+             str(CLI_STEPS), "--ckpt_period", str(CLI_STEPS)] + common)
+    log("  python -m mvp_pytorch_tpu_torch.tasks.vqa " + " ".join(
+        os.path.relpath(a, root) if a.startswith(root) else a for a in argv))
+    with counted_steps(attn, per_step, "a vqa CLI step") as total:
+        torch.cuda.reset_peak_memory_stats()
+        hist = vqa.main(argv)["train"]
+    cli_n = cli_numbers(hist, b, torch.cuda.max_memory_allocated() / 1e9)
+    losses = check_losses(hist, CLI_STEPS, "vqa CLI")
+    log(f"  vqa step 1 loss: CLI {losses[0]:.6f}, in memory "
+        f"{mem[0]['loss']:.6f}")
+    if abs(losses[0] - mem[0]["loss"]) > STEP_TOL["bfloat16"][0]:
+        raise AssertionError("the vqa CLI's first batch is not the sampler's")
+    ratio = cli_n["samples_per_s"] / mem_n["samples_per_s"]
+    log(f"  vqa CLI: {total[0]} launches ({per_step} a step, all with "
+        f"dropout, plain 0); {cli_n['step_ms']:.2f} ms/step "
+        f"{cli_n['samples_per_s']:.1f} samples/s, peak {cli_n['peak_gb']:.2f} "
+        f"GB; main thread data {cli_n['main_data_ms']:.3f} ms/step, worker "
+        f"{cli_n['worker_ms']:.1f} ms/batch, H2D "
+        f"{cli_n.get('h2d_ms', float('nan')):.3f} ms/batch; ratio to memory "
+        f"{ratio:.3f} (target 0.90)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the CLI's eval and test output from the checkpoint
+    ckpt = os.path.join(out, f"checkpoint-{CLI_STEPS:07d}")
+    shutil.copy(paths["vocab"], ckpt)
+    argv = (["--output_dir", os.path.join(root, "vqa_eval"),
+             "--model_name_or_path", ckpt, "--do_eval", "--eval_jsonl",
+             paths["vqa_val"], "--test_jsonl", paths["vqa_val"],
+             "--eval_batch_size", str(FT_EVAL_B)] + data + FT_ARGS
+            + CLI_PLATFORM)
+    reset_counts(attn)
+    res = vqa.main(argv)
+    torch.cuda.synchronize()
+    n_batches = 2 * math.ceil(FT_EVAL / FT_EVAL_B)
+    got = (attn.masked_attention.launches,
+           attn.masked_attention.dropout_launches, attn.plain_attention.calls)
+    log(f"  vqa CLI eval + test: {got[0]} launches ({got[1]} with dropout, "
+        f"plain {got[2]}) over {n_batches} batches of {FT_EVAL_B}; "
+        f"vqa_accuracy {res['eval']['vqa_accuracy']:.4f}")
+    if got != (per_step * n_batches, 0, 0):
+        raise AssertionError(f"vqa eval launched {got}")
+    val = VQADataset(paths["vqa_val"], FeatureStore(paths["features"]),
+                     tokenizer, QA_ANSWERS,
+                     sg2id=load_phrase_vocab(paths["id2phrase"]),
+                     cfg=tensorize_cfg(args))
+    arrays = val.fetch(np.arange(len(val)))
+    model = load_checkpoint(torch, VQAModel, ckpt)
+    logits = padded_forward(model, arrays, FT_EVAL_B,
+                            max_tag_length=20)
+    err = float(np.abs(logits - res["eval"]["logits"]).max())
+    acc = vqa.vqa_accuracy(logits, arrays["label"])
+    with open(os.path.join(root, "vqa_eval", "vqa_val_results.json")) as f:
+        results = json.load(f)
+    with open(paths["label2ans"]) as f:
+        label2ans = json.load(f)
+    answers_ok = (len(results) == FT_EVAL and [r["question_id"] for r in
+                                               results]
+                  == [int(q) for q in arrays["question_id"]]
+                  and [r["answer"] for r in results]
+                  == [label2ans[int(a)] for a in logits.argmax(1)])
+    log(f"  vqa eval against the forward in memory: max|logit diff| "
+        f"{err:.3e} (tol {SCORE_TOL:g}), accuracy {acc:.4f} vs CLI "
+        f"{res['eval']['vqa_accuracy']:.4f}; test output: {len(results)} "
+        f"answers from label2ans {'ok' if answers_ok else 'WRONG'}")
+    if err > SCORE_TOL or acc != res["eval"]["vqa_accuracy"] or not answers_ok:
+        raise AssertionError("vqa CLI eval differs from the forward in memory")
+    del model, arrays, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. the schedules: kl -> bce and the hidden dropouts at step 2
+    kinds, kernel_p, seen = [], [], []
+    real_kl, real_bce = vqa.kl_div_loss, vqa.instance_bce_with_logits
+    real_attn = layers_mod.masked_attention
+
+    def kl(*a):
+        kinds.append("kl")
+        return real_kl(*a)
+
+    def bce(*a):
+        kinds.append("bce")
+        return real_bce(*a)
+
+    def attention(*a, **kw):
+        kernel_p.append(kw.get("dropout_p", 0.0))
+        return real_attn(*a, **kw)
+
+    def before(trainer):
+        kinds.clear()
+        kernel_p.clear()
+
+    def after(trainer, metrics):
+        seen.append((trainer.step_count - 1, tuple(kinds),
+                     sorted({m.p for m in hidden_dropouts(trainer.model)}),
+                     sorted(set(kernel_p))))
+    argv = (["--output_dir", os.path.join(root, "vqa_sched"), "--do_train",
+             "--max_steps", str(FT_SHORT), "--ckpt_period", "0",
+             "--loss_type", "kl", "--adjust_loss_step", "2",
+             "--adjust_dp_step", "2"] + common)
+    vqa.kl_div_loss, vqa.instance_bce_with_logits = kl, bce
+    layers_mod.masked_attention = attention
+    try:
+        with counted_steps(attn, per_step, "a vqa schedule step"), \
+                around_steps(before, after):
+            sched = vqa.main(argv)["train"]
+    finally:
+        vqa.kl_div_loss, vqa.instance_bce_with_logits = real_kl, real_bce
+        layers_mod.masked_attention = real_attn
+    check_losses(sched, FT_SHORT, "vqa kl -> bce")
+    want = [(s, ("kl",) if s < 2 else ("bce",),
+             [DROP_P if s < 2 else 0.3], [DROP_P]) for s in range(FT_SHORT)]
+    for s in seen:
+        log(f"  vqa schedule: step {s[0]} loss {s[1]} hidden dropouts {s[2]} "
+            f"kernel p {s[3]}")
+    if seen != want:
+        raise AssertionError(f"vqa schedules: {seen}, want {want}")
+    return dict(launches_per_step=per_step, launches=total[0],
+                in_memory=mem_n, cli=cli_n, ratio=ratio,
+                main_fetch_ms=fetch_ms, eval_logit_err=err,
+                vqa_accuracy=acc, losses=losses)
+
+
+def load_checkpoint(torch, model_cls, ckpt):
+    """A bf16 `model_cls` on the card with a CLI checkpoint's weights."""
+    from mvp_pytorch_tpu_torch.models import ModelConfig
+    model = model_cls(ModelConfig.from_pretrained(ckpt, dtype="bfloat16"),
+                      device=DEVICE)
+    model.load_state_dict(torch.load(os.path.join(ckpt, "pytorch_model.bin"),
+                                     map_location=DEVICE, weights_only=True))
+    return model
+
+
+def phase9_ve(torch, attn, paths, root):
+    """(b) SNLI-VE: 13 CLI steps with --mask_training --freeze_steps 5, the
+    freeze read off the parameters after every step, the eval against the
+    forward in memory; 3 steps with --use_single."""
+    import gc
+    from mvp_pytorch_tpu_torch.data.datasets import (FeatureStore, VEDataset,
+                                                     load_phrase_vocab)
+    from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
+    from mvp_pytorch_tpu_torch.models import ClassificationModel
+    from mvp_pytorch_tpu_torch.tasks import ve
+    from mvp_pytorch_tpu_torch.tasks.common import build_config, tensorize_cfg
+    b, freeze = FT_B["ve"], 5
+    common = (["--train_jsonl", paths["ve"], "--feature_tsv",
+               paths["features"], "--id2phrase", paths["id2phrase"],
+               "--data_dir", root] + FT_ARGS + CLI_PLATFORM
+              + ["--learning_rate", FT_LR["ve"], "--train_batch_size",
+                 str(b), "--log_period", "1", "--num_workers", "4",
+                 "--worker_start_method", "fork"])
+    bert0, cls_prev, seen = {}, [], []
+
+    def classifier(model):
+        return [p for n, p in model.named_parameters()
+                if n.startswith("classifier.")]
+
+    def before(trainer):
+        if not bert0:
+            bert0.update({n: p.detach().clone() for n, p in
+                          trainer.model.named_parameters()
+                          if n.startswith("bert.")})
+        cls_prev[:] = [p.detach().clone() for p in classifier(trainer.model)]
+
+    def after(trainer, metrics):
+        params = dict(trainer.model.named_parameters())
+        seen.append((trainer.step_count,
+                     all(torch.equal(params[n], p) for n, p in bert0.items()),
+                     any(not torch.equal(a, c) for a, c in
+                         zip(cls_prev, classifier(trainer.model)))))
+
+    out = os.path.join(root, "ve_train")
+    argv = (["--output_dir", out, "--do_train", "--do_eval", "--max_steps",
+             str(FT_STEPS), "--ckpt_period", str(FT_STEPS), "--eval_jsonl",
+             paths["ve_val"], "--eval_batch_size", str(FT_EVAL_B),
+             "--mask_training", "--freeze_steps", str(freeze)] + common)
+    log("  python -m mvp_pytorch_tpu_torch.tasks.ve " + " ".join(
+        os.path.relpath(a, root) if a.startswith(root) else a for a in argv))
+    args = ve.get_args(argv)
+    tokenizer = FastBertTokenizer(paths["vocab"])
+    per_step = 3 * build_config(args, tokenizer, num_labels=3).half_layers
+    with counted_steps(attn, per_step, "a ve CLI step") as total, \
+            around_steps(before, after):
+        torch.cuda.reset_peak_memory_stats()
+        res = ve.main(argv)
+    cli_n = cli_numbers(res["train"], b,
+                        torch.cuda.max_memory_allocated() / 1e9)
+    losses = check_losses(res["train"], FT_STEPS, "ve CLI")
+    want = [(s, s <= freeze, True) for s in range(1, FT_STEPS + 1)]
+    log("  ve freeze: (step, bert.* bitwise unchanged, classifier moved) "
+        + " ".join(f"{s}:{int(u)}{int(c)}" for s, u, c in seen))
+    if seen != want:
+        raise AssertionError(f"ve freeze {seen}, want {want}")
+    log(f"  ve CLI: {total[0]} launches ({per_step} a step, all with "
+        f"dropout, plain 0); {cli_n['step_ms']:.2f} ms/step "
+        f"{cli_n['samples_per_s']:.1f} samples/s, peak {cli_n['peak_gb']:.2f} "
+        f"GB; main thread data {cli_n['main_data_ms']:.3f} ms/step, worker "
+        f"{cli_n['worker_ms']:.1f} ms/batch; acc (train) "
+        + " ".join(f"{m['acc']:.3f}" for m in res["train"]))
+    bert0.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    val = VEDataset(paths["ve_val"], FeatureStore(paths["features"]),
+                    tokenizer, sg2id=load_phrase_vocab(paths["id2phrase"]),
+                    cfg=tensorize_cfg(args))
+    arrays = val.fetch(np.arange(len(val)))
+    model = load_checkpoint(torch, ClassificationModel,
+                            os.path.join(out, f"checkpoint-{FT_STEPS:07d}"))
+    logits = padded_forward(model, arrays, FT_EVAL_B,
+                            max_tag_length=20)
+    acc = float((logits.argmax(1) == arrays["label"]).sum()) / len(val)
+    with open(os.path.join(out, "eval_logs.json")) as f:
+        logged = json.load(f)[-1]["ve_accuracy"]
+    log(f"  ve eval: CLI ve_accuracy {logged:.4f}, in memory {acc:.4f} "
+        f"({len(val)} pairs)")
+    if acc != logged:
+        raise AssertionError("ve CLI eval differs from the forward in memory")
+    del model, arrays
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = (["--output_dir", os.path.join(root, "ve_single"), "--do_train",
+             "--max_steps", str(FT_SHORT), "--ckpt_period", "0",
+             "--use_single"] + common)
+    with counted_steps(attn, per_step, "a ve --use_single step") as stotal:
+        single = ve.main(argv)["train"]
+    check_losses(single, FT_SHORT, "ve --use_single")
+    log(f"  ve --use_single: {stotal[0]} launches")
+    return dict(launches_per_step=per_step, launches=total[0], cli=cli_n,
+                ve_accuracy=acc, losses=losses,
+                single_losses=[m["loss"] for m in single])
+
+
+def phase9_re(torch, attn, paths, root):
+    """(c) RE: 13 CLI steps of `REModel` mod 1 reading fusion layer 2, with
+    the detections, the three accuracies against the forward in memory; 3
+    steps at --loss_mod 3."""
+    import gc
+    from mvp_pytorch_tpu_torch.data.datasets import (FeatureStore, REDataset,
+                                                     load_phrase_vocab,
+                                                     re_score, re_score_det1,
+                                                     re_score_det2)
+    from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
+    from mvp_pytorch_tpu_torch.models import REModel
+    from mvp_pytorch_tpu_torch.tasks import re_task
+    from mvp_pytorch_tpu_torch.tasks.common import build_config, tensorize_cfg
+    b = FT_B["re"]
+    phrase_layer = "2" if DEVICE == "cuda" else "0"
+    common = (["--train_json", paths["re"], "--feature_tsv",
+               paths["features"], "--id2phrase", paths["id2phrase"],
+               "--data_dir", root] + FT_ARGS + CLI_PLATFORM
+              + ["--learning_rate", FT_LR["re"], "--train_batch_size",
+                 str(b), "--log_period", "1", "--num_workers", "4",
+                 "--worker_start_method", "fork"])
+    out = os.path.join(root, "re_train")
+    argv = (["--output_dir", out, "--do_train", "--do_eval", "--max_steps",
+             str(FT_STEPS), "--ckpt_period", str(FT_STEPS), "--eval_json",
+             paths["re"], "--det_json", paths["re_dets"], "--max_det",
+             str(FT_MAX_DET), "--eval_batch_size", str(FT_EVAL_B),
+             "--loss_mod", "1", "--phrase_layer", phrase_layer] + common)
+    log("  python -m mvp_pytorch_tpu_torch.tasks.re_task " + " ".join(
+        os.path.relpath(a, root) if a.startswith(root) else a for a in argv))
+    args = re_task.get_args(argv)
+    tokenizer = FastBertTokenizer(paths["vocab"])
+    per_step = 3 * build_config(args, tokenizer, num_labels=1).half_layers
+    with counted_steps(attn, per_step, "an re CLI step") as total:
+        torch.cuda.reset_peak_memory_stats()
+        res = re_task.main(argv)
+    cli_n = cli_numbers(res["train"], b,
+                        torch.cuda.max_memory_allocated() / 1e9)
+    losses = check_losses(res["train"], FT_STEPS, "re CLI")
+    log(f"  re CLI: {total[0]} launches ({per_step} a step, all with "
+        f"dropout, plain 0); {cli_n['step_ms']:.2f} ms/step "
+        f"{cli_n['samples_per_s']:.1f} samples/s, peak {cli_n['peak_gb']:.2f} "
+        f"GB; main thread data {cli_n['main_data_ms']:.3f} ms/step, worker "
+        f"{cli_n['worker_ms']:.1f} ms/batch")
+    gc.collect()
+    torch.cuda.empty_cache()
+    val = REDataset(paths["re"], FeatureStore(paths["features"]), tokenizer,
+                    sg2id=load_phrase_vocab(paths["id2phrase"]),
+                    cfg=tensorize_cfg(args), det_json=paths["re_dets"],
+                    max_det=FT_MAX_DET)
+    arrays = val.fetch(np.arange(len(val)))
+    model = load_checkpoint(torch, REModel,
+                            os.path.join(out, f"checkpoint-{FT_STEPS:07d}"))
+    logits = padded_forward(model, arrays, FT_EVAL_B,
+                            max_tag_length=20, mod=1,
+                            phrase_layer=int(phrase_layer))
+    det = (logits, arrays["label"], arrays["det_label"], arrays["iou_mat"])
+    mine = {"re_accuracy": re_score(*det[:2]),
+            "re_accuracy_det1": re_score_det1(*det),
+            "re_accuracy_det2": re_score_det2(*det)}
+    with open(os.path.join(out, "eval_logs.json")) as f:
+        logged = {k: v for k, v in json.load(f)[-1].items() if k != "step"}
+    log(f"  re eval: CLI {json.dumps(logged)}; in memory {json.dumps(mine)}")
+    if logged != mine:
+        raise AssertionError("re CLI eval differs from the forward in memory")
+    del model, arrays
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = (["--output_dir", os.path.join(root, "re_mod3"), "--do_train",
+             "--max_steps", str(FT_SHORT), "--ckpt_period", "0",
+             "--loss_mod", "3"] + common)
+    with counted_steps(attn, per_step, "an re --loss_mod 3 step") as mtotal:
+        mod3 = re_task.main(argv)["train"]
+    check_losses(mod3, FT_SHORT, "re --loss_mod 3")
+    log(f"  re --loss_mod 3: {mtotal[0]} launches")
+    return dict(launches_per_step=per_step, launches=total[0], cli=cli_n,
+                scores=mine, losses=losses,
+                mod3_losses=[m["loss"] for m in mod3])
+
+
+def finetune_summary(ft):
+    """Phase 9's numbers for the kernels line: each task's launches a step,
+    step ms, samples/s and peak GB, and the kernel's ms, bound ms, plain
+    ms and SDPA ms at each of FT_SHAPES (fused L 90, B 64 first) at p 0.1
+    and 0."""
+    out = {task: {"launches_per_step": r["launches_per_step"],
+                  "launches": r["launches"], **r["cli"]}
+           for task, r in ft["tasks"].items()}
+    out["vqa"].update(ratio=ft["tasks"]["vqa"]["ratio"],
+                      in_memory=ft["tasks"]["vqa"]["in_memory"])
+    out["attention"] = ft["attention"]
+    out["seconds"] = ft["seconds"]
+    return out
+
+
+def phase9_finetune_cli(torch, attn, layers_mod):
+    """The VQA, SNLI-VE and RE command lines at MVPTR-base on a generated
+    root, and the kernel at their attention shapes."""
+    import gc
+    import shutil
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke",
+                        "phase9")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        paths, feat_bytes, tsv_bytes = write_cli_root(root, finetune=True)
+        log(f"  root: {CLI_IMAGES} images, {CLI_REGIONS} regions x 2054 fp32 "
+            f"({feat_bytes / 1e6:.1f} MB of features, {tsv_bytes / 1e6:.1f} "
+            f"MB of TSV), {FT_QUESTIONS} questions over {QA_ANSWERS} answers, "
+            f"{FT_VE_PAIRS} hypotheses, {CLI_IMAGES} expressions written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        times = finetune_attention_times(torch, attn)
+        res = {"vqa": phase9_vqa(torch, attn, layers_mod, paths, root)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["ve"] = phase9_ve(torch, attn, paths, root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["re"] = phase9_re(torch, attn, paths, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 9 took {seconds:.1f} s")
+    return dict(tasks=res, attention=times, seconds=seconds)
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1700,6 +2468,9 @@ def main(argv) -> int:
     parser.add_argument("--pretrain_cli", action="store_true",
                         help="run phase 8 (the pretraining command line) "
                              "alone")
+    parser.add_argument("--finetune_cli", action="store_true",
+                        help="run phase 9 (the VQA, SNLI-VE and RE command "
+                             "lines) alone")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1748,6 +2519,13 @@ def main(argv) -> int:
         pcli = phase8_pretrain_cli(torch, attn, layers_mod)
         print(json.dumps({"pretrain_cli": pcli, "card": card}), flush=True)
         return 0
+    if args.finetune_cli:
+        log("phase 9 alone: the VQA, SNLI-VE and RE command lines, "
+            "MVPTR-base")
+        ft = phase9_finetune_cli(torch, attn, layers_mod)
+        print(json.dumps({"finetune": finetune_summary(ft), "card": card}),
+              flush=True)
+        return 0
     phase1_kernel_report(torch, attn, _kernels, lib_path)
     torch.cuda.synchronize()
 
@@ -1789,6 +2567,11 @@ def main(argv) -> int:
     log("phase 8: the pretraining command line, MVPTR-base, B 96, generated "
         "corpus")
     pcli = phase8_pretrain_cli(torch, attn, layers_mod)
+    torch.cuda.synchronize()
+
+    log("phase 9: the VQA, SNLI-VE and RE command lines, MVPTR-base, "
+        "generated root")
+    ft = phase9_finetune_cli(torch, attn, layers_mod)
     torch.cuda.synchronize()
 
     main_t = timings[("fused", "bfloat16")]
@@ -1839,7 +2622,8 @@ def main(argv) -> int:
             "p0_bwd_ms": drop_t["bwd_p0_ms"],
             "seconds": pre["seconds"]},
         "cli": {k: v for k, v in cli.items() if k != "losses"},
-        "pretrain_cli": pcli}, {
+        "pretrain_cli": pcli,
+        "finetune": finetune_summary(ft)}, {
         # the fp32 kernels (3xTF32) behind the same entry point; launches
         # and pairs/s from the fp32 sweep of phase 3
         "name": "masked_attention_fwd fp32 (3xTF32)", "route": "cuda",

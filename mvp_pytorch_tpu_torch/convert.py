@@ -6,11 +6,22 @@ port's modules carry: dense kernels are transposed to torch's [out, in],
 LayerNorm `scale` becomes `weight`, embedding tables and the raw `[H, H]`
 global projections load as they are. The mapping is this package's own copy
 of the JAX package's `convert.export_state_dict` rules, for the retrieval
-model (`bert`, `classifier`, `logit_scale`) and the pretraining model (also
+model (`bert`, `classifier`, `logit_scale`), the pretraining model (also
 `cls_predictions`, `half_mlm`, `cls_seq_relationship` and, where the tree has
-them, `qa_head` and `qa_seq_relation`). The tied LM decoders have no params
-in a flax tree; `BiPretrainModel.load_state_dict` takes care of the
-reference's `decoder.weight` copies.
+them, `qa_head` and `qa_seq_relation`) and the single-pair task models
+(`ClassificationModel`, `ClassificationPlusModel`, `VQAModel`, `REModel`).
+The tied LM decoders have no params in a flax tree;
+`BiPretrainModel.load_state_dict` takes care of the reference's
+`decoder.weight` copies. VQA's untied decoder (`cls/decoder/kernel`) loads
+as `cls.predictions.decoder.weight`.
+
+The JAX exporter has no rule for `ClassificationPlusModel`'s flax
+`nn.Sequential` names, so the port names them itself: `single_mapping/
+layers_0|layers_2` become `single_mapping.0/.2`, and an mlp classifier's
+`classifier/layers_0|layers_2` become `classifier.0/.2`; its linear
+classifier (`classifier/{kernel,bias}`) becomes `classifier.weight/bias`.
+A `ClassifierHead`'s `classifier/dense` and `classifier/out` become
+`classifier.0` and `classifier.2` (mlp) or `classifier.weight/bias`.
 """
 
 from __future__ import annotations
@@ -34,7 +45,8 @@ _LAYER_SUFFIX = {
 
 _ENCODERS = ("txt_encoder", "vis_encoder", "mul_encoder")
 # flax LM head -> its torch prefix
-_LM_HEADS = {"cls_predictions": "cls.predictions", "half_mlm": "half_mlm"}
+_LM_HEADS = {"cls_predictions": "cls.predictions", "half_mlm": "half_mlm",
+             "cls": "cls.predictions"}          # the last: VQA's QA head
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()) -> Iterator[Tuple[tuple, np.ndarray]]:
@@ -67,6 +79,8 @@ def _torch_key(path: tuple, val: np.ndarray, mlp_classifier: bool):
         base, p = _LM_HEADS[path[0]], path[1:]
         if p == ("bias",):
             return f"{base}.bias", val
+        if p == ("decoder", "kernel"):           # QAPredictionHead, untied
+            return f"{base}.decoder.weight", val.T
         if len(p) == 3 and p[0] == "transform" and p[1] in ("dense",
                                                             "LayerNorm"):
             kind = "dense" if p[1] == "dense" else "norm"
@@ -79,11 +93,18 @@ def _torch_key(path: tuple, val: np.ndarray, mlp_classifier: bool):
     if path[0] in ("qa_head", "qa_seq_relation") and len(path) == 2:
         suf, val = _leaf("dense", path[1], val)
         return f"{path[0]}.{suf}", val
-    if path[0] == "classifier":
+    if path[0] == "classifier" and len(path) in (2, 3):
         suf, val = _leaf("dense", path[-1], val)
-        if mlp_classifier:
-            return f"classifier.{'0' if path[1] == 'dense' else '2'}.{suf}", val
+        sub = path[1] if len(path) == 3 else None
+        if sub is not None and sub.startswith("layers_"):   # nn.Sequential
+            return f"classifier.{sub[len('layers_'):]}.{suf}", val
+        if sub is not None and mlp_classifier:
+            return f"classifier.{'0' if sub == 'dense' else '2'}.{suf}", val
         return f"classifier.{suf}", val
+    if (path[0] == "single_mapping" and len(path) == 3
+            and path[1] in ("layers_0", "layers_2")):
+        suf, val = _leaf("dense", path[2], val)
+        return f"single_mapping.{path[1][len('layers_'):]}.{suf}", val
     if path[0] == "bert" and len(path) > 1:
         p = path[1:]
         if p[0] == "embeddings" and p[-1] == "embedding" and len(p) == 3:
@@ -112,8 +133,9 @@ def _torch_key(path: tuple, val: np.ndarray, mlp_classifier: bool):
 
 
 def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A flax params tree of a full model (`bert`, `classifier` or the
-    pretraining heads, `logit_scale`) -> the reference's torch state dict."""
+    """A flax params tree of a full model (`bert` and its heads, and
+    `logit_scale` where the model has one) -> the reference's torch state
+    dict."""
     flat = list(_flatten(params))
     mlp = any(p[:2] == ("classifier", "dense") for p, _ in flat)
     sd = {}
@@ -129,8 +151,9 @@ def load_jax_params(model: torch.nn.Module, params: Mapping[str, Any]):
     `model` is a `RetrievalModel` (params hold `bert`, `classifier`,
     `logit_scale`), a `BiPretrainModel` (params hold `bert`, the pretraining
     heads, `logit_scale`; `qa_head` exactly when `qa_answer_size > 0` and
-    `qa_seq_relation` exactly when the model has `qa_pairs`) or a bare
-    `BiEncoder` (params are the `bert` subtree). A flax path with no place
+    `qa_seq_relation` exactly when the model has `qa_pairs`), a single-pair
+    task model (`bert` and `classifier`, `cls` or `single_mapping` and
+    `classifier`) or a bare `BiEncoder` (params are the `bert` subtree). A flax path with no place
     in the port, or a port parameter the params do not cover, raises."""
     if hasattr(model, "bert"):
         sd = jax_params_to_state_dict(params)

@@ -1,7 +1,7 @@
 """Prediction heads, the JAX package's `models/heads.py`: the classifier,
-and the pretraining heads (`PredictionHeadTransform`, the tied
-`LMPredictionHead`, `SeqRelationshipHead`). `QAPredictionHead` and
-`MRFMRCHeads` come with the task models that use them."""
+the pretraining heads (`PredictionHeadTransform`, the tied
+`LMPredictionHead`, `SeqRelationshipHead`) and VQA's untied
+`QAPredictionHead`. `MRFMRCHeads` comes with the model that uses it."""
 
 from __future__ import annotations
 
@@ -50,6 +50,26 @@ class LMPredictionHead(nn.Module):
     def forward(self, hidden, word_table):
         h = self.transform(hidden)
         logits = h @ word_table[:self.n].to(h.dtype).T
+        return logits.float() + self.bias
+
+
+class QAPredictionHead(nn.Module):
+    """transform -> an untied bias-free `decoder` [num_labels, H] in the
+    compute dtype -> fp32 logits plus a separate `bias` (reference
+    modeling_bert.py:518-533). Its keys are the reference's under
+    `cls.predictions`: `transform.*`, `decoder.weight`, `bias`."""
+
+    def __init__(self, config: ModelConfig, num_labels: Optional[int] = None):
+        super().__init__()
+        n = num_labels if num_labels is not None else config.num_labels
+        self.compute_dtype = compute_dtype(config)
+        self.transform = PredictionHeadTransform(config)
+        self.decoder = nn.Linear(config.hidden_size, n, bias=False)
+        self.bias = nn.Parameter(torch.zeros(n))
+
+    def forward(self, hidden):
+        h = self.transform(hidden)
+        logits = F.linear(h, self.decoder.weight.to(self.compute_dtype))
         return logits.float() + self.bias
 
 

@@ -37,7 +37,8 @@ from .config import ModelConfig
 __all__ = [
     "ACT2FN", "Dense", "Dropout", "LayerNorm", "Embeddings", "SelfAttention",
     "AttentionBlock", "TransformerLayer", "StreamEncoder", "Pooler",
-    "mask_to_bias", "compute_dtype", "dropout_generator", "resolve_device",
+    "mask_to_bias", "compute_dtype", "dropout_generator", "hidden_dropouts",
+    "resolve_device",
 ]
 
 
@@ -114,6 +115,17 @@ def dropout_generator(module: nn.Module, generator: Optional[torch.Generator]):
     finally:
         for m in drops:
             m.generator = None
+
+
+def hidden_dropouts(module: nn.Module):
+    """Every `Dropout` under `module` but the attention probabilities'
+    (`SelfAttention.dropout`, whose rate the kernel reads): the embeddings',
+    the region projection's, each layer's attention-output and FFN-output
+    dropouts and a task head's."""
+    attention = {id(m.dropout) for m in module.modules()
+                 if isinstance(m, SelfAttention)}
+    return [m for m in module.modules()
+            if isinstance(m, Dropout) and id(m) not in attention]
 
 
 class Dense(nn.Linear):

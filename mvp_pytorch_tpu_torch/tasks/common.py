@@ -8,6 +8,10 @@ picks the device (CUDA unless `--platform cpu`; no card raises);
 `tensorize_cfg` and `synth_root` build what a driver needs; `TrainLoop` trains
 over the dataset with the process loader (`data/loader.py`) through
 `training/loop.py`.
+
+For the single-pair task drivers (VQA, SNLI-VE, referring expressions):
+`TaskFetch` is their loader fetch, `predict` their eval loop and
+`adjust_dropout` their `--adjust_dp_step`.
 """
 
 from __future__ import annotations
@@ -16,16 +20,29 @@ import argparse
 import json
 import os
 import sys
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from ..data.loader import BatchSampler, ProcessLoader
+from ..data.loader import BatchSampler, ProcessLoader, _epoch_aware
 from ..data.tensorize import TensorizeConfig
 from ..models.config import ModelConfig
-from ..models.layers import resolve_device
+from ..models.layers import hidden_dropouts, resolve_device
 from ..training.checkpoint import ARGS_NAME, WEIGHTS_NAME
-from ..training.loop import run_training
+from ..training.loop import batch_on, run_training
+
+# the data plane's names of the model's seven inputs -> the model's, in the
+# order the models take them
+INPUT_NAMES = {"input_ids_a": "input_ids_a",
+               "input_mask_a": "attention_mask_a",
+               "segment_ids_a": "token_type_ids_a",
+               "input_ids_b": "input_ids_b",
+               "input_mask_b": "attention_mask_b",
+               "segment_ids_b": "token_type_ids_b", "img_feat": "img_feats"}
+MODEL_KEYS = tuple(INPUT_NAMES.values())
+# --adjust_dp_step's hidden dropout (the reference's `.p = 0.3`)
+ADJUSTED_DROPOUT = 0.3
 
 # flag -> (value that means "off", the ROADMAP queue 1 item it waits for)
 LATER_ITEMS = {
@@ -228,14 +245,78 @@ def load_params_or_init(args, model, logger=None):
     return model
 
 
+class TaskFetch:
+    """A single-pair task dataset's `fetch` under the model's array names
+    plus `label`, and nothing else (no `question_id`, `det_label` or
+    `iou_mat` in a training batch); `fetch(indices, epoch)` when the
+    dataset's fetch takes an epoch, as `VEDataset`'s masking does
+    (picklable, for spawned loader workers)."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __call__(self, indices, epoch: int = 0) -> Dict[str, np.ndarray]:
+        batch = _epoch_aware(self.dataset.fetch)(indices, epoch)
+        out = {INPUT_NAMES[k]: batch[k] for k in INPUT_NAMES}
+        out["label"] = batch["label"]
+        return out
+
+
+@torch.no_grad()
+def predict(model, dataset, batch_size: int, forward: Callable,
+            keep: Sequence[str] = ()) -> Tuple[np.ndarray, Dict]:
+    """`forward(model, *inputs)` over the whole dataset in chunks of
+    `batch_size`, under `model.eval()` and `torch.no_grad()`, on this
+    process. The last chunk is padded by repeating its last index (the JAX
+    package's fixed eval shapes) and the padding's rows are dropped. Returns
+    the outputs as fp32 numpy and the dataset's arrays named in `keep`."""
+    model.eval()
+    n = len(dataset)
+    outs, kept = [], {k: [] for k in keep}
+    for i in range(0, n, batch_size):
+        chunk = np.arange(i, min(i + batch_size, n))
+        m = len(chunk)
+        if m < batch_size:
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:],
+                                                     batch_size - m)])
+        batch = dataset.fetch(chunk)
+        x = batch_on(model.device, {INPUT_NAMES[k]: batch[k]
+                                    for k in INPUT_NAMES})
+        outs.append(forward(model, *(x[k] for k in MODEL_KEYS))[:m]
+                    .float().cpu().numpy())
+        for k in keep:
+            kept[k].append(batch[k][:m])
+    return np.concatenate(outs), {k: np.concatenate(v)
+                                  for k, v in kept.items()}
+
+
+def adjust_dropout(model, step: int, adjust_dp_step: Optional[int]) -> None:
+    """`--adjust_dp_step`: every hidden dropout of `model`
+    (`layers.hidden_dropouts`) at ADJUSTED_DROPOUT from step
+    `adjust_dp_step` on and at the config's rate before it (the JAX
+    drivers' cond between two models). The attention-probability dropout,
+    which the kernel applies, keeps its rate. Without the flag, nothing."""
+    if adjust_dp_step is None:
+        return
+    p = (ADJUSTED_DROPOUT if step >= adjust_dp_step
+         else model.config.hidden_dropout_prob)
+    for m in hidden_dropouts(model):
+        m.p = p
+
+
 class TrainLoop:
     """Sampler + process loader + trainer + checkpoint/resume + metrics.
 
     `fetch(indices)` returns a batch of numpy arrays under the names
-    `loss_fn` reads; `num_examples` is the dataset's length."""
+    `loss_fn` reads; `num_examples` is the dataset's length. The parameters
+    under `freeze_prefix` take no update for the first `freeze_steps`
+    steps."""
 
     def __init__(self, args, model, loss_fn, fetch: Callable,
-                 num_examples: int, logger):
+                 num_examples: int, logger,
+                 freeze_prefix: Optional[str] = None, freeze_steps: int = 0):
+        self.freeze_prefix = freeze_prefix
+        self.freeze_steps = freeze_steps
         self.args = args
         self.model = model
         self.loss_fn = loss_fn
@@ -292,4 +373,5 @@ class TrainLoop:
             ckpt_period=args.ckpt_period, log_period=args.log_period,
             logger=self.logger.info, saved_args=vars(args),
             on_checkpoint=on_checkpoint,
-            timing=lambda: self.loader.timing())
+            timing=lambda: self.loader.timing(),
+            freeze_prefix=self.freeze_prefix, freeze_steps=self.freeze_steps)

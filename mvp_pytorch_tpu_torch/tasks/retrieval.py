@@ -43,9 +43,10 @@ from ..data.tokenization import FastBertTokenizer
 from ..models.tasks import RetrievalModel
 from ..training.loop import batch_on, train_on_batches
 from ..utils.logger import setup_logger
-from .common import (TrainLoop, add_common_args, build_config, check_args,
-                     load_params_or_init, restore_training_settings,
-                     run_device, synth_root, tensorize_cfg)
+from .common import (INPUT_NAMES, TrainLoop, add_common_args, build_config,
+                     check_args, load_params_or_init,
+                     restore_training_settings, run_device, synth_root,
+                     tensorize_cfg)
 from .retrieval_eval import (coarse_ranks, evaluate_ranks, fine_ranks_i2t,
                              fine_ranks_t2i, mask_shortlist_misses)
 
@@ -54,11 +55,8 @@ IMAGE_KEYS = ("input_ids_b", "attention_mask_b", "token_type_ids_b",
               "img_feats")
 PHRASE_KEYS = ("phrase_index", "image_index")
 # the data plane's array names -> the model's
-PORT_NAMES = {"input_ids_a": "input_ids_a", "input_mask_a": "attention_mask_a",
-              "segment_ids_a": "token_type_ids_a",
-              "input_ids_b": "input_ids_b", "input_mask_b": "attention_mask_b",
-              "segment_ids_b": "token_type_ids_b", "img_feat": "img_feats",
-              "phrase_index": "phrase_index", "image_index": "image_index"}
+PORT_NAMES = {**INPUT_NAMES, "phrase_index": "phrase_index",
+              "image_index": "image_index"}
 
 
 def port_names(arrays: Mapping) -> Dict:

@@ -53,18 +53,21 @@ def run_training(model, loss_fn: LossFn, source: BatchSource, steps: int, *,
                  keep: int = 3, log_period: int = 0, logger=print,
                  saved_args: Optional[dict] = None,
                  on_checkpoint: Optional[Callable[[int], None]] = None,
-                 timing: Optional[Callable[[], Dict[str, float]]] = None
+                 timing: Optional[Callable[[], Dict[str, float]]] = None,
+                 freeze_prefix: Optional[str] = None, freeze_steps: int = 0
                  ) -> List[Dict[str, float]]:
     """Train `model` with `loss_fn` for `steps` steps over `source`. Returns
     each step's metrics; the model is left in eval mode.
 
     `saved_args` goes into each checkpoint as `training_args.json`;
     `on_checkpoint(step)` runs after each save; `timing()` adds the batch's
-    loader timings to the step's metrics."""
+    loader timings to the step's metrics. The parameters under
+    `freeze_prefix` take no update for the first `freeze_steps` steps."""
     optimizer = make_optimizer(
         model, learning_rate, warmup_steps=warmup_steps, total_steps=steps,
         schedule=schedule, weight_decay=weight_decay, eps=eps,
-        max_grad_norm=max_grad_norm)
+        max_grad_norm=max_grad_norm, freeze_prefix=freeze_prefix,
+        freeze_steps=freeze_steps)
     trainer = Trainer(model, loss_fn, optimizer, grad_accum=grad_accum,
                       seed=seed)
     ckpt = None

@@ -4,12 +4,17 @@ without the mesh, ZeRO, tensor and pipeline parallelism.
 The loss_fn contract: loss_fn(model, batch, generator) -> (loss, metrics),
 where `batch` maps names to tensors with the batch first and `generator` is a
 `torch.Generator` on the model's device, derived from (seed, step, micro
-batch), from which every random draw of the step comes. Gradients land on the
-model's fp32 master parameters; the model computes in its config's dtype.
+batch), from which every random draw of the step comes. A loss_fn with a
+`step` parameter is called loss_fn(model, batch, generator, step), `step`
+being the number of optimizer steps taken before this one (the JAX package's
+extended contract, for schedules such as VQA's kl -> bce switch). Gradients
+land on the model's fp32 master parameters; the model computes in its
+config's dtype.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
@@ -17,9 +22,15 @@ import torch
 
 from .optim import AdamW, global_norm
 
-LossFn = Callable[[torch.nn.Module, Mapping[str, torch.Tensor],
-                   torch.Generator],
-                  Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+
+def takes_step(loss_fn: LossFn) -> bool:
+    """Whether `loss_fn` has a `step` parameter."""
+    try:
+        return "step" in inspect.signature(loss_fn).parameters
+    except (TypeError, ValueError):
+        return False
 
 
 class Trainer:
@@ -27,6 +38,7 @@ class Trainer:
                  optimizer: AdamW, *, grad_accum: int = 1, seed: int = 0):
         self.model = model
         self.loss_fn = loss_fn
+        self.loss_takes_step = takes_step(loss_fn)
         self.optimizer = optimizer
         self.grad_accum = max(1, grad_accum)
         self.seed = seed
@@ -56,8 +68,10 @@ class Trainer:
         for i in range(n):
             mb = batch if n == 1 else {k: v[i * m:(i + 1) * m]
                                        for k, v in batch.items()}
-            loss, metrics = self.loss_fn(self.model, mb,
-                                         self.generator(self.step_count, i))
+            gen = self.generator(self.step_count, i)
+            loss, metrics = (
+                self.loss_fn(self.model, mb, gen, self.step_count)
+                if self.loss_takes_step else self.loss_fn(self.model, mb, gen))
             loss.backward()
             loss_sum = loss_sum + loss.detach()
             for k, v in metrics.items():

@@ -4,13 +4,16 @@
     python3 profile_train_step.py                    # retrieval, dropouts 0
     python3 profile_train_step.py --model pretrain   # pretraining, dropouts 0.1
     python3 profile_train_step.py --model retrieval --dropout 0.1
+    python3 profile_train_step.py --model vqa        # VQA fine-tuning, 0.1
 
 Builds MVPTR-base (bf16 over fp32 weights, seeded random weights) as
-chip_smoke.py phase 5 (`RetrievalModel`) or phase 6 (`BiPretrainModel`)
-does, both dropouts at `--dropout` (default 0 for retrieval, the setting
-of its earlier profiles, and the config's 0.1 for pretraining), takes 3 warm-up steps on
-one batch of 96 (LA 75, T 20, R 50, hard negatives; pretraining: bench.py's
-labels and spans), then profiles 3 steps with torch.profiler. Each step runs the forward, the backward and the optimizer
+chip_smoke.py phase 5 (`RetrievalModel`), phase 6 (`BiPretrainModel`) or
+phase 9 (`VQAModel`, 3,129 answers, bce) does, both dropouts at `--dropout`
+(default 0 for retrieval, the setting of its earlier profiles, and the
+config's 0.1 for pretraining and VQA), takes 3 warm-up steps on one batch of
+96 (LA 75, T 20, R 50, hard negatives; pretraining: bench.py's labels and
+spans; VQA: B 32, LA 40, T 20, R 50, half padded, soft scores), then
+profiles 3 steps with torch.profiler. Each step runs the forward, the backward and the optimizer
 under their own record_function labels. Prints, as one JSON object: the step
 time with and without the profiler, the device time of each part of the
 step and of the attention's recompute backward (`MaskedAttentionFnBackward`),
@@ -41,11 +44,11 @@ def device_us(event) -> float:
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--model", choices=("retrieval", "pretrain"),
+    parser.add_argument("--model", choices=("retrieval", "pretrain", "vqa"),
                         default="retrieval")
     parser.add_argument("--dropout", type=float, default=None,
                         help="both dropouts (default: 0 retrieval, 0.1 "
-                             "pretrain)")
+                             "pretrain and vqa)")
     args = parser.parse_args(argv)
     import torch
     from torch.autograd import DeviceType
@@ -55,11 +58,12 @@ def main(argv) -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from chip_smoke import (TRAIN_B, base_config, card_line, pretrain_batch,
+    from chip_smoke import (FT_B, QA_ANSWERS, TRAIN_B, base_config,
+                            bench_inputs, card_line, pretrain_batch,
                             train_batch)
     from profile_two_stage import busy_us, classify
     from mvp_pytorch_tpu_torch.models import (BiPretrainModel, ModelConfig,
-                                              RetrievalModel)
+                                              RetrievalModel, VQAModel)
     from mvp_pytorch_tpu_torch.tasks.pretrain import pretrain_loss_fn
     from mvp_pytorch_tpu_torch.tasks.retrieval import retrieval_loss_fn
     from mvp_pytorch_tpu_torch.training.optim import make_optimizer
@@ -68,9 +72,31 @@ def main(argv) -> int:
     print(card, flush=True)
     pretrain = args.model == "pretrain"
     dropout = args.dropout if args.dropout is not None else (
-        0.1 if pretrain else 0.0)
+        0.0 if args.model == "retrieval" else 0.1)
     cfg = base_config(ModelConfig, "bfloat16", dropout)
-    if pretrain:
+    batch_size = TRAIN_B
+    if args.model == "vqa":
+        cfg = base_config(ModelConfig, "bfloat16", dropout,
+                          num_labels=QA_ANSWERS, loss_type="bce")
+        model = VQAModel(cfg, device="cuda", seed=0)
+        batch_size = FT_B["vqa"]
+        caps, imgs = bench_inputs(torch, cfg, batch_size, 1, 40, 20, 50,
+                                  seed=5)
+        caps["attention_mask_a"][1::2, 30:] = 0      # padded questions
+        imgs["attention_mask_b"][1::2, 60:] = 0      # padded regions
+        batch = {**caps, **imgs}
+        g = torch.Generator(device="cuda").manual_seed(6)
+        batch["label"] = (torch.rand(batch_size, QA_ANSWERS, device="cuda",
+                                     generator=g) < 2e-3).float()
+
+        def loss_fn(model, batch, gen):
+            return model(*(batch[k] for k in (
+                "input_ids_a", "attention_mask_a", "token_type_ids_a",
+                "input_ids_b", "attention_mask_b", "token_type_ids_b",
+                "img_feats")), labels=batch["label"], max_tag_length=20,
+                generator=gen)
+        lr = 5e-5
+    elif pretrain:
         model = BiPretrainModel(cfg, device="cuda", seed=0)
         batch = pretrain_batch(torch, cfg, seed=7)
         loss_fn = pretrain_loss_fn(max_tag_length=20, hn_mod="hard",
@@ -142,7 +168,7 @@ def main(argv) -> int:
     n = STEPS_PROF
     out = {
         "card": card, "model": args.model, "dropout": dropout,
-        "batch": TRAIN_B, "steps_profiled": n,
+        "batch": batch_size, "steps_profiled": n,
         "step_ms_unprofiled": step_ms, "step_ms_profiled": step_ms_prof,
         "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / window,
