@@ -6,6 +6,10 @@
     python3 chip_smoke.py --cli             # phase 7 alone
     python3 chip_smoke.py --pretrain_cli    # phase 8 alone
     python3 chip_smoke.py --finetune_cli    # phase 9 alone
+    python3 chip_smoke.py --nlvr_cli        # phase 10 A alone
+    python3 chip_smoke.py --serve           # phase 10 B alone
+    (`--serve_clients URL JOBS OUT` is phase 10 B's client process, which
+    the script starts itself)
 
 Phases, each ended by torch.cuda.synchronize(); any failure raises and the
 script exits non-zero:
@@ -38,7 +42,16 @@ script exits non-zero:
    kernel against the plain dropout version at the training shapes
    (fp32 2e-5, bf16 0.05) and its backward against fp32 autograd of the
    plain dropout version (fp32 1e-4, bf16 0.05); the dropout kernel timed
-   beside the p = 0 kernel and F.scaled_dot_product_attention(dropout_p=0.1);
+   beside the p = 0 kernel and F.scaled_dot_product_attention(dropout_p=0.1).
+   At NLVR2's fusion input (fused L 140, past the 128-key tile: the
+   online-softmax kernels; B 64 and 32, the text and both images' regions
+   padded, so that masked keys fill most rows' second key tile): the kernel
+   against the plain version in both dtypes and layouts, at p 0 and, with
+   the backward, at p 0.1; the dropout mask read back bit for bit at Lq =
+   Lk = 140 (v one-hot over three windows of D keys, one launch each) with
+   its keep share; and the kernel timed beside the plain version, SDPA and
+   its bound at fused L 140 (B 64 / 32, bf16 p 0.1 and 0, fp32 p 0) and at
+   the fine-tuning vision stream (L 70, B 64 / 32, bf16 p 0.1 and 0);
 3. two-stage retrieval scoring at MVPTR-base width and depth (hidden 768,
    6+6+6 layers, vocab 86,051, seeded random weights) at the bench
    geometry: 1,000 images x 5 captions, LA 75, T 20, R 50, K 20/10, encoder
@@ -148,7 +161,50 @@ script exits non-zero:
    steps at `--loss_mod 3`. Step ms, samples/s, peak memory, main-thread
    data ms, worker ms and the VQA feed ratio (target 0.90, not a failure)
    are reported. The root is deleted at the end;
-10. one JSON line of kernel numbers (the bf16 kernel, then the fp32 one),
+10. (A) NLVR2 through its command line (`tasks.nlvr`) at MVPTR-base, bf16,
+   the config's dropouts 0.1 / 0.1, B 32, LA 40 (35 + 5 phrase slots), T 20,
+   R 50 (fused L 140), lr 4e-5, on phase 7's generated images with 2,000
+   training and 1,000 eval statements over pairs of distinct images, each
+   naming a tag of exactly one of its images (true iff img0's: the port's
+   `data/synthetic.py` rule). The first 3 real batches at dropout 0, kernel
+   path against plain path: fp32 logits and loss within 1e-5 and five named
+   gradients within 1e-3 relative; in bf16, over the 3 batches together,
+   the kernel path's largest distance from the fp32 plain path at most 1.25
+   times the bf16 plain path's, plus 1 bf16 ulp at the largest |logit|; the
+   examples' cross entropies (the loss is their mean, whose errors cancel
+   by chance) likewise, plus 1e-4 of the largest, and the loss their mean.
+   The first batch 13 times in memory (its loss must fall),
+   then 26 steps through the CLI and its process loader (4 forked workers),
+   each launching the dropout kernel exactly 24 times (6 layers x text, two
+   images, one fusion pass), 6 of them at Lk 140, and the plain attention
+   never, finite losses, step 1's loss equal to the in-memory run's; the
+   CLI's eval of the checkpoint over the 1,000 eval statements (batches of
+   64, the last padded): 24 p = 0 launches a batch, logits within 1e-6 of
+   the model's forward on the dataset's arrays in memory and the same
+   accuracy. Step ms, samples/s, peak memory, the feed ratio (target 0.90,
+   not a failure) and the workers' ms a batch are reported.
+   (B) Serving: a seeded MVPTR-base `BiPretrainModel` checkpoint (bf16
+   config) written by the port's `CheckpointManager`, phase 7's feature TSV
+   as the `FeatureStore` backend; `tasks.serve.main` in-process on a thread
+   with both modes, `--max_batch 16 --batch_wait_ms 5` (LA 35, T 20, R 50:
+   fused L 85); 256 single requests (128 `/v1/mlm` with one or two
+   [MASK]s, 128 `/v1/embedding`) and 4 `/v1/batch` requests of 16 pairs
+   from 32 client threads of a client process: exactly 18 p = 0 launches
+   per batched forward and no plain attention; `/healthz` with fewer batches
+   than requests and a largest batch above 1; every answer against direct
+   forwards of the same padded batches of 16: the kernel path (mlm tokens
+   equal wherever the top-2 gap exceeds a bf16 ulp, the others counted;
+   embeddings within 1e-6), the bf16 plain path (mlm tokens equal wherever
+   its top-2 gap exceeds twice the position's largest |kernel - plain|) and
+   the fp32 plain path (the mlm logits and each of the four embedding
+   outputs by the 1.25 rule of (A), one bf16 ulp at the largest |value|).
+   Requests/s, p50 and p99 ms per mode, the device ms of a batched forward,
+   load and warm-up seconds, and the host ms of a request's preparation, of
+   an embedding answer's JSON, of a batch's H2D copy and of a forward are
+   reported. Then `python -m
+   mvp_pytorch_tpu_torch.tasks.serve` as a subprocess: one request, then
+   SIGTERM, which must drain and exit 0. The root is deleted at the end;
+11. one JSON line of kernel numbers (the bf16 kernel, then the fp32 one),
    then the result line.
 
 With `--sweep DTYPE` only phase 3 runs, in that dtype (bf16: two sweeps,
@@ -156,7 +212,8 @@ fp32: one), and the last line is a JSON object of its numbers; run from a
 copy of another tree, the script drives that tree's package. With `--cli`
 only phases 1 (the build) and 7 run, the last line a JSON object of phase
 7's numbers; with `--pretrain_cli`, phases 1 and 8; with `--finetune_cli`,
-phases 1 and 9.
+phases 1 and 9; with `--nlvr_cli`, phases 1 and 10 A; with `--serve`, phases
+1 and 10 B.
 
 Exits 2 without a result when no CUDA device is visible.
 """
@@ -210,6 +267,22 @@ LENGTHS = {"fused": 125, "text": 75, "vis": 70}
 MAIN_BATCH = {"fused": 1000, "text": 500, "vis": 500}   # pair / encoder batch
 KERNEL_SOURCE = "mvp_pytorch_tpu_torch/csrc/masked_attention.cu"
 REPLACES = "mvp_pytorch_tpu/ops/attention.py:114 (git 8625894^; also :169)"
+# NLVR2's fusion input: the text (LA 40 = 35 + 5 phrase slots) and both
+# images' tag-stripped regions (R 50 each), 140 keys: past the 128-key tile,
+# so its attention runs on the online-softmax kernels
+NLVR_LA, NLVR_R = 40, 50
+NLVR_L = NLVR_LA + 2 * NLVR_R
+NLVR_BATCHES = (64, 32)              # the eval and the training batch
+# the kernel's timed NLVR2 shapes: the fusion input at both batches in bf16
+# (p 0.1 in training, 0 in the eval) and in fp32; and the fine-tuning
+# vision stream (L 70) at both batches
+NLVR_TIMED = (
+    tuple(("fused", b, NLVR_L, "bfloat16", (DROP_P, 0.0), "nlvr")
+          for b in NLVR_BATCHES)
+    + tuple(("fused", b, NLVR_L, "float32", (0.0,), "nlvr")
+            for b in NLVR_BATCHES)
+    + tuple(("vis", b, 70, "bfloat16", (DROP_P, 0.0), "key")
+            for b in NLVR_BATCHES))
 
 
 def log(msg: str) -> None:
@@ -283,6 +356,18 @@ def ptxas_report(path) -> dict:
                 report.setdefault(name, []).append(
                     " ".join(line.replace("ptxas info    :", "").split()))
     return report
+
+
+def nlvr_key_mask(torch, gen, b):
+    """[b, 140] int32 key mask of the NLVR fusion input: the text and each
+    image's regions padded to random lengths, so that masked keys sit inside
+    the sequence and, in most rows, fill the second key tile (keys 128-139,
+    the second image's last 12 regions)."""
+    parts = []
+    for n, low in ((NLVR_LA, 8), (NLVR_R, 10), (NLVR_R, 10)):
+        lens = torch.randint(low, n + 1, (b,), device=DEVICE, generator=gen)
+        parts.append(torch.arange(n, device=DEVICE)[None, :] < lens[:, None])
+    return torch.cat(parts, 1).to(torch.int32)
 
 
 def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
@@ -377,12 +462,16 @@ def phase2_kernel_vs_plain(torch, attn):
                 ("odd 17/129", 8, 17, 129, dn, layout, "key", D, "float32"),
                 ("odd 1/1", 8, 1, 1, dn, layout, None, D, "float32"),
             ]
+            cases += [("nlvr fused 2-D padded keys", b, NLVR_L, NLVR_L, dn,
+                       layout, "nlvr", D, "float32") for b in NLVR_BATCHES]
     errors = {}
     for label, b, lq, lk, dn, layout, mk, d, bias_dt in cases:
         q, k, v = qkv(b, lq, lk, dtypes[dn], layout, d,
                       exact=bool(mk) and mk.endswith("_full"))
         if mk is None:
             bias = None
+        elif mk == "nlvr":
+            bias = attn.mask_to_bias(nlvr_key_mask(torch, gen, b))
         elif mk.startswith("key"):
             bias = attn.mask_to_bias(key_mask(b, lk, mk == "key_full"))
         else:
@@ -508,6 +597,8 @@ def phase2_backward(torch, attn):
                                                         layout="blhd"))
             bwd = cuda_ms(lambda: torch.autograd.grad(out, qkv, g,
                                                       retain_graph=True))
+            plain_fwd = cuda_ms(lambda: attn.plain_attention_blhd(
+                q, k, v, bias), iters=5)
             p_out = attn.plain_attention_blhd(*qkv, bias)
             plain_bwd = cuda_ms(lambda: torch.autograd.grad(
                 p_out, qkv, g, retain_graph=True))
@@ -524,7 +615,7 @@ def phase2_backward(torch, attn):
             fwd_bound, fwd_by = attention_bound_ms(TRAIN_B, l, l, dn, bias)
             timings[(name, dn)] = dict(
                 fwd_ms=fwd, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
-                bwd_ms=bwd, plain_bwd_ms=plain_bwd,
+                plain_fwd_ms=plain_fwd, bwd_ms=bwd, plain_bwd_ms=plain_bwd,
                 sdpa_fwd_ms=sdpa_fwd, sdpa_fwd_bwd_ms=sdpa_fb,
                 bwd_bound_ms=bound, bwd_bound_by=by,
                 grad_err=max(v for k_, v in errs.items()
@@ -532,7 +623,7 @@ def phase2_backward(torch, attn):
             log(f"  time train {name:5s} B={TRAIN_B} L={l} {dn:9s} blhd: "
                 f"kernel fwd {fwd:.4f} ms (bound {fwd_bound:.4f}, {fwd_by}; "
                 f"kernel/sdpa {fwd / sdpa_fwd:.3f})  "
-                f"recompute bwd {bwd:.4f} ms  "
+                f"plain fwd {plain_fwd:.4f} ms  recompute bwd {bwd:.4f} ms  "
                 f"plain bwd {plain_bwd:.4f} ms  sdpa fwd {sdpa_fwd:.4f} ms  "
                 f"sdpa fwd+bwd {sdpa_fb:.4f} ms  bwd bound {bound:.4f} ms "
                 f"({by})")
@@ -593,8 +684,60 @@ def phase2_dropout(torch, attn):
                                      f"{mismatched} differ, share {share}")
             del q, k, v, out, got, want
 
-    def inputs(l, dt, layout):
-        x = [torch.randn(TRAIN_B, l, H, D, device=DEVICE, generator=gen)
+    # at Lk 140 (NLVR's fusion input: the online kernels, two key tiles and
+    # two query tiles): q = k = 0 again, v one-hot over a window of D keys;
+    # three windows (launches) with the same seed read back all 140 columns
+    b, l = NLVR_BATCHES[1], NLVR_L
+    value = 1.0 / l / (1.0 - DROP_P)
+    for dn, dt in dtypes.items():
+        for layout in ("bhld", "blhd"):
+            seed = new_seed()
+            q = torch.zeros(b, H, l, D, device=DEVICE, dtype=dt)
+            got = torch.zeros(b, H, l, l, dtype=torch.bool, device=DEVICE)
+            rel = 0.0
+            before = attn.masked_attention.dropout_launches
+            windows = range(0, l, D)
+            for off in windows:
+                n = min(D, l - off)
+                v = torch.zeros(b, H, l, D, device=DEVICE, dtype=dt)
+                v[:, :, off:off + n, :n] = torch.eye(n, device=DEVICE,
+                                                     dtype=dt)
+                qkv = (q, q, v)
+                if layout == "blhd":
+                    qkv = tuple(t.transpose(1, 2).contiguous() for t in qkv)
+                out = attn.masked_attention(*qkv, layout=layout,
+                                            dropout_p=DROP_P, seed=seed)
+                if layout == "blhd":
+                    out = out.transpose(1, 2)
+                out = out[..., :n].float()
+                got[..., off:off + n] = out > 0
+                if bool((out > 0).any()):
+                    rel = max(rel, ((out[out > 0] - value).abs().max()
+                                    / value).item())
+            torch.cuda.synchronize()
+            launched = attn.masked_attention.dropout_launches - before
+            want = attn.dropout_keep(seed, DROP_P, (b, H, l, l))
+            mismatched = int((got != want).sum())
+            share = got.float().mean().item()
+            rel_tol = 2.0 ** -7 if dn == "bfloat16" else 1e-5
+            ok = (launched == len(windows) and mismatched == 0
+                  and rel <= rel_tol
+                  and abs(share - (1 - DROP_P)) <= KEEP_SHARE_TOL)
+            log(f"  dropout mask     {dn:9s} {layout}  B={b} Lq={l} Lk={l} "
+                f"(online kernel, {launched} launches): {got.numel()} "
+                f"elements, "
+                f"{mismatched} differ from the plain hash, keep share "
+                f"{share:.6f} (want {1 - DROP_P} +- {KEEP_SHARE_TOL}), kept "
+                f"values within {rel:.2e} of 1/(Lk (1-p)) (tol {rel_tol:.1e})"
+                f"  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"dropout mask at Lk {l} {dn} {layout}: "
+                                     f"{mismatched} differ, share {share}, "
+                                     f"rel {rel}, {launched} launches")
+            del q, v, out, got, want
+
+    def inputs(l, dt, layout, b=TRAIN_B, nlvr=False):
+        x = [torch.randn(b, l, H, D, device=DEVICE, generator=gen)
              for _ in range(4)]                      # q, k, v, grad of out
         # q and k in multiples of 1/8: q.k is exact in every summation order,
         # as the fully-masked fp32 row needs (phase2_kernel_vs_plain's qkv)
@@ -602,18 +745,23 @@ def phase2_dropout(torch, attn):
         x = [t.to(dt) for t in x]
         if layout == "bhld":
             x = [t.transpose(1, 2).contiguous() for t in x]
-        lens = torch.randint(l // 2, l + 1, (TRAIN_B,), device=DEVICE,
-                             generator=gen)
-        mask = (torch.arange(l, device=DEVICE)[None, :]
-                < lens[:, None]).to(torch.int32)
+        if nlvr:
+            mask = nlvr_key_mask(torch, gen, b)
+        else:
+            lens = torch.randint(l // 2, l + 1, (b,), device=DEVICE,
+                                 generator=gen)
+            mask = (torch.arange(l, device=DEVICE)[None, :]
+                    < lens[:, None]).to(torch.int32)
         mask[0] = 0                                  # a fully-masked row
         return x, attn.mask_to_bias(mask)
 
+    shapes = [(name, TRAIN_B, l, False) for name, l in LENGTHS.items()]
+    shapes += [(f"nlvr B {b}", b, NLVR_L, True) for b in NLVR_BATCHES]
     errs = {}
-    for name, l in LENGTHS.items():
+    for name, b, l, nlvr in shapes:
         for dn, dt in dtypes.items():
             for layout in ("blhd", "bhld"):
-                (q, k, v, g), bias = inputs(l, dt, layout)
+                (q, k, v, g), bias = inputs(l, dt, layout, b, nlvr)
                 seed = new_seed()
                 plain = (attn.plain_attention_blhd if layout == "blhd"
                          else attn.plain_attention)
@@ -635,7 +783,7 @@ def phase2_dropout(torch, attn):
                           and all(bool(torch.isfinite(a).all())
                                   for a in got_g))
                 ok = finite and f_err <= TOL[dn] and b_err <= GRAD_TOL[dn]
-                log(f"  dropout vs plain {name:5s} B={TRAIN_B} L={l:<4d} "
+                log(f"  dropout vs plain {name:5s} B={b} L={l:<4d} "
                     f"{dn:9s} {layout}  fwd max|err|={f_err:.3e} "
                     f"(tol {TOL[dn]:g})  grads max|err|={b_err:.3e} "
                     f"(tol {GRAD_TOL[dn]:g})  {'ok' if ok else 'FAIL'}")
@@ -1165,7 +1313,7 @@ CLI_EVAL_ARGS = ["--eval_batch_size", "500", "--rerank_batch_size", "1000",
 SCORE_TOL = 1e-6
 
 
-def write_cli_root(root, seed=0, corpus=False, finetune=False):
+def write_cli_root(root, seed=0, corpus=False, finetune=False, nlvr=False):
     """A retrieval root at the real widths, written with the port's own
     `tsv_writer`: a 30,522-word vocab, CLI_IMAGES images of CLI_REGIONS
     regions x 2,054 fp32 features and CLI_TAGS tags each (predictions.tsv +
@@ -1178,7 +1326,8 @@ def write_cli_root(root, seed=0, corpus=False, finetune=False):
     image's tags (corpus.tsv), and tag2id.json over the tag words. With
     `finetune`, each region's last 6 feature dims are a valid box [x1, y1,
     x2, y2, w, h] and `write_finetune_files` adds the VQA, SNLI-VE and RE
-    files. Returns the paths and the bytes written."""
+    files; with `nlvr`, `write_nlvr_files` adds NLVR2 statements. Returns
+    the paths and the bytes written."""
     import base64
     from mvp_pytorch_tpu_torch.data.tsv import tsv_writer
     rng = np.random.default_rng(seed)
@@ -1247,6 +1396,8 @@ def write_cli_root(root, seed=0, corpus=False, finetune=False):
     if finetune:
         paths.update(write_finetune_files(root, rng, words, phrases, tags,
                                           boxes))
+    if nlvr:
+        paths.update(write_nlvr_files(root, rng, words, tags))
     return paths, nbytes[0], os.path.getsize(paths["features"])
 
 
@@ -1769,8 +1920,9 @@ FT_GRAD_PARAMS = ("cls.predictions.decoder.weight",
                   "bert.vis_encoder.layer.0.attention.self.query.weight",
                   "bert.mul_encoder.layer.0.attention.self.query.weight")
 # attention shapes of the fine-tuning steps: (name, B, L)
-FT_SHAPES = (("fused", 64, 90), ("fused", 32, 90), ("text", 64, 40),
-             ("text", 32, 40))
+FT_SHAPES = tuple((name, b, l, "bfloat16", (DROP_P, 0.0), "key")
+                  for name, b, l in (("fused", 64, 90), ("fused", 32, 90),
+                                     ("text", 64, 40), ("text", 32, 40)))
 
 
 def write_finetune_files(root, rng, words, phrases, tags, boxes):
@@ -1866,50 +2018,61 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
 
 
-def padded_forward(model, arrays, batch_size, **kw):
+def padded_forward(model, arrays, batch_size, input_names=None, **kw):
     """The drivers' padded eval (`tasks.common.predict`) over a dataset's
     arrays fetched at once, not chunk by chunk as the drivers fetch them;
-    fp32 numpy."""
+    fp32 numpy. `input_names`: the data plane's names of the model's inputs
+    (the single pair's seven by default)."""
     from mvp_pytorch_tpu_torch.tasks.common import INPUT_NAMES, predict
+    names = input_names or INPUT_NAMES
 
     class InMemory:
         def __len__(self):
             return len(arrays["input_ids_a"])
 
         def fetch(self, idx):
-            return {k: arrays[k][idx] for k in INPUT_NAMES}
+            return {k: arrays[k][idx] for k in names}
     return predict(model, InMemory(), batch_size,
-                   lambda m, *x: m(*x, **kw))[0]
+                   lambda m, *x: m(*x, **kw), input_names=names)[0]
 
 
-def finetune_attention_times(torch, attn):
-    """The kernel at the fine-tuning steps' attention shapes (bf16, blhd,
-    padded 2-D key masks), at p 0.1 and p 0: its max abs error against the
-    plain version on the same inputs and seed, its ms, the plain version's
-    ms, SDPA's ms with the same mask and dropout, and the bound."""
+def attention_times(torch, attn, shapes, seed):
+    """The kernel at a path's attention shapes (blhd): `shapes` holds (name,
+    B, L, dtype, dropout rates, key mask: "nlvr" for `nlvr_key_mask`, else
+    random padded lengths). At each rate: the max abs error against the
+    plain version on the same inputs and seed, the kernel's ms, the plain
+    version's ms, SDPA's ms with the same mask and dropout, and the bound.
+    Rows are keyed "{name} B {b} L {l} p {p}", with " fp32" for fp32."""
     import torch.nn.functional as F
-    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     out = {}
-    for name, b, l in FT_SHAPES:
+    for name, b, l, dn, rates, mask_kind in shapes:
+        dt = dtypes[dn]
         q, k, v = (torch.randn(b, l, H, D, device=DEVICE, generator=gen)
-                   .to(torch.bfloat16) for _ in range(3))
-        lens = torch.randint(l // 2, l + 1, (b,), device=DEVICE,
-                             generator=gen)
-        bias = attn.mask_to_bias((torch.arange(l, device=DEVICE)[None, :]
-                                  < lens[:, None]).to(torch.int32))
-        seed = torch.randint(-2 ** 63, 2 ** 63 - 1, (1,), dtype=torch.int64,
-                             device=DEVICE, generator=gen)
+                   .to(dt) for _ in range(3))
+        if mask_kind == "nlvr":
+            mask = nlvr_key_mask(torch, gen, b)
+        else:
+            lens = torch.randint(l // 2, l + 1, (b,), device=DEVICE,
+                                 generator=gen)
+            mask = (torch.arange(l, device=DEVICE)[None, :]
+                    < lens[:, None]).to(torch.int32)
+        bias = attn.mask_to_bias(mask)
+        seed_t = torch.randint(-2 ** 63, 2 ** 63 - 1, (1,),
+                               dtype=torch.int64, device=DEVICE,
+                               generator=gen)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        bound, by = attention_bound_ms(b, l, l, "bfloat16", bias)
-        for p in (DROP_P, 0.0):
-            s = seed if p else None
+        bound, by = attention_bound_ms(b, l, l, dn, bias)
+        for p in rates:
+            s = seed_t if p else None
             got = attn.masked_attention(q, k, v, bias, layout="blhd",
                                         dropout_p=p, seed=s)
             want = attn.plain_attention_blhd(q, k, v, bias, p, s)
             err = (got.float() - want.float()).abs().max().item()
-            if not err <= TOL["bfloat16"]:
+            if not err <= TOL[dn]:
                 raise AssertionError(f"kernel vs plain {name} B {b} L {l} "
-                                     f"p {p}: {err}")
+                                     f"{dn} p {p}: {err}")
             row = dict(
                 max_abs_err=err, bound_ms=bound, bound_by=by,
                 ms=cuda_ms(lambda: attn.masked_attention(
@@ -1917,10 +2080,11 @@ def finetune_attention_times(torch, attn):
                 plain_ms=cuda_ms(lambda: attn.plain_attention_blhd(
                     q, k, v, bias, p, s), iters=5),
                 sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=bias.to(torch.bfloat16),
-                    dropout_p=p)))
-            out[f"{name} B {b} L {l} p {p:g}"] = row
-            log(f"  kernel {name:5s} B={b} L={l} bf16 p={p:g}: max|err| "
+                    qh, kh, vh, attn_mask=bias.to(dt), dropout_p=p)))
+            key = f"{name} B {b} L {l} p {p:g}" + (
+                " fp32" if dn == "float32" else "")
+            out[key] = row
+            log(f"  kernel {name:5s} B={b} L={l} {dn} p={p:g}: max|err| "
                 f"{err:.3e}  kernel {row['ms']:.4f} ms  plain "
                 f"{row['plain_ms']:.4f} ms  sdpa {row['sdpa_ms']:.4f} ms  "
                 f"bound {bound:.4f} ms ({by})")
@@ -2441,7 +2605,7 @@ def phase9_finetune_cli(torch, attn, layers_mod):
             f"MB of TSV), {FT_QUESTIONS} questions over {QA_ANSWERS} answers, "
             f"{FT_VE_PAIRS} hypotheses, {CLI_IMAGES} expressions written in "
             f"{time.perf_counter() - t0:.1f} s")
-        times = finetune_attention_times(torch, attn)
+        times = attention_times(torch, attn, FT_SHAPES, seed=9)
         res = {"vqa": phase9_vqa(torch, attn, layers_mod, paths, root)}
         gc.collect()
         torch.cuda.empty_cache()
@@ -2458,6 +2622,843 @@ def phase9_finetune_cli(torch, attn, layers_mod):
     return dict(tasks=res, attention=times, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: NLVR2 through its command line, and serving over HTTP
+# ---------------------------------------------------------------------------
+
+NLVR_TRAIN, NLVR_EVAL = 2000, 1000
+NLVR_B, NLVR_LR = 32, "4e-5"
+NLVR_GRAD_PARAMS = ("classifier.weight", "bert.pooler.dense.weight",
+                    "bert.txt_encoder.layer.0.attention.self.query.weight",
+                    "bert.vis_encoder.layer.0.attention.self.query.weight",
+                    "bert.mul_encoder.layer.0.attention.self.query.weight")
+# serving: the JAX server's lengths (LA 35 = 30 + 5 phrase slots, T 20,
+# R 50: fused L 85), both modes, micro-batches of up to 16
+SERVE_MAX_BATCH, SERVE_WAIT_MS = 16, 5
+SERVE_SINGLE, SERVE_CLIENTS, SERVE_BATCH_REQUESTS = 256, 32, 4
+SERVE_DEADLINE_S = 300
+NLVR_FP32_TOL = 1e-5                 # the real batch, fp32 logits and loss
+NLVR_REAL_BATCHES = 3                # real batches held kernel against plain
+SERVE_EMB_TOL = 1e-6                 # an embedding answer, same dtype
+# bf16 against the fp32 plain path: the kernel path's largest distance from
+# it at most BF16_FAR_RATIO times the plain bf16 path's, plus one bf16 ulp at
+# the largest |value| (for a loss, 1e-4 of itself). The readings of the
+# NLVR2 real batches and of the served outputs are in PERF.md
+BF16_FAR_RATIO = 1.25
+
+
+def max_dist(a, ref) -> float:
+    return (a.float() - ref.float()).abs().max().item()
+
+
+def bf16_far(what, k_far, p_far, finite, add, rule):
+    """Hold the bf16 kernel path against the bf16 plain path by their
+    largest distances from the fp32 reference, `k_far` and `p_far`; fail
+    unless the kernel path's output is `finite` and
+    k_far <= BF16_FAR_RATIO p_far + `add`."""
+    lim = BF16_FAR_RATIO * p_far + add
+    ok = finite and k_far <= lim
+    log(f"  {what}: from fp32 kernel {k_far:.3e}, plain {p_far:.3e} (ratio "
+        f"{k_far / p_far if p_far else float('nan'):.3f}), tol "
+        f"{BF16_FAR_RATIO:g} x plain + {add:.3e} ({rule}) = {lim:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(what)
+    return {"kernel_far": k_far, "plain_far": p_far, "bound": lim}
+
+
+def write_nlvr_files(root, rng, words, tags):
+    """NLVR2 statements over pairs of distinct images of `write_cli_root`, by
+    the learnable rule of the port's `data/synthetic.py`: the statement names
+    a tag of exactly one of the two images, and its label is true iff that
+    image is img0. NLVR_TRAIN statements (`nlvr.jsonl`) and NLVR_EVAL more
+    (`nlvr_val.jsonl`)."""
+    keys = sorted(tags)
+    plain = words[2000:]
+
+    def text(n):
+        return " ".join(plain[int(w)] for w in rng.integers(0, len(plain), n))
+
+    lines = []
+    while len(lines) < NLVR_TRAIN + NLVR_EVAL:
+        i0, step = rng.integers(0, len(keys)), rng.integers(1, len(keys))
+        img0, img1 = keys[int(i0)], keys[int((i0 + step) % len(keys))]
+        in_img0 = bool(rng.integers(0, 2))
+        src, other = (img0, img1) if in_img0 else (img1, img0)
+        cands = sorted(set(tags[src]) - set(tags[other]))
+        if not cands:
+            continue
+        tag = cands[int(rng.integers(0, len(cands)))]
+        lines.append(json.dumps({
+            "sentence": f"{text(5)} {tag} {text(6)}", "img0": img0,
+            "img1": img1, "label": in_img0}))
+    out = {"nlvr": os.path.join(root, "nlvr.jsonl"),
+           "nlvr_val": os.path.join(root, "nlvr_val.jsonl")}
+    with open(out["nlvr"], "w") as f:
+        f.write("\n".join(lines[:NLVR_TRAIN]) + "\n")
+    with open(out["nlvr_val"], "w") as f:
+        f.write("\n".join(lines[NLVR_TRAIN:]) + "\n")
+    return out
+
+
+@contextlib.contextmanager
+def key_lengths(layers_mod):
+    """Record the key length of every attention call of the models."""
+    seen, real = [], layers_mod.masked_attention
+
+    def attention(q, k, v, bias=None, **kw):
+        seen.append(k.shape[1] if kw.get("layout") == "blhd"
+                    else k.shape[2])
+        return real(q, k, v, bias, **kw)
+    layers_mod.masked_attention = attention
+    try:
+        yield seen
+    finally:
+        layers_mod.masked_attention = real
+
+
+def nlvr_lengths(half):
+    """The key lengths of one NLVR2 forward: text 40, both images 70, the
+    fusion pass 140, each over `half` layers."""
+    return sorted([NLVR_LA] * half + [70] * (2 * half) + [NLVR_L] * half)
+
+
+def phase10_nlvr(torch, attn, layers_mod, paths, root):
+    """(A) NLVR2: kernel path against plain path on the first real batch,
+    the first batch 13 times in memory, 26 steps through the CLI, the CLI's
+    eval against the model's forward in memory."""
+    import dataclasses
+    import gc
+    import shutil
+    from mvp_pytorch_tpu_torch.data.datasets import FeatureStore
+    from mvp_pytorch_tpu_torch.data.loader import BatchSampler
+    from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
+    from mvp_pytorch_tpu_torch.models import NLVRModel
+    from mvp_pytorch_tpu_torch.tasks import nlvr
+    from mvp_pytorch_tpu_torch.tasks.common import (NLVR_INPUT_NAMES,
+                                                    NLVR_MODEL_KEYS,
+                                                    TaskFetch, build_config,
+                                                    tensorize_cfg)
+    from mvp_pytorch_tpu_torch.training.loop import batch_on, train_on_batches
+    b = NLVR_B
+    data = ["--train_jsonl", paths["nlvr"], "--feature_tsv", paths["features"],
+            "--data_dir", root]
+    common = (data + FT_ARGS + CLI_PLATFORM
+              + ["--learning_rate", NLVR_LR, "--train_batch_size", str(b),
+                 "--log_period", "1", "--num_workers", "4",
+                 "--worker_start_method", "fork"])
+    args = nlvr.get_args(["--output_dir", root] + common)
+    tokenizer = FastBertTokenizer(paths["vocab"])
+    cfg = build_config(args, tokenizer, num_labels=2)
+    half = cfg.half_layers
+    per_step = half * 4                 # text, two images, one fusion pass
+    dataset = nlvr.NLVRDataset(paths["nlvr"], FeatureStore(paths["features"]),
+                               tokenizer, tensorize_cfg(args))
+    fetch = TaskFetch(dataset, NLVR_INPUT_NAMES)
+    sampler = BatchSampler(len(dataset), b, seed=args.seed)
+    t0 = time.perf_counter()
+    first = fetch(sampler.batch_at(0))
+    fetch_ms = (time.perf_counter() - t0) * 1e3
+    shapes = {k: v.shape for k, v in first.items()}
+    log(f"  nlvr: a batch fetched on the main thread: {fetch_ms:.1f} ms; "
+        f"shapes {shapes}; labels true {int(first['label'].sum())} of {b}")
+    if (shapes["input_ids_a"] != (b, NLVR_LA)
+            or shapes["attention_mask_b2"] != (b, 20 + NLVR_R)
+            or shapes["img_feats2"] != (b, NLVR_R, 2054)
+            or shapes["label"] != (b,)):
+        raise AssertionError(f"nlvr batch shapes {shapes}")
+
+    # 1. the first real batches at dropout 0: kernel path against plain path
+    batches = [batch_on(DEVICE, first)] + [
+        batch_on(DEVICE, fetch(sampler.batch_at(i)))
+        for i in range(1, NLVR_REAL_BATCHES)]
+    refs, real_batch = [], {}
+    pooled = {n: {"k": 0.0, "p": 0.0, "scale": 0.0, "finite": True}
+              for n in ("logits", "example losses")}
+    for dn in ("float32", "bfloat16"):
+        model = NLVRModel(dataclasses.replace(
+            cfg, dtype=dn, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0), device=DEVICE, seed=args.seed)
+        model.train()
+        for bi, batch in enumerate(batches):
+            def step():
+                model.zero_grad(set_to_none=True)
+                loss, logits = model(*(batch[k] for k in NLVR_MODEL_KEYS),
+                                     labels=batch["label"],
+                                     max_tag_length=20)
+                loss.backward()
+                params = dict(model.named_parameters())
+                return ((loss.detach(), logits.detach()),
+                        {n: params[n].grad.detach().float().clone()
+                         for n in NLVR_GRAD_PARAMS})
+
+            reset_counts(attn)
+            with key_lengths(layers_mod) as seen:
+                (k_loss, k_logits), k_grads = step()
+            torch.cuda.synchronize()
+            if (attn.masked_attention.launches != per_step
+                    or attn.masked_attention.dropout_launches != 0
+                    or sorted(seen) != nlvr_lengths(half)):
+                raise AssertionError(f"nlvr kernel path: {seen}")
+            with plain_attention_path(layers_mod, attn):
+                (p_loss, p_logits), p_grads = step()
+            torch.cuda.synchronize()
+            if attn.masked_attention.launches != per_step:
+                raise AssertionError("nlvr plain path launched the kernel")
+            what = f"nlvr real batch {bi} {dn:9s}"
+            gaps = {}
+            for name, a, c in (("logits", k_logits, p_logits),
+                               ("loss", k_loss, p_loss)):
+                gaps[name] = gap = (a - c).abs().max().item()
+                if dn == "float32":
+                    ok = bool(a.isfinite().all()) and gap <= NLVR_FP32_TOL
+                    log(f"  {what} {name}: max|kernel-plain| {gap:.3e} tol "
+                        f"{NLVR_FP32_TOL:g} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"{what} {name}")
+                    continue
+                ref = refs[bi][name]
+                log(f"  {what} {name}: max|kernel-plain| {gap:.3e}; from "
+                    f"fp32 kernel {max_dist(a, ref):.3e}, plain "
+                    f"{max_dist(c, ref):.3e} (printed)")
+            if dn == "bfloat16":
+                # the loss is the mean of the examples' cross entropies,
+                # whose errors cancel by chance, so the examples' losses are
+                # held: each path's, from its logits, as the model takes them
+                nll = [torch.nn.functional.cross_entropy(
+                    x.float(), batch["label"].long(), reduction="none")
+                    for x in (k_logits, p_logits, refs[bi]["logits"])]
+                if abs(k_loss.item() - nll[0].mean().item()) > NLVR_FP32_TOL:
+                    raise AssertionError(f"{what}: the loss is not the mean "
+                                         f"cross entropy of the logits")
+                for name, (k, c, f) in (
+                        ("logits", (k_logits, p_logits, refs[bi]["logits"])),
+                        ("example losses", nll)):
+                    got = pooled[name]
+                    got["k"] = max(got["k"], max_dist(k, f))
+                    got["p"] = max(got["p"], max_dist(c, f))
+                    got["scale"] = max(got["scale"], f.abs().max().item())
+                    got["finite"] &= bool(k.isfinite().all())
+                    gaps[f"{name} kernel from fp32"] = max_dist(k, f)
+                    gaps[f"{name} plain from fp32"] = max_dist(c, f)
+
+            def rel(a, c):
+                return ((a - c).norm() / c.norm()).item()
+            for n in NLVR_GRAD_PARAMS:
+                r = rel(k_grads[n], p_grads[n])
+                if dn == "float32":
+                    ok = bool(k_grads[n].isfinite().all()) and r <= 1e-3
+                    log(f"  {what} grad {n}: rel err {r:.3e} tol 0.001 "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"{what} grad {n}")
+                else:
+                    log(f"  {what} grad {n}: kernel vs plain {r:.3e}; from "
+                        f"the fp32 gradient: kernel "
+                        f"{rel(k_grads[n], refs[bi][n]):.3e}, plain "
+                        f"{rel(p_grads[n], refs[bi][n]):.3e} (printed)")
+                gaps[f"grad {n}"] = r
+            real_batch[f"{dn} batch {bi}"] = gaps
+            if dn == "float32":
+                refs.append(dict(p_grads, logits=p_logits, loss=p_loss))
+            del k_grads, p_grads, k_logits, p_logits
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    # bf16, over the batches together (192 logits, 96 example losses)
+    got = pooled["logits"]
+    real_batch["bfloat16 logits"] = bf16_far(
+        f"nlvr real batches 0-{len(batches) - 1} bfloat16 logits", got["k"],
+        got["p"], got["finite"], bf16_ulp(got["scale"]),
+        f"1 bf16 ulp at max|logit| {got['scale']:.4f}")
+    got = pooled["example losses"]
+    real_batch["bfloat16 example losses"] = bf16_far(
+        f"nlvr real batches 0-{len(batches) - 1} bfloat16 example losses",
+        got["k"], got["p"], got["finite"], FT_BF16_LOSS_REL * got["scale"],
+        f"{FT_BF16_LOSS_REL:g} of the largest {got['scale']:.4f}")
+    del batches, refs
+
+    # 2. in memory: the first batch CLI_MEM_STEPS times (its loss must fall)
+    model = NLVRModel(cfg, device=DEVICE, seed=args.seed)
+    with counted_steps(attn, per_step, "an nlvr in-memory step") as total:
+        torch.cuda.reset_peak_memory_stats()
+        mem = train_on_batches(model, nlvr.nlvr_loss_fn(args), [first],
+                               CLI_MEM_STEPS, learning_rate=args.learning_rate,
+                               weight_decay=args.weight_decay, seed=args.seed)
+    mem_n = cli_numbers(mem, b, torch.cuda.max_memory_allocated() / 1e9,
+                        CLI_MEM_TIMED_FROM)
+    mem_losses = check_losses(mem, CLI_MEM_STEPS, "nlvr in memory")
+    if not mem_losses[-1] < mem_losses[0]:
+        raise AssertionError(f"nlvr loss on one batch did not fall: "
+                             f"{mem_losses}")
+    log(f"  nlvr in memory: {total[0]} launches; {mem_n['step_ms']:.2f} "
+        f"ms/step {mem_n['samples_per_s']:.1f} samples/s, peak "
+        f"{mem_n['peak_gb']:.2f} GB")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the CLI and its process loader; every step's key lengths
+    out = os.path.join(root, "nlvr_train")
+    argv = (["--output_dir", out, "--do_train", "--max_steps",
+             str(CLI_STEPS), "--ckpt_period", str(CLI_STEPS)] + common)
+    log("  python -m mvp_pytorch_tpu_torch.tasks.nlvr " + " ".join(
+        os.path.relpath(a, root) if a.startswith(root) else a for a in argv))
+    bad_lengths = []
+    with key_lengths(layers_mod) as seen:
+        def before(trainer):
+            seen.clear()
+
+        def after(trainer, metrics):
+            if sorted(seen) != nlvr_lengths(half):
+                bad_lengths.append(list(seen))
+        with counted_steps(attn, per_step, "an nlvr CLI step") as total, \
+                around_steps(before, after):
+            torch.cuda.reset_peak_memory_stats()
+            hist = nlvr.main(argv)["train"]
+    if bad_lengths:
+        raise AssertionError(f"nlvr CLI steps' key lengths: {bad_lengths}")
+    cli_n = cli_numbers(hist, b, torch.cuda.max_memory_allocated() / 1e9)
+    losses = check_losses(hist, CLI_STEPS, "nlvr CLI")
+    log(f"  nlvr step 1 loss: CLI {losses[0]:.6f}, in memory "
+        f"{mem_losses[0]:.6f}")
+    if abs(losses[0] - mem_losses[0]) > STEP_TOL["bfloat16"][0]:
+        raise AssertionError("the nlvr CLI's first batch is not the "
+                             "sampler's")
+    ratio = cli_n["samples_per_s"] / mem_n["samples_per_s"]
+    log(f"  nlvr CLI: {total[0]} launches ({per_step} a step, all with "
+        f"dropout, {half} of them at Lk {NLVR_L}; plain 0); "
+        f"{cli_n['step_ms']:.2f} ms/step {cli_n['samples_per_s']:.1f} "
+        f"samples/s, peak {cli_n['peak_gb']:.2f} GB; main thread data "
+        f"{cli_n['main_data_ms']:.3f} ms/step, worker "
+        f"{cli_n['worker_ms']:.1f} ms/batch, H2D "
+        f"{cli_n.get('h2d_ms', float('nan')):.3f} ms/batch; ratio to memory "
+        f"{ratio:.3f} (target 0.90)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the CLI's eval of the checkpoint over the eval split
+    ckpt = os.path.join(out, f"checkpoint-{CLI_STEPS:07d}")
+    shutil.copy(paths["vocab"], ckpt)
+    argv = (["--output_dir", os.path.join(root, "nlvr_eval"),
+             "--model_name_or_path", ckpt, "--do_eval", "--eval_jsonl",
+             paths["nlvr_val"], "--eval_batch_size", str(FT_EVAL_B)]
+            + data + FT_ARGS + CLI_PLATFORM)
+    reset_counts(attn)
+    res = nlvr.main(argv)
+    torch.cuda.synchronize()
+    n_batches = math.ceil(NLVR_EVAL / FT_EVAL_B)
+    got = (attn.masked_attention.launches,
+           attn.masked_attention.dropout_launches, attn.plain_attention.calls)
+    log(f"  nlvr CLI eval: {got[0]} launches ({got[1]} with dropout, plain "
+        f"{got[2]}) over {n_batches} batches of {FT_EVAL_B}; nlvr_accuracy "
+        f"{res['eval']['nlvr_accuracy']:.4f}")
+    if got != (per_step * n_batches, 0, 0):
+        raise AssertionError(f"nlvr eval launched {got}")
+    val = nlvr.NLVRDataset(paths["nlvr_val"], FeatureStore(paths["features"]),
+                           tokenizer, tensorize_cfg(args))
+    arrays = val.fetch(np.arange(len(val)))
+    model = load_checkpoint(torch, NLVRModel, ckpt)
+    logits = padded_forward(model, arrays, FT_EVAL_B,
+                            input_names=NLVR_INPUT_NAMES, max_tag_length=20)
+    err = float(np.abs(logits - res["eval"]["logits"]).max())
+    acc = int((logits.argmax(1) == arrays["label"]).sum()) / len(val)
+    log(f"  nlvr eval against the forward in memory: max|logit diff| "
+        f"{err:.3e} (tol {SCORE_TOL:g}), accuracy {acc:.4f} vs CLI "
+        f"{res['eval']['nlvr_accuracy']:.4f}")
+    if err > SCORE_TOL or acc != res["eval"]["nlvr_accuracy"]:
+        raise AssertionError("nlvr CLI eval differs from the forward in "
+                             "memory")
+    del model, arrays, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches_per_step=per_step, l140_per_step=half,
+                launches=total[0], eval_launches=got[0],
+                in_memory=mem_n, cli=cli_n, ratio=ratio,
+                main_fetch_ms=fetch_ms, real_batch=real_batch,
+                eval_logit_err=err, nlvr_accuracy=acc, losses=losses,
+                mem_losses=mem_losses)
+
+
+def mlm_tokens(text):
+    """The token list of a "recovered [MASK] tokens: [...]" answer."""
+    import ast
+    prefix = "recovered [MASK] tokens: "
+    if not text.startswith(prefix):
+        raise AssertionError(f"not an mlm answer: {text!r}")
+    return ast.literal_eval(text[len(prefix):])
+
+
+def serve_clients(base, jobs_path, out_path) -> int:
+    """The client side of phase 10 B, in a process of its own so that the
+    clients share no interpreter lock with the server: post each job of
+    `jobs_path` from SERVE_CLIENTS threads, time each until its body is
+    read, and parse the bodies after the burst. Pickles the burst's wall
+    seconds and each answer with its ms (None for a /v1/batch request) to
+    `out_path`; an embedding answer's values as float32 arrays."""
+    import pickle
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+    with open(jobs_path) as f:
+        jobs = json.load(f)
+
+    def run(job):
+        if job[0] == "batch":
+            path, payload = "/v1/batch", {"mode": job[1], "pairs": job[2]}
+        else:
+            path, payload = f"/v1/{job[0]}", {"image": job[1], "text": job[2]}
+        req = urllib.request.Request(
+            base + path, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=SERVE_DEADLINE_S) as r:
+            body = r.read()
+        return body, (time.perf_counter() - t) * 1e3
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+        raw = list(pool.map(run, jobs))
+    wall = time.perf_counter() - t0
+
+    def arrays(res):
+        return ({k: np.asarray(v, np.float32) for k, v in res.items()}
+                if isinstance(res, dict) else res)
+    answers = []
+    for job, (body, ms) in zip(jobs, raw):
+        got = json.loads(body)
+        if job[0] == "batch":
+            answers.append(([arrays(r) for r in got["results"]], None))
+        else:
+            answers.append((arrays(got["result"]), ms))
+    with open(out_path, "wb") as f:
+        pickle.dump({"wall_s": wall, "answers": answers}, f)
+    return 0
+
+
+def median_ms(fn, n):
+    """The median host ms of `n` calls of `fn`."""
+    ts = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(ts))
+
+
+def phase10_serve(torch, attn, layers_mod, paths, root):
+    """(B) Serving: a seeded MVPTR-base pretraining checkpoint behind
+    `tasks.serve.main` on a thread (both modes), concurrent single requests
+    and /v1/batch requests from a client process, each answer held against
+    direct forwards of the kernel path, the plain path and the fp32 plain
+    path; then the server as a subprocess, drained by SIGTERM."""
+    import dataclasses
+    import gc
+    import pickle
+    import shutil
+    import signal
+    import socket
+    import threading
+    import urllib.request
+    from mvp_pytorch_tpu_torch.data.datasets import FeatureStore
+    from mvp_pytorch_tpu_torch.data.tensorize import collate
+    from mvp_pytorch_tpu_torch.models import (BiPretrainModel, MLMModel,
+                                              ModelConfig, RepModel)
+    from mvp_pytorch_tpu_torch.pipeline import MODEL_INPUTS, load_for_serving
+    from mvp_pytorch_tpu_torch.tasks import serve
+    from mvp_pytorch_tpu_torch.training.checkpoint import (CheckpointManager,
+                                                           WEIGHTS_NAME)
+    from mvp_pytorch_tpu_torch.training.loop import batch_on
+
+    # 1. the model directory: what tasks.pretrain writes, plus the vocab
+    t0 = time.perf_counter()
+    cfg = base_config(ModelConfig, "bfloat16", DROP_P)
+    model = BiPretrainModel(cfg, device=DEVICE, seed=5)
+    mdir = CheckpointManager(os.path.join(root, "serve_model")).save(
+        0, model, config=cfg)
+    shutil.copy(paths["vocab"], mdir)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  serve: seeded {cfg.dtype} checkpoint written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 2. the server in-process, on a thread; the clients in another process
+    argv = ["--model_dir", mdir, "--feature_tsv", paths["features"],
+            "--id2phrase", paths["id2phrase"], "--max_batch",
+            str(SERVE_MAX_BATCH), "--batch_wait_ms", str(SERVE_WAIT_MS),
+            "--port", "0", "--device", DEVICE]
+    up, ready = {}, threading.Event()
+
+    def on_ready(server, pipes, batchers):
+        up.update(server=server, pipes=pipes, batchers=batchers)
+        reset_counts(attn)
+        ready.set()
+    t_start = time.perf_counter()
+    thread = threading.Thread(target=serve.main, args=(argv,),
+                              kwargs=dict(ready=on_ready), daemon=True)
+    thread.start()
+    try:
+        if not ready.wait(SERVE_DEADLINE_S):
+            raise AssertionError("the server did not come up")
+        up_s = time.perf_counter() - t_start
+        server, pipes = up["server"], up["pipes"]
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        images = sorted(FeatureStore(paths["features"]).keys())
+        with open(paths["vocab"]) as f:
+            plain = [w.strip() for w in f][2005:]     # no tag words
+        rng = np.random.default_rng(3)
+
+        def text(masks):
+            words = [plain[int(i)] for i in rng.integers(0, len(plain), 7)]
+            for j in rng.choice(7, masks, replace=False):
+                words[int(j)] = "[MASK]"
+            return " ".join(words)
+        jobs = []
+        for i in range(SERVE_SINGLE):
+            mode = "mlm" if i % 2 == 0 else "embedding"
+            jobs.append((mode, images[int(rng.integers(0, len(images)))],
+                         text(1 + int(rng.integers(0, 2)))))
+        for i in range(SERVE_BATCH_REQUESTS):
+            mode = "mlm" if i % 2 == 0 else "embedding"
+            jobs.insert(i * 60 + 30, ("batch", mode, [
+                [images[int(rng.integers(0, len(images)))], text(1)]
+                for _ in range(SERVE_MAX_BATCH)]))
+        jobs_path = os.path.join(root, "serve_jobs.json")
+        out_path = os.path.join(root, "serve_answers.pkl")
+        with open(jobs_path, "w") as f:
+            json.dump(jobs, f)
+        client = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--serve_clients",
+             base, jobs_path, out_path], capture_output=True, text=True,
+            timeout=SERVE_DEADLINE_S)
+        if client.returncode != 0:
+            raise AssertionError(f"the client process exited "
+                                 f"{client.returncode}: {client.stderr}")
+        with open(out_path, "rb") as f:
+            burst = pickle.load(f)
+        wall, answers = burst["wall_s"], burst["answers"]
+        torch.cuda.synchronize()
+        launches = (attn.masked_attention.launches,
+                    attn.masked_attention.dropout_launches,
+                    attn.plain_attention.calls)
+        with urllib.request.urlopen(f"{base}/healthz",
+                                    timeout=SERVE_DEADLINE_S) as r:
+            health = json.loads(r.read())
+        stats = health["batching"]
+        forwards = (sum(s["batches"] for s in stats.values())
+                    + SERVE_BATCH_REQUESTS)
+        per_forward = cfg.half_layers * 3
+        log(f"  serve: {len(jobs)} requests ({SERVE_SINGLE} single, "
+            f"{SERVE_BATCH_REQUESTS} batches of {SERVE_MAX_BATCH}) from "
+            f"{SERVE_CLIENTS} client threads of another process in "
+            f"{wall:.2f} s; /healthz {stats}; {launches[0]} launches "
+            f"({launches[1]} with dropout, plain {launches[2]}) over "
+            f"{forwards} batched forwards")
+        if launches != (per_forward * forwards, 0, 0):
+            raise AssertionError(f"serving launched {launches}, want "
+                                 f"{per_forward} a forward")
+        for mode, st in stats.items():
+            if not (st["requests"] == SERVE_SINGLE // 2
+                    and st["batches"] < st["requests"]
+                    and st["max_batch_seen"] > 1):
+                raise AssertionError(f"serve {mode}: {st}")
+
+        # 3. every answer against direct forwards of the same padded batches
+        # of 16: the kernel path in the server's dtype (the same numbers),
+        # the plain path in bf16, and the fp32 plain path as the reference
+        singles = {"mlm": [], "embedding": []}
+        for job, (res, ms) in zip(jobs, answers):
+            if job[0] == "batch":
+                singles[job[1]].extend((tuple(pair), r, None)
+                                       for pair, r in zip(job[2], res))
+            else:
+                singles[job[0]].append(((job[1], job[2]), res, ms))
+        f32 = {}
+        for mode, cls in (("mlm", MLMModel), ("embedding", RepModel)):
+            f32[mode] = cls(dataclasses.replace(pipes[mode].config,
+                                                dtype="float32"),
+                            device=DEVICE)
+            load_for_serving(f32[mode], os.path.join(mdir, WEIGHTS_NAME),
+                             log=lambda _: None)
+            f32[mode].eval()
+
+        def direct(mode, chunk):
+            exs = [pipes[mode].prepare_example(*pair) for pair, _, _ in chunk]
+            x = batch_on(DEVICE, collate(exs + [exs[-1]] * (
+                SERVE_MAX_BATCH - len(exs))), MODEL_INPUTS)
+            args = [x[k] for k in MODEL_INPUTS]
+            with torch.no_grad():
+                k = pipes[mode].model(*args, max_tag_length=20)
+                with plain_attention_path(layers_mod, attn):
+                    p = pipes[mode].model(*args, max_tag_length=20)
+                    f = f32[mode](*args, max_tag_length=20)
+            return exs, k, p, f
+
+        mlm_pipe, emb_pipe = pipes["mlm"], pipes["embedding"]
+        clear = unclear = wrong_unclear = p_clear = p_unclear = 0
+        far = {"k": 0.0, "p": 0.0, "scale": 0.0, "finite": True}
+        reqs = singles["mlm"]
+        for i in range(0, len(reqs), SERVE_MAX_BATCH):
+            chunk = reqs[i:i + SERVE_MAX_BATCH]
+            exs, k, p, f = direct("mlm", chunk)
+            far["k"] = max(far["k"], max_dist(k, f))
+            far["p"] = max(far["p"], max_dist(p, f))
+            far["scale"] = max(far["scale"], f.abs().max().item())
+            far["finite"] &= bool(k.isfinite().all())
+            top2 = k.topk(2, dim=-1).values.float().cpu().numpy()
+            p_top2 = p.topk(2, dim=-1).values.float().cpu().numpy()
+            # a position's plain argmax is the kernel's wherever the plain
+            # top-2 gap exceeds twice the position's largest |kernel - plain|
+            kp = (k.float() - p.float()).abs().amax(-1).cpu().numpy()
+            ids, p_ids = k.argmax(-1).cpu().numpy(), p.argmax(-1).cpu().numpy()
+            for j, (ex, (_, res, _)) in enumerate(zip(exs, chunk)):
+                pos = np.nonzero(ex["input_ids_a"] == mlm_pipe.mask_id)[0]
+                got = mlm_tokens(res)
+                if len(got) != len(pos):
+                    raise AssertionError(f"mlm answer {res!r} for {pos}")
+                want = mlm_pipe.tokenizer.convert_ids_to_tokens(
+                    [int(t) for t in ids[j, pos]])
+                p_want = mlm_pipe.tokenizer.convert_ids_to_tokens(
+                    [int(t) for t in p_ids[j, pos]])
+                for q, g, w, pw in zip(pos, got, want, p_want):
+                    gap = top2[j, q, 0] - top2[j, q, 1]
+                    if gap > bf16_ulp(top2[j, q, 0]):
+                        clear += 1
+                        if g != w:
+                            raise AssertionError(
+                                f"mlm token {g!r} != {w!r} at a gap of "
+                                f"{gap:.3e}")
+                    else:
+                        unclear += 1
+                        wrong_unclear += int(g != w)
+                    p_gap = p_top2[j, q, 0] - p_top2[j, q, 1]
+                    if p_gap > 2 * kp[j, q]:
+                        p_clear += 1
+                        if g != pw:
+                            raise AssertionError(
+                                f"mlm token {g!r} != the plain path's {pw!r} "
+                                f"at a plain gap of {p_gap:.3e} (kernel-plain "
+                                f"{kp[j, q]:.3e})")
+                    else:
+                        p_unclear += 1
+            del k, p, f
+        if clear == 0 or p_clear == 0:
+            raise AssertionError(f"{clear} / {p_clear} clear mlm positions")
+        checks = {"mlm logits": bf16_far(
+            "served mlm logits (B 16, fused L 85)", far["k"], far["p"],
+            far["finite"], bf16_ulp(far["scale"]),
+            f"1 bf16 ulp at max|logit| {far['scale']:.4f}")}
+        emb_err = 0.0
+        names = ("cross_modal_output", "pooled_output", "txt_encoder_output",
+                 "vis_encoder_output")
+        far = {n: {"k": 0.0, "p": 0.0, "scale": 0.0, "finite": True}
+               for n in names}
+        reqs = singles["embedding"]
+        for i in range(0, len(reqs), SERVE_MAX_BATCH):
+            chunk = reqs[i:i + SERVE_MAX_BATCH]
+            _, k, p, f = direct("embedding", chunk)
+            m = len(chunk)
+            for _, res, _ in chunk:
+                if set(res) != set(names):
+                    raise AssertionError(f"embedding keys {set(res)}")
+            for n in names:
+                served = torch.from_numpy(np.stack(
+                    [res[n] for _, res, _ in chunk])).to(DEVICE)
+                emb_err = max(emb_err, max_dist(served, k[n][:m]))
+                far[n]["k"] = max(far[n]["k"], max_dist(served, f[n][:m]))
+                far[n]["p"] = max(far[n]["p"], max_dist(p[n][:m], f[n][:m]))
+                far[n]["scale"] = max(far[n]["scale"],
+                                      f[n][:m].abs().max().item())
+                far[n]["finite"] &= bool(served.isfinite().all())
+            del k, p, f
+        for n in names:
+            checks[n] = bf16_far(
+                f"served {n}", far[n]["k"], far[n]["p"], far[n]["finite"],
+                bf16_ulp(far[n]["scale"]),
+                f"1 bf16 ulp at max|value| {far[n]['scale']:.4f}")
+        log(f"  serve answers against direct forwards: mlm {clear} [MASK] "
+            f"positions with a top-2 gap past a bf16 ulp, all equal to the "
+            f"kernel path's; {unclear} within an ulp ({wrong_unclear} differ, "
+            f"printed); {p_clear} equal to the plain path's where its gap "
+            f"exceeds twice |kernel - plain|, {p_unclear} others; embedding "
+            f"max|served - kernel path| {emb_err:.3e} (tol "
+            f"{SERVE_EMB_TOL:g})")
+        if emb_err > SERVE_EMB_TOL:
+            raise AssertionError(f"serve answers: embedding {emb_err}")
+        del f32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. throughput and latency; the device time of a batched forward;
+        # the host work of a request and of a forward, each on one thread
+        lat = {m: np.array([ms for _, _, ms in singles[m] if ms is not None])
+               for m in singles}
+        n_pairs = SERVE_SINGLE + SERVE_BATCH_REQUESTS * SERVE_MAX_BATCH
+        numbers = dict(
+            requests=len(jobs), pairs=n_pairs, requests_s=wall,
+            requests_per_s=len(jobs) / wall, pairs_per_s=n_pairs / wall,
+            up_s=up_s, load_s=server.startup["load_s"],
+            warmup_s=server.startup["warmup_s"], batching=stats,
+            launches=launches[0], forwards=forwards,
+            mlm_clear=clear, mlm_unclear=unclear,
+            mlm_unclear_differ=wrong_unclear, mlm_plain_clear=p_clear,
+            mlm_plain_unclear=p_unclear, embedding_err=emb_err,
+            bf16_checks=checks)
+        for m, v in lat.items():
+            numbers[f"{m}_p50_ms"] = float(np.percentile(v, 50))
+            numbers[f"{m}_p99_ms"] = float(np.percentile(v, 99))
+        pairs = [pair for pair, _, _ in singles["mlm"][:SERVE_MAX_BATCH]]
+        x = collate([mlm_pipe.prepare_example(*pr) for pr in pairs])
+        on_dev = batch_on(DEVICE, x, MODEL_INPUTS)
+        dev = [on_dev[k] for k in MODEL_INPUTS]
+        emb_ans = emb_pipe.infer_prepared(
+            [emb_pipe.prepare_example(*pairs[0])], batch_size=1)[0]
+        cycle = iter(pairs * 2)
+
+        def forward_wall():
+            emb_pipe.model(*dev, max_tag_length=20)
+            torch.cuda.synchronize()
+
+        def h2d():
+            batch_on(DEVICE, x, MODEL_INPUTS)
+            torch.cuda.synchronize()
+        with torch.no_grad():
+            numbers["mlm_forward_ms"] = cuda_ms(
+                lambda: mlm_pipe.model(*dev, max_tag_length=20).argmax(-1),
+                iters=10)
+            numbers["embedding_forward_ms"] = cuda_ms(
+                lambda: emb_pipe.model(*dev, max_tag_length=20), iters=10)
+            host = dict(
+                prepare_ms=median_ms(
+                    lambda: mlm_pipe.prepare_example(*next(cycle)), 32),
+                embedding_json_ms=median_ms(lambda: json.dumps(
+                    {"result": {k: v.tolist() for k, v in emb_ans.items()}}
+                ).encode(), 8),
+                h2d_ms=median_ms(h2d, 10),
+                forward_wall_ms=median_ms(forward_wall, 10))
+        n_emb = SERVE_SINGLE // 2 + SERVE_BATCH_REQUESTS // 2 * SERVE_MAX_BATCH
+        host["burst_host_s"] = (
+            n_pairs * host["prepare_ms"] + n_emb * host["embedding_json_ms"]
+            + forwards * (host["h2d_ms"] + host["forward_wall_ms"])) / 1e3
+        numbers["host"] = host
+        log(f"  serve: {numbers['requests_per_s']:.1f} requests/s "
+            f"({numbers['pairs_per_s']:.1f} pairs/s); mlm p50 "
+            f"{numbers['mlm_p50_ms']:.1f} ms p99 {numbers['mlm_p99_ms']:.1f} "
+            f"ms; embedding p50 {numbers['embedding_p50_ms']:.1f} ms p99 "
+            f"{numbers['embedding_p99_ms']:.1f} ms; device ms a batched "
+            f"forward of {SERVE_MAX_BATCH}: mlm "
+            f"{numbers['mlm_forward_ms']:.3f} (argmax included), embedding "
+            f"{numbers['embedding_forward_ms']:.3f}; load "
+            f"{numbers['load_s']:.2f} s, warm-up {numbers['warmup_s']:.2f} s, "
+            f"up after {up_s:.2f} s")
+        log(f"  serve host work: prepare a pair {host['prepare_ms']:.3f} ms, "
+            f"an embedding answer to JSON {host['embedding_json_ms']:.3f} ms, "
+            f"a batch's H2D {host['h2d_ms']:.3f} ms, an embedding forward's "
+            f"wall {host['forward_wall_ms']:.3f} ms: the burst's {n_pairs} "
+            f"pairs, {n_emb} embedding answers and {forwards} forwards take "
+            f"{host['burst_host_s']:.2f} s of host work on one interpreter, "
+            f"against {wall:.2f} s wall")
+    finally:
+        if "server" in up:
+            up["server"].shutdown()
+        thread.join(timeout=SERVE_DEADLINE_S)
+    if thread.is_alive():
+        raise AssertionError("the in-process server did not drain")
+    del up
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. the server as a subprocess: one request, then SIGTERM
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mvp_pytorch_tpu_torch.tasks.serve",
+         "--model_dir", mdir, "--feature_tsv", paths["features"],
+         "--modes", "mlm", "--max_batch", str(SERVE_MAX_BATCH), "--port",
+         str(port), "--device", DEVICE], cwd=here, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.time() + SERVE_DEADLINE_S
+        alive = False
+        while time.time() < deadline and not alive:
+            if proc.poll() is not None:
+                raise AssertionError(
+                    f"serve subprocess exited {proc.returncode}: "
+                    f"{proc.stdout.read()}")
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/healthz", timeout=2):
+                    alive = True
+            except OSError:
+                time.sleep(0.5)
+        if not alive:
+            raise AssertionError("the serve subprocess never came up")
+        up_sub = time.perf_counter() - t0
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/mlm",
+            data=json.dumps({"image": images[1],
+                             "text": "a [MASK] here"}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=SERVE_DEADLINE_S) as r:
+            answer = json.loads(r.read())["result"]
+        mlm_tokens(answer)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=SERVE_DEADLINE_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=60)
+    drained = ("draining in-flight requests" in out
+               and "drained, exiting cleanly" in out)
+    log(f"  serve subprocess: up after {up_sub:.1f} s, answered {answer!r}, "
+        f"SIGTERM -> exit {proc.returncode}, drained {drained}")
+    if proc.returncode != 0 or not drained:
+        raise AssertionError(f"serve subprocess: exit {proc.returncode}\n"
+                             f"{out}")
+    numbers["subprocess_up_s"] = up_sub
+    return numbers
+
+
+def phase10(torch, attn, layers_mod, parts=("nlvr", "serve")):
+    """Phase 10 on one generated root: (A) NLVR2 through its CLI and the
+    kernel at its shapes, (B) serving."""
+    import gc
+    import shutil
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke",
+                        "phase10")
+    shutil.rmtree(root, ignore_errors=True)
+    res = {}
+    try:
+        t0 = time.perf_counter()
+        paths, feat_bytes, tsv_bytes = write_cli_root(root, nlvr=True)
+        log(f"  root: {CLI_IMAGES} images, {CLI_REGIONS} regions x 2054 fp32 "
+            f"({feat_bytes / 1e6:.1f} MB of features, {tsv_bytes / 1e6:.1f} "
+            f"MB of TSV), {NLVR_TRAIN} + {NLVR_EVAL} NLVR2 statements written "
+            f"in {time.perf_counter() - t0:.1f} s")
+        if "nlvr" in parts:
+            t0 = time.perf_counter()
+            res["nlvr"] = phase10_nlvr(torch, attn, layers_mod, paths, root)
+            res["nlvr"]["seconds"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "serve" in parts:
+            t0 = time.perf_counter()
+            res["serve"] = phase10_serve(torch, attn, layers_mod, paths,
+                                         root)
+            res["serve"]["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 10 took {res['seconds']:.1f} s")
+    return res
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2471,7 +3472,17 @@ def main(argv) -> int:
     parser.add_argument("--finetune_cli", action="store_true",
                         help="run phase 9 (the VQA, SNLI-VE and RE command "
                              "lines) alone")
+    parser.add_argument("--nlvr_cli", action="store_true",
+                        help="run phase 10 A (the NLVR2 command line) alone")
+    parser.add_argument("--serve", action="store_true",
+                        help="run phase 10 B (the HTTP server) alone")
+    parser.add_argument("--serve_clients", nargs=3,
+                        metavar=("URL", "JOBS", "OUT"),
+                        help="the client process of phase 10 B, which the "
+                             "script starts itself")
     args = parser.parse_args(argv)
+    if args.serve_clients:
+        return serve_clients(*args.serve_clients)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2526,6 +3537,12 @@ def main(argv) -> int:
         print(json.dumps({"finetune": finetune_summary(ft), "card": card}),
               flush=True)
         return 0
+    if args.nlvr_cli or args.serve:
+        part = "nlvr" if args.nlvr_cli else "serve"
+        log(f"phase 10 alone: {part}, MVPTR-base")
+        res = phase10(torch, attn, layers_mod, parts=(part,))
+        print(json.dumps({part: res[part], "card": card}), flush=True)
+        return 0
     phase1_kernel_report(torch, attn, _kernels, lib_path)
     torch.cuda.synchronize()
 
@@ -2537,6 +3554,10 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     log("phase 2: attention-prob dropout inside the kernel")
     drop_timings = phase2_dropout(torch, attn)
+    torch.cuda.synchronize()
+    log("phase 2: the kernel at NLVR2's shapes (fused L 140 on the online "
+        "kernels; the vision stream L 70)")
+    nlvr_times = attention_times(torch, attn, NLVR_TIMED, seed=10)
     torch.cuda.synchronize()
 
     log("phase 3: two-stage retrieval scoring, MVPTR-base, bench geometry")
@@ -2574,6 +3595,11 @@ def main(argv) -> int:
     ft = phase9_finetune_cli(torch, attn, layers_mod)
     torch.cuda.synchronize()
 
+    log("phase 10: NLVR2 through its command line and the HTTP server, "
+        "MVPTR-base, generated root")
+    p10 = phase10(torch, attn, layers_mod)
+    torch.cuda.synchronize()
+
     main_t = timings[("fused", "bfloat16")]
     main_err = errors[("fused 2-D padded keys", 1000, "bfloat16", "blhd")]
     train_t = bwd_timings[("fused", "bfloat16")]
@@ -2593,6 +3619,7 @@ def main(argv) -> int:
             "launches_per_step": train["launches_per_step"],
             "shape": f"B {TRAIN_B} L 125 bf16 blhd",
             "fwd_ms": train_t["fwd_ms"],
+            "fwd_plain_ms": train_t["plain_fwd_ms"],
             "fwd_bound_ms": train_t["fwd_bound_ms"],
             "bwd_ms": train_t["bwd_ms"],
             "bwd_plain_ms": train_t["plain_bwd_ms"],
@@ -2623,7 +3650,12 @@ def main(argv) -> int:
             "seconds": pre["seconds"]},
         "cli": {k: v for k, v in cli.items() if k != "losses"},
         "pretrain_cli": pcli,
-        "finetune": finetune_summary(ft)}, {
+        "finetune": finetune_summary(ft),
+        "nlvr": {**{k: v for k, v in p10["nlvr"].items()
+                    if k not in ("losses", "mem_losses")},
+                 "attention": {k: v for k, v in nlvr_times.items()
+                               if not k.endswith("fp32")}},
+        "serving": p10["serve"]}, {
         # the fp32 kernels (3xTF32) behind the same entry point; launches
         # and pairs/s from the fp32 sweep of phase 3
         "name": "masked_attention_fwd fp32 (3xTF32)", "route": "cuda",
@@ -2639,6 +3671,7 @@ def main(argv) -> int:
         "training": {
             "shape": f"B {TRAIN_B} L 125 fp32 blhd",
             "fwd_ms": train32["fwd_ms"],
+            "fwd_plain_ms": train32["plain_fwd_ms"],
             "fwd_bound_ms": train32["fwd_bound_ms"],
             "fwd_bound_by": train32["fwd_bound_by"],
             "sdpa_fwd_ms": train32["sdpa_fwd_ms"]},
@@ -2648,7 +3681,9 @@ def main(argv) -> int:
             "plain_ms": drop32["plain_ms"],
             "max_abs_err": drop32["max_abs_err"],
             "bound_ms": drop32["bound_ms"], "bound_by": drop32["bound_by"],
-            "sdpa_ms": drop32["sdpa_ms"]}}]}
+            "sdpa_ms": drop32["sdpa_ms"]},
+        "nlvr_attention": {k: v for k, v in nlvr_times.items()
+                           if k.endswith("fp32")}}]}
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

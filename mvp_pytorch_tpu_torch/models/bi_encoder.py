@@ -11,7 +11,8 @@ max_tag_length:]]` (reference `oscar/modeling/modeling_vlbert.py:354-875`).
 
 Random choices (sampled negatives, the slot permutation) draw from a
 `torch.Generator` the caller passes; `hn_dice` pins the permutation, as in
-the JAX package. `forward_joint` waits for the NLVR slice.
+the JAX package. `forward_joint` is the NLVR2 forward: one text and two
+images through one fusion pass.
 """
 
 from __future__ import annotations
@@ -229,3 +230,27 @@ class BiEncoder(nn.Module):
             txt_output=txt_seq, vis_output=vis_seq, sim_mat=sim_mat,
             hard_txt_index=hard_txt, hard_img_index=hard_img,
             mid_joint=mid_joint, mid_hard=mid_hard)
+
+    def forward_joint(self, input_ids_a, attention_mask_a, token_type_ids_a,
+                      input_ids_b, attention_mask_b, token_type_ids_b,
+                      img_feats, input_ids_b2, attention_mask_b2,
+                      token_type_ids_b2, img_feats2, *, max_tag_length: int):
+        """One text and two images through a single fusion pass (reference
+        forward_joint, modeling_vlbert.py:838-869): both tag-stripped vision
+        streams follow the text stream, so the fusion encoder attends across
+        all three and the images interact. At LA 40 and R 50 the fused
+        sequence is 140 keys. Returns (sequence_output, pooled_output)."""
+        txt_seq, _ = self.encode_text(input_ids_a, attention_mask_a,
+                                      token_type_ids_a)
+        parts, masks = [], []
+        for ids_b, m_b, seg_b, feats in (
+                (input_ids_b, attention_mask_b, token_type_ids_b, img_feats),
+                (input_ids_b2, attention_mask_b2, token_type_ids_b2,
+                 img_feats2)):
+            vis_seq, _ = self.encode_image(ids_b, m_b, seg_b, feats)
+            parts.append(vis_seq[:, max_tag_length:, :])
+            masks.append(m_b[:, max_tag_length:])
+        seq, pooled, _ = self.fuse(txt_seq, attention_mask_a,
+                                   torch.cat(parts, dim=1),
+                                   torch.cat(masks, dim=-1))
+        return seq, pooled

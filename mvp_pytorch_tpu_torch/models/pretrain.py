@@ -116,6 +116,27 @@ def wra_hard_loss(sequence_output, hard_sequence_output, phrase_index,
 # model
 # ---------------------------------------------------------------------------
 
+def drop_tied_decoders(state_dict: Mapping[str, torch.Tensor], keys,
+                       only_word_size: int) -> dict:
+    """A copy of `state_dict` without the reference's tied decoder copies
+    named in `keys`, after checking that each equals the first
+    `only_word_size` rows of the word table (the port's LM heads read the
+    table itself)."""
+    state_dict = dict(state_dict)
+    table = state_dict.get("bert.embeddings.word_embeddings.weight")
+    for key in keys:
+        dec = state_dict.pop(key, None)
+        if dec is None:
+            continue
+        n = only_word_size
+        if (table is None or tuple(dec.shape) != (n, table.shape[1])
+                or not torch.equal(dec.to(table.dtype), table[:n])):
+            raise ValueError(f"{key} is not the first {n} rows of "
+                             f"bert.embeddings.word_embeddings.weight: "
+                             f"the port ties the decoder to the table")
+    return state_dict
+
+
 class PretrainOutput(NamedTuple):
     total_loss: torch.Tensor
     vis_mlm_loss: torch.Tensor
@@ -198,18 +219,8 @@ class BiPretrainModel(nn.Module):
         """`nn.Module.load_state_dict`, after checking that the reference's
         tied decoder copies equal the first rows of the word table (and
         dropping them: the heads read the table itself)."""
-        state_dict = dict(state_dict)
-        table = state_dict.get("bert.embeddings.word_embeddings.weight")
-        for key in self.TIED_DECODERS:
-            dec = state_dict.pop(key, None)
-            if dec is None:
-                continue
-            n = self.config.only_word_size
-            if (table is None or tuple(dec.shape) != (n, table.shape[1])
-                    or not torch.equal(dec.to(table.dtype), table[:n])):
-                raise ValueError(f"{key} is not the first {n} rows of "
-                                 f"bert.embeddings.word_embeddings.weight: "
-                                 f"the port ties the decoder to the table")
+        state_dict = drop_tied_decoders(state_dict, self.TIED_DECODERS,
+                                        self.config.only_word_size)
         return super().load_state_dict(state_dict, strict=strict,
                                        assign=assign)
 

@@ -7,13 +7,18 @@
   `BiEncoder.forward`: `ClassificationModel` (:272-294, SNLI-VE),
   `ClassificationPlusModel` (:297-343, the fusion pooled output beside the
   single-stream interaction features), `VQAModel` (:350-374, the QA head
-  over the fused CLS token) and `REModel` (:381-434, region scores).
+  over the fused CLS token), `REModel` (:381-434, region scores),
+  `WREModel` (:437-484, weakly supervised RE) and `CaseModel` (:517-546,
+  phrase-region similarity matrices);
+- `NLVRModel` (:487-514): one statement and two images through
+  `BiEncoder.forward_joint`;
+- the serving pipeline's two modes: `MLMModel` (:549-573, masked-token
+  scores) and `RepModel` (:576-593, the backbone's outputs).
 
 Each task model takes `(config, *, device, seed)` and has
-`init_weights(generator)`; its forward returns the logits, or `(loss,
-logits)` when given labels. Dropout follows the module's training mode and
-draws from the `generator` the caller passes. `WREModel`, `NLVRModel`,
-`CaseModel`, `MLMModel` and `RepModel` wait for later slices."""
+`init_weights(generator)`; a classifier's forward returns the logits, or
+`(loss, logits)` when given labels. Dropout follows the module's training
+mode and draws from the `generator` the caller passes."""
 
 from __future__ import annotations
 
@@ -24,13 +29,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.masked import cross_entropy
+from ..ops.masked import cross_entropy, gather_span
 from .bi_encoder import BiEncoder, l2_normalize
 from .config import ModelConfig
-from .heads import ClassifierHead, QAPredictionHead
+from .heads import ClassifierHead, LMPredictionHead, QAPredictionHead
 from .layers import (Dense, Dropout, compute_dtype, dropout_generator,
                      init_weights, resolve_device)
-from .pretrain import wra_hard_loss
+from .pretrain import drop_tied_decoders, wra_hard_loss, wra_sample_loss
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +201,20 @@ class RetrievalModel(nn.Module):
             input_ids_b, attention_mask_b, token_type_ids_b, img_feats)
         return global_txt, global_img
 
+    def encode_text_only(self, input_ids_a, attention_mask_a,
+                         token_type_ids_a):
+        """The caption's global embedding [B, H] (fp32)."""
+        _, glob = self.bert.encode_text(input_ids_a, attention_mask_a,
+                                        token_type_ids_a)
+        return glob
+
+    def encode_image_only(self, input_ids_b, attention_mask_b,
+                          token_type_ids_b, img_feats):
+        """The image's global embedding [B, H] (fp32)."""
+        _, glob = self.bert.encode_image(input_ids_b, attention_mask_b,
+                                         token_type_ids_b, img_feats)
+        return glob
+
     def score(self, input_ids_a, attention_mask_a, token_type_ids_a,
               input_ids_b, attention_mask_b, token_type_ids_b, img_feats, *,
               max_tag_length: int = 20):
@@ -266,7 +285,7 @@ class _PairModel(nn.Module):
         self.eval()
 
     def build_head(self, config: ModelConfig) -> None:
-        raise NotImplementedError
+        """The model's head modules; none for a backbone-only model."""
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -437,3 +456,168 @@ class REModel(_PairModel):
         loss = F.binary_cross_entropy_with_logits(
             logits.float(), tgt, weight=w, reduction="sum") / denom
         return loss, torch.sigmoid(logits)
+
+
+class WREModel(_PairModel):
+    """Weakly supervised RE (reference BiImageBertForWRE,
+    modeling_vlbert.py:2073-2164): the region cosine scores of REModel mod 1
+    and a phrase-region margin loss. Mod 1 takes the margin between the
+    hard pair's and the true pair's best region cosine, padded regions
+    excluded; mod 2 is the hard-mode WRA loss, mod 3 the sample-mode one.
+    Only mods 1 and 2 run the hard-negative fusion pass. Returns (loss,
+    logits [B, R]). `hn_dice`, `wra_pick` and `wra_neg_offset` pin the slot
+    permutation, the WRA top-3 pick and the sample-mode negative."""
+
+    def forward(self, input_ids_a, attention_mask_a, token_type_ids_a,
+                input_ids_b, attention_mask_b, token_type_ids_b, img_feats,
+                phrase_index=None, img_index=None, *,
+                max_tag_length: int = 20, mod: int = 1,
+                wra_phrase_width: int = 10, hn_dice=None,
+                wra_pick: Optional[int] = None,
+                wra_neg_offset: Optional[int] = None,
+                generator: Optional[torch.Generator] = None):
+        if mod not in (1, 2, 3):
+            raise NotImplementedError(mod)
+        with dropout_generator(self, generator):
+            out = self.bert(input_ids_a, attention_mask_a, token_type_ids_a,
+                            input_ids_b, attention_mask_b, token_type_ids_b,
+                            img_feats, max_tag_length=max_tag_length,
+                            encode_hn=mod in (1, 2), hn_dice=hn_dice,
+                            generator=generator)
+            la = input_ids_a.shape[1]
+            logits = _region_cosine_logits(out.sequence_output, la)
+            r = img_feats.shape[1]
+            if mod == 1:
+                # padded region slots still get cosine scores (they are
+                # masked as keys, not as queries): keep them out of the max
+                pad_bias = torch.where(attention_mask_b[:, max_tag_length:]
+                                       > 0, 0.0, -1e9)
+                hard = _region_cosine_logits(out.hard_sequence_output, la)
+                loss = torch.clamp(
+                    (hard + pad_bias[out.hard_img_index]).max(1).values
+                    + 0.2 - (logits + pad_bias).max(1).values, min=0.0
+                ).mean()
+            elif mod == 2:
+                loss = wra_hard_loss(
+                    out.sequence_output, out.hard_sequence_output,
+                    phrase_index, img_index, out.hard_txt_index,
+                    out.hard_img_index, generator,
+                    phrase_width=wra_phrase_width, img_width=r,
+                    pick=wra_pick)
+            else:
+                loss = wra_sample_loss(
+                    out.sequence_output, phrase_index, img_index, generator,
+                    phrase_width=wra_phrase_width, img_width=r,
+                    pick=wra_pick, neg_offset=wra_neg_offset)
+        return loss, logits
+
+
+class CaseModel(_PairModel):
+    """Phrase-region similarity matrices for case studies (reference
+    BiBertImgForCase, modeling_vlbert.py:2247-2388), read from the fused
+    output or, with `phrase_layer`, from that fusion layer's output.
+    Returns (sims [B, P, R] fp32 cosines, phrase_valid [B, P],
+    region_valid [B, R])."""
+
+    def forward(self, input_ids_a, attention_mask_a, token_type_ids_a,
+                input_ids_b, attention_mask_b, token_type_ids_b, img_feats,
+                phrase_index, image_index, *, max_tag_length: int = 20,
+                phrase_width: int = 10, phrase_layer: Optional[int] = None):
+        out = self.bert(input_ids_a, attention_mask_a, token_type_ids_a,
+                        input_ids_b, attention_mask_b, token_type_ids_b,
+                        img_feats, max_tag_length=max_tag_length,
+                        phrase_layer=phrase_layer)
+        seq = out.sequence_output if phrase_layer is None else out.mid_joint
+        ph, ph_valid = gather_span(seq, phrase_index, phrase_width)
+        im, im_valid = gather_span(seq, image_index, img_feats.shape[1])
+        sims = torch.einsum("bph,brh->bpr", l2_normalize(ph.float()),
+                            l2_normalize(im.float()))
+        return sims, ph_valid, im_valid
+
+
+class NLVRModel(_PairModel):
+    """NLVR2: one statement and two images through `BiEncoder.forward_joint`
+    (reference forward_joint, modeling_vlbert.py:725-869), then dropout and
+    a two-label `ClassifierHead` over the pooled output. Returns the logits,
+    or (cross entropy, logits) when given labels."""
+
+    def build_head(self, config):
+        self.classifier = ClassifierHead(config, num_labels=2)
+
+    def forward(self, input_ids_a, attention_mask_a, token_type_ids_a,
+                input_ids_b, attention_mask_b, token_type_ids_b, img_feats,
+                input_ids_b2, attention_mask_b2, token_type_ids_b2,
+                img_feats2, labels=None, *, max_tag_length: int = 20,
+                generator: Optional[torch.Generator] = None):
+        with dropout_generator(self, generator):
+            _, pooled = self.bert.forward_joint(
+                input_ids_a, attention_mask_a, token_type_ids_a,
+                input_ids_b, attention_mask_b, token_type_ids_b, img_feats,
+                input_ids_b2, attention_mask_b2, token_type_ids_b2,
+                img_feats2, max_tag_length=max_tag_length)
+            logits = self.classifier(self.dropout(pooled))
+        if labels is None:
+            return logits
+        return cross_entropy(logits, labels.long()), logits
+
+
+# ---------------------------------------------------------------------------
+# the serving pipeline's two modes
+# ---------------------------------------------------------------------------
+
+class _MLMHeads(nn.Module):
+    """The reference's `cls` module of BiBertImgForMLM: the text MLM head."""
+
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        self.predictions = LMPredictionHead(config)
+
+
+class MLMModel(_PairModel):
+    """Masked-token scores over the stream-A positions of the fused output
+    (reference BiBertImgForMLM, modeling_vlbert.py:2559-2645): the tied
+    `LMPredictionHead` over the first `only_word_size` rows of the table,
+    fp32 `[B, La, only_word_size]`. The caller picks the [MASK] positions.
+    Keys: `bert.*`, `cls.predictions.*`; a reference state dict's tied
+    `cls.predictions.decoder.weight` is checked against the table and
+    dropped on load."""
+
+    TIED_DECODERS = ("cls.predictions.decoder.weight",)
+
+    def build_head(self, config):
+        self.cls = _MLMHeads(config)
+
+    def forward(self, input_ids_a, attention_mask_a, token_type_ids_a,
+                input_ids_b, attention_mask_b, token_type_ids_b, img_feats, *,
+                max_tag_length: int = 20):
+        out = self.bert(input_ids_a, attention_mask_a, token_type_ids_a,
+                        input_ids_b, attention_mask_b, token_type_ids_b,
+                        img_feats, max_tag_length=max_tag_length)
+        la = input_ids_a.shape[1]
+        return self.cls.predictions(out.sequence_output[:, :la],
+                                    self.bert.word_table())
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        state_dict = drop_tied_decoders(state_dict, self.TIED_DECODERS,
+                                        self.config.only_word_size)
+        return super().load_state_dict(state_dict, strict=strict,
+                                       assign=assign)
+
+
+class RepModel(_PairModel):
+    """The backbone's outputs for one pair (reference BiImageBertRep,
+    modeling_vlbert.py:2509-2557), under the JAX package's names:
+    `cross_modal_output` [B, La+R, H], `pooled_output` [B, H],
+    `txt_encoder_output` [B, La, H] and `vis_encoder_output` [B, T+R, H]."""
+
+    def forward(self, input_ids_a, attention_mask_a, token_type_ids_a,
+                input_ids_b, attention_mask_b, token_type_ids_b, img_feats, *,
+                max_tag_length: int = 20):
+        out = self.bert(input_ids_a, attention_mask_a, token_type_ids_a,
+                        input_ids_b, attention_mask_b, token_type_ids_b,
+                        img_feats, max_tag_length=max_tag_length)
+        return dict(cross_modal_output=out.sequence_output,
+                    pooled_output=out.pooled_output,
+                    txt_encoder_output=out.txt_output,
+                    vis_encoder_output=out.vis_output)

@@ -9,9 +9,9 @@ picks the device (CUDA unless `--platform cpu`; no card raises);
 over the dataset with the process loader (`data/loader.py`) through
 `training/loop.py`.
 
-For the single-pair task drivers (VQA, SNLI-VE, referring expressions):
-`TaskFetch` is their loader fetch, `predict` their eval loop and
-`adjust_dropout` their `--adjust_dp_step`.
+For the task drivers (VQA, SNLI-VE, referring expressions; NLVR2 with its
+second image side, `NLVR_INPUT_NAMES`): `TaskFetch` is their loader fetch,
+`predict` their eval loop and `adjust_dropout` their `--adjust_dp_step`.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import argparse
 import json
 import os
 import sys
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,12 @@ INPUT_NAMES = {"input_ids_a": "input_ids_a",
                "input_mask_b": "attention_mask_b",
                "segment_ids_b": "token_type_ids_b", "img_feat": "img_feats"}
 MODEL_KEYS = tuple(INPUT_NAMES.values())
+# NLVR2's eleven inputs: the pair's seven, then the second image's four
+NLVR_INPUT_NAMES = {**INPUT_NAMES, "input_ids_b2": "input_ids_b2",
+                    "input_mask_b2": "attention_mask_b2",
+                    "segment_ids_b2": "token_type_ids_b2",
+                    "img_feat2": "img_feats2"}
+NLVR_MODEL_KEYS = tuple(NLVR_INPUT_NAMES.values())
 # --adjust_dp_step's hidden dropout (the reference's `.p = 0.3`)
 ADJUSTED_DROPOUT = 0.3
 
@@ -246,28 +252,33 @@ def load_params_or_init(args, model, logger=None):
 
 
 class TaskFetch:
-    """A single-pair task dataset's `fetch` under the model's array names
-    plus `label`, and nothing else (no `question_id`, `det_label` or
-    `iou_mat` in a training batch); `fetch(indices, epoch)` when the
-    dataset's fetch takes an epoch, as `VEDataset`'s masking does
-    (picklable, for spawned loader workers)."""
+    """A task dataset's `fetch` under the model's array names (the data
+    plane's names in `input_names`, by default the single pair's seven) plus
+    `label`, and nothing else (no `question_id`, `det_label` or `iou_mat` in
+    a training batch); `fetch(indices, epoch)` when the dataset's fetch takes
+    an epoch, as `VEDataset`'s masking does (picklable, for spawned loader
+    workers)."""
 
-    def __init__(self, dataset):
+    def __init__(self, dataset, input_names: Mapping[str, str] = INPUT_NAMES):
         self.dataset = dataset
+        self.input_names = dict(input_names)
 
     def __call__(self, indices, epoch: int = 0) -> Dict[str, np.ndarray]:
         batch = _epoch_aware(self.dataset.fetch)(indices, epoch)
-        out = {INPUT_NAMES[k]: batch[k] for k in INPUT_NAMES}
+        out = {v: batch[k] for k, v in self.input_names.items()}
         out["label"] = batch["label"]
         return out
 
 
 @torch.no_grad()
 def predict(model, dataset, batch_size: int, forward: Callable,
-            keep: Sequence[str] = ()) -> Tuple[np.ndarray, Dict]:
+            keep: Sequence[str] = (),
+            input_names: Mapping[str, str] = INPUT_NAMES
+            ) -> Tuple[np.ndarray, Dict]:
     """`forward(model, *inputs)` over the whole dataset in chunks of
     `batch_size`, under `model.eval()` and `torch.no_grad()`, on this
-    process. The last chunk is padded by repeating its last index (the JAX
+    process; the inputs are the dataset's arrays named in `input_names`, in
+    its order. The last chunk is padded by repeating its last index (the JAX
     package's fixed eval shapes) and the padding's rows are dropped. Returns
     the outputs as fp32 numpy and the dataset's arrays named in `keep`."""
     model.eval()
@@ -280,10 +291,9 @@ def predict(model, dataset, batch_size: int, forward: Callable,
             chunk = np.concatenate([chunk, np.repeat(chunk[-1:],
                                                      batch_size - m)])
         batch = dataset.fetch(chunk)
-        x = batch_on(model.device, {INPUT_NAMES[k]: batch[k]
-                                    for k in INPUT_NAMES})
-        outs.append(forward(model, *(x[k] for k in MODEL_KEYS))[:m]
-                    .float().cpu().numpy())
+        x = batch_on(model.device, {v: batch[k]
+                                    for k, v in input_names.items()})
+        outs.append(forward(model, *x.values())[:m].float().cpu().numpy())
         for k in keep:
             kept[k].append(batch[k][:m])
     return np.concatenate(outs), {k: np.concatenate(v)
