@@ -8,6 +8,7 @@
     python3 chip_smoke.py --finetune_cli    # phase 9 alone
     python3 chip_smoke.py --nlvr_cli        # phase 10 A alone
     python3 chip_smoke.py --serve           # phase 10 B alone
+    python3 chip_smoke.py --single_stream   # phase 11 alone
     (`--serve_clients URL JOBS OUT` is phase 10 B's client process, which
     the script starts itself)
 
@@ -204,8 +205,38 @@ script exits non-zero:
    reported. Then `python -m
    mvp_pytorch_tpu_torch.tasks.serve` as a subprocess: one request, then
    SIGTERM, which must drain and exit 0. The root is deleted at the end;
-11. one JSON line of kernel numbers (the bf16 kernel, then the fp32 one),
-   then the result line.
+11. the single-stream model (`ImgBertModel`, 12 layers over [text ; tags ;
+   regions]) at MVPTR-base on phase 8's root: LA 75, T 20, R 50, one
+   sequence of 145 keys (every layer on the online kernels), bf16 over fp32
+   weights, dropouts 0.1 / 0.1, B 96, lr 1e-4. (a) The kernel at Lq = Lk =
+   145, B 96, both dtypes and layouts, p 0 and 0.1, padded key masks and a
+   [B, 1, L, L] seq2seq mask: against the plain version (fp32 2e-5, bf16
+   0.05) with its grads against fp32 autograd of the plain version (1e-4 /
+   0.05); the dropout mask read back bit for bit with its keep share; the
+   kernel timed beside the plain version, SDPA and its bound (bf16 p 0.1
+   and 0, fp32 p 0), and at the serving forward's shapes (B 16: fused L 85,
+   text L 35, vision L 70). (b) `--visual_learning` (`ImgBertForPreTraining`,
+   MLM + ITM + MRC over 2,000 tags + MRF): the first batch's masked shares
+   within 0.15 +- 0.02, region labels only on the zeroed regions, the MRF
+   targets equal to the stored features; one dropout-0 step on it, kernel
+   path against plain path (fp32: the five losses 1e-4 and five gradients
+   1e-3 relative; bf16: the losses 0.02 and each gradient's relative
+   distance from the fp32 plain path's at most 1.25 times the plain bf16
+   path's plus 2^-8); 13 batches in memory, then 26 CLI steps through the
+   process loader (4 forked workers), each launching the dropout kernel
+   exactly 12 times, all at Lk 145, and the plain attention never, finite
+   losses, the last five below the first, step 1's loss equal to the
+   in-memory run's; step ms, samples/s, peak memory, the feed ratio (target
+   0.90, not a failure), worker ms and H2D ms. (c) `--extra_mode img_only`,
+   then `text_only`: 3 CLI steps each, 48 dropout launches a step (24 main
+   + 24 extra), finite extra losses, step 1's total equal to the same
+   batch's in memory. (d) `ImgBertForSequenceClassification` (3,129
+   labels) at B 64 with a [B, L, L] seq2seq mask and with a per-layer list:
+   12 p = 0 launches at Lk 145 each, kernel path against plain path (fp32
+   logits 1e-5, bf16 by the 1.25 rule of 10 (A)). The root is deleted at the
+   end;
+12. one JSON line of kernel numbers (the bf16 kernel, then the fp32 one;
+   phase 11's under `single_stream`), then the result line.
 
 With `--sweep DTYPE` only phase 3 runs, in that dtype (bf16: two sweeps,
 fp32: one), and the last line is a JSON object of its numbers; run from a
@@ -213,7 +244,7 @@ copy of another tree, the script drives that tree's package. With `--cli`
 only phases 1 (the build) and 7 run, the last line a JSON object of phase
 7's numbers; with `--pretrain_cli`, phases 1 and 8; with `--finetune_cli`,
 phases 1 and 9; with `--nlvr_cli`, phases 1 and 10 A; with `--serve`, phases
-1 and 10 B.
+1 and 10 B; with `--single_stream`, phases 1 and 11.
 
 Exits 2 without a result when no CUDA device is visible.
 """
@@ -633,6 +664,58 @@ def phase2_backward(torch, attn):
     return timings
 
 
+def online_mask_readback(torch, attn, b, l, dn, dt, layout, seed) -> dict:
+    """The dropout kernel's mask at Lq = Lk = l (the online kernels past 128
+    keys), read back bit for bit: q = k = 0 gives every key 1/l, v one-hot
+    over a window of D keys; the windows (one launch each, the same seed)
+    read back all l columns. Fails unless it equals the plain hash's mask,
+    its keep share is within KEEP_SHARE_TOL of 1 - p and every kept value is
+    1/(l (1 - p))."""
+    value = 1.0 / l / (1.0 - DROP_P)
+    q = torch.zeros(b, H, l, D, device=DEVICE, dtype=dt)
+    got = torch.zeros(b, H, l, l, dtype=torch.bool, device=DEVICE)
+    rel = 0.0
+    before = attn.masked_attention.dropout_launches
+    windows = range(0, l, D)
+    for off in windows:
+        n = min(D, l - off)
+        v = torch.zeros(b, H, l, D, device=DEVICE, dtype=dt)
+        v[:, :, off:off + n, :n] = torch.eye(n, device=DEVICE, dtype=dt)
+        qkv = (q, q, v)
+        if layout == "blhd":
+            qkv = tuple(t.transpose(1, 2).contiguous() for t in qkv)
+        out = attn.masked_attention(*qkv, layout=layout, dropout_p=DROP_P,
+                                    seed=seed)
+        if layout == "blhd":
+            out = out.transpose(1, 2)
+        out = out[..., :n].float()
+        got[..., off:off + n] = out > 0
+        if bool((out > 0).any()):
+            rel = max(rel, ((out[out > 0] - value).abs().max()
+                            / value).item())
+        del v, out
+    torch.cuda.synchronize()
+    launched = attn.masked_attention.dropout_launches - before
+    want = attn.dropout_keep(seed, DROP_P, (b, H, l, l))
+    mismatched = int((got != want).sum())
+    share = got.float().mean().item()
+    rel_tol = 2.0 ** -7 if dn == "bfloat16" else 1e-5
+    ok = (launched == len(windows) and mismatched == 0 and rel <= rel_tol
+          and abs(share - (1 - DROP_P)) <= KEEP_SHARE_TOL)
+    log(f"  dropout mask     {dn:9s} {layout}  B={b} Lq={l} Lk={l} "
+        f"(online kernel, {launched} launches): {got.numel()} elements, "
+        f"{mismatched} differ from the plain hash, keep share {share:.6f} "
+        f"(want {1 - DROP_P} +- {KEEP_SHARE_TOL}), kept values within "
+        f"{rel:.2e} of 1/(Lk (1-p)) (tol {rel_tol:.1e})  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"dropout mask at Lk {l} {dn} {layout}: "
+                             f"{mismatched} differ, share {share}, rel {rel}, "
+                             f"{launched} launches")
+    return dict(elements=got.numel(), mismatched=mismatched, keep_share=share,
+                rel=rel, launches=launched)
+
+
 def phase2_dropout(torch, attn):
     """Attention-prob dropout inside the kernel: the mask read back bit for
     bit, the dropout kernel and its backward against the plain dropout
@@ -685,56 +768,11 @@ def phase2_dropout(torch, attn):
             del q, k, v, out, got, want
 
     # at Lk 140 (NLVR's fusion input: the online kernels, two key tiles and
-    # two query tiles): q = k = 0 again, v one-hot over a window of D keys;
-    # three windows (launches) with the same seed read back all 140 columns
-    b, l = NLVR_BATCHES[1], NLVR_L
-    value = 1.0 / l / (1.0 - DROP_P)
+    # two query tiles)
     for dn, dt in dtypes.items():
         for layout in ("bhld", "blhd"):
-            seed = new_seed()
-            q = torch.zeros(b, H, l, D, device=DEVICE, dtype=dt)
-            got = torch.zeros(b, H, l, l, dtype=torch.bool, device=DEVICE)
-            rel = 0.0
-            before = attn.masked_attention.dropout_launches
-            windows = range(0, l, D)
-            for off in windows:
-                n = min(D, l - off)
-                v = torch.zeros(b, H, l, D, device=DEVICE, dtype=dt)
-                v[:, :, off:off + n, :n] = torch.eye(n, device=DEVICE,
-                                                     dtype=dt)
-                qkv = (q, q, v)
-                if layout == "blhd":
-                    qkv = tuple(t.transpose(1, 2).contiguous() for t in qkv)
-                out = attn.masked_attention(*qkv, layout=layout,
-                                            dropout_p=DROP_P, seed=seed)
-                if layout == "blhd":
-                    out = out.transpose(1, 2)
-                out = out[..., :n].float()
-                got[..., off:off + n] = out > 0
-                if bool((out > 0).any()):
-                    rel = max(rel, ((out[out > 0] - value).abs().max()
-                                    / value).item())
-            torch.cuda.synchronize()
-            launched = attn.masked_attention.dropout_launches - before
-            want = attn.dropout_keep(seed, DROP_P, (b, H, l, l))
-            mismatched = int((got != want).sum())
-            share = got.float().mean().item()
-            rel_tol = 2.0 ** -7 if dn == "bfloat16" else 1e-5
-            ok = (launched == len(windows) and mismatched == 0
-                  and rel <= rel_tol
-                  and abs(share - (1 - DROP_P)) <= KEEP_SHARE_TOL)
-            log(f"  dropout mask     {dn:9s} {layout}  B={b} Lq={l} Lk={l} "
-                f"(online kernel, {launched} launches): {got.numel()} "
-                f"elements, "
-                f"{mismatched} differ from the plain hash, keep share "
-                f"{share:.6f} (want {1 - DROP_P} +- {KEEP_SHARE_TOL}), kept "
-                f"values within {rel:.2e} of 1/(Lk (1-p)) (tol {rel_tol:.1e})"
-                f"  {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"dropout mask at Lk {l} {dn} {layout}: "
-                                     f"{mismatched} differ, share {share}, "
-                                     f"rel {rel}, {launched} launches")
-            del q, v, out, got, want
+            online_mask_readback(torch, attn, NLVR_BATCHES[1], NLVR_L, dn,
+                                 dt, layout, new_seed())
 
     def inputs(l, dt, layout, b=TRAIN_B, nlvr=False):
         x = [torch.randn(b, l, H, D, device=DEVICE, generator=gen)
@@ -2038,10 +2076,11 @@ def padded_forward(model, arrays, batch_size, input_names=None, **kw):
 
 def attention_times(torch, attn, shapes, seed):
     """The kernel at a path's attention shapes (blhd): `shapes` holds (name,
-    B, L, dtype, dropout rates, key mask: "nlvr" for `nlvr_key_mask`, else
-    random padded lengths). At each rate: the max abs error against the
-    plain version on the same inputs and seed, the kernel's ms, the plain
-    version's ms, SDPA's ms with the same mask and dropout, and the bound.
+    B, L, dtype, dropout rates, key mask: "nlvr" for `nlvr_key_mask`,
+    "single" for `single_stream_key_mask`, else random padded lengths). At
+    each rate: the max abs error against the plain version on the same
+    inputs and seed, the kernel's ms, the plain version's ms, SDPA's ms with
+    the same mask and dropout, and the bound.
     Rows are keyed "{name} B {b} L {l} p {p}", with " fp32" for fp32."""
     import torch.nn.functional as F
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -2053,6 +2092,8 @@ def attention_times(torch, attn, shapes, seed):
                    .to(dt) for _ in range(3))
         if mask_kind == "nlvr":
             mask = nlvr_key_mask(torch, gen, b)
+        elif mask_kind == "single":
+            mask = single_stream_key_mask(torch, gen, b)
         else:
             lens = torch.randint(l // 2, l + 1, (b,), device=DEVICE,
                                  generator=gen)
@@ -3459,6 +3500,596 @@ def phase10(torch, attn, layers_mod, parts=("nlvr", "serve")):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the single-stream model (ImgBertModel) on the card: the kernel
+# at its length, --visual_learning and --extra_mode through the pretraining
+# command line, and the classifier with 3-D and per-layer masks
+# ---------------------------------------------------------------------------
+
+# the pretraining geometry (LA 75 = 70 text + 5 phrase slots, T 20, R 50) as
+# one sequence: 145 keys, past the 128-key tile (17 rows and keys in the
+# second tiles), so every layer runs on the online kernels
+SS_LA, SS_T, SS_R = 75, 20, 50
+SS_L = SS_LA + SS_T + SS_R
+SS_CLS_B = 64                        # the classifier's batch
+SS_EXTRA_STEPS = 3
+SS_LOSSES = ("total_loss", "mlm_loss", "itm_loss", "mrc_loss", "mrf_loss")
+SS_GRAD_PARAMS = ("bert.embeddings.word_embeddings.weight",
+                  "bert.img_embedding.weight", "cls.MRF_bias",
+                  "cls.MRC_predictor.weight",
+                  "bert.encoder.layer.0.attention.self.query.weight")
+# the kernel's timed single-stream shapes (B 96: bf16 at p 0.1 in training
+# and 0, fp32 at 0) and the serving forward's (B 16: fused L 85, text L 35,
+# vision L 70)
+SS_TIMED = ((("single", TRAIN_B, SS_L, "bfloat16", (DROP_P, 0.0), "single"),
+             ("single", TRAIN_B, SS_L, "float32", (0.0,), "single")))
+SERVE_TIMED = tuple((name, 16, l, "bfloat16", (0.0,), "key")
+                    for name, l in (("fused", 85), ("text", 35),
+                                    ("vis", 70)))
+
+
+def single_stream_key_mask(torch, gen, b):
+    """[b, 145] int32 key mask of the single-stream sequence: the text, the
+    tags and the regions each padded to random lengths, so that masked keys
+    sit inside the sequence and in the second key tile (keys 128-144, the
+    last 17 regions)."""
+    parts = []
+    for n, low in ((SS_LA, 8), (SS_T, 3), (SS_R, 10)):
+        lens = torch.randint(low, n + 1, (b,), device=DEVICE, generator=gen)
+        parts.append(torch.arange(n, device=DEVICE)[None, :] < lens[:, None])
+    return torch.cat(parts, 1).to(torch.int32)
+
+
+def seq2seq_mask(torch, key_mask, la):
+    """A [B, L, L] seq2seq mask over a [B, L] key mask (the captioning
+    model's layout): the first `la` positions causal among themselves and
+    attending to the rest, the rest bidirectional among themselves and
+    blind to the first `la`."""
+    b, l = key_mask.shape
+    pos = torch.arange(l, device=key_mask.device)
+    q_txt, k_txt = pos[:, None] < la, pos[None, :] < la
+    causal = pos[None, :] <= pos[:, None]
+    allowed = torch.where(q_txt, ~k_txt | causal, ~k_txt)
+    return (allowed[None] & (key_mask[:, None, :] > 0)).to(torch.int32)
+
+
+def block_mask(torch, key_mask, la):
+    """A [B, L, L] stage mask: the first `la` positions and the rest each
+    attend only among themselves."""
+    pos = torch.arange(key_mask.shape[1], device=key_mask.device)
+    same = (pos[:, None] < la) == (pos[None, :] < la)
+    return (same[None] & (key_mask[:, None, :] > 0)).to(torch.int32)
+
+
+def phase11_kernel(torch, attn):
+    """(a) The kernel at Lq = Lk = 145, B 96: against the plain version (and
+    its grads against fp32 autograd of the plain version) in both dtypes and
+    layouts, at p 0 and p 0.1, with padded key masks and with a [B, 1, L, L]
+    seq2seq mask; the dropout mask read back bit for bit; the kernel timed
+    beside the plain version, SDPA and its bound, at 145 and at the serving
+    forward's shapes."""
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    b, l = TRAIN_B, SS_L
+
+    def new_seed():
+        return torch.randint(-2 ** 63, 2 ** 63 - 1, (1,), dtype=torch.int64,
+                             device=DEVICE, generator=gen)
+
+    errors = {}
+    for dn, dt in dtypes.items():
+        for layout in ("blhd", "bhld"):
+            for mk in ("key", "seq2seq"):
+                for p in (0.0, DROP_P):
+                    x = [torch.randn(b, l, H, D, device=DEVICE, generator=gen)
+                         for _ in range(4)]          # q, k, v, grad of out
+                    x[:2] = [torch.clamp(torch.round(t * 8) / 8, -4, 4)
+                             for t in x[:2]]
+                    x = [t.to(dt) for t in x]
+                    if layout == "bhld":
+                        x = [t.transpose(1, 2).contiguous() for t in x]
+                    q, k, v, g = x
+                    mask = single_stream_key_mask(torch, gen, b)
+                    if mk == "seq2seq":
+                        mask = seq2seq_mask(torch, mask, SS_LA)
+                    bias = attn.mask_to_bias(mask)
+                    seed = new_seed() if p else None
+                    plain = (attn.plain_attention_blhd if layout == "blhd"
+                             else attn.plain_attention)
+                    leaves = [t.requires_grad_() for t in (q, k, v)]
+                    before = (attn.masked_attention.launches,
+                              attn.masked_attention.dropout_launches)
+                    out = attn.masked_attention(*leaves, bias, layout=layout,
+                                                dropout_p=p, seed=seed)
+                    want = plain(q.detach(), k.detach(), v.detach(), bias, p,
+                                 seed)
+                    got_g = torch.autograd.grad(out, leaves, g)
+                    ref = [t.detach().float().requires_grad_()
+                           for t in leaves]
+                    want_g = torch.autograd.grad(plain(*ref, bias, p, seed),
+                                                 ref, g.float())
+                    torch.cuda.synchronize()
+                    launched = (attn.masked_attention.launches - before[0],
+                                attn.masked_attention.dropout_launches
+                                - before[1])
+                    f_err = (out.float() - want.float()).abs().max().item()
+                    b_err = max((a.float() - c).abs().max().item()
+                                for a, c in zip(got_g, want_g))
+                    finite = (bool(torch.isfinite(out.float()).all())
+                              and all(bool(torch.isfinite(a).all())
+                                      for a in got_g))
+                    ok = (finite and f_err <= TOL[dn]
+                          and b_err <= GRAD_TOL[dn]
+                          and launched == (1, int(p > 0)))
+                    log(f"  kernel vs plain  single {mk:7s} B={b} L={l} "
+                        f"{dn:9s} {layout} p={p:g}: fwd max|err|={f_err:.3e} "
+                        f"(tol {TOL[dn]:g})  grads max|err|={b_err:.3e} "
+                        f"(tol {GRAD_TOL[dn]:g})  launches {launched}  "
+                        f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(
+                            f"kernel at L {l} disagrees: {mk} {dn} {layout} "
+                            f"p {p}: fwd {f_err} grads {b_err} finite "
+                            f"{finite} launches {launched}")
+                    errors[f"{mk} {dn} {layout} p {p:g}"] = dict(
+                        fwd=f_err, grads=b_err)
+                    del x, q, k, v, g, bias, leaves, out, want, got_g, ref
+                    del want_g
+    masks = {f"{dn} {layout}": online_mask_readback(
+        torch, attn, b, l, dn, dt, layout, new_seed())
+        for dn, dt in dtypes.items() for layout in ("bhld", "blhd")}
+    torch.cuda.empty_cache()
+    times = attention_times(torch, attn, SS_TIMED + SERVE_TIMED, seed=12)
+    torch.cuda.empty_cache()
+    return dict(errors=errors, dropout_masks=masks, times=times)
+
+
+class _Log:
+    """A logger for the command lines' set-up: every line to `log`."""
+    info = staticmethod(log)
+
+
+def region_checks(run, idx, epoch, batch, max_tag_length):
+    """The first `--visual_learning` batch against its data: the masked
+    shares of text tokens and regions; region labels only on zeroed
+    regions; `masked_region_targets` equal to the stored features and the
+    regions' features equal to them where not masked. Returns the shares."""
+    from mvp_pytorch_tpu_torch.tasks.pretrain import single_stream_batch
+    raw = run.main_dataset.fetch(idx, epoch)
+    fused = single_stream_batch(raw, max_tag_length)
+    same = all(np.array_equal(fused[k], batch[k]) for k in batch)
+    text_share, region_share, labels_on_regions = mask_shares(
+        {"lm_label_ids_a": raw["lm_label_ids_a"],
+         "phrase_index": raw["phrase_index"], "img_feats": raw["img_feat"],
+         "lm_label_ids_b": raw["lm_label_ids_b"]}, max_tag_length)
+    flags = batch["masked_region_flags"] > 0
+    zeroed = (batch["img_feats"][:, :, :-6] == 0).all(-1)
+    labelled = batch["masked_region_labels"] >= 0
+    stored = []
+    for i in idx:
+        image_id = run.main_dataset.tsv.seek(int(i))[0]
+        stored.append(run.main_dataset.features.get(image_id)[0][:SS_R])
+    stored = np.stack(stored)
+    targets = batch["masked_region_targets"]
+    target_ok = bool(np.array_equal(targets, stored))
+    kept_ok = bool(np.array_equal(batch["img_feats"][~flags],
+                                  stored[~flags]))
+    ok = (same and np.array_equal(flags, zeroed) and labels_on_regions
+          and not (labelled & ~flags).any() and target_ok and kept_ok
+          and abs(text_share - MASK_SHARE) <= MASK_SHARE_TOL
+          and abs(region_share - MASK_SHARE) <= MASK_SHARE_TOL)
+    log(f"  first batch: the fetch is the fused data-plane batch: {same}; "
+        f"masked share of text tokens {text_share:.4f}, of regions "
+        f"{region_share:.4f} (want {MASK_SHARE} +- {MASK_SHARE_TOL}); "
+        f"flags on exactly the zeroed regions: "
+        f"{bool(np.array_equal(flags, zeroed))}; labels only there: "
+        f"{not (labelled & ~flags).any()} ({int(labelled.sum())} labelled of "
+        f"{int(flags.sum())} masked); targets equal the stored features: "
+        f"{target_ok}; unmasked regions unchanged: {kept_ok}  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the first --visual_learning batch is off")
+    return text_share, region_share
+
+
+def phase11_visual_learning(torch, attn, layers_mod, paths, root):
+    """(b) `--visual_learning`: the first batch's masks and targets, one
+    dropout-0 step kernel path against plain path, 13 steps in memory and 26
+    through the CLI and its process loader."""
+    import dataclasses
+    import gc
+    import types
+    from mvp_pytorch_tpu_torch.data.loader import BatchSampler
+    from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
+    from mvp_pytorch_tpu_torch.models import ImgBertForPreTraining
+    from mvp_pytorch_tpu_torch.tasks import pretrain as pre
+    from mvp_pytorch_tpu_torch.training.loop import batch_on, train_on_batches
+    data = ["--corpus_tsv", paths["corpus"], "--feature_tsv",
+            paths["features"], "--id2phrase", paths["id2phrase"],
+            "--tag2id", paths["tag2id"]]
+    common = (["--train_batch_size", str(TRAIN_B), "--log_period", "1",
+               "--num_workers", "4", "--worker_start_method", "fork",
+               "--data_dir", root] + data + PRE_ARGS + CLI_PLATFORM)
+    args = pre.get_args(["--output_dir", root, "--visual_learning"]
+                        + common)
+    tokenizer = FastBertTokenizer(paths["vocab"])
+    run = pre.prepare(args, tokenizer, DEVICE, _Log)
+    cfg, mt = run.model.config, args.max_tag_length
+    per_step = cfg.num_hidden_layers
+    max_pred = args.max_pred_a + args.max_pred_b
+    n_tags = run.model.od_tag_size
+    sampler = BatchSampler(len(run.dataset), TRAIN_B, seed=args.seed)
+    t0 = time.perf_counter()
+    batches = [run.fetch(sampler.batch_at(s), sampler.epoch_at(s))
+               for s in range(CLI_MEM_STEPS)]
+    fetch_ms = (time.perf_counter() - t0) * 1e3 / CLI_MEM_STEPS
+    shapes = {k: v.shape for k, v in batches[0].items()}
+    log(f"  visual_learning: {cfg.num_hidden_layers} layers, MRC over "
+        f"{n_tags} tags; a batch fetched and masked on the main thread: "
+        f"{fetch_ms:.1f} ms; shapes {shapes}")
+    la = SS_LA + SS_T
+    if (shapes["input_ids"] != (TRAIN_B, la)
+            or shapes["attention_mask"] != (TRAIN_B, SS_L)
+            or shapes["masked_region_targets"] != (TRAIN_B, SS_R, 2054)
+            or tuple(shapes) != pre.SINGLE_STREAM_KEYS):
+        raise AssertionError(f"visual_learning batch shapes {shapes}")
+    text_share, region_share = region_checks(
+        run, sampler.batch_at(0), sampler.epoch_at(0), batches[0], mt)
+
+    # 1. in memory: 13 batches, 12 dropout launches a step, all at Lk 145
+    bad_lengths = []
+    with key_lengths(layers_mod) as seen:
+        def before(trainer):
+            seen.clear()
+
+        def after(trainer, metrics):
+            if seen != [SS_L] * per_step:
+                bad_lengths.append(list(seen))
+        with counted_steps(attn, per_step, "a visual_learning in-memory "
+                           "step") as total, around_steps(before, after):
+            torch.cuda.reset_peak_memory_stats()
+            mem = train_on_batches(
+                run.model, run.loss_fn, batches, CLI_MEM_STEPS,
+                learning_rate=args.learning_rate,
+                weight_decay=args.weight_decay, seed=args.seed)
+    if bad_lengths:
+        raise AssertionError(f"in-memory key lengths {bad_lengths}")
+    mem_n = cli_numbers(mem, TRAIN_B, torch.cuda.max_memory_allocated() / 1e9,
+                        CLI_MEM_TIMED_FROM)
+    mem_losses = check_losses(mem, CLI_MEM_STEPS, "visual_learning in memory")
+    log(f"  visual_learning in memory: {total[0]} launches ({per_step} a "
+        f"step, all at Lk {SS_L}); {mem_n['step_ms']:.2f} ms/step "
+        f"{mem_n['samples_per_s']:.1f} samples/s, peak "
+        f"{mem_n['peak_gb']:.2f} GB")
+    run = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. one step at dropouts 0 on the first batch, kernel path against
+    # plain path: fp32 held in full (phase 5's fp32 tolerances); bf16: each
+    # gradient's relative distance from the fp32 plain path's at most 1.25
+    # times the plain bf16 path's plus one bf16 ulp (2^-8), the losses
+    # within phase 8's 0.02 of the plain path's
+    batch = batch_on(DEVICE, batches[0])
+    real, ref = {}, None
+    for dn in ("float32", "bfloat16"):
+        cfg0 = dataclasses.replace(cfg, dtype=dn, hidden_dropout_prob=0.0,
+                                   attention_probs_dropout_prob=0.0)
+        model = ImgBertForPreTraining(cfg0, use_mrfr=True,
+                                      od_tag_size=n_tags, device=DEVICE,
+                                      seed=args.seed)
+        model.train()
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            out = model(*(batch[k] for k in pre.SINGLE_STREAM_KEYS),
+                        max_pred=max_pred)
+            out["total_loss"].backward()
+            params = dict(model.named_parameters())
+            return (types.SimpleNamespace(**{k: v.detach()
+                                             for k, v in out.items()}),
+                    {n: params[n].grad.detach().float().clone()
+                     for n in SS_GRAD_PARAMS})
+
+        reset_counts(attn)
+        k_out, k_grads = step()
+        torch.cuda.synchronize()
+        if (attn.masked_attention.launches != per_step
+                or attn.masked_attention.dropout_launches != 0):
+            raise AssertionError("kernel path did not launch the p = 0 "
+                                 "kernel")
+        with plain_attention_path(layers_mod, attn):
+            p_out, p_grads = step()
+        torch.cuda.synchronize()
+        if attn.masked_attention.launches != per_step:
+            raise AssertionError("plain path launched the kernel")
+        what = "visual_learning real batch"
+        if dn == "float32":
+            compare_step(torch, what, dn, k_out, p_out, SS_LOSSES, k_grads,
+                         p_grads)
+            ref = (p_out, p_grads)
+            real[dn] = {n: abs(getattr(k_out, n).item()
+                               - getattr(p_out, n).item()) for n in SS_LOSSES}
+        else:
+            compare_step(torch, what, dn, k_out, p_out, SS_LOSSES, {}, {})
+
+            def rel(a, c):
+                return ((a - c).norm() / c.norm()).item()
+            real[dn] = {}
+            for n in SS_LOSSES:
+                f = getattr(ref[0], n).item()
+                log(f"  {what} {dn} {n}: from fp32 kernel "
+                    f"{abs(getattr(k_out, n).item() - f):.3e}, plain "
+                    f"{abs(getattr(p_out, n).item() - f):.3e} (printed)")
+            for n in SS_GRAD_PARAMS:
+                real[dn][n] = bf16_far(
+                    f"{what} bfloat16 grad {n} (relative)",
+                    rel(k_grads[n], ref[1][n]), rel(p_grads[n], ref[1][n]),
+                    bool(k_grads[n].isfinite().all()), 2.0 ** -8,
+                    "one bf16 ulp, relative")
+        del model, k_out, p_out, k_grads, p_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    del batch, batches, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the CLI and its process loader
+    out = os.path.join(root, "vl_train")
+    argv = (["--output_dir", out, "--visual_learning", "--max_steps",
+             str(CLI_STEPS), "--ckpt_period", str(CLI_STEPS)] + common)
+    log("  python -m mvp_pytorch_tpu_torch.tasks.pretrain " + " ".join(
+        os.path.relpath(a, root) if a.startswith(root) else a for a in argv))
+    bad_lengths = []
+    with key_lengths(layers_mod) as seen:
+        def before(trainer):
+            seen.clear()
+
+        def after(trainer, metrics):
+            if seen != [SS_L] * per_step:
+                bad_lengths.append(list(seen))
+        with counted_steps(attn, per_step, "a visual_learning CLI step") \
+                as total, around_steps(before, after):
+            torch.cuda.reset_peak_memory_stats()
+            hist = pre.main(argv)["train"]
+    if bad_lengths:
+        raise AssertionError(f"CLI key lengths {bad_lengths}")
+    cli_n = cli_numbers(hist, TRAIN_B,
+                        torch.cuda.max_memory_allocated() / 1e9)
+    losses = check_losses(hist, CLI_STEPS, "visual_learning CLI")
+    names = ("mlm", "itm", "mrc", "mrf")
+    for when, m in (("first", hist[0]), ("last", hist[-1])):
+        log(f"  {when} step: " + " ".join(f"{k}={m[k]:.4f}" for k in names))
+    if not mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"visual_learning CLI losses not falling: "
+                             f"{losses}")
+    log(f"  visual_learning step 1 loss: CLI {losses[0]:.6f}, in memory "
+        f"{mem_losses[0]:.6f}")
+    if abs(losses[0] - mem_losses[0]) > STEP_TOL["bfloat16"][0]:
+        raise AssertionError("the visual_learning CLI's first batch is not "
+                             "the sampler's")
+    ratio = cli_n["samples_per_s"] / mem_n["samples_per_s"]
+    log(f"  visual_learning CLI: {total[0]} launches ({per_step} a step, all "
+        f"with dropout, all at Lk {SS_L}; plain 0); {cli_n['step_ms']:.2f} "
+        f"ms/step {cli_n['samples_per_s']:.1f} samples/s, peak "
+        f"{cli_n['peak_gb']:.2f} GB; main thread data "
+        f"{cli_n['main_data_ms']:.3f} ms/step, worker "
+        f"{cli_n['worker_ms']:.1f} ms/batch, H2D "
+        f"{cli_n.get('h2d_ms', float('nan')):.3f} ms/batch; ratio to memory "
+        f"{ratio:.3f} (target 0.90)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches_per_step=per_step, launches=total[0],
+                in_memory=mem_n, cli=cli_n, ratio=ratio,
+                main_fetch_ms=fetch_ms, text_mask_share=text_share,
+                region_mask_share=region_share, real_batch=real,
+                first_step={k: hist[0][k] for k in ("loss",) + names},
+                last_step={k: hist[-1][k] for k in ("loss",) + names},
+                losses=losses, mem_losses=mem_losses)
+
+
+def phase11_extra(torch, attn, paths, root):
+    """(c) `--extra_mode img_only`, then `text_only`: the sampler's first
+    batch one step in memory, then SS_EXTRA_STEPS CLI steps, each launching
+    the dropout kernel 48 times (24 main + 24 extra) and the plain attention
+    never, finite extra losses, step 1's total equal to memory's."""
+    import gc
+    from mvp_pytorch_tpu_torch.data.loader import BatchSampler
+    from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
+    from mvp_pytorch_tpu_torch.tasks import pretrain as pre
+    from mvp_pytorch_tpu_torch.training.loop import train_on_batches
+    data = ["--corpus_tsv", paths["corpus"], "--feature_tsv",
+            paths["features"], "--id2phrase", paths["id2phrase"],
+            "--tag2id", paths["tag2id"]]
+    tokenizer = FastBertTokenizer(paths["vocab"])
+    res = {}
+    for mode in ("img_only", "text_only"):
+        common = (["--train_batch_size", str(TRAIN_B), "--log_period", "1",
+                   "--num_workers", "4", "--worker_start_method", "fork",
+                   "--data_dir", root, "--extra_mode", mode] + data
+                  + PRE_ARGS + CLI_PLATFORM)
+        args = pre.get_args(["--output_dir", root] + common)
+        run = pre.prepare(args, tokenizer, DEVICE, _Log)
+        per_step = 2 * run.model.config.half_layers * 4
+        sampler = BatchSampler(len(run.dataset), TRAIN_B, seed=args.seed)
+        first = run.fetch(sampler.batch_at(0), sampler.epoch_at(0))
+        n_extra = first[pre.EXTRA_PREFIX + "input_ids_a"].shape[0]
+        with counted_steps(attn, per_step, f"an {mode} in-memory step"):
+            mem = train_on_batches(run.model, run.loss_fn, [first], 1,
+                                   learning_rate=args.learning_rate,
+                                   weight_decay=args.weight_decay,
+                                   seed=args.seed)
+        run = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        argv = (["--output_dir", os.path.join(root, f"extra_{mode}"),
+                 "--max_steps", str(SS_EXTRA_STEPS), "--ckpt_period",
+                 str(SS_EXTRA_STEPS)] + common)
+        with counted_steps(attn, per_step, f"an {mode} CLI step") as total:
+            hist = pre.main(argv)["train"]
+        losses = check_losses(hist, SS_EXTRA_STEPS, f"{mode} CLI")
+        extra = [m.get("extra", float("nan")) for m in hist]
+        step_ms = mean([m["step_ms"] for m in hist[1:]])
+        log(f"  --extra_mode {mode}: extra sub-batch {n_extra} of "
+            f"{TRAIN_B}; {total[0]} launches ({per_step} a step: "
+            f"{per_step // 2} main + {per_step // 2} extra, all with dropout, "
+            f"plain 0); extra losses " + " ".join(f"{x:.4f}" for x in extra)
+            + f"; step 1 total: CLI {losses[0]:.6f}, in memory "
+            f"{mem[0]['loss']:.6f}; {step_ms:.2f} ms/step over steps "
+            f"2-{SS_EXTRA_STEPS}")
+        if (not all(map(math.isfinite, extra))
+                or abs(losses[0] - mem[0]["loss"]) > STEP_TOL["bfloat16"][0]):
+            raise AssertionError(f"--extra_mode {mode}: extra {extra}, step 1 "
+                                 f"{losses[0]} vs {mem[0]['loss']}")
+        res[mode] = dict(launches_per_step=per_step, launches=total[0],
+                         extra_batch=n_extra, losses=losses,
+                         extra_losses=extra, mem_loss=mem[0]["loss"],
+                         step_ms=step_ms)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase11_classifier(torch, attn, layers_mod, paths):
+    """(d) `ImgBertForSequenceClassification` (3,129 labels, VQA's answer
+    set) at B 64 on the first rows of a `--visual_learning` batch's inputs:
+    one forward with a [B, L, L] seq2seq mask and one with a per-layer list
+    (6 layers of a text / image block mask, then 6 of the padded key mask),
+    each 12 p = 0 launches at Lk 145; kernel path against plain path: fp32
+    logits within 1e-5, bf16 by phase 10's rule against the fp32 plain
+    path."""
+    import dataclasses
+    import gc
+    from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
+    from mvp_pytorch_tpu_torch.models import ImgBertForSequenceClassification
+    from mvp_pytorch_tpu_torch.tasks import pretrain as pre
+    from mvp_pytorch_tpu_torch.tasks.common import build_config
+    from mvp_pytorch_tpu_torch.training.loop import batch_on
+    args = pre.get_args(["--output_dir", "unused", "--visual_learning",
+                         "--corpus_tsv", paths["corpus"], "--feature_tsv",
+                         paths["features"], "--tag2id", paths["tag2id"]]
+                        + PRE_ARGS + CLI_PLATFORM)
+    tokenizer = FastBertTokenizer(paths["vocab"])
+    cfg = build_config(args, tokenizer, num_labels=QA_ANSWERS,
+                       loss_type="bce", hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    dataset = pre.build_dataset(args, tokenizer, cfg)
+    batch = batch_on(DEVICE, pre.single_stream_batch(
+        dataset.fetch(np.arange(SS_CLS_B), 0), args.max_tag_length))
+    key_mask = batch["attention_mask"]
+    layers = cfg.num_hidden_layers
+    half = layers // 2
+    masks = {"3-D": seq2seq_mask(torch, key_mask, SS_LA + SS_T),
+             "per-layer": ([block_mask(torch, key_mask, SS_LA + SS_T)] * half
+                           + [key_mask] * (layers - half))}
+    inputs = (batch["input_ids"], batch["token_type_ids"], batch["img_feats"])
+    refs, res = {}, {}
+    for dn in ("float32", "bfloat16"):
+        model = ImgBertForSequenceClassification(
+            dataclasses.replace(cfg, dtype=dn), device=DEVICE, seed=args.seed)
+        for name, mask in masks.items():
+            def forward():
+                with torch.no_grad():
+                    return model(inputs[0], mask, *inputs[1:])
+            reset_counts(attn)
+            with key_lengths(layers_mod) as seen:
+                k_logits = forward()
+            torch.cuda.synchronize()
+            got = (attn.masked_attention.launches,
+                   attn.masked_attention.dropout_launches)
+            if got != (layers, 0) or seen != [SS_L] * layers:
+                raise AssertionError(f"classifier {name} {dn}: launches "
+                                     f"{got}, key lengths {seen}")
+            with plain_attention_path(layers_mod, attn):
+                p_logits = forward()
+            torch.cuda.synchronize()
+            what = f"classifier B {SS_CLS_B} {name} mask {dn}"
+            gap = max_dist(k_logits, p_logits)
+            if dn == "float32":
+                ok = bool(k_logits.isfinite().all()) and gap <= NLVR_FP32_TOL
+                log(f"  {what} logits {tuple(k_logits.shape)}: "
+                    f"max|kernel-plain| {gap:.3e} tol {NLVR_FP32_TOL:g} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(what)
+                refs[name] = p_logits
+                res[f"{name} {dn}"] = {"kernel_plain": gap}
+            else:
+                ref = refs[name]
+                scale = ref.abs().max().item()
+                res[f"{name} {dn}"] = bf16_far(
+                    f"{what} logits", max_dist(k_logits, ref),
+                    max_dist(p_logits, ref),
+                    bool(k_logits.isfinite().all()), bf16_ulp(scale),
+                    f"1 bf16 ulp at max|logit| {scale:.4f}")
+            del k_logits, p_logits
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase11(torch, attn, layers_mod):
+    """Phase 11 on phase 8's generated root: (a) the kernel at the
+    single-stream length, (b) --visual_learning, (c) --extra_mode, (d) the
+    classifier with 3-D and per-layer masks."""
+    import gc
+    import shutil
+    t_phase = time.perf_counter()
+    res = {}
+    t0 = time.perf_counter()
+    res["kernel"] = phase11_kernel(torch, attn)
+    res["kernel"]["seconds"] = time.perf_counter() - t0
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke",
+                        "phase11")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        paths, feat_bytes, tsv_bytes = write_cli_root(root, corpus=True)
+        log(f"  root: {CLI_IMAGES} images, {CLI_IMAGES * CLI_CAPS} corpus "
+            f"rows, {CLI_REGIONS} regions x 2054 fp32 ({feat_bytes / 1e6:.1f}"
+            f" MB of features, {tsv_bytes / 1e6:.1f} MB of TSV), 2,000 tags "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        for part, fn in (
+                ("visual_learning", lambda: phase11_visual_learning(
+                    torch, attn, layers_mod, paths, root)),
+                ("extra_mode", lambda: phase11_extra(torch, attn, paths,
+                                                     root)),
+                ("classifier", lambda: phase11_classifier(
+                    torch, attn, layers_mod, paths))):
+            t0 = time.perf_counter()
+            res[part] = fn()
+            seconds = time.perf_counter() - t0
+            if isinstance(res[part], dict):
+                res[part]["seconds"] = seconds
+            log(f"  phase 11 {part} took {seconds:.1f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 11 took {res['seconds']:.1f} s")
+    return res
+
+
+def single_stream_summary(p11):
+    """Phase 11's numbers for the kernel line (without the per-step loss
+    lists)."""
+    vl = {k: v for k, v in p11["visual_learning"].items()
+          if k not in ("losses", "mem_losses")}
+    times = p11["kernel"]["times"]
+    return {
+        "launches_per_step": vl["launches_per_step"],
+        "attention": {k: v for k, v in times.items()
+                      if k.startswith("single") and not k.endswith("fp32")},
+        "serving_attention": {k: v for k, v in times.items()
+                              if not k.startswith("single")},
+        "kernel_vs_plain": p11["kernel"]["errors"],
+        "dropout_masks": p11["kernel"]["dropout_masks"],
+        "visual_learning": vl, "extra_mode": p11["extra_mode"],
+        "classifier": p11["classifier"], "seconds": p11["seconds"]}
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3476,6 +4107,9 @@ def main(argv) -> int:
                         help="run phase 10 A (the NLVR2 command line) alone")
     parser.add_argument("--serve", action="store_true",
                         help="run phase 10 B (the HTTP server) alone")
+    parser.add_argument("--single_stream", action="store_true",
+                        help="run phase 11 (the single-stream model and the "
+                             "pretraining modes) alone")
     parser.add_argument("--serve_clients", nargs=3,
                         metavar=("URL", "JOBS", "OUT"),
                         help="the client process of phase 10 B, which the "
@@ -3536,6 +4170,13 @@ def main(argv) -> int:
         ft = phase9_finetune_cli(torch, attn, layers_mod)
         print(json.dumps({"finetune": finetune_summary(ft), "card": card}),
               flush=True)
+        return 0
+    if args.single_stream:
+        log("phase 11 alone: the single-stream model, MVPTR-base, B 96, "
+            "L 145")
+        p11 = phase11(torch, attn, layers_mod)
+        print(json.dumps({"single_stream": single_stream_summary(p11),
+                          "card": card}), flush=True)
         return 0
     if args.nlvr_cli or args.serve:
         part = "nlvr" if args.nlvr_cli else "serve"
@@ -3600,6 +4241,12 @@ def main(argv) -> int:
     p10 = phase10(torch, attn, layers_mod)
     torch.cuda.synchronize()
 
+    log("phase 11: the single-stream model (L 145), its pretraining modes "
+        "through the command line and its classifier, MVPTR-base, generated "
+        "corpus")
+    p11 = phase11(torch, attn, layers_mod)
+    torch.cuda.synchronize()
+
     main_t = timings[("fused", "bfloat16")]
     main_err = errors[("fused 2-D padded keys", 1000, "bfloat16", "blhd")]
     train_t = bwd_timings[("fused", "bfloat16")]
@@ -3655,7 +4302,8 @@ def main(argv) -> int:
                     if k not in ("losses", "mem_losses")},
                  "attention": {k: v for k, v in nlvr_times.items()
                                if not k.endswith("fp32")}},
-        "serving": p10["serve"]}, {
+        "serving": p10["serve"],
+        "single_stream": single_stream_summary(p11)}, {
         # the fp32 kernels (3xTF32) behind the same entry point; launches
         # and pairs/s from the fp32 sweep of phase 3
         "name": "masked_attention_fwd fp32 (3xTF32)", "route": "cuda",
@@ -3683,7 +4331,10 @@ def main(argv) -> int:
             "bound_ms": drop32["bound_ms"], "bound_by": drop32["bound_by"],
             "sdpa_ms": drop32["sdpa_ms"]},
         "nlvr_attention": {k: v for k, v in nlvr_times.items()
-                           if k.endswith("fp32")}}]}
+                           if k.endswith("fp32")},
+        "single_stream_attention": {
+            k: v for k, v in p11["kernel"]["times"].items()
+            if k.endswith("fp32")}}]}
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

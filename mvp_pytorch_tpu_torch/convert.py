@@ -8,8 +8,13 @@ global projections load as they are. The mapping is this package's own copy
 of the JAX package's `convert.export_state_dict` rules, for the retrieval
 model (`bert`, `classifier`, `logit_scale`), the pretraining model (also
 `cls_predictions`, `half_mlm`, `cls_seq_relationship` and, where the tree has
-them, `qa_head` and `qa_seq_relation`) and the single-pair task models
-(`ClassificationModel`, `ClassificationPlusModel`, `VQAModel`, `REModel`).
+them, `qa_head` and `qa_seq_relation`), the single-pair task models
+(`ClassificationModel`, `ClassificationPlusModel`, `VQAModel`, `REModel`)
+and the single-stream models (`ImgBertModel`'s `bert/encoder`, its
+`code_embeddings`, and `ImgBertForPreTraining`'s masked-region heads
+`mrf_mrc/{mrf_dense, mrf_norm, mrc, mrf_bias}`, which become
+`cls.MRF_predictor.0.*`, `cls.MRF_predictor.2.*`, `cls.MRC_predictor.*` and
+`cls.MRF_bias`).
 The tied LM decoders have no params in a flax tree;
 `BiPretrainModel.load_state_dict` takes care of the reference's
 `decoder.weight` copies. VQA's untied decoder (`cls/decoder/kernel`) loads
@@ -43,7 +48,12 @@ _LAYER_SUFFIX = {
     ("output_norm",): ("output.LayerNorm", "norm"),
 }
 
-_ENCODERS = ("txt_encoder", "vis_encoder", "mul_encoder")
+_ENCODERS = ("txt_encoder", "vis_encoder", "mul_encoder", "encoder")
+# the single-stream pretraining model's masked-region heads (flax
+# `mrf_mrc/<name>`) -> (torch key under `cls`, leaf kind)
+_MRF_MRC = {"mrf_dense": ("cls.MRF_predictor.0", "dense"),
+            "mrf_norm": ("cls.MRF_predictor.2", "norm"),
+            "mrc": ("cls.MRC_predictor", "dense")}
 # flax LM head -> its torch prefix
 _LM_HEADS = {"cls_predictions": "cls.predictions", "half_mlm": "half_mlm",
              "cls": "cls.predictions"}          # the last: VQA's QA head
@@ -90,6 +100,12 @@ def _torch_key(path: tuple, val: np.ndarray, mlp_classifier: bool):
             and len(path) == 3:
         suf, val = _leaf("dense", path[2], val)
         return f"cls.seq_relationship.{suf}", val
+    if path == ("mrf_mrc", "mrf_bias"):
+        return "cls.MRF_bias", val
+    if path[0] == "mrf_mrc" and len(path) == 3 and path[1] in _MRF_MRC:
+        base, kind = _MRF_MRC[path[1]]
+        suf, val = _leaf(kind, path[2], val)
+        return f"{base}.{suf}", val
     if path[0] in ("qa_head", "qa_seq_relation") and len(path) == 2:
         suf, val = _leaf("dense", path[1], val)
         return f"{path[0]}.{suf}", val
@@ -109,6 +125,8 @@ def _torch_key(path: tuple, val: np.ndarray, mlp_classifier: bool):
         p = path[1:]
         if p[0] == "embeddings" and p[-1] == "embedding" and len(p) == 3:
             return f"bert.embeddings.{p[1]}.weight", val
+        if p == ("code_embeddings", "embedding"):
+            return "bert.code_embeddings.weight", val
         if p[:2] == ("embeddings", "LayerNorm"):
             suf, val = _leaf("norm", p[2], val)
             return f"bert.embeddings.LayerNorm.{suf}", val
@@ -153,7 +171,11 @@ def load_jax_params(model: torch.nn.Module, params: Mapping[str, Any]):
     heads, `logit_scale`; `qa_head` exactly when `qa_answer_size > 0` and
     `qa_seq_relation` exactly when the model has `qa_pairs`), a single-pair
     task model (`bert` and `classifier`, `cls` or `single_mapping` and
-    `classifier`) or a bare `BiEncoder` (params are the `bert` subtree). A flax path with no place
+    `classifier`), a single-stream model (`ImgBertForPreTraining`: `bert`,
+    the pretraining heads and with `use_mrfr` `mrf_mrc`;
+    `ImgBertForSequenceClassification` / `ImgBertForMultipleChoice`: `bert`
+    and `classifier`) or a bare `BiEncoder` / `ImgBertModel` (params are the
+    `bert` subtree). A flax path with no place
     in the port, or a port parameter the params do not cover, raises."""
     if hasattr(model, "bert"):
         sd = jax_params_to_state_dict(params)

@@ -1,22 +1,27 @@
 """The datasets over the TSV feature-store contract: this package's copy of
-the JAX package's `data/datasets.py` parts that retrieval, pretraining, VQA,
-SNLI-VE and referring expressions read (`load_phrase_vocab`,
-`tags_for_text_a`, `phrases_to_ids`, `FeatureStore`, `RetrievalDataset`,
-`PretrainDataset`, `MultiCorpusPretrainDataset`, `VE_LABELS`, `VQADataset`,
-`VEDataset`, `compute_iou`, `REDataset`, `re_score`, `re_score_det1`,
-`re_score_det2`). The other datasets come with their tasks.
+the JAX package's `data/datasets.py` parts that retrieval, pretraining
+(with its extra uni-modal streams), VQA, SNLI-VE and referring expressions
+read (`load_phrase_vocab`, `tags_for_text_a`, `phrases_to_ids`,
+`FeatureStore`, `GeneralDataset`, `RetrievalDataset`, `PretrainDataset`,
+`MultiCorpusPretrainDataset`, `ImgOnlyDataset`, `TextOnlyDataset`,
+`VE_LABELS`, `VQADataset`, `VEDataset`, `compute_iou`, `REDataset`,
+`re_score`, `re_score_det1`, `re_score_det2`). The other datasets come with
+their tasks.
 
 Parity targets:
 - feature store: `predictions.tsv` rows = [image_id, json{"feature":
   base64(float32 [N, 2054]), "predictions": [tags...]}] + `imageid2idx.json`
   (reference `tools/img_feat_extract.py:15-42,96-115`,
   `oscar/datasets/general_dataset.py:157-166`).
+- GeneralDataset <- `oscar/datasets/general_dataset.py:24` (MVPTRDataset):
+  custom-data fine-tuning records {image_id, text, phrases}.
 - RetrievalDataset <- `oscar/run_retrieval.py:24-296`: per-image caption
   lists, phrase lookup, train positives, eval enumeration.
 - PretrainDataset <- `oscar/oscar_datasets_ml/oscar_tsv4.py:22-377`:
   caption+tags+features corpus with masking at fetch time, keyed on
   (seed, epoch, index); MultiCorpusPretrainDataset puts several behind one
-  index space (:25-99).
+  index space (:25-99); ImgOnlyDataset / TextOnlyDataset are the extra
+  uni-modal streams (oscar_tsv.py:914-1240).
 - VQADataset <- `oscar/run_vqa.py:86-330`: questions + soft answer scores.
 - VEDataset  <- `oscar/run_ve.py:46-280`: SNLI-VE jsonl, 3-way labels,
   hypothesis masking in training keyed on (seed, epoch, index).
@@ -172,6 +177,38 @@ class FeatureStore:
             feats = np.frombuffer(blob, dtype=np.float32).reshape(
                 -1, self.feature_dim).copy()
         return feats, list(rec.get("predictions", []))
+
+
+class GeneralDataset:
+    """Custom-data records: [{"image_id", "text", "phrases", ("label")}]
+    (reference `oscar/datasets/general_dataset.py:24`, MVPTRDataset). No
+    command line reads it."""
+
+    def __init__(self, data_json: str, features: FeatureStore, tokenizer,
+                 sg2id: Optional[Dict[tuple, int]] = None,
+                 cfg: TensorizeConfig = TensorizeConfig()):
+        with open(data_json) as f:
+            self.data = json.load(f)
+        self.features = features
+        self.tokenizer = tokenizer
+        self.sg2id = sg2id
+        self.cfg = cfg
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        item = self.data[index]
+        feats, tags = self.features.get(item["image_id"])
+        ex = tensorize_example(
+            self.tokenizer, item["text"], feats, " ".join(tags),
+            phrases_to_ids(item.get("phrases", []), self.sg2id), self.cfg)
+        if "label" in item:
+            ex["label"] = np.int32(item["label"])
+        return ex
+
+    def fetch(self, indices: np.ndarray) -> Dict[str, np.ndarray]:
+        return collate([self[int(i)] for i in indices])
 
 
 class RetrievalDataset:
@@ -482,6 +519,76 @@ class MultiCorpusPretrainDataset:
         d = int(np.searchsorted(self._offsets, index, side="right") - 1)
         return self.datasets[d].__getitem__(index - int(self._offsets[d]),
                                             epoch)
+
+    def fetch(self, indices: np.ndarray,
+              epoch: Optional[int] = None) -> Dict[str, np.ndarray]:
+        return collate([self.__getitem__(int(i), epoch) for i in indices])
+
+
+class ImgOnlyDataset:
+    """Vision-only pretraining stream: MLM over object tags with empty text
+    (reference ImgOnlyDataset, oscar_datasets_ml/oscar_tsv.py:1190-1240).
+    The same arrays as PretrainDataset with a blank stream A; its masks are
+    keyed on (seed, epoch, index) under an "img:" prefix."""
+
+    def __init__(self, features: FeatureStore, tokenizer,
+                 cfg: TensorizeConfig = TensorizeConfig(),
+                 seed: int = 0, mask_prob: float = 0.15):
+        self.keys = features.keys()
+        self.features = features
+        self.tokenizer = tokenizer
+        self.cfg = cfg
+        self.seed = seed
+        self.mask_prob = mask_prob
+
+    def __len__(self):
+        return len(self.keys)
+
+    def __getitem__(self, index: int,
+                    epoch: Optional[int] = None) -> Dict[str, np.ndarray]:
+        feats, tags = self.features.get(self.keys[index])
+        ex = PretrainExample(
+            tokens_a=[], tokens_b=self.tokenizer.tokenize(" ".join(tags)),
+            img_feat=feats, od_tags=[t.lower() for t in tags], guid=index)
+        rng = random.Random(f"img:{self.seed}:{epoch or 0}:{index}")
+        return convert_example_to_features(ex, self.tokenizer, cfg=self.cfg,
+                                           rng=rng, mask_prob=self.mask_prob)
+
+    def fetch(self, indices: np.ndarray,
+              epoch: Optional[int] = None) -> Dict[str, np.ndarray]:
+        return collate([self.__getitem__(int(i), epoch) for i in indices])
+
+
+class TextOnlyDataset:
+    """Text-only pretraining stream: caption-corpus MLM with a single zero
+    dummy region (reference TextOnlyDataset/TextOnlyDataset2,
+    oscar_datasets_ml/oscar_tsv.py:914-1075, which fake img_seq_len=1); its
+    masks are keyed on (seed, epoch, index) under a "txt:" prefix."""
+
+    def __init__(self, corpus_tsv: str, tokenizer,
+                 cfg: TensorizeConfig = TensorizeConfig(),
+                 seed: int = 0, mask_prob: float = 0.15,
+                 text_column: int = 1):
+        self.tsv = TSVFile(corpus_tsv)
+        self.tokenizer = tokenizer
+        self.cfg = cfg
+        self.seed = seed
+        self.mask_prob = mask_prob
+        self.text_column = text_column
+
+    def __len__(self):
+        return len(self.tsv)
+
+    def __getitem__(self, index: int,
+                    epoch: Optional[int] = None) -> Dict[str, np.ndarray]:
+        row = self.tsv.seek(index)
+        text = row[min(self.text_column, len(row) - 1)]
+        dummy = np.zeros((1, self.cfg.img_feature_dim), np.float32)
+        ex = PretrainExample(tokens_a=self.tokenizer.tokenize(text),
+                             tokens_b=[], img_feat=dummy, guid=index)
+        rng = random.Random(f"txt:{self.seed}:{epoch or 0}:{index}")
+        return convert_example_to_features(ex, self.tokenizer, cfg=self.cfg,
+                                           rng=rng, mask_prob=self.mask_prob)
 
     def fetch(self, indices: np.ndarray,
               epoch: Optional[int] = None) -> Dict[str, np.ndarray]:

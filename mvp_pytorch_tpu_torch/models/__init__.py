@@ -3,6 +3,8 @@
 from .bi_encoder import BiEncoder, BiEncoderOutput, l2_normalize
 from .config import ModelConfig, tiny_config
 from .heads import ClassifierHead
+from .img_bert import (ImgBertForMultipleChoice, ImgBertForPreTraining,
+                       ImgBertForSequenceClassification, ImgBertModel)
 from .pretrain import BiPretrainModel, PretrainOutput
 from .tasks import (CaseModel, ClassificationModel, ClassificationPlusModel,
                     MLMModel, NLVRModel, REModel, RepModel, RetrievalModel,
@@ -10,7 +12,9 @@ from .tasks import (CaseModel, ClassificationModel, ClassificationPlusModel,
 
 __all__ = ["BiEncoder", "BiEncoderOutput", "BiPretrainModel", "CaseModel",
            "ClassificationModel", "ClassificationPlusModel",
-           "ClassifierHead", "MLMModel", "ModelConfig", "NLVRModel",
+           "ClassifierHead", "ImgBertForMultipleChoice",
+           "ImgBertForPreTraining", "ImgBertForSequenceClassification",
+           "ImgBertModel", "MLMModel", "ModelConfig", "NLVRModel",
            "PretrainOutput", "REModel", "RepModel", "RetrievalModel",
            "RetrievalTrainOutput", "VQAModel", "WREModel", "l2_normalize",
            "tiny_config"]

@@ -52,22 +52,25 @@ class Trainer:
 
     def step(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, float]:
         """One optimizer step over `batch`, split into `grad_accum` micro
-        batches whose gradients, loss and metrics are averaged. Returns the
+        batches (each array into equal shares of its rows) whose gradients,
+        loss and metrics are averaged. Returns the
         metrics, the loss and the global norm of the unclipped gradients."""
         self.model.train()
         params = list(self.model.parameters())
         for p in params:
             p.grad = None
         n = self.grad_accum
-        size = next(iter(batch.values())).shape[0]
-        if size % n:
-            raise ValueError(f"batch {size} is not divisible by grad_accum "
-                             f"{n}")
-        m = size // n
+        sizes = {v.shape[0] for v in batch.values()}
+        if any(size % n for size in sizes):
+            raise ValueError(f"batch sizes {sorted(sizes)} are not divisible "
+                             f"by grad_accum {n}")
         loss_sum, metric_sums = 0.0, {}
         for i in range(n):
-            mb = batch if n == 1 else {k: v[i * m:(i + 1) * m]
-                                       for k, v in batch.items()}
+            # each array gives its own i-th share of rows: a batch may hold
+            # sub-batches of different sizes (the pretraining extra stream)
+            mb = batch if n == 1 else {
+                k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
+                for k, v in batch.items()}
             gen = self.generator(self.step_count, i)
             loss, metrics = (
                 self.loss_fn(self.model, mb, gen, self.step_count)

@@ -223,6 +223,94 @@ def test_dropout_kernel_matches_plain(cuda, kind, layout, dtype, atol,
                                    msg=lambda m, n=name: f"{n}: {m}")
 
 
+# the single-stream model's sequence at the pretraining geometry: text 75 +
+# tags 20 + regions 50 = 145, past the 128-key tile (17 rows and keys in
+# the second tiles)
+SINGLE_STREAM_L = 145
+
+
+def single_stream_case(mask_kind, seed=5):
+    """q, k, v [4, H, 145, 64] and the bias of padded keys (text and regions
+    padded to random lengths) or of a [B, L, L] mask with a fully-masked
+    row, as numpy arrays."""
+    r = np.random.RandomState(seed)
+    b, l = 4, SINGLE_STREAM_L
+    q, k, v = (r.randn(b, H, l, 64).astype(np.float32) for _ in range(3))
+    q, k = (np.clip(np.round(x * 8) / 8, -4, 4) for x in (q, k))
+    if mask_kind == "mask2d":
+        mask = np.zeros((b, l), np.int32)
+        for i in range(b):
+            mask[i, :r.randint(20, 96)] = 1                # text and tags
+            mask[i, 95:95 + r.randint(30, 51)] = 1         # regions
+    else:
+        mask = (r.rand(b, l, l) > 0.3).astype(np.int32)
+        mask[..., 0] = 1
+        mask[1, 130] = 0                     # a fully-masked query row
+    return q, k, v, mask_to_bias(torch.from_numpy(mask)).numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype,atol,grad_atol",
+                         [(torch.float32, 2e-5, 1e-4),
+                          (torch.bfloat16, 0.05, 0.05)])
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+@pytest.mark.parametrize("mask_kind", ["mask2d", "mask3d"])
+def test_single_stream_length_matches_plain(cuda, mask_kind, layout, dtype,
+                                            atol, grad_atol, p):
+    """Lq = Lk = 145 on the online kernels, with and without dropout: the
+    forward against the plain version on the same seed, the grads against
+    fp32 autograd of the plain version."""
+    q, k, v, bias = single_stream_case(mask_kind)
+    args = [torch.from_numpy(_bhld_to(layout, x)).to(cuda, dtype)
+            .requires_grad_() for x in (q, k, v)]
+    tb = torch.from_numpy(bias).to(cuda)
+    seed = card_seed(2 ** 41 + 3) if p else None
+    plain = plain_attention_blhd if layout == "blhd" else plain_attention
+    before = (masked_attention.launches, masked_attention.dropout_launches)
+    out = masked_attention(*args, tb, layout=layout, dropout_p=p, seed=seed)
+    torch.cuda.synchronize()
+    assert (masked_attention.launches - before[0],
+            masked_attention.dropout_launches - before[1]) == (1, int(p > 0))
+    want = plain(*(a.detach() for a in args), tb, p, seed)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=0)
+    g = torch.randn(out.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    grads = torch.autograd.grad(out, args, g.to(dtype))
+    ref = [a.detach().float().requires_grad_() for a in args]
+    want_g = torch.autograd.grad(plain(*ref, tb, p, seed), ref,
+                                 g.to(dtype).float())
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want_g):
+        torch.testing.assert_close(a.float(), b, atol=grad_atol, rtol=0,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+def test_dropout_mask_at_the_single_stream_length(cuda, layout, dtype):
+    """The dropout mask at Lq = Lk = 145 read back bit for bit over all 145
+    keys (v one-hot over three windows of 64 keys, one launch each)."""
+    b, l, d, p = 4, SINGLE_STREAM_L, 64, 0.1
+    q = torch.zeros(b, H, l, d, device=cuda, dtype=dtype)
+    seed = card_seed(987654321)
+    got = torch.zeros(b, H, l, l, dtype=torch.bool, device=cuda)
+    for off in range(0, l, d):
+        n = min(d, l - off)
+        v = torch.zeros(b, H, l, d, device=cuda, dtype=dtype)
+        v[:, :, off + torch.arange(n), torch.arange(n)] = 1
+        qkv = (q, q, v)
+        if layout == "blhd":
+            qkv = tuple(t.transpose(1, 2).contiguous() for t in qkv)
+        out = masked_attention(*qkv, layout=layout, dropout_p=p, seed=seed)
+        if layout == "blhd":
+            out = out.transpose(1, 2)
+        got[..., off:off + n] = out[..., :n] > 0
+    assert torch.equal(got, dropout_keep(seed, p, (b, H, l, l)))
+    assert abs(got.float().mean().item() - (1 - p)) < 0.01
+
+
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "last_dim", "shape",
                                  "bias_len"])
 def test_kernel_wrapper_rejects_what_the_kernel_cannot_take(bad):

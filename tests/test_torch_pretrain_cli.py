@@ -227,9 +227,7 @@ PRETRAIN_LATER = {
 @pytest.mark.parametrize("flag", sorted(PRETRAIN_LATER))
 def test_flags_of_later_items_raise(tmp_path, flag):
     off = PRETRAIN_LATER[flag][0]
-    if flag == "extra_mode":
-        value = ["text_only"]
-    elif isinstance(off, bool):
+    if isinstance(off, bool):
         value = []
     else:
         value = ["/tmp/x" if flag == "profile_dir" else
