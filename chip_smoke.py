@@ -9,13 +9,15 @@
     python3 chip_smoke.py --nlvr_cli        # phase 10 A alone
     python3 chip_smoke.py --serve           # phase 10 B alone
     python3 chip_smoke.py --single_stream   # phase 11 alone
+    python3 chip_smoke.py --captioning      # phase 12 alone
     (`--serve_clients URL JOBS OUT` is phase 10 B's client process, which
     the script starts itself)
 
 Phases, each ended by torch.cuda.synchronize(); any failure raises and the
 script exits non-zero:
-1. print the card (name, power limit) and build the kernels from csrc/;
-   print each kernel's registers and spills (ptxas), its tensor-core
+1. print the card (name, power limit) and build the kernels from csrc/
+   (four translation units, one nvcc each, started together); print each
+   kernel's registers and spills (ptxas), its tensor-core
    instructions (HMMA/HGMMA in the SASS, from cuobjdump) and its resident
    blocks per SM; fail if a bf16 or an fp32 (3xTF32) kernel has no
    tensor-core instruction, or a dropout instantiation another count than
@@ -235,8 +237,38 @@ script exits non-zero:
    12 p = 0 launches at Lk 145 each, kernel path against plain path (fp32
    logits 1e-5, bf16 by the 1.25 rule of 10 (A)). The root is deleted at the
    end;
-12. one JSON line of kernel numbers (the bf16 kernel, then the fp32 one;
-   phase 11's under `single_stream`), then the result line.
+12. captioning (`CaptioningModel` over `ImgBertModel`) at MVPTR-base on
+   phase 7's root: caption 35, T 20, R 50 (L 105), the LM head over all
+   86,051 rows, bf16 over fp32 weights, dropouts 0.1, B 64, lr 3e-5, label
+   smoothing 0.1, drop-worst 0.2 from step 14; decoding with
+   `--max_gen_length` 20. (a) The kernel at the captioning shapes, both
+   dtypes: L 105 at B 64 under the seq2seq bias at p 0 and 0.1 (grads
+   against fp32 autograd of the plain version), the cached decode step
+   (Lq 2 / Lk 92 with its per-query bias at N 250 and 1,250; Lq 1 / Lk 91)
+   and the recompute forward (L 90, N 250), against the plain version
+   (fp32 2e-5, bf16 0.05), timed beside the plain version, SDPA and the
+   bound. (b) One dropout-0 step on the first real batch, kernel path
+   against plain path (fp32: the loss 1e-4, five gradients 1e-3 relative;
+   bf16 by the 1.25 rule). (c) 13 batches in memory, then 26 CLI steps
+   through the process loader (4 forked workers), each launching the
+   dropout kernel 12 times, all at Lk 105, and the plain attention never;
+   finite losses, the last five below the first, step 1 equal to memory's;
+   step ms, samples/s, peak memory, the feed ratio, worker and H2D ms. (d)
+   With the CLI's checkpoint, 250 images decoded greedy and beam-5, each
+   history-cached (240 launches: 12 at L 70, then 19 steps of 12 at Lk 92)
+   and recomputed (228 at L 90), p 0, plain 0; captions/s, ms per step,
+   the speed-up, the bf16 rows that differ and, from one profiled run
+   each, the card's busy share and device ms by kernel class; in fp32 the
+   cached greedy
+   sequence teacher-forced through both paths (logits within 1e-4) and the
+   greedy sequences equal but at near ties. (e) `--do_eval` alone on the
+   checkpoint over those images, beam 5, cached, one batch of 250: 240
+   launches, finite BLEU-4, METEOR, ROUGE_L and CIDEr-D in test_eval.json,
+   SPICE absent without its jar, the captions equal (d)'s. The root is
+   deleted at the end;
+13. one JSON line of kernel numbers (the bf16 kernel, then the fp32 one;
+   phase 11's under `single_stream`, phase 12's under `captioning`), then
+   the result line.
 
 With `--sweep DTYPE` only phase 3 runs, in that dtype (bf16: two sweeps,
 fp32: one), and the last line is a JSON object of its numbers; run from a
@@ -244,7 +276,8 @@ copy of another tree, the script drives that tree's package. With `--cli`
 only phases 1 (the build) and 7 run, the last line a JSON object of phase
 7's numbers; with `--pretrain_cli`, phases 1 and 8; with `--finetune_cli`,
 phases 1 and 9; with `--nlvr_cli`, phases 1 and 10 A; with `--serve`, phases
-1 and 10 B; with `--single_stream`, phases 1 and 11.
+1 and 10 B; with `--single_stream`, phases 1 and 11; with `--captioning`,
+phases 1 and 12.
 
 Exits 2 without a result when no CUDA device is visible.
 """
@@ -296,7 +329,7 @@ DEVICE = "cuda"
 H, D = 12, 64
 LENGTHS = {"fused": 125, "text": 75, "vis": 70}
 MAIN_BATCH = {"fused": 1000, "text": 500, "vis": 500}   # pair / encoder batch
-KERNEL_SOURCE = "mvp_pytorch_tpu_torch/csrc/masked_attention.cu"
+KERNEL_SOURCE = "mvp_pytorch_tpu_torch/csrc/masked_attention.cuh"
 REPLACES = "mvp_pytorch_tpu/ops/attention.py:114 (git 8625894^; also :169)"
 # NLVR2's fusion input: the text (LA 40 = 35 + 5 phrase slots) and both
 # images' tag-stripped regions (R 50 each), 140 keys: past the 128-key tile,
@@ -401,14 +434,27 @@ def nlvr_key_mask(torch, gen, b):
     return torch.cat(parts, 1).to(torch.int32)
 
 
+def kernel_key(name: str) -> str:
+    """A kernel's mangled name without its unnamed namespace, which carries
+    the name and a hash of its translation unit: the same instantiation has
+    the same key in every unit and every build."""
+    digits = len(name) - len(name[3:].lstrip("0123456789")) - 3
+    return name[3 + digits + int(name[3:3 + digits]):]
+
+
 def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
     """Registers, tensor-core instructions and resident blocks per SM of
     every kernel; fails unless each bf16 and each fp32 (3xTF32) kernel has
     HMMA/HGMMA in its SASS (TF32 shows as HMMA.1684.F32.TF32) and each
-    dropout instantiation has as many as its p = 0 twin."""
-    ptxas = ptxas_report(os.path.join(kernels_mod.BUILD, "ptxas.log"))
-    sass = kernels_mod.sass_mma_counts(lib_path)
+    dropout instantiation has as many as its p = 0 twin (in another
+    translation unit). Kernels are listed by `kernel_key`, so that builds
+    compare line by line."""
+    ptxas = {kernel_key(n): v for n, v in ptxas_report(
+        os.path.join(kernels_mod.BUILD, "ptxas.log")).items()}
+    sass = {kernel_key(n): v
+            for n, v in kernels_mod.sass_mma_counts(lib_path).items()}
     names = sorted(n for n in set(ptxas) | set(sass) if "masked_attention" in n)
+    log(f"  {len(names)} kernels")
     for name in names:
         log(f"  {name}: HMMA/HGMMA={sass.get(name, 'missing')}  "
             + "  ".join(ptxas.get(name, ["no ptxas report"])))
@@ -4090,6 +4136,637 @@ def single_stream_summary(p11):
         "classifier": p11["classifier"], "seconds": p11["seconds"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: captioning (CaptioningModel over ImgBertModel) on the card: the
+# kernel at the captioning shapes, one training step kernel path against
+# plain path, the captioning command line's training, greedy and beam
+# decoding (history-cached and recompute) and its standalone eval
+# ---------------------------------------------------------------------------
+
+# caption 35, tags 20, regions 50: training at L 105 (COMMANDS.md:118-129,
+# the JAX driver's defaults); --max_gen_length 20: the cached step runs
+# [committed token, [MASK]] against the 20 caption slots, the 70 context
+# keys and the 2 fresh ones (Lq 2 / Lk 92), the recompute forward at L 90
+CAP_LEN, CAP_GEN = 35, 20
+CAP_CTX = SS_T + SS_R
+CAP_L = CAP_LEN + CAP_CTX
+CAP_DEC_L = CAP_GEN + CAP_CTX
+CAP_B, CAP_IMAGES, CAP_BEAMS = 64, 250, 5
+CAP_DROP_AFTER = 13                  # the drop-worst gate opens at CLI step 14
+CAP_ARGS = ["--max_seq_length", str(CAP_LEN), "--max_tag_length", str(SS_T),
+            "--max_img_seq_length", str(SS_R), "--max_gen_length",
+            str(CAP_GEN), "--label_smoothing", "0.1", "--drop_worst_ratio",
+            "0.2", "--drop_worst_after", str(CAP_DROP_AFTER),
+            "--learning_rate", "3e-5", "--dtype", "bfloat16", "--seed", "11"]
+CAP_GRAD_PARAMS = ("bert.embeddings.word_embeddings.weight",
+                   "cls.predictions.bias",
+                   "cls.predictions.transform.dense.weight",
+                   "bert.img_embedding.weight",
+                   "bert.encoder.layer.0.attention.self.query.weight")
+# fp32 decoding: the cached step's logits against the recompute forward's on
+# the same committed prefix
+CAP_DECODE_TOL = 1e-4
+# the kernel's captioning shapes: (name, N, Lq, Lk, mask, dropout rates,
+# grads checked): training (B 64, seq2seq bias), the cached step at the
+# greedy and the beam batch and its one-query form (per-query bias), the
+# recompute forward (seq2seq bias over the 20-slot buffer)
+CAP_SHAPES = (
+    ("train", CAP_B, CAP_L, CAP_L, "seq2seq", (0.0, DROP_P), True),
+    ("step", CAP_IMAGES, 2, CAP_DEC_L + 2, "step", (0.0,), False),
+    ("step", CAP_IMAGES * CAP_BEAMS, 2, CAP_DEC_L + 2, "step", (0.0,), False),
+    ("step", CAP_IMAGES, 1, CAP_DEC_L + 1, "step", (0.0,), False),
+    ("recompute", CAP_IMAGES, CAP_DEC_L, CAP_DEC_L, "recompute", (0.0,),
+     False))
+
+
+def caption_bias(torch, attn, gen, kind, n, lq):
+    """The additive bias of a captioning attention shape over contexts whose
+    tags and regions are padded to random lengths: the seq2seq mask of
+    training (35 caption slots) or of the recompute forward (20), or the
+    decode step's per-query mask at a random position t per row (caption
+    slots before t - 1, the context, and the lq fresh keys at or before
+    each query)."""
+    from mvp_pytorch_tpu_torch.models.img_bert import make_seq2seq_mask
+    parts = []
+    for length, low in ((SS_T, 3), (SS_R, 10)):
+        lens = torch.randint(low, length + 1, (n,), device=DEVICE,
+                             generator=gen)
+        parts.append(torch.arange(length, device=DEVICE)[None]
+                     < lens[:, None])
+    ctx = torch.cat(parts, 1)
+    if kind != "step":
+        l_cap = CAP_LEN if kind == "seq2seq" else CAP_GEN
+        return attn.mask_to_bias(make_seq2seq_mask(l_cap, ctx))
+    t = torch.randint(1, CAP_GEN, (n,), device=DEVICE, generator=gen)
+    cap = torch.arange(CAP_GEN, device=DEVICE)[None] < (t[:, None] - 1)
+    fresh = torch.ones(lq, lq, dtype=torch.bool, device=DEVICE).tril()
+    mask = torch.cat([cap[:, None].expand(n, lq, CAP_GEN),
+                      ctx[:, None].expand(n, lq, CAP_CTX),
+                      fresh[None].expand(n, lq, lq)], 2)
+    return attn.mask_to_bias(mask.to(torch.int32))
+
+
+def phase12_kernel(torch, attn):
+    """(a) The kernel at the captioning shapes (blhd, as the model calls
+    it), in both dtypes, against the plain version (fp32 2e-5, bf16 0.05);
+    at L 105 at p 0 and 0.1 with its grads against fp32 autograd of the
+    plain version (1e-4 / 0.05). Timed beside the plain version, SDPA (a
+    yardstick the port never calls) and the bound: in bf16 at p 0, and at
+    L 105 also at p 0.1 and in fp32."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    errors, times = {}, {}
+    for name, n, lq, lk, kind, rates, grads in CAP_SHAPES:
+        for dn, dt in dtypes.items():
+            q = torch.randn(n, lq, H, D, device=DEVICE, generator=gen).to(dt)
+            k, v = (torch.randn(n, lk, H, D, device=DEVICE, generator=gen)
+                    .to(dt) for _ in range(2))
+            bias = caption_bias(torch, attn, gen, kind, n, lq)
+            for p in rates:
+                seed = (torch.randint(-2 ** 63, 2 ** 63 - 1, (1,),
+                                      dtype=torch.int64, device=DEVICE,
+                                      generator=gen) if p else None)
+                leaves = [t.detach().requires_grad_(grads) for t in (q, k, v)]
+                before = (attn.masked_attention.launches,
+                          attn.masked_attention.dropout_launches)
+                out = attn.masked_attention(*leaves, bias, layout="blhd",
+                                            dropout_p=p, seed=seed)
+                launched = (attn.masked_attention.launches - before[0],
+                            attn.masked_attention.dropout_launches - before[1])
+                want = attn.plain_attention_blhd(q, k, v, bias, p, seed)
+                f_err = (out.float() - want.float()).abs().max().item()
+                finite = bool(torch.isfinite(out.float()).all())
+                b_err = 0.0
+                if grads:
+                    g = torch.randn(out.shape, device=DEVICE,
+                                    generator=gen).to(dt)
+                    got_g = torch.autograd.grad(out, leaves, g)
+                    ref = [t.detach().float().requires_grad_() for t in leaves]
+                    want_g = torch.autograd.grad(
+                        attn.plain_attention_blhd(*ref, bias, p, seed), ref,
+                        g.float())
+                    b_err = max((a.float() - c).abs().max().item()
+                                for a, c in zip(got_g, want_g))
+                    finite = finite and all(bool(torch.isfinite(a).all())
+                                            for a in got_g)
+                torch.cuda.synchronize()
+                key = f"{name} N {n} Lq {lq} Lk {lk} p {p:g}"
+                ok = (finite and f_err <= TOL[dn] and b_err <= GRAD_TOL[dn]
+                      and launched == (1, int(p > 0)))
+                log(f"  kernel vs plain  {key} {dn}: fwd max|err|="
+                    f"{f_err:.3e} (tol {TOL[dn]:g})"
+                    + (f"  grads max|err|={b_err:.3e} (tol {GRAD_TOL[dn]:g})"
+                       if grads else "")
+                    + f"  launches {launched}  {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(
+                        f"kernel at the captioning shape {key} {dn} "
+                        f"disagrees: fwd {f_err} grads {b_err} finite "
+                        f"{finite} launches {launched}")
+                errors[f"{key} {dn}"] = dict(fwd=f_err, grads=b_err)
+                if dn == "float32" and not (name == "train" and p == 0):
+                    continue
+                x = [t.detach() for t in (q, k, v)]
+                xh = [t.transpose(1, 2) for t in x]
+                bound, by = attention_bound_ms(n, lq, lk, dn, bias)
+                row = dict(
+                    max_abs_err=f_err, bound_ms=bound, bound_by=by,
+                    ms=cuda_ms(lambda: attn.masked_attention(
+                        *x, bias, layout="blhd", dropout_p=p, seed=seed)),
+                    plain_ms=cuda_ms(lambda: attn.plain_attention_blhd(
+                        *x, bias, p, seed), iters=5),
+                    sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                        *xh, attn_mask=bias.to(dt), dropout_p=p)))
+                times[key + (" fp32" if dn == "float32" else "")] = row
+                log(f"  kernel {key} {dn}: kernel {row['ms']:.4f} ms  plain "
+                    f"{row['plain_ms']:.4f} ms  sdpa {row['sdpa_ms']:.4f} ms"
+                    f"  bound {bound:.4f} ms ({by})")
+                del leaves, out, want
+            del q, k, v, bias
+    torch.cuda.empty_cache()
+    return dict(errors=errors, times=times)
+
+
+def phase12_real_step(torch, attn, layers_mod, cfg, batch):
+    """(b) One dropout-0 step on the first real batch (the CLI's first step:
+    the drop-worst gate closed), kernel path against plain path: fp32, the
+    loss within 1e-4 and five named gradients within 1e-3 relative; bf16,
+    the loss within 0.02 and each gradient's relative distance from the
+    fp32 plain path's at most 1.25 times the plain bf16 path's plus one
+    bf16 ulp."""
+    import dataclasses
+    import gc
+    import types
+    from mvp_pytorch_tpu_torch.models import CaptioningModel
+    from mvp_pytorch_tpu_torch.tasks.captioning import model_inputs
+    per_step = cfg.num_hidden_layers
+    real, ref = {}, None
+    for dn in ("float32", "bfloat16"):
+        cfg0 = dataclasses.replace(cfg, dtype=dn, hidden_dropout_prob=0.0,
+                                   attention_probs_dropout_prob=0.0)
+        model = CaptioningModel(cfg0, label_smoothing=0.1,
+                                drop_worst_ratio=0.2,
+                                drop_worst_after=CAP_DROP_AFTER,
+                                device=DEVICE, seed=11)
+        model.train()
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            loss, _ = model(*model_inputs(batch), batch["masked_pos"],
+                            batch["masked_ids"], 0)
+            loss.backward()
+            params = dict(model.named_parameters())
+            return (types.SimpleNamespace(loss=loss.detach()),
+                    {n: params[n].grad.detach().float().clone()
+                     for n in CAP_GRAD_PARAMS})
+
+        reset_counts(attn)
+        with key_lengths(layers_mod) as seen:
+            k_out, k_grads = step()
+        torch.cuda.synchronize()
+        if (attn.masked_attention.launches != per_step
+                or attn.masked_attention.dropout_launches != 0
+                or seen != [CAP_L] * per_step):
+            raise AssertionError(f"captioning step: kernel path launches "
+                                 f"{attn.masked_attention.launches}, key "
+                                 f"lengths {seen}")
+        with plain_attention_path(layers_mod, attn):
+            p_out, p_grads = step()
+        torch.cuda.synchronize()
+        if attn.masked_attention.launches != per_step:
+            raise AssertionError("plain path launched the kernel")
+        what = "captioning real batch"
+        if dn == "float32":
+            compare_step(torch, what, dn, k_out, p_out, ("loss",), k_grads,
+                         p_grads)
+            ref = (p_out, p_grads)
+            real[dn] = {"loss": abs(k_out.loss.item() - p_out.loss.item())}
+            real[dn].update({n: ((k_grads[n] - p_grads[n]).norm()
+                                 / p_grads[n].norm()).item()
+                             for n in CAP_GRAD_PARAMS})
+        else:
+            compare_step(torch, what, dn, k_out, p_out, ("loss",), {}, {})
+
+            def rel(a, c):
+                return ((a - c).norm() / c.norm()).item()
+            real[dn] = {"loss": abs(k_out.loss.item() - p_out.loss.item())}
+            for n in CAP_GRAD_PARAMS:
+                real[dn][n] = bf16_far(
+                    f"{what} bfloat16 grad {n} (relative)",
+                    rel(k_grads[n], ref[1][n]), rel(p_grads[n], ref[1][n]),
+                    bool(k_grads[n].isfinite().all()), 2.0 ** -8,
+                    "one bf16 ulp, relative")
+        del model, k_out, p_out, k_grads, p_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    return real
+
+
+def phase12_cli(torch, attn, layers_mod, paths, root):
+    """(b) and (c): the first real batch's step kernel path against plain
+    path; 13 batches in memory, then 26 steps through the captioning CLI
+    and its process loader (4 forked workers), each launching the dropout
+    kernel 12 times, all at Lk 105, and the plain attention never. Returns
+    the numbers and the CLI's checkpoint."""
+    import gc
+    from mvp_pytorch_tpu_torch.data.loader import BatchSampler
+    from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
+    from mvp_pytorch_tpu_torch.tasks import captioning as cap
+    from mvp_pytorch_tpu_torch.training.loop import batch_on, train_on_batches
+    common = (["--captions_json", paths["captions"], "--feature_tsv",
+               paths["features"], "--data_dir", root, "--train_batch_size",
+               str(CAP_B), "--log_period", "1", "--num_workers", "4",
+               "--worker_start_method", "fork"] + CAP_ARGS + CLI_PLATFORM)
+    args = cap.get_args(["--output_dir", root] + common)
+    dataset, model = cap.prepare(args, FastBertTokenizer(paths["vocab"]),
+                                 DEVICE, _Log)
+    cfg = model.config
+    per_step = cfg.num_hidden_layers
+    sampler = BatchSampler(len(dataset), CAP_B, seed=args.seed)
+    t0 = time.perf_counter()
+    batches = [dataset.fetch(sampler.batch_at(s))
+               for s in range(CLI_MEM_STEPS)]
+    fetch_ms = (time.perf_counter() - t0) * 1e3 / CLI_MEM_STEPS
+    shapes = {k: v.shape for k, v in batches[0].items()}
+    masked = float(batches[0]["masked_pos"].sum()) / CAP_B
+    log(f"  captioning: {per_step} layers over L {CAP_L}, the LM head over "
+        f"all {cfg.vocab_size} rows; a batch fetched on the main thread: "
+        f"{fetch_ms:.1f} ms; shapes {shapes}; {masked:.2f} masked caption "
+        f"positions a row")
+    if (shapes["caption_ids"] != (CAP_B, CAP_LEN)
+            or shapes["ctx_mask"] != (CAP_B, CAP_CTX)
+            or shapes["img_feat"] != (CAP_B, SS_R, 2054)):
+        raise AssertionError(f"captioning batch shapes {shapes}")
+
+    @contextlib.contextmanager
+    def length_check(bad):
+        """Every step inside runs its attention at Lk CAP_L only."""
+        with key_lengths(layers_mod) as seen:
+            def before(trainer):
+                seen.clear()
+
+            def after(trainer, metrics):
+                if seen != [CAP_L] * per_step:
+                    bad.append(list(seen))
+            with around_steps(before, after):
+                yield
+
+    # 1. in memory: 13 batches, 12 dropout launches a step, all at Lk 105
+    bad = []
+    with counted_steps(attn, per_step, "a captioning in-memory step") \
+            as total, length_check(bad):
+        torch.cuda.reset_peak_memory_stats()
+        mem = train_on_batches(model, cap.caption_loss_fn, batches,
+                               CLI_MEM_STEPS, learning_rate=args.learning_rate,
+                               weight_decay=args.weight_decay, seed=args.seed)
+    if bad:
+        raise AssertionError(f"in-memory key lengths {bad}")
+    mem_n = cli_numbers(mem, CAP_B, torch.cuda.max_memory_allocated() / 1e9,
+                        CLI_MEM_TIMED_FROM)
+    mem_losses = check_losses(mem, CLI_MEM_STEPS, "captioning in memory")
+    log(f"  captioning in memory: {total[0]} launches ({per_step} a step, "
+        f"all at Lk {CAP_L}); {mem_n['step_ms']:.2f} ms/step "
+        f"{mem_n['samples_per_s']:.1f} samples/s, peak "
+        f"{mem_n['peak_gb']:.2f} GB")
+    model = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the first batch's step, kernel path against plain path
+    real = phase12_real_step(torch, attn, layers_mod, cfg,
+                             batch_on(DEVICE, batches[0]))
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the CLI and its process loader
+    out = os.path.join(root, "cap_train")
+    argv = (["--output_dir", out, "--do_train", "--max_steps",
+             str(CLI_STEPS), "--ckpt_period", str(CLI_STEPS)] + common)
+    log("  python -m mvp_pytorch_tpu_torch.tasks.captioning " + " ".join(
+        os.path.relpath(a, root) if a.startswith(root) else a for a in argv))
+    bad = []
+    with counted_steps(attn, per_step, "a captioning CLI step") as total, \
+            length_check(bad):
+        torch.cuda.reset_peak_memory_stats()
+        hist = cap.main(argv)["train"]
+    if bad:
+        raise AssertionError(f"CLI key lengths {bad}")
+    cli_n = cli_numbers(hist, CAP_B, torch.cuda.max_memory_allocated() / 1e9)
+    losses = check_losses(hist, CLI_STEPS, "captioning CLI")
+    if not mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"captioning CLI losses not falling: {losses}")
+    log(f"  captioning step 1 loss: CLI {losses[0]:.6f}, in memory "
+        f"{mem_losses[0]:.6f} (the drop-worst gate opens at step "
+        f"{CAP_DROP_AFTER + 1})")
+    if abs(losses[0] - mem_losses[0]) > STEP_TOL["bfloat16"][0]:
+        raise AssertionError("the captioning CLI's first batch is not the "
+                             "sampler's")
+    ratio = cli_n["samples_per_s"] / mem_n["samples_per_s"]
+    log(f"  captioning CLI: {total[0]} launches ({per_step} a step, all with "
+        f"dropout, all at Lk {CAP_L}; plain 0); {cli_n['step_ms']:.2f} "
+        f"ms/step {cli_n['samples_per_s']:.1f} samples/s, peak "
+        f"{cli_n['peak_gb']:.2f} GB; main thread data "
+        f"{cli_n['main_data_ms']:.3f} ms/step, worker "
+        f"{cli_n['worker_ms']:.1f} ms/batch, H2D "
+        f"{cli_n.get('h2d_ms', float('nan')):.3f} ms/batch; ratio to memory "
+        f"{ratio:.3f} (target 0.90)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(launches_per_step=per_step, launches=total[0],
+               in_memory=mem_n, cli=cli_n, ratio=ratio,
+               main_fetch_ms=fetch_ms, real_batch=real, losses=losses,
+               mem_losses=mem_losses)
+    return res, os.path.join(out, f"checkpoint-{CLI_STEPS:07d}"), dataset
+
+
+def decode_launches(layers, mode):
+    """(launches, key lengths) of one decode of CAP_GEN positions by a
+    model of `layers` layers: the cached path's prefill over the context
+    (L 70), then one step per position at Lk 92; the recompute path's
+    forward at L 90 per position. Beam search makes the same calls on
+    B x beams rows."""
+    steps = CAP_GEN - 1
+    if mode == "cached":
+        lengths = [CAP_CTX] * layers + [CAP_DEC_L + 2] * (layers * steps)
+    else:
+        lengths = [CAP_DEC_L] * (layers * steps)
+    return len(lengths), lengths
+
+
+def device_profile(torch, fn) -> dict:
+    """The card's work during one call of `fn` under `torch.profiler` (whose
+    host overhead stretches the window, not the kernels): the busy seconds
+    (the union of the device events' intervals), the device ms by
+    `profile_two_stage` kernel class and the five kernels with the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from profile_two_stage import busy_us, classify
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no device events")
+    by_class, by_name = {}, {}
+    for e in kernels:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        by_class[classify(e.name)] = by_class.get(classify(e.name), 0.0) + ms
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + ms
+    return dict(busy_s=busy_us([(e.time_range.start, e.time_range.end)
+                                for e in kernels]) / 1e6,
+                ms_by_class=dict(sorted(by_class.items(),
+                                        key=lambda kv: -kv[1])),
+                top_kernels_ms=dict(sorted(by_name.items(),
+                                           key=lambda kv: -kv[1])[:5]))
+
+
+def phase12_decode(torch, attn, layers_mod, ckpt, dataset, tokenizer):
+    """(d) Greedy and beam-5 decoding of CAP_IMAGES images with the CLI's
+    checkpoint, each history-cached and recomputed, in bf16: 240 launches
+    (cached) or 228 (recompute) each, all at p 0, the plain attention never;
+    captions/s, ms per step and the cached over recompute speed-up. In fp32:
+    the cached path's greedy sequence teacher-forced through both paths,
+    whose logits agree within CAP_DECODE_TOL at every step; the greedy
+    sequences equal except where the top-2 logit gap at the first
+    difference is below that tolerance (such rows are counted). bf16 rows
+    that differ between the paths are counted, not failed. Each decode is
+    timed after a warm-up at its size, and profiled once more for the
+    card's busy time."""
+    import gc
+    from mvp_pytorch_tpu_torch.models import CaptioningModel, ModelConfig
+    from mvp_pytorch_tpu_torch.tasks.captioning import (context_batch,
+                                                         decode_batch)
+    imgs = dataset.images()[:CAP_IMAGES]
+    ids_b, ctx_mask, feats = context_batch(dataset, imgs, DEVICE)
+    vocab = tokenizer.vocab
+    n = len(imgs)
+    model = load_checkpoint(torch, CaptioningModel, ckpt)
+    layers = model.config.num_hidden_layers
+    seqs, res = {}, {}
+    for beams in (1, CAP_BEAMS):
+        for mode in ("cached", "recompute"):
+            def run(m=n):
+                return decode_batch(model, ids_b[:m], ctx_mask[:m],
+                                    feats[:m], vocab, gen_len=CAP_GEN,
+                                    num_beams=beams, decode_mode=mode)
+            run()                                  # warm-up, not counted
+            reset_counts(attn)
+            with key_lengths(layers_mod) as seen:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run().cpu()
+                seconds = time.perf_counter() - t0
+            want, lengths = decode_launches(layers, mode)
+            got = (attn.masked_attention.launches,
+                   attn.masked_attention.dropout_launches,
+                   attn.plain_attention.calls)
+            what = f"{'greedy' if beams == 1 else f'beam-{beams}'} {mode}"
+            if got != (want, 0, 0) or seen != lengths:
+                raise AssertionError(
+                    f"{what} decode: launches {got} (want {want}, 0, 0), "
+                    f"key lengths {sorted(set(seen))}")
+            seqs[(beams, mode)] = out
+            prof = device_profile(torch, run)
+            busy = prof["busy_s"]
+            res[what] = dict(launches=want, seconds=seconds,
+                             captions_per_s=n / seconds,
+                             ms_per_step=seconds * 1e3 / (CAP_GEN - 1),
+                             rows=n * beams, device_busy_s=busy,
+                             idle_share=1.0 - busy / seconds,
+                             device_ms_by_class=prof["ms_by_class"],
+                             top_kernels_ms=prof["top_kernels_ms"])
+            log(f"  decode {what}: {n} images ({n * beams} rows), {want} "
+                f"launches at Lk {sorted(set(lengths))}, p 0, plain 0; "
+                f"{seconds:.3f} s, {n / seconds:.1f} captions/s, "
+                f"{seconds * 1e3 / (CAP_GEN - 1):.2f} ms/step; device busy "
+                f"{busy:.3f} s of it (a profiled run), idle share "
+                f"{1.0 - busy / seconds:.3f}; device ms by class "
+                + ", ".join(f"{k} {v:.1f}"
+                            for k, v in prof["ms_by_class"].items())
+                + "; top kernels " + "; ".join(
+                    f"{k} {v:.1f}" for k, v in prof["top_kernels_ms"].items()))
+    for beams in (1, CAP_BEAMS):
+        what = "greedy" if beams == 1 else f"beam-{beams}"
+        c, r = seqs[(beams, "cached")], seqs[(beams, "recompute")]
+        speed = (res[f"{what} recompute"]["seconds"]
+                 / res[f"{what} cached"]["seconds"])
+        differ = int((c != r).any(1).sum())
+        res[f"{what} bf16"] = dict(speedup=speed, rows_differ=differ)
+        log(f"  {what} bf16: cached over recompute {speed:.2f}x; {differ} of "
+            f"{n} rows differ between the paths (printed, not held)")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32: the cached path's sequence teacher-forced through both paths
+    model = CaptioningModel(ModelConfig.from_pretrained(ckpt,
+                                                        dtype="float32"),
+                            device=DEVICE)
+    model.load_state_dict(torch.load(os.path.join(ckpt, "pytorch_model.bin"),
+                                     map_location=DEVICE, weights_only=True))
+    greedy = {mode: decode_batch(model, ids_b, ctx_mask, feats, vocab,
+                                 gen_len=CAP_GEN, num_beams=1,
+                                 decode_mode=mode)
+              for mode in ("cached", "recompute")}
+    seq = greedy["cached"]
+    mask_id = vocab["[MASK]"]
+    seg, cap_seg = torch.ones_like(ids_b), torch.zeros(
+        n, CAP_GEN, dtype=ids_b.dtype, device=DEVICE)
+    err, gaps = 0.0, []
+    with torch.no_grad():
+        cache = model.prefill(ids_b, ctx_mask, seg, feats, CAP_GEN)
+        buf = torch.full_like(seq, mask_id)
+        buf[:, 0] = seq[:, 0]
+        for t in range(1, CAP_GEN):
+            lc, cache = model.decode_step(cache, t, seq[:, t - 1], ctx_mask,
+                                          CAP_GEN, mask_id)
+            buf[:, t - 1] = seq[:, t - 1]
+            lr = model.decode_logits(buf, ids_b, ctx_mask, cap_seg, seg,
+                                     feats, t)
+            err = max(err, (lc - lr).abs().max().item())
+            top2 = lc.topk(2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).cpu())
+    gaps = torch.stack(gaps, 1)                      # [n, CAP_GEN - 1]
+    diff = (greedy["cached"] != greedy["recompute"]).cpu()
+    near_ties, far = 0, []
+    for row in torch.nonzero(diff.any(1)).flatten().tolist():
+        t = int(torch.nonzero(diff[row]).flatten()[0])
+        if gaps[row, t - 1] < CAP_DECODE_TOL:
+            near_ties += 1
+        else:
+            far.append((row, t, gaps[row, t - 1].item()))
+    ok = err <= CAP_DECODE_TOL and not far
+    log(f"  fp32 decode: the cached greedy sequence teacher-forced through "
+        f"both paths, max |cached - recompute| logit {err:.3e} (tol "
+        f"{CAP_DECODE_TOL:g}); greedy rows that differ "
+        f"{int(diff.any(1).sum())} of {n}, {near_ties} at a top-2 gap below "
+        f"the tolerance  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"fp32 cached decoding is not the recompute's: "
+                             f"logit gap {err}, rows {far[:5]}")
+    res["fp32"] = dict(logit_err=err, rows_differ=int(diff.any(1).sum()),
+                       near_ties=near_ties)
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, imgs, seqs[(CAP_BEAMS, "cached")]
+
+
+def phase12_eval(torch, attn, paths, root, ckpt, dataset, tokenizer, imgs,
+                 beam_seqs):
+    """(e) `--do_eval` alone on the CLI's checkpoint over (d)'s images
+    (their captions.json), beam 5, cached, in one batch of CAP_IMAGES: 240
+    launches, finite BLEU-4, METEOR, ROUGE_L and CIDEr-D in test_eval.json,
+    SPICE absent without its jar, and the captions equal (d)'s."""
+    import shutil
+    from mvp_pytorch_tpu_torch.models import ModelConfig
+    from mvp_pytorch_tpu_torch.tasks import captioning as cap
+    from mvp_pytorch_tpu_torch.utils.spice import find_spice_jar
+    shutil.copy(paths["vocab"], ckpt)
+    with open(paths["captions"]) as f:
+        caps = json.load(f)
+    sub = os.path.join(root, "captions_eval.json")
+    with open(sub, "w") as f:
+        json.dump({img: caps[img] for img in imgs}, f)
+    out = os.path.join(root, "cap_eval")
+    argv = (["--output_dir", out, "--model_name_or_path", ckpt,
+             "--captions_json", sub, "--feature_tsv", paths["features"],
+             "--do_eval", "--num_beams", str(CAP_BEAMS), "--decode_mode",
+             "cached", "--eval_batch_size", str(CAP_IMAGES)] + CLI_PLATFORM)
+    log("  python -m mvp_pytorch_tpu_torch.tasks.captioning " + " ".join(
+        os.path.relpath(a, root) if a.startswith(root) else a for a in argv))
+    reset_counts(attn)
+    t0 = time.perf_counter()
+    res = cap.main(argv)
+    seconds = time.perf_counter() - t0
+    want_launches = decode_launches(
+        ModelConfig.from_pretrained(ckpt).num_hidden_layers, "cached")[0]
+    got = (attn.masked_attention.launches,
+           attn.masked_attention.dropout_launches, attn.plain_attention.calls)
+    with open(os.path.join(out, "test_eval.json")) as f:
+        scores = json.load(f)
+    want = {img: cap.caption_tokens(row.tolist(), tokenizer)
+            for img, row in zip(imgs, beam_seqs)}
+    same = res["captions"] == want
+    finite = all(math.isfinite(scores.get(k, float("nan")))
+                 for k in ("Bleu_4", "METEOR", "ROUGE_L", "cider_d"))
+    spice_ok = ("SPICE" in scores) == (find_spice_jar() is not None)
+    ok = (got == (want_launches, 0, 0) and same and finite and spice_ok)
+    log(f"  captioning eval: {seconds:.1f} s; launches {got} (want "
+        f"{want_launches}, 0, 0); test_eval.json "
+        + " ".join(f"{k}={v:.4f}" for k, v in scores.items())
+        + f"; SPICE {'reported' if 'SPICE' in scores else 'absent'}; "
+        f"captions equal the in-memory beam-{CAP_BEAMS} cached decode: "
+        f"{same}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the captioning CLI's eval is off")
+    return dict(seconds=seconds, launches=got[0], scores=scores)
+
+
+def phase12(torch, attn, layers_mod):
+    """Phase 12 on phase 7's generated root: (a) the kernel at the
+    captioning shapes, (b) one step kernel path against plain path, (c) the
+    CLI's training, (d) decoding, (e) the CLI's standalone eval."""
+    import gc
+    import shutil
+    from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
+    t_phase = time.perf_counter()
+    res = {}
+    t0 = time.perf_counter()
+    res["kernel"] = phase12_kernel(torch, attn)
+    res["kernel"]["seconds"] = time.perf_counter() - t0
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke",
+                        "phase12")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        paths, feat_bytes, tsv_bytes = write_cli_root(root)
+        log(f"  root: {CLI_IMAGES} images x {CLI_CAPS} captions, "
+            f"{CLI_REGIONS} regions x 2054 fp32 ({feat_bytes / 1e6:.1f} MB "
+            f"of features, {tsv_bytes / 1e6:.1f} MB of TSV) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        tokenizer = FastBertTokenizer(paths["vocab"])
+        t0 = time.perf_counter()
+        res["train"], ckpt, dataset = phase12_cli(torch, attn, layers_mod,
+                                                  paths, root)
+        res["train"]["seconds"] = time.perf_counter() - t0
+        log(f"  phase 12 training took {res['train']['seconds']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res["decode"], imgs, beam_seqs = phase12_decode(
+            torch, attn, layers_mod, ckpt, dataset, tokenizer)
+        res["decode"]["seconds"] = time.perf_counter() - t0
+        log(f"  phase 12 decoding took {res['decode']['seconds']:.1f} s")
+        res["eval"] = phase12_eval(torch, attn, paths, root, ckpt, dataset,
+                                   tokenizer, imgs, beam_seqs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 12 took {res['seconds']:.1f} s")
+    return res
+
+
+def captioning_summary(p12):
+    """Phase 12's numbers for the kernel line (without the per-step loss
+    lists)."""
+    times = p12["kernel"]["times"]
+    return {
+        "launches_per_step": p12["train"]["launches_per_step"],
+        "attention": {k: v for k, v in times.items()
+                      if not k.endswith("fp32")},
+        "kernel_vs_plain": p12["kernel"]["errors"],
+        "train": {k: v for k, v in p12["train"].items()
+                  if k not in ("losses", "mem_losses")},
+        "first_loss": p12["train"]["losses"][0],
+        "last_loss": p12["train"]["losses"][-1],
+        "decode": p12["decode"], "eval": p12["eval"],
+        "seconds": p12["seconds"]}
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4110,6 +4787,9 @@ def main(argv) -> int:
     parser.add_argument("--single_stream", action="store_true",
                         help="run phase 11 (the single-stream model and the "
                              "pretraining modes) alone")
+    parser.add_argument("--captioning", action="store_true",
+                        help="run phase 12 (captioning: training, decoding "
+                             "and the eval) alone")
     parser.add_argument("--serve_clients", nargs=3,
                         metavar=("URL", "JOBS", "OUT"),
                         help="the client process of phase 10 B, which the "
@@ -4176,6 +4856,13 @@ def main(argv) -> int:
             "L 145")
         p11 = phase11(torch, attn, layers_mod)
         print(json.dumps({"single_stream": single_stream_summary(p11),
+                          "card": card}), flush=True)
+        return 0
+    if args.captioning:
+        log("phase 12 alone: captioning, MVPTR-base, B 64, L 105; decoding "
+            f"{CAP_IMAGES} images")
+        p12 = phase12(torch, attn, layers_mod)
+        print(json.dumps({"captioning": captioning_summary(p12),
                           "card": card}), flush=True)
         return 0
     if args.nlvr_cli or args.serve:
@@ -4247,6 +4934,12 @@ def main(argv) -> int:
     p11 = phase11(torch, attn, layers_mod)
     torch.cuda.synchronize()
 
+    log("phase 12: captioning (L 105) through its command line, greedy and "
+        "beam decoding, cached and recomputed, and its eval, MVPTR-base, "
+        "generated root")
+    p12 = phase12(torch, attn, layers_mod)
+    torch.cuda.synchronize()
+
     main_t = timings[("fused", "bfloat16")]
     main_err = errors[("fused 2-D padded keys", 1000, "bfloat16", "blhd")]
     train_t = bwd_timings[("fused", "bfloat16")]
@@ -4303,7 +4996,8 @@ def main(argv) -> int:
                  "attention": {k: v for k, v in nlvr_times.items()
                                if not k.endswith("fp32")}},
         "serving": p10["serve"],
-        "single_stream": single_stream_summary(p11)}, {
+        "single_stream": single_stream_summary(p11),
+        "captioning": captioning_summary(p12)}, {
         # the fp32 kernels (3xTF32) behind the same entry point; launches
         # and pairs/s from the fp32 sweep of phase 3
         "name": "masked_attention_fwd fp32 (3xTF32)", "route": "cuda",
@@ -4334,6 +5028,9 @@ def main(argv) -> int:
                            if k.endswith("fp32")},
         "single_stream_attention": {
             k: v for k, v in p11["kernel"]["times"].items()
+            if k.endswith("fp32")},
+        "captioning_attention": {
+            k: v for k, v in p12["kernel"]["times"].items()
             if k.endswith("fp32")}}]}
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernels), flush=True)

@@ -14,11 +14,13 @@ and the single-stream models (`ImgBertModel`'s `bert/encoder`, its
 `code_embeddings`, and `ImgBertForPreTraining`'s masked-region heads
 `mrf_mrc/{mrf_dense, mrf_norm, mrc, mrf_bias}`, which become
 `cls.MRF_predictor.0.*`, `cls.MRF_predictor.2.*`, `cls.MRC_predictor.*` and
-`cls.MRF_bias`).
-The tied LM decoders have no params in a flax tree;
-`BiPretrainModel.load_state_dict` takes care of the reference's
-`decoder.weight` copies. VQA's untied decoder (`cls/decoder/kernel`) loads
-as `cls.predictions.decoder.weight`.
+`cls.MRF_bias`), and the captioning model (`bert` and
+`cls_predictions`, whose `bias` spans the whole vocabulary).
+The tied LM decoders have no params in a flax tree; the models'
+`load_state_dict` (`BiPretrainModel`, `ImgBertForPreTraining`,
+`CaptioningModel`) check the reference's `decoder.weight` copies against
+the word table and drop them. VQA's untied decoder (`cls/decoder/kernel`)
+loads as `cls.predictions.decoder.weight`.
 
 The JAX exporter has no rule for `ClassificationPlusModel`'s flax
 `nn.Sequential` names, so the port names them itself: `single_mapping/
@@ -174,9 +176,10 @@ def load_jax_params(model: torch.nn.Module, params: Mapping[str, Any]):
     `classifier`), a single-stream model (`ImgBertForPreTraining`: `bert`,
     the pretraining heads and with `use_mrfr` `mrf_mrc`;
     `ImgBertForSequenceClassification` / `ImgBertForMultipleChoice`: `bert`
-    and `classifier`) or a bare `BiEncoder` / `ImgBertModel` (params are the
-    `bert` subtree). A flax path with no place
-    in the port, or a port parameter the params do not cover, raises."""
+    and `classifier`; `CaptioningModel`: `bert` and `cls_predictions`) or a
+    bare `BiEncoder` / `ImgBertModel` (params are the `bert` subtree). A
+    flax path with no place in the port, or a port parameter the params do
+    not cover, raises."""
     if hasattr(model, "bert"):
         sd = jax_params_to_state_dict(params)
     else:

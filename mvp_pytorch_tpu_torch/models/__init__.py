@@ -3,14 +3,16 @@
 from .bi_encoder import BiEncoder, BiEncoderOutput, l2_normalize
 from .config import ModelConfig, tiny_config
 from .heads import ClassifierHead
-from .img_bert import (ImgBertForMultipleChoice, ImgBertForPreTraining,
+from .img_bert import (CaptioningModel, ImgBertForMultipleChoice,
+                       ImgBertForPreTraining,
                        ImgBertForSequenceClassification, ImgBertModel)
 from .pretrain import BiPretrainModel, PretrainOutput
 from .tasks import (CaseModel, ClassificationModel, ClassificationPlusModel,
                     MLMModel, NLVRModel, REModel, RepModel, RetrievalModel,
                     RetrievalTrainOutput, VQAModel, WREModel)
 
-__all__ = ["BiEncoder", "BiEncoderOutput", "BiPretrainModel", "CaseModel",
+__all__ = ["BiEncoder", "BiEncoderOutput", "BiPretrainModel",
+           "CaptioningModel", "CaseModel",
            "ClassificationModel", "ClassificationPlusModel",
            "ClassifierHead", "ImgBertForMultipleChoice",
            "ImgBertForPreTraining", "ImgBertForSequenceClassification",

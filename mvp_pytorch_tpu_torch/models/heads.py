@@ -34,17 +34,19 @@ class PredictionHeadTransform(nn.Module):
 
 class LMPredictionHead(nn.Module):
     """transform -> decoder tied to the first `only_word_size` rows of the
-    word embedding table, plus a bias; fp32 logits (reference
-    BertLMPredictionHead(only_vocab=True), modeling_bert.py:492-516).
+    word embedding table (with `only_vocab=False`, the whole table, as
+    captioning predicts), plus a bias; fp32 logits (reference
+    BertLMPredictionHead, modeling_bert.py:492-516).
 
-    The decoder is the table itself, passed in at call time, so phrase rows
-    are never predicted and nothing needs re-tying after a load. The
-    reference's state dict stores the tie as `decoder.weight`, a copy of
-    those rows; `BiPretrainModel.load_state_dict` checks and drops it."""
+    The decoder is the table itself, passed in at call time, so nothing
+    needs re-tying after a load (and with `only_vocab` no phrase row is
+    predicted). The reference's state dict stores the tie as
+    `decoder.weight`, a copy of those rows; the models' `load_state_dict`
+    checks and drops it."""
 
-    def __init__(self, config: ModelConfig):
+    def __init__(self, config: ModelConfig, only_vocab: bool = True):
         super().__init__()
-        self.n = config.only_word_size
+        self.n = config.only_word_size if only_vocab else config.vocab_size
         self.transform = PredictionHeadTransform(config)
         self.bias = nn.Parameter(torch.zeros(self.n))
 

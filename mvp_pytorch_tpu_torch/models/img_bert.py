@@ -14,7 +14,13 @@
   classification (MRC) and feature regression (MRF, tied to the region
   projection);
 - `ImgBertForSequenceClassification` (`modeling_vlbert.py:886-967`) and
-  `ImgBertForMultipleChoice` (`modeling_vlbert_pretrain.py:1319-1499`).
+  `ImgBertForMultipleChoice` (`modeling_vlbert_pretrain.py:1319-1499`);
+- `CaptioningModel` (BertForImageCaptioning, `modeling_vlbert_pretrain.py:
+  1565-1875`; the JAX package's :250-430): masked caption positions trained
+  with a label-smoothed KL and the drop-worst curriculum under a seq2seq mask
+  (caption causal, context bidirectional and blind to the caption), and the
+  two decoding forwards: the full-prefix recompute (`decode_logits`) and the
+  history-cached step (`prefill`, then `decode_step`).
 
 Every attention layer runs on `masked_attention`, so on the card each layer
 launches the hand-written kernel; a 3-D or per-layer mask reaches it as a
@@ -44,7 +50,8 @@ from .pretrain import PretrainingHeads, drop_tied_decoders
 from .tasks import classification_loss, instance_bce_with_logits
 
 __all__ = ["ImgBertModel", "ImgBertForPreTraining",
-           "ImgBertForSequenceClassification", "ImgBertForMultipleChoice"]
+           "ImgBertForSequenceClassification", "ImgBertForMultipleChoice",
+           "CaptioningModel", "make_seq2seq_mask", "captioning_loss"]
 
 
 class ImgBertModel(nn.Module):
@@ -306,3 +313,205 @@ class ImgBertForMultipleChoice(_ImgBertBase):
             loss = masked_cross_entropy(
                 logits, labels, torch.ones(b, device=logits.device))
         return loss, logits
+
+
+# ---------------------------------------------------------------------------
+# captioning
+# ---------------------------------------------------------------------------
+
+def make_seq2seq_mask(l_cap: int, ctx_mask: torch.Tensor) -> torch.Tensor:
+    """[B, L, L] int32 mask over [caption ; context] (L = l_cap + the
+    context's length): the caption causal and seeing the valid context; the
+    context bidirectional over itself and blind to the caption (the
+    reference's seq2seq mask, modeling_vlbert_pretrain.py:1620-1875)."""
+    b, l_ctx = ctx_mask.shape
+    dev = ctx_mask.device
+    ctx = ctx_mask.to(torch.int32)[:, None, :]
+    causal = torch.tril(torch.ones(l_cap, l_cap, dtype=torch.int32,
+                                   device=dev))
+    cap_rows = torch.cat([causal.expand(b, l_cap, l_cap),
+                          ctx.expand(b, l_cap, l_ctx)], dim=2)
+    ctx_rows = torch.cat([torch.zeros(b, l_ctx, l_cap, dtype=torch.int32,
+                                      device=dev),
+                          ctx.expand(b, l_ctx, l_ctx)], dim=2)
+    return torch.cat([cap_rows, ctx_rows], dim=1)
+
+
+def captioning_loss(logits, targets, weights, *, label_smoothing: float = 0.1,
+                    drop_worst_ratio: float = 0.0, apply_drop=None):
+    """Label-smoothed KL over the masked caption positions (`weights` > 0),
+    with the drop-worst curriculum (reference BertCaptioningLoss
+    :1537-1563).
+
+    Drop-worst keeps the smallest floor(n_masked (1 - ratio)) of the masked
+    positions' losses (at least one), ranked by a stable double argsort with
+    the unmasked positions at +inf, as `jnp.argsort` ranks them (stable: tied
+    losses keep their order). `apply_drop` (a bool) gates the curriculum:
+    the reference's drop_worst_after step threshold."""
+    v = logits.shape[-1]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    eps = label_smoothing
+    tgt = targets.long().clamp(0, v - 1)
+    nll = -logp.gather(-1, tgt[..., None])[..., 0]
+    smooth = -logp.sum(dim=-1)
+    # KL(smoothed one-hot || p) up to the target's constant entropy
+    per = (1.0 - eps) * nll + (eps / (v - 1)) * (smooth - nll)
+    per = per * weights
+    flat = per.reshape(-1)
+    wflat = weights.reshape(-1).float()
+    plain = flat.sum() / wflat.sum().clamp(min=1.0)
+    if drop_worst_ratio <= 0:
+        return plain
+    keep_count = torch.floor(wflat.sum() * (1.0 - drop_worst_ratio)).clamp(
+        min=1.0)
+    cand = torch.where(wflat > 0, flat, torch.full_like(flat, float("inf")))
+    ranks = torch.argsort(torch.argsort(cand, stable=True), stable=True)
+    keep = (ranks < keep_count) & (wflat > 0)
+    dropped = (torch.where(keep, flat, torch.zeros_like(flat)).sum()
+               / keep.sum().clamp(min=1))
+    if apply_drop is None:
+        return dropped
+    return dropped if apply_drop else plain
+
+
+class _CaptioningHeads(nn.Module):
+    """The reference's `cls` of BertForImageCaptioning: the LM head over the
+    whole vocabulary."""
+
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        self.predictions = LMPredictionHead(config, only_vocab=False)
+
+
+class CaptioningModel(_ImgBertBase):
+    """Image captioning over the single-stream backbone.
+
+    Keys: `bert.*` and `cls.predictions.*` (tied to the whole word table:
+    a reference state dict's `cls.predictions.decoder.weight`, a copy of
+    the table, is checked against it and dropped on load). The caption's
+    segment id is 0 and the context's 1, as the drivers give them."""
+
+    TIED_DECODERS = ("cls.predictions.decoder.weight",)
+
+    def __init__(self, config: ModelConfig, *, label_smoothing: float = 0.1,
+                 drop_worst_ratio: float = 0.0, drop_worst_after: int = 0,
+                 device="cuda", seed: int = 0, **bert_kw):
+        self.label_smoothing = label_smoothing
+        self.drop_worst_ratio = drop_worst_ratio
+        self.drop_worst_after = drop_worst_after
+        super().__init__(config, device=device, seed=seed, **bert_kw)
+
+    def build_heads(self, config):
+        self.cls = _CaptioningHeads(config)
+
+    def load_state_dict(self, state_dict: Mapping[str, torch.Tensor],
+                        strict: bool = True, assign: bool = False):
+        state_dict = drop_tied_decoders(state_dict, self.TIED_DECODERS,
+                                        self.config.vocab_size)
+        return super().load_state_dict(state_dict, strict=strict,
+                                       assign=assign)
+
+    def _encode(self, input_ids, ctx_ids, ctx_mask, token_type_ids,
+                ctx_token_type_ids, img_feats):
+        """The sequence output over [caption ; tags ; regions] under the
+        seq2seq mask."""
+        l_cap = input_ids.shape[1]
+        seq, _ = self.bert(
+            torch.cat([input_ids, ctx_ids], dim=1),
+            make_seq2seq_mask(l_cap, ctx_mask),
+            torch.cat([token_type_ids, ctx_token_type_ids], dim=1),
+            img_feats=img_feats)
+        return seq
+
+    def forward(self, input_ids, ctx_ids, ctx_mask, token_type_ids,
+                ctx_token_type_ids, img_feats, masked_pos=None,
+                masked_ids=None, step=None, *,
+                generator: Optional[torch.Generator] = None):
+        """input_ids: the caption [B, L_cap] with its [MASK]s; ctx_ids: the
+        tags; ctx_mask covers tags and regions. Returns the logits
+        [B, L_cap, vocab_size] (fp32), or with `masked_pos` ([B, L_cap] 0/1)
+        and `masked_ids` (the targets, 0 where unmasked) (loss, logits).
+        `step` gates drop-worst by `drop_worst_after`."""
+        l_cap = input_ids.shape[1]
+        with dropout_generator(self, generator):
+            seq = self._encode(input_ids, ctx_ids, ctx_mask, token_type_ids,
+                               ctx_token_type_ids, img_feats)
+        logits = self.cls.predictions(seq[:, :l_cap], self.bert.word_table())
+        if masked_pos is None:
+            return logits
+        apply_drop = None
+        if self.drop_worst_after > 0 and step is not None:
+            apply_drop = step >= self.drop_worst_after
+        loss = captioning_loss(logits, masked_ids, masked_pos.float(),
+                               label_smoothing=self.label_smoothing,
+                               drop_worst_ratio=self.drop_worst_ratio,
+                               apply_drop=apply_drop)
+        return loss, logits
+
+    def decode_logits(self, caption_ids, ctx_ids, ctx_mask, token_type_ids,
+                      ctx_token_type_ids, img_feats, t: int):
+        """The recompute path's forward: the whole caption buffer under the
+        causal mask, the LM head at position `t` only -> [N, vocab_size]
+        (the position the decoding loop reads; the JAX package's
+        `decode_logits` returns every position's)."""
+        seq = self._encode(caption_ids, ctx_ids, ctx_mask, token_type_ids,
+                           ctx_token_type_ids, img_feats)
+        return self.cls.predictions(seq[:, t], self.bert.word_table())
+
+    # -- history-cached decoding (the reference's past reuse,
+    #    modeling_utils.py:21-598; the cache holds each layer's INPUT states
+    #    like the reference's history_states, modeling_vlbert.py:63-69) ----
+
+    def prefill(self, ctx_ids, ctx_mask, ctx_token_type_ids, img_feats,
+                l_cap: int) -> torch.Tensor:
+        """Encode the context once. Returns the history cache
+        [layers, N, l_cap + L_ctx, H] in the compute dtype: the caption
+        slots 0..l_cap-1 zero (filled step by step), the context slots each
+        layer's input states. The context keeps its training positions
+        (l_cap + i, after the caption block) and sees only itself, so its
+        states are exact and never change."""
+        cfg = self.config
+        pos = l_cap + torch.arange(ctx_ids.shape[1],
+                                   device=ctx_ids.device)[None, :]
+        emb = self.bert.embeddings(ctx_ids, ctx_token_type_ids, pos)
+        emb = torch.cat([emb, self.bert.embed_image(img_feats).to(emb.dtype)],
+                        dim=1)
+        _, _, states = self.bert.encoder(emb, mask_to_bias(ctx_mask),
+                                         collect_states=True)
+        n, l_ctx = emb.shape[:2]
+        cache = emb.new_zeros(cfg.num_hidden_layers, n, l_cap + l_ctx,
+                              cfg.hidden_size)
+        cache[:, :, l_cap:] = torch.stack(states)
+        return cache
+
+    def decode_step(self, cache, t: int, prev_token, ctx_mask, l_cap: int,
+                    mask_token_id: int, cap_type_id: int = 0):
+        """One cached step at position `t`: runs [the committed token t - 1,
+        [MASK] at t] against the cache, writes t - 1's layer input states
+        into cache slot t - 1 in place, and returns (logits [N, vocab_size]
+        at t, cache). Keys: the caption slots before t - 1 and the valid
+        context; of the two fresh positions the committed token is visible
+        to both queries, the [MASK] only to itself. `cap_type_id` is the
+        caption's segment id of training (0 in the drivers)."""
+        n = prev_token.shape[0]
+        dev = prev_token.device
+        # the step's constants are made on the device: copying a host
+        # tensor there would wait for the queued work at every step
+        ids = torch.stack([prev_token,
+                           torch.full_like(prev_token, mask_token_id)], dim=1)
+        pos = (torch.arange(2, device=dev) + (t - 1))[None].expand(n, 2)
+        emb = self.bert.embeddings(ids, torch.full_like(ids, cap_type_id),
+                                   pos)
+        l_total = cache.shape[2]
+        cap_valid = torch.arange(l_cap, device=dev)[None, :] < (t - 1)
+        key_valid = torch.cat([cap_valid.expand(n, l_cap),
+                               ctx_mask.bool()], dim=1).to(torch.int32)
+        fresh = torch.ones(2, 2, dtype=torch.int32, device=dev).tril()
+        full_valid = torch.cat([key_valid[:, None, :].expand(n, 2, l_total),
+                                fresh[None].expand(n, 2, 2)], dim=2)
+        seq, _, states = self.bert.encoder(emb, mask_to_bias(full_valid),
+                                           history_states=cache,
+                                           collect_states=True)
+        cache[:, :, t - 1] = torch.stack(states)[:, :, 0]
+        logits = self.cls.predictions(seq[:, 1], self.bert.word_table())
+        return logits, cache

@@ -192,7 +192,12 @@ class Embeddings(nn.Module):
 
 class SelfAttention(nn.Module):
     """Multi-head self-attention. q, k and v stay in the projection's
-    [B, L, H, D] layout; the kernel reads them through their strides."""
+    [B, L, H, D] layout; the kernel reads them through their strides.
+
+    With `history_state` ([B, Lh, H], the layer's cached input states of
+    earlier positions; reference modeling_vlbert.py:63-69) the keys and
+    values project `[history_state ; hidden]` and the queries `hidden` only,
+    so the kernel runs with Lq < Lk."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -204,16 +209,18 @@ class SelfAttention(nn.Module):
         self.value = Dense(h, h, dt)
         self.dropout = Dropout(config.attention_probs_dropout_prob)
 
-    def forward(self, hidden, bias):
+    def forward(self, hidden, bias, history_state=None):
         cfg = self.config
         b, l, _ = hidden.shape
+        kv_input = (hidden if history_state is None
+                    else torch.cat([history_state, hidden], dim=1))
 
         def split4(x):
             return x.view(b, x.shape[1], cfg.num_attention_heads, cfg.head_dim)
 
         q = split4(self.query(hidden))
-        k = split4(self.key(hidden))
-        v = split4(self.value(hidden))
+        k = split4(self.key(kv_input))
+        v = split4(self.value(kv_input))
         p = self.dropout.p if self.training else 0.0
         seed = self.dropout.seed(q.device) if p > 0 else None
         ctx = masked_attention(q, k, v, bias, layout="blhd", dropout_p=p,
@@ -244,8 +251,8 @@ class AttentionBlock(nn.Module):
         self.self = SelfAttention(config)
         self.output = SelfOutput(config, config.hidden_size)
 
-    def forward(self, hidden, bias):
-        return self.output(self.self(hidden, bias), hidden)
+    def forward(self, hidden, bias, history_state=None):
+        return self.output(self.self(hidden, bias, history_state), hidden)
 
 
 class Intermediate(nn.Module):
@@ -268,8 +275,8 @@ class TransformerLayer(nn.Module):
         self.intermediate = Intermediate(config)
         self.output = SelfOutput(config, config.intermediate_size)
 
-    def forward(self, hidden, bias):
-        attn_out = self.attention(hidden, bias)
+    def forward(self, hidden, bias, history_state=None):
+        attn_out = self.attention(hidden, bias, history_state)
         return self.output(self.intermediate(attn_out), attn_out)
 
 
@@ -278,22 +285,36 @@ class StreamEncoder(nn.Module):
 
     `bias` is one additive bias or a list of per-layer biases (the
     reference's stage-attention mask lists). Returns (hidden, mid) where mid
-    is the output of layer `return_at_layer`, or None."""
+    is the output of layer `return_at_layer`, or None.
+
+    Incremental decoding: `history_states` holds one cached [B, Lh, H] input
+    state per layer (a list, or a [layers, B, Lh, H] tensor), which each
+    layer's keys and values prepend; with `collect_states` the return also
+    carries each layer's INPUT hidden state (what a later call's
+    `history_states` takes: the reference caches layer inputs, not keys and
+    values, modeling_vlbert.py:63-69)."""
 
     def __init__(self, config: ModelConfig, num_layers: int):
         super().__init__()
         self.layer = nn.ModuleList(
             TransformerLayer(config) for _ in range(num_layers))
 
-    def forward(self, hidden, bias, *, return_at_layer: Optional[int] = None):
+    def forward(self, hidden, bias, *, return_at_layer: Optional[int] = None,
+                history_states=None, collect_states: bool = False):
         per_layer = isinstance(bias, (list, tuple))
         if per_layer and len(bias) != len(self.layer):
             raise ValueError(f"{len(bias)} biases for {len(self.layer)} layers")
-        mid = None
+        mid, states = None, []
         for i, layer in enumerate(self.layer):
-            hidden = layer(hidden, bias[i] if per_layer else bias)
+            if collect_states:
+                states.append(hidden)
+            hidden = layer(hidden, bias[i] if per_layer else bias,
+                           None if history_states is None
+                           else history_states[i])
             if return_at_layer is not None and i == return_at_layer:
                 mid = hidden
+        if collect_states:
+            return hidden, mid, states
         return hidden, mid
 
 

@@ -13,12 +13,12 @@ and normalisation run in fp32 before the probabilities are cast to bf16.
 for training. It always goes through `MaskedAttentionFn`, a
 `torch.autograd.Function`. Its forward runs the plain version on a CPU tensor;
 on a CUDA tensor it launches the hand-written kernel `masked_attention_fwd`
-(csrc/masked_attention.cu) or raises. Both dtypes run on the tensor cores:
-bf16 in bf16, fp32 in three TF32 passes (3xTF32). Its backward is the JAX
-package's `_attn_bwd` (git 8625894^,
-`mvp_pytorch_tpu/ops/attention.py:200-218`) in plain PyTorch: it saves only
-q, k, v, the bias and the dropout seed, recomputes the probabilities in fp32
-and launches no kernel.
+(csrc/masked_attention.cuh, instantiated by the four csrc/*.cu units) or
+raises. Both dtypes run on the tensor cores: bf16 in bf16, fp32 in three
+TF32 passes (3xTF32). Its backward is the JAX package's `_attn_bwd` (git
+8625894^, `mvp_pytorch_tpu/ops/attention.py:200-218`) in plain PyTorch: it
+saves only q, k, v, the bias and the dropout seed, recomputes the
+probabilities in fp32 and launches no kernel.
 
 Attention-prob dropout (inverted, as flax `nn.Dropout` does it) runs inside
 the kernel and the plain version alike. Its mask is a counter-based hash of a
@@ -86,7 +86,7 @@ def dropout_hash(seed: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     one-element int64 `seed`, as int64 values in [0, 2^32): the index's low
     word xor the seed's low word, plus 0x9E3779B9 times its high word xor
     the seed's high word, then a 32-bit multiply-xorshift mixer. The kernel
-    (`DropMask` in csrc/masked_attention.cu) computes the same bits in
+    (`DropMask` in csrc/masked_attention.cuh) computes the same bits in
     uint32 arithmetic."""
     s0, s1 = _seed_words(seed)
     x = ((index & _M32) ^ s0) + _mul32((index >> 32) ^ s1, 0x9E3779B9)

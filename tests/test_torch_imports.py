@@ -38,7 +38,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "for n in names: importlib.import_module(n)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}"
         " + ('yaml',)]\n"
-        "assert len(names) >= 43, names\n"
+        "assert len(names) >= 49, names\n"
         "for n in ('models.pretrain', 'models.heads', 'tasks.pretrain',\n"
         "          'training.loop', 'native', 'data.tokenization',\n"
         "          'data.tsv', 'data.tensorize', 'data.datasets',\n"
@@ -46,7 +46,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "          'tasks.common', 'tasks.retrieval', 'utils.misc',\n"
         "          'data.masking', 'tasks.vqa', 'tasks.ve', 'tasks.re_task',\n"
         "          'tasks.nlvr', 'pipeline', 'tasks.serve',\n"
-        "          'models.img_bert', 'data.processors'):\n"
+        "          'models.img_bert', 'data.processors',\n"
+        "          'models.generation', 'tasks.captioning', 'utils.cider',\n"
+        "          'utils.caption_eval', 'utils.meteor_rouge', 'utils.spice'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from mvp_pytorch_tpu_torch.models.img_bert import make_seq2seq_mask
 from mvp_pytorch_tpu_torch.ops import _kernels
 from mvp_pytorch_tpu_torch.ops.attention import (MaskedAttentionFn,
                                                  _kernel_attention,
@@ -309,6 +310,101 @@ def test_dropout_mask_at_the_single_stream_length(cuda, layout, dtype):
         got[..., off:off + n] = out[..., :n] > 0
     assert torch.equal(got, dropout_keep(seed, p, (b, H, l, l)))
     assert abs(got.float().mean().item() - (1 - p)) < 0.01
+
+
+# the captioning geometry (caption 35, tags 20, regions 50; decoding with
+# --max_gen_length 20): training at L 105 under the seq2seq mask; the cached
+# decode step, whose queries [committed token, [MASK]] see the 20 caption
+# slots, the 70 context keys and the 2 fresh keys (Lq 2 / Lk 92), and its
+# one-query form (Lq 1 / Lk 91)
+CAP_L, CAP_CTX, GEN_L = 35, 70, 20
+
+
+def seq2seq_case(seed=7):
+    """q, k, v [4, H, 105, 64] and the [B, 1, L, L] bias of the captioning
+    model's seq2seq mask over contexts padded to random lengths."""
+    r = np.random.RandomState(seed)
+    b, l = 4, CAP_L + CAP_CTX
+    q, k, v = (r.randn(b, H, l, 64).astype(np.float32) for _ in range(3))
+    q, k = (np.clip(np.round(x * 8) / 8, -4, 4) for x in (q, k))
+    ctx = np.zeros((b, CAP_CTX), np.int32)
+    for i in range(b):
+        ctx[i, :r.randint(3, 21)] = 1                      # tags
+        ctx[i, 20:20 + r.randint(10, 51)] = 1              # regions
+    mask = make_seq2seq_mask(CAP_L, torch.from_numpy(ctx))
+    return q, k, v, mask_to_bias(mask).numpy()
+
+
+def decode_case(lq, seed=9):
+    """q [4, H, lq, 64], k, v [4, H, 90 + lq, 64] and a per-query bias
+    [4, 1, lq, 90 + lq] of the decode step at a random position t per row:
+    caption slots before t - 1, the padded context and, among the lq fresh
+    keys, the ones at or before each query."""
+    r = np.random.RandomState(seed)
+    b, lk = 4, GEN_L + CAP_CTX + lq
+    q = r.randn(b, H, lq, 64).astype(np.float32)
+    k, v = (r.randn(b, H, lk, 64).astype(np.float32) for _ in range(2))
+    mask = np.zeros((b, lq, lk), np.int32)
+    for i in range(b):
+        mask[i, :, :r.randint(0, GEN_L - 1)] = 1           # committed slots
+        mask[i, :, GEN_L:GEN_L + r.randint(3, 21)] = 1     # tags
+        mask[i, :, GEN_L + 20:GEN_L + 20 + r.randint(10, 51)] = 1
+        mask[i, :, GEN_L + CAP_CTX:] = np.tril(np.ones((lq, lq), np.int32))
+    return q, k, v, mask_to_bias(torch.from_numpy(mask)).numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype,atol,grad_atol",
+                         [(torch.float32, 2e-5, 1e-4),
+                          (torch.bfloat16, 0.05, 0.05)])
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+def test_captioning_training_length_matches_plain(cuda, layout, dtype, atol,
+                                                  grad_atol, p):
+    """L 105 under the seq2seq bias, with and without dropout: the forward
+    against the plain version on the same seed, the grads against fp32
+    autograd of the plain version."""
+    q, k, v, bias = seq2seq_case()
+    args = [torch.from_numpy(_bhld_to(layout, x)).to(cuda, dtype)
+            .requires_grad_() for x in (q, k, v)]
+    tb = torch.from_numpy(bias).to(cuda)
+    seed = card_seed(2 ** 42 + 5) if p else None
+    plain = plain_attention_blhd if layout == "blhd" else plain_attention
+    out = masked_attention(*args, tb, layout=layout, dropout_p=p, seed=seed)
+    want = plain(*(a.detach() for a in args), tb, p, seed)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=0)
+    g = torch.randn(out.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(2))
+    grads = torch.autograd.grad(out, args, g.to(dtype))
+    ref = [a.detach().float().requires_grad_() for a in args]
+    want_g = torch.autograd.grad(plain(*ref, tb, p, seed), ref,
+                                 g.to(dtype).float())
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want_g):
+        torch.testing.assert_close(a.float(), b, atol=grad_atol, rtol=0,
+                                   msg=lambda m, n=name: f"{n}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 0.05)])
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+@pytest.mark.parametrize("lq", [2, 1])
+def test_decode_step_shapes_match_plain(cuda, lq, layout, dtype, atol):
+    """Lq 2 / Lk 92 and Lq 1 / Lk 91 with a per-query bias: one launch,
+    against the plain version."""
+    q, k, v, bias = decode_case(lq)
+    args = [torch.from_numpy(_bhld_to(layout, x)).to(cuda, dtype)
+            for x in (q, k, v)]
+    tb = torch.from_numpy(bias).to(cuda)
+    plain = plain_attention_blhd if layout == "blhd" else plain_attention
+    before = masked_attention.launches
+    got = masked_attention(*args, tb, layout=layout)
+    torch.cuda.synchronize()
+    assert masked_attention.launches == before + 1
+    assert got.shape == args[0].shape and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), plain(*args, tb).float(),
+                               atol=atol, rtol=0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "last_dim", "shape",

@@ -1,6 +1,6 @@
 """The numerical design of the fp32 attention kernel, emulated on the CPU.
 
-The kernel (`csrc/masked_attention.cu`, namespace `tf32`) runs both products
+The kernel (`csrc/masked_attention.cuh`, namespace `tf32`) runs both products
 of fp32 attention on the TF32 tensor cores in three passes: each operand is
 split into x = hi + lo, hi = tf32(x), lo = tf32(x - hi), and a product is
 summed as lo.hi + hi.lo + hi.hi in fp32. Here TF32 rounding is emulated in
