@@ -10,6 +10,8 @@
     python3 chip_smoke.py --serve           # phase 10 B alone
     python3 chip_smoke.py --single_stream   # phase 11 alone
     python3 chip_smoke.py --captioning      # phase 12 alone
+    python3 chip_smoke.py --detection       # phase 13 A and B alone
+    python3 chip_smoke.py --scst_cbs        # phase 13 C-E alone
     (`--serve_clients URL JOBS OUT` is phase 10 B's client process, which
     the script starts itself)
 
@@ -266,9 +268,38 @@ script exits non-zero:
    launches, finite BLEU-4, METEOR, ROUGE_L and CIDEr-D in test_eval.json,
    SPICE absent without its jar, the captions equal (d)'s. The root is
    deleted at the end;
-13. one JSON line of kernel numbers (the bf16 kernel, then the fp32 one;
-   phase 11's under `single_stream`, phase 12's under `captioning`), then
-   the result line.
+13. from image to constrained caption on a root under `_smoke/`: (A) the
+   detector at `DetectorConfig()`'s defaults (canvas 640, trunk (64, 128,
+   256) x (2, 2, 2), 1,601 classes, 2,048-d features, pre-NMS 256, 50
+   regions) with seeded weights: fp32 (cuDNN TF32 off) held against the CPU
+   run of the same weights on 2 images (the proposal field within 1e-4 of
+   its largest, NMS over the CPU's field the same indices, the RoI head
+   within 1e-4 relative, class ids equal but at near ties), bf16 by the
+   1.25 rule; fp32 and bf16 at B 8 and 32: ms a batch, images/s, the ms of
+   the trunk, proposal heads, top-k, NMS, RoI-align and RoI head, the NMS
+   call's device kernels, `_postprocess`'s host ms an image, peak memory.
+   (B) `train_detector` 200 steps, held-out mAP@0.5 above 0.4; `train_cli`
+   at its defaults 200 steps, the last 10 losses below 0.7 of the first.
+   (C) 64 synthetic images through `tools.img_feat_extract` with (B)'s
+   weights (the tool's row writer on numpy canvases where PIL is missing)
+   and a label map of vocabulary words, then the captioning CLI at
+   MVPTR-base, bf16: 13 steps, `--scst --scst_steps 4 --scst_batch 8
+   --use_cbs --do_eval`; finite SCST losses, every CBS caption from a
+   satisfying state holding its tag, the regions 2,054 wide and at most 50.
+   (D) CBS on the checkpoint: 16 images, 2 two-token constraints (S 8), K
+   3, 384 rows a step at L 90, 228 launches a search; ms a step,
+   captions/s, the top-k's device ms, peak memory; fp32 against the plain
+   path (live-slot log-probs 1e-4, best sequences equal but at near ties).
+   (E) SCST, B 8 at 20 positions: the ms of each part of a step, 492
+   launches a step, peak memory; one fp32 step on fixed samples, kernel
+   path against plain path (loss 1e-4, five gradients 1e-3 relative). The
+   kernel at the CBS step (L 90, N 384) and the SCST copy (L 90, N 160,
+   with the backward) shapes against the plain version, timed beside it,
+   SDPA and the bound. The root is deleted at the end;
+14. one JSON line of the detector's numbers, then one of kernel numbers
+   (the bf16 kernel, then the fp32 one; phase 11's under `single_stream`,
+   phase 12's under `captioning`, phase 13's under `cbs_scst`), then the
+   result line.
 
 With `--sweep DTYPE` only phase 3 runs, in that dtype (bf16: two sweeps,
 fp32: one), and the last line is a JSON object of its numbers; run from a
@@ -277,7 +308,8 @@ only phases 1 (the build) and 7 run, the last line a JSON object of phase
 7's numbers; with `--pretrain_cli`, phases 1 and 8; with `--finetune_cli`,
 phases 1 and 9; with `--nlvr_cli`, phases 1 and 10 A; with `--serve`, phases
 1 and 10 B; with `--single_stream`, phases 1 and 11; with `--captioning`,
-phases 1 and 12.
+phases 1 and 12; with `--detection`, phases 1 and 13 A-B; with
+`--scst_cbs`, phases 1, 13 B's `train_cli` and 13 C-E.
 
 Exits 2 without a result when no CUDA device is visible.
 """
@@ -4767,6 +4799,858 @@ def captioning_summary(p12):
         "seconds": p12["seconds"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: from image to constrained caption on the card: the detector at
+# full width, its training on synthetic boxes, feature extraction into the
+# captioning command line with SCST and constrained beam search, CBS and
+# SCST timed, and the kernel at their shapes
+# ---------------------------------------------------------------------------
+
+DET_CONFIG = {}                      # DetectorConfig() (a rehearsal shrinks it)
+DET_BATCHES = (8, 32)                # the extraction tool's --batch_size, and 32
+DET_CHECK_IMAGES = 2                 # images held card against CPU
+DET_TOL = 1e-4
+DET_ITERS = 10
+DET_TRAIN_STEPS, DET_MAP_FLOOR, DET_MAP_IMAGES = 200, 0.4, 32
+DET_CLI_FALL, DET_CLI_TAIL = 0.7, 10
+P13_IMAGES, P13_CAPS, P13_CANVAS = 64, 5, 256   # train_cli's default canvas
+P13_STEPS, P13_SCST_STEPS, P13_B = 13, 4, 32
+SCST_B, SCST_TIMED = 8, 3
+CBS_IMAGES, CBS_BEAMS, CBS_STATES = 16, 3, 8     # 2 two-token constraints
+CBS_TOL = 1e-4
+P13_TIMED = (("cbs", CBS_IMAGES * CBS_STATES * CBS_BEAMS, False),
+             ("scst", SCST_B * CAP_GEN, True))
+
+
+def device_kernels(torch, fn) -> int:
+    """The number of device kernels that one call of `fn` launches (from
+    `torch.profiler`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def rel_max(a, ref) -> float:
+    return max_dist(a, ref) / max(ref.float().abs().max().item(), 1e-12)
+
+
+def det_images(n, canvas, seed):
+    """n synthetic detection images [n, canvas, canvas, 3] in [-1, 1] (the
+    coloured boxes of `synthetic_boxes.make_batch`)."""
+    from mvp_pytorch_tpu_torch.detection.synthetic_boxes import make_batch
+    return make_batch(np.random.RandomState(seed), n, canvas)["images"]
+
+
+def phase13_detector_check(torch, model, imgs):
+    """fp32 on the card against the CPU run of the same module and weights
+    on DET_CHECK_IMAGES images: the proposal field within DET_TOL of its
+    largest magnitude; NMS on the card over the CPU's field, the same
+    indices; the RoI head on the card over the CPU's boxes within DET_TOL
+    relative; the card's own selection: the boxes that agree, their
+    features within DET_TOL relative and class ids equal but at near ties.
+    bf16 by the 1.25 rule: the card's bf16 field no further from the CPU's
+    fp32 field than 1.25 times the CPU's bf16 field plus one bf16 ulp."""
+    import dataclasses
+    from mvp_pytorch_tpu_torch.detection import Detector, batched_nms
+    cfg = model.config
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    cpu = Detector(cfg, device="cpu")
+    cpu.load_state_dict(state)
+    x = torch.from_numpy(imgs[:DET_CHECK_IMAGES])
+    xg = x.to(DEVICE)
+    out = {}
+    with torch.no_grad():
+        c_obj, c_boxes, c_fmap = cpu.proposal_field(x)
+        c_top = cpu.top_proposals(c_obj, c_boxes)
+        c_idx, c_valid = batched_nms(*c_top, cfg.max_regions, cfg.nms_iou,
+                                     cfg.score_threshold)
+        c_sel = cpu.select(*c_top)
+        c_feats, c_logits = cpu.roi_head(cpu.pool(c_fmap, c_sel[0]))
+        g_obj, g_boxes, g_fmap = model.proposal_field(xg)
+        g_idx, g_valid = batched_nms(*(t.to(DEVICE) for t in c_top),
+                                     cfg.max_regions, cfg.nms_iou,
+                                     cfg.score_threshold)
+        g_on_c = model.roi_head(model.pool(g_fmap, c_sel[0].to(DEVICE)))
+        g_out = model(xg)
+    out["field_obj"] = rel_max(g_obj.cpu(), c_obj)
+    out["field_boxes"] = rel_max(g_boxes.cpu(), c_boxes)
+    out["nms_equal"] = bool(torch.equal(g_idx.cpu(), c_idx)
+                            and torch.equal(g_valid.cpu(), c_valid))
+    out["feats_on_cpu_boxes"] = rel_max(g_on_c[0].cpu(), c_feats)
+    out["logits_on_cpu_boxes"] = rel_max(g_on_c[1].cpu(), c_logits)
+    agree = (c_sel[2] & g_out.valid.cpu()
+             & ((g_out.boxes.cpu() - c_sel[0]).abs().amax(-1)
+                <= DET_TOL * cfg.canvas))
+    out["boxes_agree"] = int(agree.sum())
+    out["valid_cpu"] = int(c_sel[2].sum())
+    feats_err = (rel_max(g_out.feats.cpu()[agree], c_feats[agree])
+                 if agree.any() else 0.0)
+    out["feats_where_boxes_agree"] = feats_err
+    top2 = c_logits.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = agree & (g_out.class_ids.cpu() != c_logits.argmax(-1))
+    near = differ & (gap < DET_TOL * c_logits.abs().max())
+    out["class_ids_differ"] = int(differ.sum())
+    out["class_ids_near_ties"] = int(near.sum())
+    ok = (out["field_obj"] <= DET_TOL and out["field_boxes"] <= DET_TOL
+          and out["nms_equal"] and out["feats_on_cpu_boxes"] <= DET_TOL
+          and out["logits_on_cpu_boxes"] <= DET_TOL
+          and feats_err <= DET_TOL and int(differ.sum()) == int(near.sum())
+          and out["boxes_agree"] > 0)
+    log(f"  detector fp32 card vs CPU ({DET_CHECK_IMAGES} images): field "
+        f"objectness {out['field_obj']:.3e}, boxes {out['field_boxes']:.3e} "
+        f"of their largest (tol {DET_TOL:g}); NMS over the CPU's field "
+        f"{'equal' if out['nms_equal'] else 'DIFFERENT'}; RoI head over the "
+        f"CPU's boxes: features {out['feats_on_cpu_boxes']:.3e}, logits "
+        f"{out['logits_on_cpu_boxes']:.3e}; the card's own selection: "
+        f"{out['boxes_agree']} of {out['valid_cpu']} boxes agree, features "
+        f"there {feats_err:.3e}, class ids differ {out['class_ids_differ']} "
+        f"({out['class_ids_near_ties']} at near ties)  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"detector fp32 card vs CPU: {out}")
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    cpu16 = Detector(cfg16, device="cpu")
+    cpu16.load_state_dict(state)
+    g16 = Detector(cfg16, device=DEVICE)
+    g16.load_state_dict(state)
+    with torch.no_grad():
+        p_obj, p_boxes, _ = cpu16.proposal_field(x)
+        k_obj, k_boxes, _ = g16.proposal_field(xg)
+    ulp = 2.0 ** -8
+    out["bf16"] = {
+        "objectness": bf16_far(
+            "detector bf16 field objectness (card vs CPU bf16, from CPU "
+            "fp32)", max_dist(k_obj.cpu(), c_obj), max_dist(p_obj, c_obj),
+            bool(torch.isfinite(k_obj).all()), ulp * c_obj.abs().max().item(),
+            "one bf16 ulp of the largest logit"),
+        "boxes": bf16_far(
+            "detector bf16 field boxes (card vs CPU bf16, from CPU fp32)",
+            max_dist(k_boxes.cpu(), c_boxes), max_dist(p_boxes, c_boxes),
+            bool(torch.isfinite(k_boxes).all()),
+            ulp * c_boxes.abs().max().item(), "one bf16 ulp of the canvas")}
+    del cpu, cpu16, g16
+    return out
+
+
+def phase13_detector(torch):
+    """(A) The detector at `DetectorConfig()`'s defaults (canvas 640, trunk
+    (64, 128, 256) x (2, 2, 2), head 256, 1,601 classes, 2,048-d features,
+    pre-NMS 256, 50 regions, RoI 7) with seeded weights: the fp32 card
+    against the CPU and bf16 by the 1.25 rule
+    (`phase13_detector_check`); then in fp32 and bf16 at B 8 and 32: ms a
+    batch and images/s, the CUDA-event ms of the trunk, the proposal heads,
+    the top-k, NMS, RoI-align and the RoI head, the device kernels of one
+    NMS call (in three profiles), the host ms of `_postprocess` an image and
+    of the batch's copy to the host, and peak memory."""
+    import dataclasses
+    import gc
+    import types
+    from mvp_pytorch_tpu_torch.detection import Detector, DetectorConfig
+    from mvp_pytorch_tpu_torch.detection.frontend import (DetectionFrontend,
+                                                          default_label_map,
+                                                          host_output)
+    cfg = DetectorConfig(**DET_CONFIG)
+    t0 = time.perf_counter()
+    model = Detector(cfg, device=DEVICE, seed=0).eval()
+    log(f"  detector: canvas {cfg.canvas}, trunk {tuple(cfg.stage_channels)}"
+        f" x {tuple(cfg.stage_blocks)}, head {cfg.head_channels}, "
+        f"{cfg.num_classes} classes, {cfg.feat_dim}-d features, pre-NMS "
+        f"{cfg.pre_nms_topk}, {cfg.max_regions} regions, RoI "
+        f"{cfg.roi_size}; {sum(p.numel() for p in model.parameters())} "
+        f"parameters, seeded in {time.perf_counter() - t0:.1f} s")
+    imgs = det_images(max(DET_BATCHES), cfg.canvas, seed=13)
+    res = {"check": phase13_detector_check(torch, model, imgs)}
+    state = model.state_dict()
+    labels = types.SimpleNamespace(labels=default_label_map(cfg.num_classes))
+    times = {}
+    for dn in ("float32", "bfloat16"):
+        m = Detector(dataclasses.replace(cfg, dtype=dn), device=DEVICE).eval()
+        m.load_state_dict(state)
+        for b in DET_BATCHES:
+            x = torch.from_numpy(imgs[:b]).to(DEVICE)
+            with torch.no_grad():
+                row = {"ms": cuda_ms(lambda: m(x), iters=DET_ITERS)}
+                row["trunk_ms"] = cuda_ms(lambda: m.trunk(x), iters=DET_ITERS)
+                row["field_heads_ms"] = cuda_ms(
+                    lambda: m.proposal_field(x),
+                    iters=DET_ITERS) - row["trunk_ms"]
+                obj, boxes, fmap = m.proposal_field(x)
+                row["topk_ms"] = cuda_ms(lambda: m.top_proposals(obj, boxes))
+                top = m.top_proposals(obj, boxes)
+                row["nms_ms"] = cuda_ms(lambda: m.select(*top))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DET_ITERS):
+                    m.select(*top)
+                torch.cuda.synchronize()
+                row["nms_wall_ms"] = (time.perf_counter() - t0) * 1e3 / \
+                    DET_ITERS
+                # three profiled calls: a profile may drop device events
+                row["nms_kernels"] = [device_kernels(
+                    torch, lambda: m.select(*top)) for _ in range(3)]
+                sel = m.select(*top)
+                row["roi_align_ms"] = cuda_ms(lambda: m.pool(fmap, sel[0]))
+                pooled = m.pool(fmap, sel[0])
+                row["roi_head_ms"] = cuda_ms(lambda: m.roi_head(pooled))
+                del obj, boxes, fmap, top, sel, pooled
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                out = m(x)
+                torch.cuda.synchronize()
+                row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                t0 = time.perf_counter()
+                host = host_output(out)
+                row["to_host_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            rows = [DetectionFrontend._postprocess(labels, host, i,
+                                                   cfg.canvas, cfg.canvas)
+                    for i in range(b)]
+            row["postprocess_ms_per_image"] = (
+                (time.perf_counter() - t0) * 1e3 / b)
+            row["images_per_s"] = b / (row["ms"] / 1e3)
+            row["regions"] = [int(r[0].shape[0]) for r in rows]
+            if not all(r[0].shape[1] == cfg.feat_dim + 6
+                       and np.isfinite(r[0]).all() for r in rows):
+                raise AssertionError(f"detector {dn} B {b}: bad rows")
+            times[f"{dn} B {b}"] = row
+            log(f"  detector {dn} B {b}: {row['ms']:.2f} ms a batch "
+                f"({row['images_per_s']:.1f} images/s): trunk "
+                f"{row['trunk_ms']:.2f}, proposal heads "
+                f"{row['field_heads_ms']:.2f}, top-k {row['topk_ms']:.3f}, "
+                f"NMS {row['nms_ms']:.3f} (wall {row['nms_wall_ms']:.3f}, "
+                f"kernels in 3 profiles {row['nms_kernels']}), RoI-align "
+                f"{row['roi_align_ms']:.3f}, RoI head "
+                f"{row['roi_head_ms']:.3f} ms; peak {row['peak_gb']:.2f} GB; "
+                f"to host {row['to_host_ms']:.2f} ms, _postprocess "
+                f"{row['postprocess_ms_per_image']:.3f} ms an image; regions "
+                f"{min(row['regions'])}-{max(row['regions'])}")
+            del x, out, host
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["times"] = times
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase13_train(torch, root, quick=False):
+    """(B) `train_detector` at its own default config for DET_TRAIN_STEPS
+    steps, then `evaluate_map50` on DET_MAP_IMAGES held-out images, which
+    must clear DET_MAP_FLOOR (`tests/test_detection.py`); and `train_cli` at
+    its defaults (canvas 256, B 8), whose last DET_CLI_TAIL losses must
+    average below DET_CLI_FALL of its first. ms a step. Returns the numbers
+    and the CLI's checkpoint. `quick` runs the CLI only (for `--scst_cbs`)."""
+    from mvp_pytorch_tpu_torch.detection import train_cli
+    from mvp_pytorch_tpu_torch.detection.synthetic_boxes import (
+        evaluate_map50, train_detector)
+    res = {}
+    if not quick:
+        t0 = time.perf_counter()
+        cfg, model, hist = train_detector(steps=DET_TRAIN_STEPS, batch=4,
+                                          seed=0, device=DEVICE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m = evaluate_map50(cfg, model, n_images=DET_MAP_IMAGES)
+        ok = m > DET_MAP_FLOOR and all(math.isfinite(v) for v in hist)
+        res["synthetic"] = dict(steps=DET_TRAIN_STEPS,
+                                ms_per_step=secs * 1e3 / DET_TRAIN_STEPS,
+                                first_loss=hist[0], last_loss=hist[-1],
+                                map50=m,
+                                eval_s=time.perf_counter() - t0)
+        log(f"  train_detector (canvas {cfg.canvas}, B 4): "
+            f"{DET_TRAIN_STEPS} steps in {secs:.1f} s "
+            f"({res['synthetic']['ms_per_step']:.2f} ms a step), loss "
+            f"{hist[0]:.3f} -> {hist[-1]:.3f}; held-out mAP@0.5 on "
+            f"{DET_MAP_IMAGES} images {m:.4f} (floor {DET_MAP_FLOOR})  "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the detector did not learn: mAP {m}")
+        del model
+    out = os.path.join(root, "det_ckpt")
+    argv = ["--out_dir", out, "--steps", str(DET_TRAIN_STEPS),
+            "--log_every", str(max(1, DET_TRAIN_STEPS // 4))] + (
+                ["--platform", "cpu"] if DEVICE == "cpu" else [])
+    log("  python -m mvp_pytorch_tpu_torch.detection.train_cli " + " ".join(
+        os.path.relpath(a, root) if a.startswith(root) else a for a in argv))
+    t0 = time.perf_counter()
+    cli = train_cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    hist = cli["loss"]
+    tail = mean(hist[-DET_CLI_TAIL:])
+    ok = all(math.isfinite(v) for v in hist) and tail < DET_CLI_FALL * hist[0]
+    res["cli"] = dict(steps=len(hist), ms_per_step=secs * 1e3 / len(hist),
+                      first_loss=hist[0], last_loss=hist[-1], tail_mean=tail,
+                      canvas=cli["config"].canvas)
+    log(f"  detector train_cli (canvas {cli['config'].canvas}, B 8): "
+        f"{len(hist)} steps in {secs:.1f} s "
+        f"({res['cli']['ms_per_step']:.2f} ms a step with the save), loss "
+        f"{hist[0]:.3f} -> {hist[-1]:.3f}, the last {DET_CLI_TAIL} "
+        f"{tail:.3f} (< {DET_CLI_FALL} x first = "
+        f"{DET_CLI_FALL * hist[0]:.3f})  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"detector train_cli loss did not fall: {hist}")
+    return res, out
+
+
+def write_p13_root(root, det_ckpt):
+    """Phase 13's root: a CLI_VOCAB-word vocab whose first 1,601 words name
+    the detector's classes (label_map.json, single wordpieces), P13_IMAGES
+    synthetic images at P13_CANVAS, their features extracted with the
+    trained detector by `tools.img_feat_extract` (PNG files; without PIL,
+    `detect` + `_postprocess` on the numpy canvases and the tool's own row
+    writer), and P13_CAPS captions an image that open with its first tags.
+    Returns the paths, which extraction ran and each row's regions."""
+    from mvp_pytorch_tpu_torch.data.datasets import FeatureStore
+    from mvp_pytorch_tpu_torch.detection import DetectorConfig
+    from mvp_pytorch_tpu_torch.tools import img_feat_extract as fx
+    os.makedirs(root, exist_ok=True)
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    words = [f"w{i}" for i in range(CLI_VOCAB - len(specials))]
+    paths = {"vocab": os.path.join(root, "vocab.txt"),
+             "labels": os.path.join(root, "label_map.json"),
+             "captions": os.path.join(root, "captions.json"),
+             "images": os.path.join(root, "images"),
+             "features": os.path.join(root, "features", "predictions.tsv")}
+    with open(paths["vocab"], "w") as f:
+        f.write("\n".join(specials + words) + "\n")
+    n_cls = DetectorConfig().num_classes
+    with open(paths["labels"], "w") as f:
+        json.dump({"label_to_idx": {words[i]: i for i in range(n_cls)}}, f)
+    imgs = det_images(P13_IMAGES, P13_CANVAS, seed=131)
+    names = [f"img_{i:03d}.png" for i in range(P13_IMAGES)]
+    pixels = np.clip((imgs + 1.0) * 127.5 + 0.5, 0, 255).astype(np.uint8)
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is not None:
+        os.makedirs(paths["images"], exist_ok=True)
+        for name, px in zip(names, pixels):
+            Image.fromarray(px).save(os.path.join(paths["images"], name))
+        fx.main(["--image_dir", paths["images"], "--target_dir",
+                 os.path.dirname(paths["features"]), "--od_ckpt", det_ckpt,
+                 "--label_map", paths["labels"], "--batch_size", "8"]
+                + (["--platform", "cpu"] if DEVICE == "cpu" else []))
+        how = "tools.img_feat_extract over PNG files"
+    else:
+        from mvp_pytorch_tpu_torch.detection import DetectionFrontend
+        from mvp_pytorch_tpu_torch.detection.frontend import host_output
+        fe = DetectionFrontend(ckpt_dir=det_ckpt, label_map=paths["labels"],
+                               device=DEVICE)
+        canvases = pixels.astype(np.float32) / 127.5 - 1.0
+
+        def rows():
+            for s in range(0, P13_IMAGES, 8):
+                out = host_output(fe.detect(canvases[s:s + 8]))
+                for i, name in enumerate(names[s:s + 8]):
+                    yield fx.feature_row(name, *fe._postprocess(
+                        out, i, P13_CANVAS, P13_CANVAS))
+        fx.write_features(os.path.dirname(paths["features"]), names, rows())
+        how = ("detect + _postprocess on numpy canvases (no PIL), the tool's "
+               "feature_row / write_features")
+    store = FeatureStore(paths["features"])
+    rng = np.random.default_rng(13)
+    caps, regions = {}, []
+    for name in names:
+        feats, tags = store.get(name)
+        regions.append(feats.shape[0])
+        if feats.shape[1] != 2054 or feats.shape[0] > 50:
+            raise AssertionError(f"{name}: regions {feats.shape}")
+        caps[name] = [{"text": " ".join(
+            tags[:3] + [words[int(w)] for w in rng.integers(
+                n_cls, len(words), 12)])} for _ in range(P13_CAPS)]
+    with open(paths["captions"], "w") as f:
+        json.dump(caps, f)
+    return paths, how, regions
+
+
+def phase13_caption_cli(torch, root, det_ckpt):
+    """(C) Image to features to constrained caption: `write_p13_root`, then
+    the captioning CLI at MVPTR-base, bf16, on those features: `--do_train
+    --max_steps 13 --scst --scst_steps 4 --scst_batch 8 --use_cbs
+    --do_eval`. Holds the TSV's regions (2,054 wide, at most 50), finite SCST
+    losses, and every CBS caption selected from a satisfying state holding
+    its constraint token. Returns the numbers, the checkpoint and the
+    dataset."""
+    import shutil
+    from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
+    from mvp_pytorch_tpu_torch.tasks import captioning as cap
+    t0 = time.perf_counter()
+    paths, how, regions = write_p13_root(root, det_ckpt)
+    extract_s = time.perf_counter() - t0
+    log(f"  {P13_IMAGES} images at canvas {P13_CANVAS}: features by {how} "
+        f"in {extract_s:.1f} s; regions a row {min(regions)}-{max(regions)} "
+        f"(mean {mean(regions):.1f}), each 2,054 wide  ok")
+    out = os.path.join(root, "cap")
+    argv = (["--output_dir", out, "--captions_json", paths["captions"],
+             "--feature_tsv", paths["features"], "--data_dir", root,
+             "--do_train", "--max_steps", str(P13_STEPS), "--ckpt_period",
+             str(P13_STEPS), "--train_batch_size", str(P13_B),
+             "--log_period", "1", "--num_workers", "2",
+             "--worker_start_method", "fork", "--do_eval", "--scst",
+             "--scst_steps", str(P13_SCST_STEPS), "--scst_batch",
+             str(SCST_B), "--use_cbs"] + CAP_ARGS + CLI_PLATFORM)
+    log("  python -m mvp_pytorch_tpu_torch.tasks.captioning " + " ".join(
+        os.path.relpath(a, root) if a.startswith(root) else a for a in argv))
+    t0 = time.perf_counter()
+    res = cap.main(argv)
+    secs = time.perf_counter() - t0
+    losses = [h["loss"] for h in res["scst"]]
+    cbs = res["cbs"]
+    sat = [c for c in cbs["captions"].values() if c["satisfied"]]
+    ok = (len(losses) == P13_SCST_STEPS
+          and all(math.isfinite(v) for v in losses)
+          and all(c["hit"] for c in sat) and len(sat) > 0
+          and math.isfinite(res["eval"]["cider_d"]))
+    log(f"  captioning CLI: {P13_STEPS} steps, {P13_SCST_STEPS} SCST steps "
+        f"(losses " + ", ".join(f"{v:.4f}" for v in losses) + "), CBS "
+        f"{cbs['n_hits']}/{cbs['n_images']} captions hold their tag, "
+        f"{len(sat)} selected from a satisfying state and all of them hold "
+        f"it; CIDEr-D after SCST {res['eval']['cider_d']:.4f}; {secs:.1f} s"
+        f"  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"phase 13 captioning CLI: {losses} {cbs}")
+    tokenizer = FastBertTokenizer(paths["vocab"])
+    args = cap.get_args(argv)
+    dataset = cap.CaptionDataset(
+        args.captions_json, cap.FeatureStore(args.feature_tsv), tokenizer,
+        args.max_seq_length, args.max_tag_length,
+        max_img=args.max_img_seq_length)
+    ckpt = os.path.join(out, f"checkpoint-{P13_STEPS:07d}")
+    shutil.copy(paths["vocab"], ckpt)
+    return (dict(extraction=how, extract_s=extract_s, regions=regions,
+                 cli_s=secs, scst_losses=losses, cbs_hits=cbs["n_hits"],
+                 cbs_images=cbs["n_images"], cbs_satisfied=len(sat),
+                 cider_d=res["eval"]["cider_d"]),
+            ckpt, dataset, tokenizer)
+
+
+def cbs_constraints(dataset, tokenizer, images):
+    """Two two-token constraints an image: its first four distinct tags as
+    vocabulary tokens (filled from the caption words past the label map
+    where an image has fewer)."""
+    vocab = tokenizer.vocab
+    fill = [vocab[f"w{i}"] for i in range(1700, 1710)]
+    out = []
+    for img in images:
+        toks = []
+        for t in dataset.features.get(img)[1]:
+            if t in vocab and vocab[t] not in toks:
+                toks.append(vocab[t])
+        toks = (toks + [f for f in fill if f not in toks])[:4]
+        out.append([toks[:2], toks[2:4]])
+    return out
+
+
+def phase13_cbs(torch, attn, layers_mod, ckpt, dataset, tokenizer):
+    """(D) Constrained beam search at MVPTR-base on the CLI's checkpoint:
+    CBS_IMAGES images, 2 two-token constraints each (S 8), K 3: 384 rows a
+    step at L 90, 19 steps; 12 launches a step, 228 a search, all at Lk 90,
+    p 0, the plain attention never. bf16: ms a step, captions/s, the
+    top-k's device ms, peak memory. fp32 against the plain attention path:
+    the same live slots, live-slot log-probs within CBS_TOL where the
+    sequences agree, and the best sequences equal but at near ties (the
+    best and runner-up length-normalised scores within CBS_TOL)."""
+    import gc
+    from mvp_pytorch_tpu_torch.models import CaptioningModel, ModelConfig
+    from mvp_pytorch_tpu_torch.models.cbs import (
+        NEG_INF, build_fsm, select_best_beam_with_constraints,
+        top_k_lower_index)
+    from mvp_pytorch_tpu_torch.tasks.captioning import (constrained_decode,
+                                                         context_batch)
+    vocab = tokenizer.vocab
+    imgs = dataset.images()[:CBS_IMAGES]
+    cons = cbs_constraints(dataset, tokenizer, imgs)
+    model = load_checkpoint(torch, CaptioningModel, ckpt)
+    v = model.config.vocab_size
+    built = [build_fsm(c, v, max_states=CBS_STATES) for c in cons]
+    fsm = torch.from_numpy(np.stack([b[0] for b in built])).to(DEVICE)
+    nsat = built[0][1]
+    ids_b, ctx_mask, feats = context_batch(dataset, imgs, DEVICE)
+    layers = model.config.num_hidden_layers
+    want = layers * (CAP_GEN - 1)
+
+    def search(m):
+        return constrained_decode(m, ids_b, ctx_mask, feats, fsm, vocab,
+                                  gen_len=CAP_GEN, num_beams=CBS_BEAMS)
+    search(model)                                    # warm-up
+    reset_counts(attn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with key_lengths(layers_mod) as seen:
+        t0 = time.perf_counter()
+        seqs, lps = search(model)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got = (attn.masked_attention.launches,
+           attn.masked_attention.dropout_launches, attn.plain_attention.calls)
+    if got != (want, 0, 0) or seen != [CAP_DEC_L] * want:
+        raise AssertionError(f"CBS launches {got} (want {want}, 0, 0), key "
+                             f"lengths {sorted(set(seen))}")
+    n = CBS_IMAGES * CBS_STATES * CBS_BEAMS
+    x = torch.randn(CBS_IMAGES, CBS_STATES * CBS_BEAMS * v, device=DEVICE)
+    topk_ms = cuda_ms(lambda: top_k_lower_index(x, CBS_BEAMS))
+    del x
+    best, _ = select_best_beam_with_constraints(
+        seqs.cpu().numpy(), lps.cpu().numpy(), nsat, 2,
+        eos_token_ids=(vocab["[SEP]"],), pad_token_id=vocab["[PAD]"])
+    live2 = (lps.cpu().numpy()[:, :, 0] > NEG_INF / 2) & (nsat >= 2)[None]
+    hold = [all(t in best[i] for c in cons[i] for t in c)
+            for i in range(CBS_IMAGES) if live2[i].any()]
+    res = dict(rows=n, steps=CAP_GEN - 1, launches=got[0],
+               launches_per_step=layers, seconds=secs,
+               ms_per_step=secs * 1e3 / (CAP_GEN - 1),
+               captions_per_s=CBS_IMAGES / secs, topk_ms=topk_ms,
+               topk_ms_per_step=topk_ms * CBS_STATES, peak_gb=peak,
+               satisfied_items=len(hold), satisfied_hold_all=all(hold))
+    log(f"  CBS bf16: {CBS_IMAGES} images x S {CBS_STATES} x K {CBS_BEAMS}"
+        f" = {n} rows a step at L {CAP_DEC_L}, {CAP_GEN - 1} steps, "
+        f"{got[0]} launches ({layers} a step, p 0, plain 0); {secs:.3f} s, "
+        f"{res['ms_per_step']:.2f} ms a step, {res['captions_per_s']:.1f} "
+        f"captions/s; the top-k {topk_ms:.3f} device ms a destination state "
+        f"({res['topk_ms_per_step']:.2f} a step); peak {peak:.2f} GB; "
+        f"{len(hold)} images with a live state satisfying both "
+        f"constraints, all tokens in the best caption: {all(hold)}")
+    if not all(hold):
+        raise AssertionError("a CBS caption from a satisfying state lacks a "
+                             "constraint token")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = CaptioningModel(ModelConfig.from_pretrained(ckpt,
+                                                        dtype="float32"),
+                            device=DEVICE)
+    model.load_state_dict(torch.load(os.path.join(ckpt, "pytorch_model.bin"),
+                                     map_location=DEVICE, weights_only=True))
+    reset_counts(attn)
+    k_seqs, k_lps = (t.cpu().numpy() for t in search(model))
+    with plain_attention_path(layers_mod, attn):
+        p_seqs, p_lps = (t.cpu().numpy() for t in search(model))
+    if attn.masked_attention.launches != want:
+        raise AssertionError("the plain CBS path launched the kernel")
+    live_k, live_p = k_lps > NEG_INF / 2, p_lps > NEG_INF / 2
+    same = (k_seqs == p_seqs).all(-1) & live_k
+    lp_err = float(np.abs(k_lps - p_lps)[same].max()) if same.any() else 0.0
+    kb = select_best_beam_with_constraints(
+        k_seqs, k_lps, nsat, 2, (vocab["[SEP]"],), vocab["[PAD]"])
+    pb = select_best_beam_with_constraints(
+        p_seqs, p_lps, nsat, 2, (vocab["[SEP]"],), vocab["[PAD]"])
+    near, far = 0, []
+    for i in np.nonzero((kb[0] != pb[0]).any(-1))[0]:
+        if abs(kb[1][i] - pb[1][i]) < CBS_TOL:
+            near += 1
+        else:
+            far.append(int(i))
+    ok = (bool((live_k == live_p).all()) and lp_err <= CBS_TOL and not far)
+    res["fp32"] = dict(live_slots=int(live_k.sum()),
+                       differing_live_slots=int((live_k & ~same).sum()),
+                       logprob_err=lp_err, best_differ_near_ties=near)
+    log(f"  CBS fp32 kernel vs plain: {int(live_k.sum())} live slots, "
+        f"the same in both; {int((live_k & ~same).sum())} with other "
+        f"sequences; log-probs where they agree within {lp_err:.3e} (tol "
+        f"{CBS_TOL:g}); best sequences differ in {near} images at near ties"
+        f", {len(far)} elsewhere  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"fp32 CBS kernel path is not the plain path's:"
+                             f" {res['fp32']} {far}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def scst_grads(torch, model, batch, mask_id):
+    """SCST's loss and the CAP_GRAD_PARAMS gradients of one copy forward and
+    backward on fixed samples (dropout off)."""
+    import types
+    from mvp_pytorch_tpu_torch.tasks.captioning import scst_copy_loss
+    model.eval()
+    model.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        loss = scst_copy_loss(model, *batch, mask_id)
+        loss.backward()
+    params = dict(model.named_parameters())
+    return (types.SimpleNamespace(loss=loss.detach()),
+            {n: params[n].grad.detach().float().clone()
+             for n in CAP_GRAD_PARAMS})
+
+
+def phase13_scst(torch, attn, layers_mod, ckpt, dataset, tokenizer):
+    """(E) SCST at MVPTR-base, bf16, `scst_batch` 8 at `max_gen_length` 20
+    on the CLI's checkpoint, SCST_TIMED steps after a warm-up: host ms of a
+    step's parts, each ended by a device sync (the sampled and the greedy
+    cached decode, the host reward, the copy forward and its backward over
+    160 rows at L 90, the update), peak memory, and exactly 492 launches a
+    step (240 a cached decode, 12 the copy forward; the backward none), p 0,
+    plain 0. Then one fp32 step on those samples, kernel path against plain
+    path: the loss within 1e-4, five gradients within 1e-3 relative."""
+    import gc
+    from mvp_pytorch_tpu_torch.models import CaptioningModel, ModelConfig
+    from mvp_pytorch_tpu_torch.tasks.captioning import (
+        caption_tokens, context_batch, decode_output, scst_copy_loss,
+        scst_optimizer)
+    from mvp_pytorch_tpu_torch.training.scst import ScstReward, sample_mask
+    vocab = tokenizer.vocab
+    mask_id = vocab["[MASK]"]
+    model = load_checkpoint(torch, CaptioningModel, ckpt)
+    layers = model.config.num_hidden_layers
+    want = 2 * layers * CAP_GEN + layers
+    opt = scst_optimizer(model, 1e-6)
+    reward = ScstReward()
+    refs = dataset.references()
+    imgs = dataset.images()[:SCST_B]
+    ids_b, ctx_mask, feats = context_batch(dataset, imgs, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    parts, kept = [], None
+
+    def step():
+        t = {}
+
+        def mark(name, t0):
+            torch.cuda.synchronize()
+            t[name] = (time.perf_counter() - t0) * 1e3
+            return time.perf_counter()
+        t0 = time.perf_counter()
+        kw = dict(gen_len=CAP_GEN, decode_mode="cached")
+        samp = decode_output(model, ids_b, ctx_mask, feats, vocab,
+                             do_sample=True, generator=gen, **kw)
+        t0 = mark("sample_decode_ms", t0)
+        greedy = decode_output(model, ids_b, ctx_mask, feats, vocab, **kw)
+        t0 = mark("greedy_decode_ms", t0)
+        adv = reward.rewards(
+            [caption_tokens(r, tokenizer) for r in samp.sequences.cpu()
+             .numpy()],
+            [caption_tokens(r, tokenizer) for r in greedy.sequences.cpu()
+             .numpy()], [refs[i] for i in imgs])
+        mask = sample_mask(samp.lengths, samp.finished, CAP_GEN)
+        t0 = mark("reward_ms", t0)
+        model.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss = scst_copy_loss(model, samp.sequences, mask, adv, ids_b,
+                                  ctx_mask, feats, mask_id)
+            t0 = mark("copy_forward_ms", t0)
+            loss.backward()
+        t0 = mark("copy_backward_ms", t0)
+        opt.step()
+        mark("update_ms", t0)
+        t["loss"] = loss.item()
+        return t, (samp.sequences, mask, adv)
+
+    step()                                           # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(SCST_TIMED):
+        reset_counts(attn)
+        t, kept = step()
+        got = (attn.masked_attention.launches,
+               attn.masked_attention.dropout_launches,
+               attn.plain_attention.calls)
+        if got != (want, 0, 0) or not math.isfinite(t["loss"]):
+            raise AssertionError(f"SCST step: launches {got} (want {want}, "
+                                 f"0, 0), loss {t['loss']}")
+        parts.append(t)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = {k: mean([p[k] for p in parts]) for k in parts[0]}
+    res["step_ms"] = sum(v for k, v in res.items() if k.endswith("_ms"))
+    res.update(launches_per_step=want, peak_gb=peak, rows=SCST_B * CAP_GEN)
+    log(f"  SCST bf16 (B {SCST_B}, {CAP_GEN} positions, copy forward over "
+        f"{SCST_B * CAP_GEN} rows at L {CAP_DEC_L}): {want} launches a step "
+        f"(p 0, plain 0); a step {res['step_ms']:.1f} ms: sample decode "
+        f"{res['sample_decode_ms']:.1f}, greedy {res['greedy_decode_ms']:.1f}"
+        f", reward (host) {res['reward_ms']:.1f}, copy forward "
+        f"{res['copy_forward_ms']:.1f}, backward {res['copy_backward_ms']:.1f}"
+        f", update {res['update_ms']:.1f} ms; peak {peak:.2f} GB; losses "
+        + ", ".join(f"{p['loss']:.4f}" for p in parts))
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = CaptioningModel(ModelConfig.from_pretrained(ckpt,
+                                                        dtype="float32"),
+                            device=DEVICE)
+    model.load_state_dict(torch.load(os.path.join(ckpt, "pytorch_model.bin"),
+                                     map_location=DEVICE, weights_only=True))
+    batch = kept + (ids_b, ctx_mask, feats)
+    reset_counts(attn)
+    k_out, k_grads = scst_grads(torch, model, batch, mask_id)
+    if attn.masked_attention.launches != layers:
+        raise AssertionError("the fp32 SCST copy forward did not launch the "
+                             "kernel in every layer")
+    with plain_attention_path(layers_mod, attn):
+        p_out, p_grads = scst_grads(torch, model, batch, mask_id)
+    compare_step(torch, "SCST fixed samples", "float32", k_out, p_out,
+                 ("loss",), k_grads, p_grads)
+    res["fp32"] = {"loss": abs(k_out.loss.item() - p_out.loss.item())}
+    res["fp32"].update({n: ((k_grads[n] - p_grads[n]).norm()
+                            / p_grads[n].norm()).item()
+                        for n in CAP_GRAD_PARAMS})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase13_kernel(torch, attn):
+    """The kernel at the CBS step shape (L 90, N 384) and the SCST copy
+    shape (L 90, N 160, forward and recompute backward), both under the
+    recompute forward's seq2seq bias, in both dtypes: against the plain
+    version (fp32 2e-5, bf16 0.05; the copy's grads against fp32 autograd
+    of the plain version, 1e-4 / 0.05), timed beside the plain version,
+    SDPA (a yardstick the port never calls) and the bound."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEVICE).manual_seed(131)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    times = {}
+    lq = lk = CAP_DEC_L
+    for name, n, grads in P13_TIMED:
+        for dn, dt in dtypes.items():
+            q, k, v, g = (torch.randn(n, lq, H, D, device=DEVICE,
+                                      generator=gen).to(dt) for _ in range(4))
+            bias = caption_bias(torch, attn, gen, "recompute", n, lq)
+            leaves = [t.detach().requires_grad_(grads) for t in (q, k, v)]
+            before = attn.masked_attention.launches
+            out = attn.masked_attention(*leaves, bias, layout="blhd")
+            want = attn.plain_attention_blhd(q, k, v, bias)
+            f_err = max_dist(out, want)
+            b_err = 0.0
+            if grads:
+                got_g = torch.autograd.grad(out, leaves, g)
+                ref = [t.detach().float().requires_grad_() for t in leaves]
+                want_g = torch.autograd.grad(
+                    attn.plain_attention_blhd(*ref, bias), ref, g.float())
+                b_err = max(max_dist(a, c) for a, c in zip(got_g, want_g))
+            torch.cuda.synchronize()
+            ok = (f_err <= TOL[dn] and b_err <= GRAD_TOL[dn]
+                  and attn.masked_attention.launches == before + 1)
+            key = f"{name} N {n} L {lq}"
+            log(f"  kernel vs plain  {key} {dn}: fwd max|err|={f_err:.3e} "
+                f"(tol {TOL[dn]:g})" + (f"  grads {b_err:.3e} (tol "
+                                        f"{GRAD_TOL[dn]:g})" if grads else "")
+                + f"  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"kernel at {key} {dn}: {f_err} {b_err}")
+            x = [t.detach() for t in (q, k, v)]
+            xh = [t.transpose(1, 2) for t in x]
+            mask_lib = bias.to(dt)
+            bound, by = attention_bound_ms(n, lq, lk, dn, bias)
+            row = dict(
+                max_abs_err=f_err, bound_ms=bound, bound_by=by,
+                ms=cuda_ms(lambda: attn.masked_attention(*x, bias,
+                                                         layout="blhd")),
+                plain_ms=cuda_ms(lambda: attn.plain_attention_blhd(*x, bias),
+                                 iters=5),
+                sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    *xh, attn_mask=mask_lib)))
+            if grads:
+                qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+                o = attn.masked_attention(*qkv, bias, layout="blhd")
+                p_o = attn.plain_attention_blhd(*qkv, bias)
+                qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
+                              for t in (q, k, v))
+                gh = g.transpose(1, 2)
+                bwd_bound, bwd_by = attention_bwd_bound_ms(n, lq, lk, dn,
+                                                           bias)
+                row.update(
+                    grad_err=b_err, bwd_bound_ms=bwd_bound,
+                    bwd_bound_by=bwd_by,
+                    bwd_ms=cuda_ms(lambda: torch.autograd.grad(
+                        o, qkv, g, retain_graph=True)),
+                    plain_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
+                        p_o, qkv, g, retain_graph=True)),
+                    sdpa_fwd_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
+                        F.scaled_dot_product_attention(
+                            qh, kh, vh, attn_mask=mask_lib),
+                        (qh, kh, vh), gh)))
+                del qkv, o, p_o, qh, kh, vh, gh
+            times[key + (" fp32" if dn == "float32" else "")] = row
+            log(f"  kernel {key} {dn}: kernel {row['ms']:.4f} ms  plain "
+                f"{row['plain_ms']:.4f}  sdpa {row['sdpa_ms']:.4f}  bound "
+                f"{bound:.4f} ({by})" + (
+                    f"; backward {row['bwd_ms']:.4f}  plain "
+                    f"{row['plain_bwd_ms']:.4f}  sdpa fwd+bwd "
+                    f"{row['sdpa_fwd_bwd_ms']:.4f}  bound "
+                    f"{row['bwd_bound_ms']:.4f} ({row['bwd_bound_by']})"
+                    if grads else ""))
+            del q, k, v, g, bias, leaves, out, want, x, xh, mask_lib
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase13(torch, attn, layers_mod, parts=("detection", "scst_cbs")):
+    """Phase 13 on a root under `_smoke/`: with "detection", (A) the
+    detector at full width and (B) its training; with "scst_cbs", (B)'s
+    train_cli checkpoint (alone when "detection" is not asked), (C) the
+    captioning CLI on its features with SCST and CBS, (D) CBS timed, (E)
+    SCST timed, and the kernel at their shapes."""
+    import gc
+    import shutil
+    t_phase = time.perf_counter()
+    res = {}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke",
+                        "phase13")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        if "detection" in parts:
+            t0 = time.perf_counter()
+            res["detector"] = phase13_detector(torch)
+            res["detector"]["seconds"] = time.perf_counter() - t0
+            log(f"  phase 13 A took {res['detector']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        res["train"], det_ckpt = phase13_train(
+            torch, root, quick="detection" not in parts)
+        res["train"]["seconds"] = time.perf_counter() - t0
+        log(f"  phase 13 B took {res['train']['seconds']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        if "scst_cbs" in parts:
+            t0 = time.perf_counter()
+            res["cli"], ckpt, dataset, tokenizer = phase13_caption_cli(
+                torch, root, det_ckpt)
+            res["cli"]["seconds"] = time.perf_counter() - t0
+            log(f"  phase 13 C took {res['cli']['seconds']:.1f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            res["cbs"] = phase13_cbs(torch, attn, layers_mod, ckpt, dataset,
+                                     tokenizer)
+            res["cbs"]["phase_seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res["scst"] = phase13_scst(torch, attn, layers_mod, ckpt,
+                                       dataset, tokenizer)
+            res["scst"]["phase_seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res["kernel"] = phase13_kernel(torch, attn)
+            log(f"  phase 13 D, E and the kernel rows took "
+                f"{res['cbs']['phase_seconds']:.1f}, "
+                f"{res['scst']['phase_seconds']:.1f} and "
+                f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 13 took {res['seconds']:.1f} s")
+    return res
+
+
+def cbs_scst_summary(p13):
+    """Phase 13's numbers for the kernel line (bf16 attention rows; the
+    detector goes on a line of its own)."""
+    return {"cli": p13.get("cli"), "cbs": p13.get("cbs"),
+            "scst": p13.get("scst"),
+            "attention": {k: v for k, v in p13.get("kernel", {}).items()
+                          if not k.endswith("fp32")},
+            "seconds": p13["seconds"]}
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4790,6 +5674,12 @@ def main(argv) -> int:
     parser.add_argument("--captioning", action="store_true",
                         help="run phase 12 (captioning: training, decoding "
                              "and the eval) alone")
+    parser.add_argument("--detection", action="store_true",
+                        help="run phase 13 A and B (the detector at full "
+                             "width and its training) alone")
+    parser.add_argument("--scst_cbs", action="store_true",
+                        help="run phase 13 C-E (image to constrained "
+                             "caption, CBS and SCST timed) alone")
     parser.add_argument("--serve_clients", nargs=3,
                         metavar=("URL", "JOBS", "OUT"),
                         help="the client process of phase 10 B, which the "
@@ -4863,6 +5753,16 @@ def main(argv) -> int:
             f"{CAP_IMAGES} images")
         p12 = phase12(torch, attn, layers_mod)
         print(json.dumps({"captioning": captioning_summary(p12),
+                          "card": card}), flush=True)
+        return 0
+    if args.detection or args.scst_cbs:
+        parts = tuple(p for p, on in (("detection", args.detection),
+                                      ("scst_cbs", args.scst_cbs)) if on)
+        log(f"phase 13 alone: {', '.join(parts)}")
+        p13 = phase13(torch, attn, layers_mod, parts=parts)
+        print(json.dumps({"detector": p13.get("detector"),
+                          "detector_train": p13["train"],
+                          "cbs_scst": cbs_scst_summary(p13),
                           "card": card}), flush=True)
         return 0
     if args.nlvr_cli or args.serve:
@@ -4940,6 +5840,12 @@ def main(argv) -> int:
     p12 = phase12(torch, attn, layers_mod)
     torch.cuda.synchronize()
 
+    log("phase 13: the detector at full width and its training, image to "
+        "features to constrained caption through the captioning command "
+        "line, CBS and SCST timed, MVPTR-base")
+    p13 = phase13(torch, attn, layers_mod)
+    torch.cuda.synchronize()
+
     main_t = timings[("fused", "bfloat16")]
     main_err = errors[("fused 2-D padded keys", 1000, "bfloat16", "blhd")]
     train_t = bwd_timings[("fused", "bfloat16")]
@@ -4997,7 +5903,8 @@ def main(argv) -> int:
                                if not k.endswith("fp32")}},
         "serving": p10["serve"],
         "single_stream": single_stream_summary(p11),
-        "captioning": captioning_summary(p12)}, {
+        "captioning": captioning_summary(p12),
+        "cbs_scst": cbs_scst_summary(p13)}, {
         # the fp32 kernels (3xTF32) behind the same entry point; launches
         # and pairs/s from the fp32 sweep of phase 3
         "name": "masked_attention_fwd fp32 (3xTF32)", "route": "cuda",
@@ -5031,8 +5938,13 @@ def main(argv) -> int:
             if k.endswith("fp32")},
         "captioning_attention": {
             k: v for k, v in p12["kernel"]["times"].items()
-            if k.endswith("fp32")}}]}
+            if k.endswith("fp32")},
+        "cbs_scst_attention": {
+            k: v for k, v in p13["kernel"].items() if k.endswith("fp32")}}]}
     log(f"  total {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"detector": p13["detector"],
+                      "detector_train": p13["train"], "card": card}),
+          flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -187,3 +187,30 @@ def load_jax_params(model: torch.nn.Module, params: Mapping[str, Any]):
               jax_params_to_state_dict({"bert": params}).items()}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def detector_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX detector's flax params (`JaxDetector`: `trunk/...`,
+    `head_conv`, `obj_head`, `box_head`, `roi_fc1`, `roi_fc2`, `cls_head`;
+    numpy leaves, nested or "/"-joined) -> the port's `Detector` state dict:
+    a conv kernel HWIO becomes OIHW, a Dense kernel [in, out] becomes
+    [out, in], a GroupNorm's `scale` / `bias` become `weight` / `bias`.
+    `roi_fc1`'s rows keep their order: the port flattens each pooled RoI
+    channels-last, (p, p, c), as flax flattens its NHWC pooling. The result
+    loads with `load_state_dict(strict=True)`."""
+    sd = {}
+    for path, val in _flatten(params):
+        *mods, leaf = path
+        val = np.asarray(val)
+        if leaf == "kernel":
+            leaf = "weight"
+            val = (np.transpose(val, (3, 2, 0, 1)) if val.ndim == 4
+                   else val.T)
+        elif leaf == "scale":
+            leaf = "weight"
+        elif leaf != "bias":
+            raise KeyError(f"flax path {'/'.join(path)} has no key in the "
+                           f"port's detector")
+        sd[".".join(mods + [leaf])] = torch.from_numpy(
+            np.array(val, copy=True))
+    return sd

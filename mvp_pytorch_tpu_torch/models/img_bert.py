@@ -453,10 +453,15 @@ class CaptioningModel(_ImgBertBase):
         """The recompute path's forward: the whole caption buffer under the
         causal mask, the LM head at position `t` only -> [N, vocab_size]
         (the position the decoding loop reads; the JAX package's
-        `decode_logits` returns every position's)."""
+        `decode_logits` returns every position's). `t` is an int, or a
+        tensor [N] of each row's own position (SCST's masked copies)."""
         seq = self._encode(caption_ids, ctx_ids, ctx_mask, token_type_ids,
                            ctx_token_type_ids, img_feats)
-        return self.cls.predictions(seq[:, t], self.bert.word_table())
+        if isinstance(t, torch.Tensor):
+            hidden = seq[torch.arange(seq.shape[0], device=seq.device), t]
+        else:
+            hidden = seq[:, t]
+        return self.cls.predictions(hidden, self.bert.word_table())
 
     # -- history-cached decoding (the reference's past reuse,
     #    modeling_utils.py:21-598; the cache holds each layer's INPUT states

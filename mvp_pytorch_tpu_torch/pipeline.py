@@ -13,10 +13,18 @@ then serves image-text pairs:
   brings back `[B, La]` token ids, never the logits;
 - `decode_mlm`, `inference_batch` and `inference` on top of them.
 
-Detector backends: a `FeatureStore` (region features looked up by image id
-or file name) or a callable `img_path -> (features [N, 2054], tags)`. The
-JAX package's own detector (`'jax'`, `'jax:<ckpt>'`) and a TorchScript
-detector path wait for ROADMAP.md queue 1 item 7 and raise.
+Detector backends (`object_detector`): a `FeatureStore` (region features
+looked up by image id or file name); a callable `img_path -> (features
+[N, 2054], tags)`; `'torch'` or `'torch:<ckpt_dir>'`, the port's detector
+(`detection.DetectionFrontend`, seeded or from a `detection.train_cli`
+checkpoint) on the pipeline's device, its tag names from
+`od_config_dir/VG-SGG-dicts-vgoi6-clipped.json` when that exists; or the
+path of a TorchScript detector (the reference's VinVL artifact, with
+`vinvl_transform.json` and the label map in `od_config_dir`), also on the
+pipeline's device. The JAX package's specs (`'jax'`, `'jax:<ckpt>'`) raise:
+a JAX detector checkpoint is carried over with `convert.detector_state_dict`
+where both packages are installed. A backend with `batch_call` (the port's
+detector) runs a batch of images in one forward.
 
 A pretraining checkpoint (`tasks.pretrain`) serves as it is: keys of heads
 the mode's model lacks (the ITM and QA heads, `half_mlm`, `logit_scale`) are
@@ -31,7 +39,7 @@ import logging
 import os
 import subprocess
 import tempfile
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -49,10 +57,11 @@ MODEL_NAME_MAPPING = {"mlm": MLMModel, "embedding": RepModel}
 # the data plane's names of the model's seven inputs, in the models' order
 MODEL_INPUTS = ("input_ids_a", "input_mask_a", "segment_ids_a", "input_ids_b",
            "input_mask_b", "segment_ids_b", "img_feat")
-_LATER_DETECTOR = ("object detector {!r}: the JAX detection front-end and "
-                   "TorchScript detectors are not ported yet; they wait for "
-                   "ROADMAP.md queue 1 item 7 (detection front-end). Pass a "
-                   "FeatureStore or a callable")
+LABEL_MAP_NAME = "VG-SGG-dicts-vgoi6-clipped.json"
+_JAX_DETECTOR = ("object detector {!r} is the JAX package's; the port's "
+                 "detector is 'torch[:<ckpt_dir>]'. Carry a JAX detector "
+                 "checkpoint over with mvp_pytorch_tpu_torch.convert."
+                 "detector_state_dict where both packages are installed")
 
 logger = logging.getLogger(__name__)
 
@@ -74,10 +83,61 @@ def load_for_serving(model: torch.nn.Module, path: str,
             f"{sorted(res.unexpected_keys)}")
 
 
+def make_torchscript_od(od_path: str, od_config_dir: str, device="cuda"
+                        ) -> Callable:
+    """A TorchScript VinVL-style detector (reference
+    modeling_pipeline.py:31-43, 66-88) on `device`: `img_path -> (features
+    [N, 2054], tags)`. The module takes a CHW image batch [1, 3, H, W] (the
+    `vinvl_transform.json` transform of `od_config_dir`) and returns
+    (bboxes [1, N, 4] in pixels, tag ids [1, N], features [1, N, 2048]);
+    tags are named by `od_config_dir/VG-SGG-dicts-vgoi6-clipped.json`."""
+    from .tools.transforms import build_transforms
+    device = resolve_device(device)
+    od_model = torch.jit.load(od_path, map_location=device)
+    od_model.eval()
+    with open(os.path.join(od_config_dir, "vinvl_transform.json")) as f:
+        transform = build_transforms(json.load(f))
+    with open(os.path.join(od_config_dir, LABEL_MAP_NAME)) as f:
+        label_map = {v: k for k, v in json.load(f)["label_to_idx"].items()}
+
+    def run(img_path: str) -> Tuple[np.ndarray, List[str]]:
+        from PIL import Image
+        x = transform(Image.open(img_path).convert("RGB"))
+        img_h, img_w = x.shape[-2:]
+        with torch.no_grad():
+            bboxes, tag_ids, feats = od_model(
+                torch.from_numpy(np.ascontiguousarray(x[None])).to(device))
+        bboxes = bboxes[0].cpu().numpy().copy()
+        feats = feats[0].float().cpu().numpy()
+        tags = [label_map[int(t)] for t in tag_ids[0].cpu().numpy()]
+        bboxes[:, [0, 2]] /= img_w
+        bboxes[:, [1, 3]] /= img_h
+        w = (bboxes[:, 2] - bboxes[:, 0])[:, None]
+        h = (bboxes[:, 3] - bboxes[:, 1])[:, None]
+        full = np.concatenate([feats, bboxes, w, h], axis=1)
+        return full.astype(np.float32), tags
+    return run
+
+
+def make_object_detector(spec: str, od_config_dir: str, device="cuda"
+                         ) -> Callable:
+    """A detector backend from its string spec: 'torch[:<ckpt_dir>]' (the
+    port's detector) or a TorchScript path; 'jax[:<ckpt>]' raises."""
+    if spec == "jax" or spec.startswith("jax:"):
+        raise ValueError(_JAX_DETECTOR.format(spec))
+    if spec == "torch" or spec.startswith("torch:"):
+        from .detection import load_frontend
+        lm = os.path.join(od_config_dir, LABEL_MAP_NAME)
+        return load_frontend(spec, lm if os.path.exists(lm) else None,
+                             device=device)
+    return make_torchscript_od(spec, od_config_dir, device)
+
+
 class InferencePipeline:
     def __init__(self, model_name: str, model_path: str,
                  object_detector: Union[str, Callable, FeatureStore,
                                         None] = None,
+                 od_config_dir: str = "tools_tpu/configs/",
                  parser_path: str = "tools_tpu/spice",
                  id2phrase: Optional[str] = None,
                  max_seq_length: int = 30, max_img_seq_length: int = 50,
@@ -107,7 +167,8 @@ class InferencePipeline:
         elif callable(object_detector):
             self._od = object_detector
         elif isinstance(object_detector, str):
-            raise NotImplementedError(_LATER_DETECTOR.format(object_detector))
+            self._od = make_object_detector(object_detector, od_config_dir,
+                                            self.device)
 
         self.parser_path = parser_path
         self.phrase_cache_dir = os.path.join(tempfile.gettempdir(),
@@ -174,17 +235,22 @@ class InferencePipeline:
         return tensorize_example(self.tokenizer, text_a, np.asarray(img_feat),
                                  text_b, phrase_nodes, self.tcfg)
 
-    def prepare_batch(self, pairs):
+    def prepare_batch(self, pairs, batch_size: int = 16):
         """Host stage: features and tags, phrases and tensorization for
-        pairs = [(img_path, text), ...]; safe on request threads."""
-        od_out = [self.preprocess_img(p) for p, _ in pairs]
+        pairs = [(img_path, text), ...]; safe on request threads. A detector
+        with `batch_call` runs `batch_size` images a forward."""
+        paths = [p for p, _ in pairs]
+        if hasattr(self._od, "batch_call"):
+            od_out = self._od.batch_call(paths, batch_size=batch_size)
+        else:
+            od_out = [self.preprocess_img(p) for p in paths]
         phrase_lists = self.phrase_extract_batch([t for _, t in pairs])
         return [self.tensorize_example(text, feat, " ".join(tags), ph)
                 for (feat, tags), (_, text), ph in zip(od_out, pairs,
                                                        phrase_lists)]
 
     def prepare_example(self, img_path: str, text: str):
-        return self.prepare_batch([(img_path, text)])[0]
+        return self.prepare_batch([(img_path, text)], batch_size=1)[0]
 
     # ----------------------------------------------------------- device
     @torch.no_grad()
@@ -228,7 +294,7 @@ class InferencePipeline:
     def inference_batch(self, pairs, batch_size: int = 16):
         """Batched serving of pairs = [(img_path, text), ...]: mlm gives the
         recovered tokens per pair, embedding the output dicts."""
-        exs = self.prepare_batch(pairs)
+        exs = self.prepare_batch(pairs, batch_size=batch_size)
         raw = self.infer_prepared(exs, batch_size=batch_size)
         if self.model_name == "mlm":
             return [self.decode_mlm(ex, r) for ex, r in zip(exs, raw)]

@@ -16,7 +16,15 @@ positions) or `recompute` (the whole prefix every step), greedy or
 `--num_beams` beams, `--max_gen_length` positions, in chunks of
 `--eval_batch_size` images (the JAX driver decodes them all in one batch;
 rows never mix). A standalone `--do_eval` writes `test_eval.json`.
-`--scst` and `--use_cbs` wait for ROADMAP.md queue 1 item 4c.
+
+`--scst` fine-tunes after cross-entropy by self-critical sequence training
+(`scst_finetune`: `--scst_steps` steps of `--scst_batch` images, a sampled
+and a greedy decode each, the CIDEr-D advantage on the host, exact log-probs
+from one forward over the masked copies of each sampled caption, AdamW at
+`--scst_lr` as `optax.adamw` sets it). `--use_cbs` with `--do_eval` decodes
+the first four images by constrained beam search (`cbs_decode_demo`,
+`--cbs_beams` beams a state), each caption forced to mention the image's
+first tag, and writes the hits and the captions to `cbs_captions.json`.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import argparse
 import json
 import os
 import random as pyrandom
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,20 +41,24 @@ import torch
 from ..data.datasets import FeatureStore
 from ..data.tokenization import FastBertTokenizer
 from ..models.config import ModelConfig
-from ..models.generation import (beam_search, beam_search_cached, generate,
+from ..models.cbs import (NEG_INF, build_fsm, constrained_beam_search,
+                          select_best_beam_with_constraints)
+from ..models.generation import (GenerateOutput, beam_search,
+                                 beam_search_cached, generate,
                                  generate_cached)
 from ..models.img_bert import CaptioningModel
+from ..training.optim import AdamW
+from ..training.scst import ScstReward, sample_mask, scst_loss
 from ..utils.caption_eval import evaluate_captions
 from ..utils.logger import setup_logger
 from .common import (TrainLoop, add_common_args, build_config, check_args,
                      load_params_or_init, restore_training_settings,
                      run_device, synth_root)
 
-# flag -> (value that means "off", the ROADMAP queue 1 item it waits for)
-LATER_ITEMS = {
-    "scst": (False, "item 4c (SCST, training/scst.py)"),
-    "use_cbs": (False, "item 4c (constrained beam search, models/cbs.py)"),
-}
+# optax.adamw's default weight decay: SCST's optimizer decays every
+# parameter by it and clips nothing, as the JAX driver's `optax.adamw(lr)`
+SCST_WEIGHT_DECAY = 1e-4
+CBS_IMAGES = 4
 
 
 def get_args(argv=None):
@@ -67,12 +79,15 @@ def get_args(argv=None):
                    help="apply drop-worst only from this step on "
                         "(reference --drop_worst_after curriculum gate)")
     p.add_argument("--mask_caption_prob", type=float, default=0.15)
-    # item 4c's flags, accepted so that they can raise by name
     p.add_argument("--scst", action="store_true",
                    help="self-critical fine-tuning after cross-entropy")
+    p.add_argument("--scst_steps", type=int, default=20)
+    p.add_argument("--scst_batch", type=int, default=8)
+    p.add_argument("--scst_lr", type=float, default=1e-6)
     p.add_argument("--use_cbs", action="store_true",
                    help="constrained decoding: captions must mention one "
                         "detected object tag")
+    p.add_argument("--cbs_beams", type=int, default=2)
     return p.parse_args(argv)
 
 
@@ -180,16 +195,49 @@ def caption_loss_fn(model, batch, generator, step):
 
 
 @torch.no_grad()
-def decode_batch(model, ids_b, ctx_mask, feats, vocab, *, gen_len: int,
-                 num_beams: int, decode_mode: str) -> torch.Tensor:
-    """Decode the captions of one batch of images (tensors on the model's
-    device) -> token ids [N, gen_len], BOS first."""
+def decode_output(model, ids_b, ctx_mask, feats, vocab, *, gen_len: int,
+                  decode_mode: str, do_sample: bool = False,
+                  generator: Optional[torch.Generator] = None
+                  ) -> GenerateOutput:
+    """Greedy (or, with `do_sample`, temperature-1 sampling from
+    `generator`) decode of one batch of images (tensors on the model's
+    device), history-cached or recomputed -> the decoder's `GenerateOutput`
+    (sequences [N, gen_len], BOS first; log-probs, lengths, finished)."""
     model.eval()
     n, dev = ids_b.shape[0], ids_b.device
     cls, sep, pad, mask = (vocab[t] for t in ("[CLS]", "[SEP]", "[PAD]",
                                               "[MASK]"))
-    reps = max(num_beams, 1)
-    rb, rm, rf = (x.repeat_interleave(reps, 0)
+    seg = torch.ones_like(ids_b)
+    kw = dict(do_sample=do_sample, generator=generator, device=dev)
+    if decode_mode == "cached":
+        def prefill():
+            return model.prefill(ids_b, ctx_mask, seg, feats, gen_len)
+
+        def step(cache, t, prev):
+            return model.decode_step(cache, t, prev, ctx_mask, gen_len, mask)
+        return generate_cached(prefill, step, cls, sep, pad, n, gen_len, **kw)
+    cap_seg = torch.zeros(n, gen_len, dtype=ids_b.dtype, device=dev)
+
+    def logits_fn(tokens, t):
+        return model.decode_logits(tokens, ids_b, ctx_mask, cap_seg, seg,
+                                   feats, t)
+    return generate(logits_fn, cls, sep, pad, mask, n, gen_len, **kw)
+
+
+@torch.no_grad()
+def decode_batch(model, ids_b, ctx_mask, feats, vocab, *, gen_len: int,
+                 num_beams: int, decode_mode: str) -> torch.Tensor:
+    """Decode the captions of one batch of images (tensors on the model's
+    device) -> token ids [N, gen_len], BOS first."""
+    if num_beams <= 1:
+        return decode_output(model, ids_b, ctx_mask, feats, vocab,
+                             gen_len=gen_len,
+                             decode_mode=decode_mode).sequences
+    model.eval()
+    n, dev = ids_b.shape[0], ids_b.device
+    cls, sep, pad, mask = (vocab[t] for t in ("[CLS]", "[SEP]", "[PAD]",
+                                              "[MASK]"))
+    rb, rm, rf = (x.repeat_interleave(num_beams, 0)
                   for x in (ids_b, ctx_mask, feats))
     seg = torch.ones_like(rb)
     if decode_mode == "cached":
@@ -198,21 +246,39 @@ def decode_batch(model, ids_b, ctx_mask, feats, vocab, *, gen_len: int,
 
         def step(cache, t, prev):
             return model.decode_step(cache, t, prev, rm, gen_len, mask)
-        if num_beams > 1:
-            return beam_search_cached(prefill, step, cls, sep, pad, n,
-                                      gen_len, num_beams,
-                                      mask_token_id=mask, device=dev)[0]
-        return generate_cached(prefill, step, cls, sep, pad, n, gen_len,
-                               device=dev).sequences
-    cap_seg = torch.zeros(n * reps, gen_len, dtype=rb.dtype, device=dev)
+        return beam_search_cached(prefill, step, cls, sep, pad, n, gen_len,
+                                  num_beams, mask_token_id=mask,
+                                  device=dev)[0]
+    cap_seg = torch.zeros(n * num_beams, gen_len, dtype=rb.dtype, device=dev)
 
     def logits_fn(tokens, t):
         return model.decode_logits(tokens, rb, rm, cap_seg, seg, rf, t)
-    if num_beams > 1:
-        return beam_search(logits_fn, cls, sep, pad, mask, n, gen_len,
-                           num_beams, device=dev)[0]
-    return generate(logits_fn, cls, sep, pad, mask, n, gen_len,
-                    device=dev).sequences
+    return beam_search(logits_fn, cls, sep, pad, mask, n, gen_len, num_beams,
+                       device=dev)[0]
+
+
+@torch.no_grad()
+def constrained_decode(model, ids_b, ctx_mask, feats, fsm, vocab, *,
+                       gen_len: int, num_beams: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Constrained beam search (`models/cbs.py`) over the recompute forward
+    for a batch of images and their FSMs [B, S, S, V] -> (sequences
+    [B, S, K, gen_len], logprobs [B, S, K]). Each image's context is
+    repeated over its S K state-beam rows."""
+    model.eval()
+    dev = ids_b.device
+    fsm = torch.as_tensor(fsm, device=dev)
+    reps = fsm.shape[1] * num_beams
+    rb, rm, rf = (x.repeat_interleave(reps, 0)
+                  for x in (ids_b, ctx_mask, feats))
+    seg = torch.ones_like(rb)
+    cap_seg = torch.zeros(rb.shape[0], gen_len, dtype=rb.dtype, device=dev)
+
+    def logits_fn(tokens, t):
+        return model.decode_logits(tokens, rb, rm, cap_seg, seg, rf, t)
+    return constrained_beam_search(
+        logits_fn, fsm, vocab["[CLS]"], vocab["[SEP]"], vocab["[PAD]"],
+        vocab["[MASK]"], gen_len, num_beams, device=dev)
 
 
 def context_batch(dataset, images, device):
@@ -286,12 +352,136 @@ def check_config(args) -> None:
                 f"it waits for ROADMAP.md queue 1 item 6 (GPipe PP)")
 
 
+def scst_optimizer(model, lr: float) -> AdamW:
+    """`optax.adamw(lr)` as the JAX driver builds it: a constant rate,
+    weight decay 1e-4 on every parameter, no clipping."""
+    return AdamW(model.named_parameters(), lambda count: lr,
+                 weight_decay=SCST_WEIGHT_DECAY, max_grad_norm=None,
+                 decay_mask=False)
+
+
+def scst_copy_loss(model, sequences, mask, advantages, ids_b, ctx_mask,
+                   feats, mask_token_id: int) -> torch.Tensor:
+    """SCST's loss with exact, differentiable log-probs: one forward over L
+    copies of each sampled caption [N, L], copy t with [MASK] at t (every
+    position sees its real prefix and [MASK] at itself, the distribution
+    the decoder sampled from), the LM head at each copy's own position t
+    ([N L, V] logits, never [N L, L, V]). Dropout stays as the caller set
+    it (off for SCST, as the JAX driver's deterministic forward)."""
+    n, l = sequences.shape
+    dev = sequences.device
+    eye = torch.eye(l, dtype=torch.bool, device=dev)
+    copies = torch.where(eye[None], mask_token_id,
+                         sequences[:, None, :]).reshape(n * l, l)
+    rb, rm, rf = (x.repeat_interleave(l, 0) for x in (ids_b, ctx_mask, feats))
+    positions = torch.arange(l, device=dev).repeat(n)
+    logits = model.decode_logits(copies, rb, rm, torch.zeros_like(copies),
+                                 torch.ones_like(rb), rf, positions)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tok_lp = logp.gather(1, sequences.reshape(-1, 1)).reshape(n, l)
+    return scst_loss(tok_lp, mask, advantages)
+
+
+def scst_finetune(args, model, dataset, tokenizer, logger) -> List[dict]:
+    """Self-critical fine-tuning (reference ScstRewardCriterion,
+    caption_evaluate.py:115-196). Each step: `min(--scst_batch, images)`
+    images drawn without replacement by a generator seeded with `--seed`; a
+    sampled and a greedy decode by the `--decode_mode` decoder; the CIDEr-D
+    advantage over the greedy baseline on the host; `scst_copy_loss` with
+    dropout off; one AdamW step. Returns each step's loss and mean
+    advantage."""
+    vocab = tokenizer.vocab
+    dev = model.device
+    reward = ScstReward(baseline_type="greedy")
+    refs_all = dataset.references()
+    imgs_all = dataset.images()
+    n_batch = min(args.scst_batch, len(imgs_all))
+    opt = scst_optimizer(model, args.scst_lr)
+    pick_gen = torch.Generator().manual_seed(args.seed)
+    sample_gen = torch.Generator(device=dev).manual_seed(args.seed)
+    gen_len = args.max_gen_length
+    history = []
+    for step in range(args.scst_steps):
+        pick = torch.randperm(len(imgs_all), generator=pick_gen)[:n_batch]
+        imgs = [imgs_all[i] for i in pick.tolist()]
+        ids_b, ctx_mask, feats = context_batch(dataset, imgs, dev)
+        kw = dict(gen_len=gen_len, decode_mode=args.decode_mode)
+        samp = decode_output(model, ids_b, ctx_mask, feats, vocab,
+                             do_sample=True, generator=sample_gen, **kw)
+        greedy = decode_output(model, ids_b, ctx_mask, feats, vocab, **kw)
+        s_rows, g_rows = samp.sequences.cpu().numpy(), \
+            greedy.sequences.cpu().numpy()
+        adv = reward.rewards([caption_tokens(r, tokenizer) for r in s_rows],
+                             [caption_tokens(r, tokenizer) for r in g_rows],
+                             [refs_all[i] for i in imgs])
+        mask = sample_mask(samp.lengths, samp.finished, gen_len)
+        model.eval()
+        model.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss = scst_copy_loss(model, samp.sequences, mask, adv, ids_b,
+                                  ctx_mask, feats, vocab["[MASK]"])
+            loss.backward()
+        opt.step()
+        history.append(dict(loss=loss.item(), mean_adv=float(adv.mean())))
+        if (step + 1) % max(1, args.scst_steps // 4) == 0:
+            logger.info(f"scst step {step + 1}/{args.scst_steps}: "
+                        f"loss={history[-1]['loss']:.4f} "
+                        f"mean_adv={history[-1]['mean_adv']:.3f}")
+    model.zero_grad(set_to_none=True)
+    return history
+
+
+def cbs_decode_demo(args, model, dataset, tokenizer, logger) -> dict:
+    """Constrained decoding of the first CBS_IMAGES images (reference
+    ConstrainedBeamSearch usage): the constraint is the image's first tag as
+    one vocabulary token (an image whose first tag is not one is skipped),
+    `build_fsm` with 2 states, `--cbs_beams` beams a state, and the best
+    beam of a state that satisfies it (the per-item fallback otherwise).
+    Writes {"n_hits", "n_images", "captions": {image: {"constraint",
+    "sequence", "tokens", "hit", "satisfied"}}} to
+    `output_dir/cbs_captions.json` and returns it."""
+    vocab = tokenizer.vocab
+    dev = model.device
+    v = model.config.vocab_size
+    out = {"n_hits": 0, "n_images": 0, "captions": {}}
+    for img in dataset.images()[:CBS_IMAGES]:
+        out["n_images"] += 1
+        _, tags = dataset.features.get(img)
+        tag_ids = [vocab[t] for t in tags[:1] if t in vocab]
+        if not tag_ids:
+            continue
+        fsm, nsat = build_fsm([tag_ids], v,
+                              max_states=2 + max(0, len(tag_ids) - 1))
+        ids_b, ctx_mask, feats = context_batch(dataset, [img], dev)
+        seqs, logps = constrained_decode(
+            model, ids_b, ctx_mask, feats, fsm[None], vocab,
+            gen_len=args.max_gen_length, num_beams=args.cbs_beams)
+        seqs, logps = seqs.cpu().numpy(), logps.cpu().numpy()
+        best, _ = select_best_beam_with_constraints(
+            seqs, logps, nsat, 1, eos_token_ids=(vocab["[SEP]"],),
+            pad_token_id=vocab["[PAD]"])
+        live = logps[0, :, 0] > NEG_INF / 2
+        hit = bool(tag_ids[0] in best[0])
+        out["n_hits"] += int(hit)
+        out["captions"][img] = dict(
+            constraint=tags[0], sequence=best[0].tolist(),
+            tokens=caption_tokens(best[0], tokenizer), hit=hit,
+            satisfied=bool((live & (nsat >= 1)).any()))
+    logger.info(f"cbs: {out['n_hits']}/{out['n_images']} captions contain "
+                f"the constraint tag")
+    with open(os.path.join(args.output_dir, "cbs_captions.json"), "w") as f:
+        json.dump(out, f)
+    return out
+
+
 def main(argv=None) -> dict:
-    """Train and/or evaluate; returns {"train": each step's metrics,
-    "eval": the last scores, "captions": the last decoded captions} as far
-    as they ran. Flags that cannot run raise before anything is written."""
+    """Train and/or evaluate, then SCST and constrained decoding when asked;
+    returns {"train": each step's metrics, "eval": the last scores,
+    "captions": the last decoded captions, "scst": each SCST step's loss and
+    mean advantage, "cbs": the constrained captions} as far as they ran.
+    Flags that cannot run raise before anything is written."""
     args = get_args(argv)
-    check_args(args, LATER_ITEMS)
+    check_args(args)
     check_config(args)
     device = run_device(args)
     os.makedirs(args.output_dir, exist_ok=True)
@@ -336,6 +526,12 @@ def main(argv=None) -> dict:
         scores = eval_hook(0)
         with open(os.path.join(args.output_dir, "test_eval.json"), "w") as f:
             json.dump(scores, f)
+    if args.scst:
+        out["scst"] = scst_finetune(args, model, dataset, tokenizer, logger)
+        if args.do_eval:
+            eval_hook(args.max_steps + args.scst_steps)
+    if args.use_cbs and args.do_eval:
+        out["cbs"] = cbs_decode_demo(args, model, dataset, tokenizer, logger)
     logger.info("captioning done")
     return out
 

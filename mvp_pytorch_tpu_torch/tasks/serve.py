@@ -17,6 +17,10 @@ in flight and exits 0.
   python -m mvp_pytorch_tpu_torch.tasks.serve --model_dir out/model \
       --feature_tsv data/predictions.tsv --port 8799
 
+Without a feature TSV, `--od_model` detects the regions of each image file:
+'torch' (the port's detector, seeded), 'torch:<ckpt_dir>' (a
+`detection.train_cli` checkpoint) or a TorchScript detector's path.
+
 It runs on the card unless `--device cpu`.
 """
 
@@ -30,10 +34,6 @@ import signal
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-
-_LATER_OD_MODEL = ("--od_model is not ported yet: the JAX detection "
-                   "front-end and TorchScript detectors wait for ROADMAP.md "
-                   "queue 1 item 7 (detection front-end); use --feature_tsv")
 
 
 class MicroBatcher:
@@ -129,24 +129,26 @@ class DrainingServer(ThreadingHTTPServer):
 
 def build_pipelines(args):
     """{mode: InferencePipeline} over --model_dir, and the FeatureStore of
-    --feature_tsv (None without one)."""
+    --feature_tsv (None without one). Without a TSV, --od_model's detector
+    ('torch[:<ckpt_dir>]' or a TorchScript path) is built once and serves
+    every mode."""
     from ..data.datasets import FeatureStore
-    from ..pipeline import InferencePipeline
-    if getattr(args, "od_model", None):
-        raise NotImplementedError(_LATER_OD_MODEL)
-    store = None
+    from ..pipeline import InferencePipeline, make_object_detector
+    device = getattr(args, "device", "cuda")
+    od = store = None
     if args.feature_tsv:
-        store = FeatureStore(args.feature_tsv,
-                             feature_dim=args.img_feature_dim)
+        od = store = FeatureStore(args.feature_tsv,
+                                  feature_dim=args.img_feature_dim)
+    elif getattr(args, "od_model", None):
+        od = make_object_detector(args.od_model, args.od_config_dir, device)
     pipes = {}
     for mode in args.modes.split(","):
         pipes[mode] = InferencePipeline(
-            mode, args.model_dir, object_detector=store,
+            mode, args.model_dir, object_detector=od,
             id2phrase=args.id2phrase, max_seq_length=args.max_seq_length,
             max_img_seq_length=args.max_img_seq_length,
             max_tag_length=args.max_tag_length,
-            max_phrases=args.max_phrases,
-            device=getattr(args, "device", "cuda"))
+            max_phrases=args.max_phrases, device=device)
     return pipes, store
 
 
@@ -235,8 +237,10 @@ def get_args(argv=None):
     p.add_argument("--feature_tsv", default=None,
                    help="precomputed-features backend")
     p.add_argument("--od_model", default=None,
-                   help="a detector ('jax', 'jax:<ckpt>' or a TorchScript "
-                        "path): not ported yet, raises")
+                   help="a detector: 'torch' (seeded), 'torch:<ckpt_dir>' "
+                        "or a TorchScript path (with --od_config_dir)")
+    p.add_argument("--od_config_dir", default="tools_tpu/configs/",
+                   help="vinvl_transform.json and the label map")
     p.add_argument("--id2phrase", default=None)
     p.add_argument("--img_feature_dim", type=int, default=2054)
     p.add_argument("--max_seq_length", type=int, default=30)

@@ -11,7 +11,8 @@ written out so that it matches optax step by step:
   formula, no epsilon);
 - Adam's moments and bias corrections are optax's `scale_by_adam`; weight
   decay is added to the update before the learning rate, for every parameter
-  but a `bias` or anything with `norm` in its name;
+  but a `bias` or anything with `norm` in its name (with `decay_mask=False`,
+  for every parameter: `optax.adamw` without a mask);
 - a frozen prefix has its gradients zeroed before clipping (its moments still
   decay) and its updates zeroed while the count is below `freeze_steps`.
 """
@@ -92,19 +93,21 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 class AdamW:
     """Clip by global norm, then AdamW with a schedule and the decay mask,
     over `named_params`, reading each parameter's `.grad` (a missing grad
-    counts as zeros)."""
+    counts as zeros). `max_grad_norm=None` clips nothing; `decay_mask=False`
+    decays every parameter."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  schedule: Schedule, *, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.01,
                  max_grad_norm: Optional[float] = 1.0,
-                 freeze_prefix: Optional[str] = None, freeze_steps: int = 0):
+                 freeze_prefix: Optional[str] = None, freeze_steps: int = 0,
+                 decay_mask: bool = True):
         self.names, self.params = zip(*named_params)
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
-        self.decay = [not no_decay(n) for n in self.names]
+        self.decay = [not (decay_mask and no_decay(n)) for n in self.names]
         self.in_prefix = [freeze_prefix is not None
                           and n.split(".")[0] == freeze_prefix
                           for n in self.names]

@@ -13,9 +13,11 @@ metrics (`utils/`) on the CPU.
   step in memory, the scores logged, and a standalone `--do_eval` of the
   checkpoint writes `test_eval.json` with the captions the training run
   decoded, in both decode modes, restoring `max_gen_length`;
-- `--scst` and `--use_cbs` raise, naming ROADMAP item 4c, and a
-  pipeline-staged checkpoint item 6, before anything is written; without
-  `--platform cpu` the driver asks for CUDA.
+- `--scst` (finite SCST losses, the eval after it) and `--use_cbs` (the
+  constrained captions and hits in cbs_captions.json) on a seeded model and
+  after training; a pipeline-staged checkpoint raises, naming item 6,
+  before anything is written; without `--platform cpu` the driver asks for
+  CUDA.
 """
 
 import functools
@@ -239,11 +241,51 @@ def test_beam_eval_runs(trained, tmp_path):
 
 @pytest.mark.parametrize("flag", ["--scst", "--use_cbs"])
 def test_later_items_raise(tmp_path, flag):
+    """`--scst` and `--use_cbs` (which raised until their port) run on a
+    seeded tiny model: SCST's losses finite, two steps, and the eval after
+    them; the constrained captions and their hits in cbs_captions.json."""
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        cap.main(["--output_dir", str(out), "--synthetic", "--tiny",
-                  "--platform", "cpu", "--do_eval", flag])
-    assert not out.exists()
+    extra = ["--scst", "--scst_steps", "2", "--scst_batch", "4",
+             "--max_steps", "5"] if flag == "--scst" else ["--use_cbs"]
+    res = cap.main(["--output_dir", str(out), "--synthetic", "--tiny",
+                    "--platform", "cpu", "--do_eval", "--dtype", "float32",
+                    "--max_gen_length", "10"] + extra)
+    log = open(out / "log.txt").read()
+    if flag == "--scst":
+        assert [sorted(h) for h in res["scst"]] == [["loss", "mean_adv"]] * 2
+        assert all(math.isfinite(h["loss"]) for h in res["scst"])
+        # the standalone eval, then the eval at max_steps + scst_steps
+        assert "scst step 2/2" in log and "step 7: CIDEr-D" in log
+    else:
+        with open(out / "cbs_captions.json") as f:
+            cbs = json.load(f)
+        assert cbs == res["cbs"] and cbs["n_images"] == cap.CBS_IMAGES
+        assert f"cbs: {cbs['n_hits']}/{cbs['n_images']}" in log
+        assert cbs["captions"]
+        for c in cbs["captions"].values():
+            if c["satisfied"]:
+                assert c["hit"]
+
+
+def test_scst_and_cbs_after_training(tmp_path):
+    """The whole command: train, SCST (finite losses, the parameters
+    moved), the eval after SCST, and constrained decoding that puts each
+    image's tag into its caption."""
+    out = tmp_path / "out"
+    res = cap.main(["--output_dir", str(out), "--synthetic", "--tiny",
+                    "--platform", "cpu", "--do_train", "--do_eval",
+                    "--max_steps", "2", "--ckpt_period", "2",
+                    "--train_batch_size", "8", "--num_workers", "0",
+                    "--dtype", "float32", "--max_gen_length", "10", "--scst",
+                    "--scst_steps", "2", "--scst_lr", "1e-3", "--use_cbs",
+                    "--cbs_beams", "2"])
+    assert len(res["train"]) == 2 and len(res["scst"]) == 2
+    assert all(math.isfinite(h["loss"]) for h in res["scst"])
+    log = open(out / "log.txt").read()
+    assert "step 4: CIDEr-D" in log            # max_steps + scst_steps
+    cbs = res["cbs"]
+    assert cbs["n_hits"] == sum(c["hit"] for c in cbs["captions"].values())
+    assert cbs["n_hits"] >= 1
 
 
 def test_pipeline_staged_checkpoint_raises(tmp_path):

@@ -30,15 +30,16 @@ def package_files():
 def test_import_leaves_jax_out_of_sys_modules():
     """In a fresh interpreter (the test process has jax already: conftest),
     importing the package and every submodule pulls in none of them, nor
-    `yaml` (only a `--dataset_yaml` manifest needs it, at its first read)."""
+    `yaml` (only a `--dataset_yaml` manifest needs it, at its first read),
+    nor `PIL` (only decoding an image file needs it)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mvp_pytorch_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}"
-        " + ('yaml',)]\n"
-        "assert len(names) >= 49, names\n"
+        " + ('yaml', 'PIL')]\n"
+        "assert len(names) >= 62, names\n"
         "for n in ('models.pretrain', 'models.heads', 'tasks.pretrain',\n"
         "          'training.loop', 'native', 'data.tokenization',\n"
         "          'data.tsv', 'data.tensorize', 'data.datasets',\n"
@@ -48,7 +49,13 @@ def test_import_leaves_jax_out_of_sys_modules():
         "          'tasks.nlvr', 'pipeline', 'tasks.serve',\n"
         "          'models.img_bert', 'data.processors',\n"
         "          'models.generation', 'tasks.captioning', 'utils.cider',\n"
-        "          'utils.caption_eval', 'utils.meteor_rouge', 'utils.spice'):\n"
+        "          'utils.caption_eval', 'utils.meteor_rouge', 'utils.spice',\n"
+        "          'models.cbs', 'training.scst', 'detection',\n"
+        "          'detection.backbone', 'detection.nms',\n"
+        "          'detection.roi_align', 'detection.detector',\n"
+        "          'detection.frontend', 'detection.synthetic_boxes',\n"
+        "          'detection.train_cli', 'tools', 'tools.transforms',\n"
+        "          'tools.img_feat_extract'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

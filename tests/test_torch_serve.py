@@ -16,6 +16,13 @@ ignores the heads its model lacks, the port drops them and names them in
 one log line. A tree without the LM head raises in both. The task CLIs'
 `load_params_or_init` stays strict.
 
+Detector backends: the JAX package's specs ('jax', 'jax:<ckpt>') raise,
+naming the port's 'torch[:<ckpt_dir>]' and the converter; a 'torch:<ckpt>'
+pipeline answers from an image file, single and batched (its detector's
+`batch_call`); a scripted module with the reference artifact's contract
+serves as a TorchScript detector path; `tasks.serve --od_model` builds one
+detector for both modes.
+
 The server: the four `MicroBatcher` behaviours of `tests/test_serve.py`;
 `tasks.serve.main` on a thread with concurrent single requests (fewer
 batches than requests, every answer equal to the pipeline's), `/v1/batch`
@@ -240,14 +247,119 @@ def test_task_loads_stay_strict(dirs):
         load_params_or_init(Args, model)
 
 
-def test_detector_backends_of_later_items_raise(dirs):
+DET = dict(canvas=64, num_classes=6, pre_nms_topk=32, max_regions=8,
+           stage_channels=(64, 64, 64), stage_blocks=(1, 1, 1),
+           head_channels=64, feat_dim=2048)
+
+
+@pytest.fixture(scope="module")
+def detector_files(tmp_path_factory):
+    """A port detector checkpoint (2,048-d features, the served model's
+    2,054-d regions), an od_config_dir with a label map and the reference's
+    transform json, and two PNGs."""
+    from PIL import Image
+    from mvp_pytorch_tpu_torch.detection import (Detector, DetectorConfig,
+                                                 save_detector)
+    base = tmp_path_factory.mktemp("detector")
+    ckpt = str(base / "ckpt")
+    save_detector(ckpt, DetectorConfig(**DET),
+                  Detector(DetectorConfig(**DET), device="cpu", seed=2))
+    od_dir = base / "od_config"
+    od_dir.mkdir()
+    with open(od_dir / "VG-SGG-dicts-vgoi6-clipped.json", "w") as f:
+        json.dump({"label_to_idx": {w: i for i, w in enumerate(
+            ["dog", "man", "ball", "tree", "sky", "grass"])}}, f)
+    with open(os.path.join(ROOT, "tools_tpu", "configs",
+                           "vinvl_transform.json")) as f:
+        tcfg = json.load(f)
+    tcfg.update(MIN_SIZE_TEST=40, MAX_SIZE_TEST=64)
+    with open(od_dir / "vinvl_transform.json", "w") as f:
+        json.dump(tcfg, f)
+    rs = np.random.RandomState(0)
+    images = []
+    for i, (h, w) in enumerate([(64, 80), (50, 60)]):
+        path = str(base / f"img{i}.png")
+        Image.fromarray((rs.rand(h, w, 3) * 255).astype(np.uint8)).save(path)
+        images.append(path)
+    return dict(ckpt=ckpt, od_dir=str(od_dir), images=images, base=base)
+
+
+def test_detector_backends_of_later_items_raise(dirs, detector_files):
+    """The JAX package's detector specs raise, naming the port's spec and
+    the converter; `'torch:<ckpt>'` serves a request from an image file."""
     d, paths = dirs
-    for od in ("jax", "jax:/some/ckpt", "/some/detector.pt"):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    for od in ("jax", "jax:/some/ckpt"):
+        with pytest.raises(ValueError,
+                           match=r"'torch\[:<ckpt_dir>\]'.*detector_state_dict"):
             InferencePipeline("mlm", d["mlm"][1], object_detector=od,
                               device="cpu")
     with pytest.raises(ValueError, match="valid names"):
         InferencePipeline("nope", d["mlm"][1], device="cpu")
+    f = detector_files
+    pipe = InferencePipeline("mlm", d["mlm"][1],
+                             object_detector="torch:" + f["ckpt"],
+                             od_config_dir=f["od_dir"], device="cpu",
+                             **LENGTHS)
+    res = pipe.inference(f["images"][0], "two [MASK] are playing")
+    assert res.startswith("recovered [MASK] tokens")
+    feats, tags = pipe.preprocess_img(f["images"][0])
+    assert feats.shape[1] == 2054 and 0 < feats.shape[0] <= DET["max_regions"]
+    assert set(tags) <= {"dog", "man", "ball", "tree", "sky", "grass"}
+    pairs = [(f["images"][0], "two [MASK] are playing"),
+             (f["images"][1], "a [MASK] on the grass"),
+             (f["images"][0], "two [MASK] are playing")]
+    batched = pipe.inference_batch(pairs, batch_size=2)
+    assert " ".join(batched[0]) in res and batched[0] == batched[2]
+
+
+def test_torchscript_detector_backend(dirs, detector_files):
+    """A scripted module with the reference artifact's contract (a CHW
+    image batch -> bboxes in pixels, tag ids, 2,048-d features) serves as
+    a detector path, on the pipeline's device; its boxes are normalised by
+    the transformed image's size."""
+    class TinyOD(torch.nn.Module):
+        def forward(self, x: torch.Tensor):
+            h, w = float(x.shape[-2]), float(x.shape[-1])
+            boxes = torch.tensor([[0.0, 0.0, w / 2, h / 2],
+                                  [w / 4, h / 4, w, h],
+                                  [0.0, h / 2, w, h]])[None]
+            tags = torch.tensor([[0, 4, 2]])
+            feats = x.mean() + torch.arange(3 * 2048.0).reshape(1, 3, 2048)
+            return boxes, tags, feats / 2048.0
+    f = detector_files
+    od_path = str(f["base"] / "od_model.pt")
+    torch.jit.script(TinyOD()).save(od_path)
+    d, _ = dirs
+    pipe = InferencePipeline("mlm", d["mlm"][1], object_detector=od_path,
+                             od_config_dir=f["od_dir"], device="cpu",
+                             **LENGTHS)
+    feats, tags = pipe.preprocess_img(f["images"][0])
+    assert tags == ["dog", "sky", "ball"]
+    assert feats.shape == (3, 2054) and feats.dtype == np.float32
+    np.testing.assert_allclose(feats[:, 2048:], [
+        [0, 0, 0.5, 0.5, 0.5, 0.5], [0.25, 0.25, 1, 1, 0.75, 0.75],
+        [0, 0.5, 1, 1, 1, 0.5]], atol=1e-6)
+    assert pipe.inference(f["images"][1], "a [MASK] runs").startswith(
+        "recovered [MASK] tokens")
+
+
+def test_serve_builds_one_detector_for_every_mode(dirs, detector_files):
+    """`--od_model torch:<ckpt>` (without a feature TSV) builds the
+    detector once; both modes' pipelines answer from an image file."""
+    d, _ = dirs
+    f = detector_files
+    args = serve.get_args(["--model_dir", d["mlm"][1], "--od_model",
+                           "torch:" + f["ckpt"], "--od_config_dir",
+                           f["od_dir"], "--device", "cpu"])
+    pipes, store = serve.build_pipelines(args)
+    assert store is None and set(pipes) == {"mlm", "embedding"}
+    assert pipes["mlm"]._od is pipes["embedding"]._od
+    out = pipes["embedding"].inference(f["images"][1], "a dog")
+    assert out["pooled_output"].shape == (32,)
+    with pytest.raises(ValueError, match="torch"):
+        serve.build_pipelines(serve.get_args(
+            ["--model_dir", d["mlm"][1], "--od_model", "jax", "--device",
+             "cpu"]))
 
 
 def test_phrases_are_skipped_without_the_spice_jar(dirs, tmp_path):
