@@ -12,6 +12,7 @@
     python3 chip_smoke.py --captioning      # phase 12 alone
     python3 chip_smoke.py --detection       # phase 13 A and B alone
     python3 chip_smoke.py --scst_cbs        # phase 13 C-E alone
+    python3 chip_smoke.py --parallel        # phase 14 alone
     (`--serve_clients URL JOBS OUT` is phase 10 B's client process, which
     the script starts itself)
 
@@ -296,10 +297,30 @@ script exits non-zero:
    kernel at the CBS step (L 90, N 384) and the SCST copy (L 90, N 160,
    with the backward) shapes against the plain version, timed beside it,
    SDPA and the bound. The root is deleted at the end;
-14. one JSON line of the detector's numbers, then one of kernel numbers
+14. parallelism on torch.distributed (the script runs on one card, and
+   NCCL refuses two ranks on one device, so the multi-rank equalities are
+   the CPU tests'): (A) MVPTR-base with 8 experts top-2 in every second
+   layer of each encoder (9 MoE layers) through the pretraining CLI
+   (`--synthetic`, B 96, dropouts 0.1, 10 steps, 24 launches a step, plain
+   0): finite, falling losses and aux; dense and MoE steps on one batch in
+   memory (ms, samples/s, peak memory, aux, the share of assignments over
+   capacity); one fp32 MoE step at p 0, kernel path against plain path
+   (the losses and the aux 1e-4, five gradients 1e-3 relative). (D) The
+   MoE state (model and AdamW) through `save_sharded` and `consolidate`
+   into a fresh model, bit for bit. (B) A one-rank NCCL process group: one
+   fp32 retrieval step at B 96, p 0 under plain DDP, ZeRO-2, FSDP, TP (model
+   1) and GPipe (one stage, 4 microbatches: 96 launches a step), each
+   against the plain Trainer's (loss 1e-4, the five updates 1e-3
+   relative), then timed. (C) `--coarse_block`'s streaming coarse stage at
+   1,000 x 5,000 on exact, tie-free scores equal to the dense stage (the
+   shortlists and the ranks), then 100,000 x 500,000 (a 200 GB dense
+   matrix) timed with its peak memory. The kernel at GPipe's B 24 shapes
+   (fp32, p 0) against the plain version, timed beside SDPA and the bound;
+15. one JSON line of the detector's numbers, then one of kernel numbers
    (the bf16 kernel, then the fp32 one; phase 11's under `single_stream`,
-   phase 12's under `captioning`, phase 13's under `cbs_scst`), then the
-   result line.
+   phase 12's under `captioning`, phase 13's under `cbs_scst`, phase 14's
+   under `parallel` and its GPipe rows under the fp32 kernel's
+   `gpipe_attention`), then the result line.
 
 With `--sweep DTYPE` only phase 3 runs, in that dtype (bf16: two sweeps,
 fp32: one), and the last line is a JSON object of its numbers; run from a
@@ -309,7 +330,8 @@ only phases 1 (the build) and 7 run, the last line a JSON object of phase
 phases 1 and 9; with `--nlvr_cli`, phases 1 and 10 A; with `--serve`, phases
 1 and 10 B; with `--single_stream`, phases 1 and 11; with `--captioning`,
 phases 1 and 12; with `--detection`, phases 1 and 13 A-B; with
-`--scst_cbs`, phases 1, 13 B's `train_cli` and 13 C-E.
+`--scst_cbs`, phases 1, 13 B's `train_cli` and 13 C-E; with `--parallel`,
+phases 1 and 14.
 
 Exits 2 without a result when no CUDA device is visible.
 """
@@ -5651,6 +5673,413 @@ def cbs_scst_summary(p13):
             "seconds": p13["seconds"]}
 
 
+# phase 14: parallelism on torch.distributed. The script runs on one card,
+# and NCCL refuses two ranks on one device, so the multi-rank equalities
+# live in the CPU tests (gloo); here every path runs at world size 1 over
+# NCCL, and MoE and the corpus-scale coarse stage at full size
+P14_STEPS, P14_TIMED_FROM = 10, 4    # MoE CLI steps; timed from step 4
+P14_MOE = ["--moe_experts", "8", "--moe_top_k", "2"]   # moe_every 2
+P14_MEM_WARMUP, P14_MEM_TIMED = 2, 5  # in-memory steps, dense and MoE
+P14_MODE_TIMED = 3                   # timed steps of each part B mode
+P14_GPIPE_MB = 4
+P14_FLICKR = (1000, 5)               # images, captions an image
+P14_CORPUS = (100_000, 500_000)      # query rows (images), gallery rows
+P14_K = (20, 10)                     # i2t, t2i shortlists
+P14_BLOCK = 4096
+P14_LAYERS = 12                      # a CPU rehearsal sets 4 (--tiny)
+P14_EMB = 768
+P14_MOE_GRADS = PRETRAIN_GRAD_PARAMS
+
+
+def p14_launches(attn, want, what):
+    """`want` p = 0 launches since `reset_counts`, the plain version never."""
+    got = attn.masked_attention.launches
+    drop = attn.masked_attention.dropout_launches
+    plain = attn.plain_attention.calls
+    if got != want or drop != 0 or plain != 0:
+        raise AssertionError(f"{what}: {got} launches ({drop} with dropout), "
+                             f"plain {plain}; want {want}, 0 and 0")
+
+
+def phase14_moe(torch, attn, layers_mod, ModelConfig, root, p8=None):
+    """(A) MVPTR-base with 8 experts top-2 in every second layer of each
+    encoder: the pretraining CLI at B 96 and dropouts 0.1, then dense and
+    MoE steps in memory on one batch, one fp32 step kernel path against
+    plain path, and (D) the MoE run's state through the sharded format."""
+    import dataclasses
+    import gc
+    from mvp_pytorch_tpu_torch.models import BiPretrainModel
+    from mvp_pytorch_tpu_torch.ops.moe import moe_aux_loss, moe_dropped_share
+    from mvp_pytorch_tpu_torch.tasks import pretrain as pre
+    from mvp_pytorch_tpu_torch.training.optim import make_optimizer
+    from mvp_pytorch_tpu_torch.training.sharded_checkpoint import (
+        consolidate, save_sharded)
+    from mvp_pytorch_tpu_torch.training.trainer import Trainer
+    per_step = P14_LAYERS // 2 * 4       # txt + vis + 2 fusion passes
+    res = {}
+
+    # 1. the command line
+    out = os.path.join(root, "moe_cli")
+    argv = (["--output_dir", out, "--synthetic", "--max_steps",
+             str(P14_STEPS), "--ckpt_period", str(P14_STEPS),
+             "--train_batch_size", str(TRAIN_B), "--log_period", "1",
+             "--num_workers", "2", "--worker_start_method", "fork"]
+            + P14_MOE + PRE_ARGS + CLI_PLATFORM)
+    log("  python -m mvp_pytorch_tpu_torch.tasks.pretrain "
+        + " ".join(os.path.relpath(a, root) if a.startswith(root) else a
+                   for a in argv))
+    with counted_steps(attn, per_step, "an MoE CLI step") as total:
+        torch.cuda.reset_peak_memory_stats()
+        hist = pre.main(argv)["train"]
+    torch.cuda.synchronize()
+    cli_peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = check_losses(hist, P14_STEPS, "MoE CLI")
+    aux = [m["moe_aux"] for m in hist]
+    log("  MoE CLI aux " + " ".join(f"{x:.4f}" for x in aux))
+    if not all(map(math.isfinite, aux)) or mean(losses[-3:]) >= losses[0]:
+        raise AssertionError(f"MoE CLI: losses {losses}, aux {aux}")
+    with open(os.path.join(out, f"checkpoint-{P14_STEPS:07d}",
+                           "config.json")) as f:
+        saved = json.load(f)
+    experts = 3 * sum((i + 1) % saved["moe_every"] == 0
+                      for i in range(saved["num_hidden_layers"] // 2))
+    if saved["moe_experts"] != 8 or saved["moe_top_k"] != 2 or \
+            experts != 3 * (P14_LAYERS // 2 // 2):
+        raise AssertionError(f"MoE config {saved['moe_experts']} x top "
+                             f"{saved['moe_top_k']}, {experts} MoE layers")
+    res["cli"] = dict(cli_numbers(hist, TRAIN_B, cli_peak, P14_TIMED_FROM),
+                      launches=total[0], launches_per_step=per_step,
+                      moe_layers=experts, losses=losses, aux=aux)
+    log(f"  MoE CLI: {P14_STEPS} steps, {total[0]} launches ({per_step} a "
+        f"step, all with dropout, plain 0), {experts} MoE layers; steps "
+        f"{P14_TIMED_FROM}-{P14_STEPS}: {res['cli']['step_ms']:.2f} ms/step "
+        f"{res['cli']['samples_per_s']:.1f} samples/s, peak {cli_peak:.2f} GB")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. dense against MoE in memory, one batch, the same Trainer
+    step_kw = dict(max_tag_length=20, hn_mod="hard", phrase_mod="sample",
+                   max_pred_a=20, max_pred_b=10)
+    opt_kw = dict(schedule="constant", max_grad_norm=1.0)
+    moe_kw = dict(moe_experts=8, moe_top_k=2)
+    mem = {}
+    for name, kw in (("dense", {}), ("moe", moe_kw)):
+        cfg = base_config(ModelConfig, "bfloat16", DROP_P, **kw)
+        model = BiPretrainModel(cfg, device=DEVICE, seed=0)
+        batch = pretrain_batch(torch, cfg, seed=7)
+        trainer = Trainer(model, pre.pretrain_loss_fn(
+            moe_aux_weight=0.01 if kw else None, **step_kw),
+            make_optimizer(model, 1e-4, **opt_kw), seed=1)
+        for _ in range(P14_MEM_WARMUP):
+            trainer.step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with counted_steps(attn, per_step, f"a {name} pretraining step"):
+            h = [trainer.step(batch) for _ in range(P14_MEM_TIMED)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / P14_MEM_TIMED
+        mem[name] = dict(step_ms=ms, samples_per_s=TRAIN_B / ms * 1e3,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         params_m=sum(p.numel() for p in model.parameters())
+                         / 1e6, loss=h[-1]["loss"])
+        if kw:
+            mem[name].update(aux=h[-1]["moe_aux"],
+                             dropped_share=float(moe_dropped_share(model)))
+        log(f"  in memory {name}: {ms:.2f} ms/step "
+            f"{mem[name]['samples_per_s']:.1f} samples/s peak "
+            f"{mem[name]['peak_gb']:.2f} GB, {mem[name]['params_m']:.1f} M "
+            "params" + (f", aux {mem[name]['aux']:.4f}, dropped share "
+                        f"{mem[name]['dropped_share']:.4f}" if kw else ""))
+        if name == "moe":
+            # (D) the state through the sharded format and back, bit for bit
+            t0 = time.perf_counter()
+            ckpt = os.path.join(root, "moe_shards")
+            state = {"model": {k: v.detach() for k, v in
+                               model.state_dict().items()},
+                     "opt": trainer.optimizer_state_tree()}
+            save_sharded(ckpt, state)
+            whole = consolidate(ckpt)
+            fresh = BiPretrainModel(cfg, device=DEVICE, seed=1)
+            fresh.load_state_dict({k: torch.as_tensor(v) for k, v in
+                                   whole["model"].items()}, strict=True)
+            fresh_sd = fresh.state_dict()
+            bad = [k for k, v in model.state_dict().items()
+                   if not torch.equal(v, fresh_sd[k])]
+            opt = trainer.optimizer
+            for key, moments in (("mu", opt.mu), ("nu", opt.nu)):
+                bad += [f"{key}/{n}" for n, m in zip(opt.names, moments)
+                        if not torch.equal(m.cpu(), torch.as_tensor(
+                            whole["opt"][key][n]))]
+            if bad or int(whole["opt"]["count"]) != opt.count:
+                raise AssertionError(f"sharded round trip differs: {bad[:5]}")
+            nbytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                         for f in os.listdir(ckpt))
+            res["checkpoint"] = dict(seconds=time.perf_counter() - t0,
+                                     gb=nbytes / 1e9,
+                                     tensors=len(model.state_dict())
+                                     + 2 * len(opt.names))
+            log(f"  (D) sharded save + consolidate + restore of the MoE "
+                f"state: {res['checkpoint']['gb']:.2f} GB, "
+                f"{res['checkpoint']['tensors']} tensors, bit for bit, in "
+                f"{res['checkpoint']['seconds']:.1f} s")
+            del fresh, state, whole
+        del trainer, model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["in_memory"] = mem
+    res["moe_over_dense_step"] = mem["moe"]["step_ms"] / mem["dense"]["step_ms"]
+    if p8 is not None:
+        res["phase8_dense"] = {k: p8[k] for k in ("step_ms", "samples_per_s",
+                                                  "peak_gb")}
+
+    # 3. one fp32 MoE step at p 0, kernel path against plain path
+    cfg = base_config(ModelConfig, "float32", **moe_kw)
+    model = BiPretrainModel(cfg, device=DEVICE, seed=0)
+    model.train()
+    batch = pretrain_batch(torch, cfg, seed=8)
+    dice = torch.randperm(TRAIN_B, device=DEVICE, generator=torch.Generator(
+        device=DEVICE).manual_seed(9))
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        out = model.train_step(
+            *(batch.get(k) for k in pre.PRETRAIN_KEYS), hn_dice=dice,
+            wra_pick=1, wra_neg_offset=1,
+            generator=torch.Generator(device=DEVICE).manual_seed(0),
+            **step_kw)
+        aux = moe_aux_loss(model)
+        (out.total_loss + 0.01 * aux).backward()
+        params = dict(model.named_parameters())
+        return out, aux, {n: params[n].grad.detach().clone()
+                          for n in P14_MOE_GRADS}
+
+    reset_counts(attn)
+    with hard_pairs(model) as mined:
+        k_out, k_aux, k_grads = step()
+    torch.cuda.synchronize()
+    p14_launches(attn, per_step, "the fp32 MoE step")
+    with plain_attention_path(layers_mod, attn), hard_pairs(
+            model, pinned=mined[0]):
+        p_out, p_aux, p_grads = step()
+    torch.cuda.synchronize()
+    if attn.masked_attention.launches != per_step:
+        raise AssertionError("plain path launched the kernel")
+    compare_step(torch, "MoE step", "float32", k_out, p_out,
+                 [n for n in PRETRAIN_LOSSES if n != "qa_loss"], k_grads,
+                 p_grads)
+    aux_err = abs(k_aux.item() - p_aux.item())
+    log(f"  MoE step float32 aux kernel={k_aux.item():.6f} "
+        f"plain={p_aux.item():.6f} |diff|={aux_err:.3e}")
+    if aux_err > STEP_TOL["float32"][0]:
+        raise AssertionError(f"MoE aux {k_aux.item()} vs {p_aux.item()}")
+    res["fp32_check"] = dict(loss=k_out.total_loss.item(),
+                             loss_err=abs(k_out.total_loss.item()
+                                          - p_out.total_loss.item()),
+                             aux_err=aux_err)
+    del model, batch, k_out, p_out, k_grads, p_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase14_world1(torch, attn, ModelConfig, RetrievalModel):
+    """(B) one retrieval step at B 96, fp32, p 0, under plain DDP, DDP with
+    ZeRO-2, FSDP, TP (model 1) and GPipe (one stage, 4 microbatches), on a
+    process group of one rank over NCCL; each against the plain Trainer's
+    step (loss 1e-4, the five updates 1e-3 relative), then timed."""
+    import dataclasses
+    import gc
+    from mvp_pytorch_tpu_torch.parallel import distributed
+    from mvp_pytorch_tpu_torch.parallel.mesh import (apply_tensor_parallel,
+                                                     make_mesh)
+    from mvp_pytorch_tpu_torch.tasks.retrieval import retrieval_loss_fn
+    from mvp_pytorch_tpu_torch.training.optim import make_optimizer
+    from mvp_pytorch_tpu_torch.training.trainer import Trainer
+    info = distributed.initialize("cpu" if DEVICE == "cpu" else None,
+                                  need_group=True)
+    want = "gloo" if DEVICE == "cpu" else "nccl"
+    log(f"  process group: rank {info['rank']} of {info['world_size']} on "
+        f"{info['device']} over {info['backend']}")
+    if info["backend"] != want or info["world_size"] != 1:
+        raise AssertionError(f"want one {want} rank: {info}")
+    mesh = make_mesh(register=False)
+    per_step = P14_LAYERS // 2 * 4
+    cfg = base_config(ModelConfig, "float32")
+    batch = train_batch(torch, cfg, seed=5)
+    loss_fn = retrieval_loss_fn(max_tag_length=20, hn_mod="hard")
+    modes = {"plain": dict(mesh=None), "ddp": dict(zero_sharding=False),
+             "zero2": dict(), "fsdp": dict(fsdp=True), "tp": dict(),
+             "gpipe": dict(pipeline_microbatches=P14_GPIPE_MB)}
+    ref, out = None, {}
+    try:
+        for mode, kw in modes.items():
+            mcfg = (dataclasses.replace(cfg, pipeline_stages=1)
+                    if mode == "gpipe" else cfg)
+            model = RetrievalModel(mcfg, device=DEVICE, seed=0)
+            if mode == "tp":
+                apply_tensor_parallel(model, mesh)
+            before = {n: p.detach().clone()
+                      for n, p in model.named_parameters()
+                      if n in GRAD_PARAMS}
+            trainer = Trainer(model, loss_fn, make_optimizer(
+                model, 4e-5, schedule="constant"), seed=1,
+                **{"mesh": mesh, **kw})
+            launches = per_step * (P14_GPIPE_MB if mode == "gpipe" else 1)
+            reset_counts(attn)
+            first = trainer.step(batch)
+            torch.cuda.synchronize()
+            p14_launches(attn, launches, f"the {mode} step")
+            after = trainer.full_state_dict()
+            upd = {n: (after[n] - before[n]).float() for n in before}
+            if ref is None:
+                ref = (first, upd)
+                errs = {}
+            else:
+                loss_err = abs(first["loss"] - ref[0]["loss"])
+                errs = {n: ((u - ref[1][n]).norm()
+                            / ref[1][n].norm().clamp(min=1e-30)).item()
+                        for n, u in upd.items()}
+                ok = (loss_err <= STEP_TOL["float32"][0] and
+                      max(errs.values()) <= STEP_TOL["float32"][1])
+                log(f"  {mode:6s} loss {first['loss']:.6f} (|diff| "
+                    f"{loss_err:.3e}), updates rel err max "
+                    f"{max(errs.values()):.3e} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{mode} step: loss {loss_err}, "
+                                         f"updates {errs}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(P14_MODE_TIMED):
+                reset_counts(attn)
+                trainer.step(batch)
+                p14_launches(attn, launches, f"a {mode} step")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / P14_MODE_TIMED
+            out[mode] = dict(step_ms=ms, loss=first["loss"],
+                             launches_per_step=launches,
+                             max_update_rel_err=max(errs.values(),
+                                                    default=0.0))
+            log(f"  {mode:6s} {ms:.2f} ms/step ({launches} launches a step)")
+            del trainer, model, after, before, upd
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown()
+    return out
+
+
+def phase14_coarse(torch):
+    """(C) `--coarse_block`'s streaming coarse stage: at the Flickr geometry
+    against the dense coarse stage of `two_stage_scoring` (tie-free), then a
+    corpus-scale pass whose dense matrix would not fit."""
+    from mvp_pytorch_tpu_torch.parallel.sharded_retrieval import (
+        sharded_coarse_eval)
+    from mvp_pytorch_tpu_torch.tasks.retrieval_eval import coarse_ranks
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    k_i2t, k_t2i = P14_K
+
+    def emb(n):
+        x = torch.randn(n, P14_EMB, device=DEVICE, generator=gen)
+        return x / x.norm(dim=1, keepdim=True)
+
+    n_img, cpi = P14_FLICKR
+    n_cap = n_img * cpi
+    # exact and tie-free by construction: entries -1, 0, 1 give integer
+    # scores (exact in fp32 in any order of summation), and two last
+    # columns add (i + j) / 8192 to the score of image i and caption j, so
+    # no two scores of a row or a column are equal (i + j < 8192)
+    img = torch.randint(-1, 2, (n_img, P14_EMB), device=DEVICE,
+                        generator=gen).float()
+    txt = torch.randint(-1, 2, (n_cap, P14_EMB), device=DEVICE,
+                        generator=gen).float()
+    img[:, -2] = torch.arange(n_img, device=DEVICE) / 8192
+    txt[:, -2] = 1.0
+    img[:, -1] = 1.0
+    txt[:, -1] = torch.arange(n_cap, device=DEVICE) / 8192
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sims = img @ txt.T
+    i2t = torch.topk(sims, k_i2t, dim=1).indices.cpu().numpy()
+    t2i = torch.topk(sims.T, k_t2i, dim=1).indices.cpu().numpy()
+    ri, rt = coarse_ranks(sims.cpu().numpy(), cpi)
+    dense_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = sharded_coarse_eval(img, txt, cpi, k_i2t, k_t2i, block=P14_BLOCK)
+    stream_s = time.perf_counter() - t0
+    for name, a, b in zip(("i2t", "t2i", "i2t ranks", "t2i ranks"), got,
+                          (i2t, t2i, ri, rt)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"--coarse_block {name} differs from the "
+                                 f"dense stage in {(a != b).sum()} places")
+    log(f"  Flickr geometry {n_img} x {n_cap} (exact, tie-free scores): "
+        f"shortlists and ranks "
+        f"equal the dense stage; dense {dense_s:.3f} s, streaming "
+        f"{stream_s:.3f} s (block {P14_BLOCK})")
+    del img, txt, sims
+
+    nq, ng = P14_CORPUS
+    img, txt = emb(nq), emb(ng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    i2t_c, t2i_c, ri_c, rt_c = sharded_coarse_eval(
+        img, txt, ng // nq, k_i2t, k_t2i, block=P14_BLOCK)
+    torch.cuda.synchronize()
+    corpus_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if (i2t_c.shape != (nq, k_i2t) or t2i_c.shape != (ng, k_t2i)
+            or i2t_c.min() < 0 or i2t_c.max() >= ng or ri_c.max() >= ng
+            or rt_c.max() >= nq or ri_c.min() < 0):
+        raise AssertionError("corpus-scale coarse stage: bad shapes or ids")
+    dense_gb = nq * ng * 4 / 1e9
+    log(f"  corpus scale {nq} x {ng} (dense fp32 matrix {dense_gb:.0f} GB): "
+        f"both directions' shortlists and ranks in {corpus_s:.2f} s, peak "
+        f"{peak:.2f} GB")
+    del img, txt
+    torch.cuda.empty_cache()
+    return dict(flickr=dict(dense_s=dense_s, streaming_s=stream_s,
+                            equal=True),
+                corpus=dict(queries=nq, gallery=ng, seconds=corpus_s,
+                            peak_gb=peak, dense_matrix_gb=dense_gb,
+                            block=P14_BLOCK))
+
+
+def phase14(torch, attn, layers_mod, ModelConfig, RetrievalModel, p8=None):
+    import shutil
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke",
+                        "phase14")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        log("  (A) MoE pretraining, MVPTR-base, 8 experts top-2, B "
+            f"{TRAIN_B}, dropouts {DROP_P}")
+        moe = phase14_moe(torch, attn, layers_mod, ModelConfig, root, p8)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  (B) world size 1 on the card: plain, DDP, ZeRO-2, FSDP, TP, "
+        f"GPipe ({P14_GPIPE_MB} microbatches), B {TRAIN_B} fp32")
+    world1 = phase14_world1(torch, attn, ModelConfig, RetrievalModel)
+    log("  (C) --coarse_block's streaming coarse stage")
+    coarse = phase14_coarse(torch)
+    log("  the kernel at GPipe's microbatch shapes")
+    gpipe_attention = attention_times(
+        torch, attn, tuple((name, TRAIN_B // P14_GPIPE_MB, l, "float32",
+                            (0.0,), "key")
+                           for name, l in (("text", 75), ("vis", 70),
+                                           ("fused", 125))), seed=14)
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 14 took {seconds:.1f} s")
+    return dict(moe=moe, world1=world1, coarse=coarse,
+                gpipe_attention=gpipe_attention, seconds=seconds)
+
+
+def parallel_summary(p14):
+    """Phase 14's numbers for the kernel line (the GPipe microbatch rows go
+    with the fp32 kernel)."""
+    return {k: v for k, v in p14.items() if k != "gpipe_attention"}
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5680,6 +6109,11 @@ def main(argv) -> int:
     parser.add_argument("--scst_cbs", action="store_true",
                         help="run phase 13 C-E (image to constrained "
                              "caption, CBS and SCST timed) alone")
+    parser.add_argument("--parallel", action="store_true",
+                        help="run phase 14 (parallelism: MoE at full width, "
+                             "the parallel steps at world size 1, the "
+                             "streaming coarse stage, sharded checkpoints) "
+                             "alone")
     parser.add_argument("--serve_clients", nargs=3,
                         metavar=("URL", "JOBS", "OUT"),
                         help="the client process of phase 10 B, which the "
@@ -5765,6 +6199,13 @@ def main(argv) -> int:
                           "cbs_scst": cbs_scst_summary(p13),
                           "card": card}), flush=True)
         return 0
+    if args.parallel:
+        log("phase 14 alone: parallelism on torch.distributed, MVPTR-base")
+        p14 = phase14(torch, attn, layers_mod, ModelConfig, RetrievalModel)
+        print(json.dumps({"parallel": parallel_summary(p14),
+                          "parallel_attention": p14["gpipe_attention"],
+                          "card": card}), flush=True)
+        return 0
     if args.nlvr_cli or args.serve:
         part = "nlvr" if args.nlvr_cli else "serve"
         log(f"phase 10 alone: {part}, MVPTR-base")
@@ -5846,6 +6287,12 @@ def main(argv) -> int:
     p13 = phase13(torch, attn, layers_mod)
     torch.cuda.synchronize()
 
+    log("phase 14: parallelism on torch.distributed: MoE pretraining at "
+        "full width, the parallel steps at world size 1 over NCCL, the "
+        "streaming coarse stage at corpus scale, sharded checkpoints")
+    p14 = phase14(torch, attn, layers_mod, ModelConfig, RetrievalModel, pcli)
+    torch.cuda.synchronize()
+
     main_t = timings[("fused", "bfloat16")]
     main_err = errors[("fused 2-D padded keys", 1000, "bfloat16", "blhd")]
     train_t = bwd_timings[("fused", "bfloat16")]
@@ -5904,7 +6351,8 @@ def main(argv) -> int:
         "serving": p10["serve"],
         "single_stream": single_stream_summary(p11),
         "captioning": captioning_summary(p12),
-        "cbs_scst": cbs_scst_summary(p13)}, {
+        "cbs_scst": cbs_scst_summary(p13),
+        "parallel": parallel_summary(p14)}, {
         # the fp32 kernels (3xTF32) behind the same entry point; launches
         # and pairs/s from the fp32 sweep of phase 3
         "name": "masked_attention_fwd fp32 (3xTF32)", "route": "cuda",
@@ -5940,7 +6388,8 @@ def main(argv) -> int:
             k: v for k, v in p12["kernel"]["times"].items()
             if k.endswith("fp32")},
         "cbs_scst_attention": {
-            k: v for k, v in p13["kernel"].items() if k.endswith("fp32")}}]}
+            k: v for k, v in p13["kernel"].items() if k.endswith("fp32")},
+        "gpipe_attention": p14["gpipe_attention"]}]}
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"detector": p13["detector"],
                       "detector_train": p13["train"], "card": card}),

@@ -29,6 +29,14 @@ layers_0|layers_2` become `single_mapping.0/.2`, and an mlp classifier's
 classifier (`classifier/{kernel,bias}`) becomes `classifier.weight/bias`.
 A `ClassifierHead`'s `classifier/dense` and `classifier/out` become
 `classifier.0` and `classifier.2` (mlp) or `classifier.weight/bias`.
+
+The JAX exporter has no rule for MoE leaves either, so the port names them
+itself: an encoder layer's `moe/wi` [E, H, F] and `moe/wo` [E, F, H] load as
+`...layer.{i}.moe.wi` / `.moe.wo` as they are (the flax layout), and
+`moe/router/kernel` [H, E] as `...moe.router.weight` [E, H]. A tree in the
+stacked layout of a `pipeline_stages > 0` config (`layers/layer` leaves with
+a leading layer dimension) is unstacked into per-layer keys first
+(`parallel.pipeline.unstack_model_params`).
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ _LAYER_SUFFIX = {
     ("intermediate_dense",): ("intermediate.dense", "dense"),
     ("output_dense",): ("output.dense", "dense"),
     ("output_norm",): ("output.LayerNorm", "norm"),
+    ("moe", "router"): ("moe.router", "dense"),
 }
 
 _ENCODERS = ("txt_encoder", "vis_encoder", "mul_encoder", "encoder")
@@ -144,6 +153,9 @@ def _torch_key(path: tuple, val: np.ndarray, mlp_classifier: bool):
             suf, val = _leaf("norm", p[1], val)
             return f"bert.LayerNorm.{suf}", val
         if p[0] in _ENCODERS and len(p) > 2 and p[1].startswith("layer_"):
+            if p[2:] in (("moe", "wi"), ("moe", "wo")):
+                i = p[1][len("layer_"):]
+                return f"bert.{p[0]}.layer.{i}.moe.{p[3]}", val
             spec = _LAYER_SUFFIX.get(tuple(p[2:-1]))
             if spec is not None:
                 tk, kind = spec
@@ -152,11 +164,27 @@ def _torch_key(path: tuple, val: np.ndarray, mlp_classifier: bool):
     raise KeyError(f"flax path {'/'.join(path)} has no key in the port")
 
 
+def _nest(tree: Mapping[str, Any]) -> dict:
+    """A tree with "/"-joined keys (at any level) as nested dicts."""
+    out: dict = {}
+    for k, v in tree.items():
+        node = out
+        parts = k.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        if isinstance(v, Mapping):
+            node.setdefault(parts[-1], {}).update(_nest(v))
+        else:
+            node[parts[-1]] = v
+    return out
+
+
 def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A flax params tree of a full model (`bert` and its heads, and
     `logit_scale` where the model has one) -> the reference's torch state
     dict."""
-    flat = list(_flatten(params))
+    from .parallel.pipeline import unstack_model_params
+    flat = list(_flatten(unstack_model_params(_nest(params))))
     mlp = any(p[:2] == ("classifier", "dense") for p, _ in flat)
     sd = {}
     for path, val in flat:

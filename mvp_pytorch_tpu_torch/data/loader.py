@@ -205,13 +205,14 @@ class ProcessLoader:
 
     `fetch(indices[, epoch]) -> {name: numpy array}` must give the same
     shapes and dtypes at every step; a fetch that takes `epoch` gets the
-    sampler's epoch of the step. After each step, `timing()` gives the worker's
+    sampler's epoch of the step. `device` has no default: each rank's loader
+    moves its batches to that rank's own device. After each step, `timing()` gives the worker's
     milliseconds for the batch just yielded and, on CUDA, its copy's device
     milliseconds (read it once the step has synchronised)."""
 
     def __init__(self, fetch: Callable[..., Dict[str, np.ndarray]],
-                 sampler: BatchSampler, *, start_step: int = 0,
-                 num_workers: int = 4, device="cpu",
+                 sampler: BatchSampler, *, device, start_step: int = 0,
+                 num_workers: int = 4,
                  multiprocessing_context: str = "fork",
                  timeout: float = 600.0):
         if num_workers < 1:

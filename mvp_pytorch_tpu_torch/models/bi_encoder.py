@@ -13,6 +13,16 @@ Random choices (sampled negatives, the slot permutation) draw from a
 `torch.Generator` the caller passes; `hn_dice` pins the permutation, as in
 the JAX package. `forward_joint` is the NLVR2 forward: one text and two
 images through one fusion pass.
+
+Inside a data-parallel Trainer step (`parallel.collectives.data_parallel`)
+the contrastive matrix, the hard-negative mining and the slot permutation
+span the global batch, as in the JAX package, whose loss is global-batch
+(`mvp_pytorch_tpu/models/bi_encoder.py:196-222`): the global embeddings
+are all-gathered with gradients (`sim_mat` is [B, B] over every rank's
+rows), the mined pairs are data rank 0's (broadcast, so a sampled choice
+is one choice), each rank fuses its own B / ranks slots of them, reading the
+paired rows from the all-gathered text and vision streams, and
+`hard_txt_index` / `hard_img_index` hold global row indices.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from ..parallel.collectives import data_parallel, gather_nograd, gather_rows
 from .config import ModelConfig
 from .layers import (Dense, Dropout, Embeddings, LayerNorm, Pooler,
                      StreamEncoder, compute_dtype, init_weights, mask_to_bias)
@@ -191,7 +202,12 @@ class BiEncoder(nn.Module):
         strip = 1 if use_b else max_tag_length
         only_vis = vis_seq[:, strip:, :]
         only_vis_mask = attention_mask_b[:, strip:]
-        sim_mat = global_txt @ global_img.T
+        dp = data_parallel()
+        if dp is None:
+            sim_mat = global_txt @ global_img.T
+        else:
+            sim_mat = (gather_rows(global_txt, dp.data_group)
+                       @ gather_rows(global_img, dp.data_group).T)
 
         hard_seq = hard_pooled = hard_txt = hard_img = mid_hard = None
         if not encode_hn:
@@ -202,14 +218,26 @@ class BiEncoder(nn.Module):
             hard_txt, hard_img = self.mine_hard_negatives(
                 sim_mat, hn_mod=hn_mod, logit=logit, hn_dice=hn_dice,
                 generator=generator)
-            n = sim_mat.shape[0]
+            n = txt_seq.shape[0]
+            src = (txt_seq, attention_mask_a, only_vis, only_vis_mask)
+            if dp is not None:
+                pairs = torch.stack([hard_txt, hard_img])
+                torch.distributed.broadcast(
+                    pairs, src=dp.group_rank_to_global("data", 0),
+                    group=dp.data_group)
+                mine = slice(dp.data_rank * n, (dp.data_rank + 1) * n)
+                hard_txt, hard_img = pairs[0, mine], pairs[1, mine]
+                src = (gather_rows(txt_seq, dp.data_group),
+                       gather_nograd(attention_mask_a, dp.data_group),
+                       gather_rows(only_vis, dp.data_group),
+                       gather_nograd(only_vis_mask, dp.data_group))
+            txt_src, mask_src, vis_src, vmask_src = src
             if self.config.fused_hn_pass:
                 both_seq, both_pooled, both_mid = self.fuse(
-                    torch.cat([txt_seq, txt_seq[hard_txt]], 0),
-                    torch.cat([attention_mask_a, attention_mask_a[hard_txt]],
-                              0),
-                    torch.cat([only_vis, only_vis[hard_img]], 0),
-                    torch.cat([only_vis_mask, only_vis_mask[hard_img]], 0),
+                    torch.cat([txt_seq, txt_src[hard_txt]], 0),
+                    torch.cat([attention_mask_a, mask_src[hard_txt]], 0),
+                    torch.cat([only_vis, vis_src[hard_img]], 0),
+                    torch.cat([only_vis_mask, vmask_src[hard_img]], 0),
                     return_at_layer=phrase_layer)
                 seq_out, hard_seq = both_seq[:n], both_seq[n:]
                 pooled, hard_pooled = both_pooled[:n], both_pooled[n:]
@@ -218,8 +246,8 @@ class BiEncoder(nn.Module):
                     mid_joint, mid_hard = both_mid[:n], both_mid[n:]
             else:
                 hard_seq, hard_pooled, mid_hard = self.fuse(
-                    txt_seq[hard_txt], attention_mask_a[hard_txt],
-                    only_vis[hard_img], only_vis_mask[hard_img],
+                    txt_src[hard_txt], mask_src[hard_txt],
+                    vis_src[hard_img], vmask_src[hard_img],
                     return_at_layer=phrase_layer)
                 seq_out, pooled, mid_joint = self.fuse(
                     txt_seq, attention_mask_a, only_vis, only_vis_mask,

@@ -20,6 +20,15 @@ kernel drops attention probabilities by a hash of that seed and each
 element's index (the JAX layer leaves its kernel for einsums there,
 `mvp_pytorch_tpu/models/layers.py:143-152`; the function is the same, the
 random stream is not).
+
+Parallel paths (`parallel/`): `parallel.mesh.apply_tensor_parallel` marks
+the column- and row-parallel `Dense`s, `SelfAttention` (H / tp heads a
+model rank, so the kernel runs on those) and `MoEMLP` (E / tp experts);
+`StreamEncoder` opens the sequence-parallel region around its layers, runs
+every `moe_every`-th layer's FFN as an `MoEMLP` when `config.moe_experts`,
+remats each layer under `config.remat`, and under a `pipeline_stages > 0`
+config inside the Trainer's GPipe scope runs its stack through
+`parallel.pipeline.gpipe_apply`.
 """
 
 from __future__ import annotations
@@ -32,6 +41,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import mask_to_bias, masked_attention
+from ..parallel.activation_sharding import (chunk_of, current_region,
+                                            enter_region, exit_region,
+                                            sequence_region, shard_seq,
+                                            unshard_seq)
 from .config import ModelConfig
 
 __all__ = [
@@ -92,8 +105,16 @@ class Dropout(nn.Module):
     def forward(self, x):
         if not self.training or self.p == 0:
             return x
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
-                                              generator=self._generator())
+        region = current_region()
+        if region is not None and x.dim() == 3 and x.shape[1] == region.chunk:
+            # a sequence-parallel chunk: this rank's positions of the mask
+            # drawn for the whole sequence, as every model rank draws it
+            shape = (x.shape[0], region.length, x.shape[2])
+            keep = chunk_of(x.new_empty(shape).bernoulli_(
+                1.0 - self.p, generator=self._generator()), region)
+        else:
+            keep = torch.empty_like(x).bernoulli_(
+                1.0 - self.p, generator=self._generator())
         return x * keep / (1.0 - self.p)
 
     def seed(self, device) -> torch.Tensor:
@@ -106,15 +127,16 @@ class Dropout(nn.Module):
 @contextlib.contextmanager
 def dropout_generator(module: nn.Module, generator: Optional[torch.Generator]):
     """Every `Dropout` under `module` draws from `generator` inside the
-    block."""
+    block; each gets its earlier generator back after it."""
     drops = [m for m in module.modules() if isinstance(m, Dropout)]
+    prev = [m.generator for m in drops]
     for m in drops:
         m.generator = generator
     try:
         yield
     finally:
-        for m in drops:
-            m.generator = None
+        for m, g in zip(drops, prev):
+            m.generator = g
 
 
 def hidden_dropouts(module: nn.Module):
@@ -129,15 +151,28 @@ def hidden_dropouts(module: nn.Module):
 
 
 class Dense(nn.Linear):
-    """nn.Linear (torch [out, in] weight) computing in a given dtype."""
+    """nn.Linear (torch [out, in] weight) computing in a given dtype.
+
+    Under tensor parallelism (`tp_mode`, set by
+    `parallel.mesh.apply_tensor_parallel`) the weight is this model rank's
+    shard: "col" holds output rows (the caller enters the region), "row"
+    input columns, whose partial products are summed over the model ranks
+    (or reduce-scattered along L under sequence parallelism) before the
+    whole bias is added."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype):
         super().__init__(in_features, out_features)
         self.compute_dtype = dtype
+        self.tp_mode = None
+        self.tp_mesh = None
 
     def forward(self, x):
         dt = self.compute_dtype
+        if self.tp_mode == "row":
+            y = exit_region(F.linear(x.to(dt), self.weight.to(dt)),
+                            self.tp_mesh.model_group)
+            return y + self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
@@ -208,24 +243,34 @@ class SelfAttention(nn.Module):
         self.key = Dense(h, h, dt)
         self.value = Dense(h, h, dt)
         self.dropout = Dropout(config.attention_probs_dropout_prob)
+        self.tp_mesh = None
 
     def forward(self, hidden, bias, history_state=None):
         cfg = self.config
+        tp = self.tp_mesh
+        if tp is not None:
+            if history_state is not None and current_region() is not None:
+                raise NotImplementedError("a history cache under sequence "
+                                          "parallelism")
+            hidden = enter_region(hidden, tp.model_group)
         b, l, _ = hidden.shape
         kv_input = (hidden if history_state is None
                     else torch.cat([history_state, hidden], dim=1))
 
-        def split4(x):
-            return x.view(b, x.shape[1], cfg.num_attention_heads, cfg.head_dim)
+        def split4(x):      # H / tp heads on a model rank
+            return x.view(b, x.shape[1], -1, cfg.head_dim)
 
         q = split4(self.query(hidden))
         k = split4(self.key(kv_input))
         v = split4(self.value(kv_input))
         p = self.dropout.p if self.training else 0.0
         seed = self.dropout.seed(q.device) if p > 0 else None
+        if seed is not None and tp is not None:
+            # each model rank's heads drop by their own stream
+            seed = seed ^ tp.model_rank
         ctx = masked_attention(q, k, v, bias, layout="blhd", dropout_p=p,
                                seed=seed)
-        return ctx.reshape(b, l, cfg.hidden_size)
+        return ctx.reshape(b, l, -1)
 
 
 class SelfOutput(nn.Module):
@@ -263,21 +308,83 @@ class Intermediate(nn.Module):
         self.act = ACT2FN[config.hidden_act]
 
     def forward(self, x):
+        if self.dense.tp_mode == "col":
+            x = enter_region(x, self.dense.tp_mesh.model_group)
         return self.act(self.dense(x))
 
 
-class TransformerLayer(nn.Module):
-    """One post-LN BERT layer: attention block + GELU MLP block."""
+class MoEOutput(nn.Module):
+    """dropout -> LayerNorm(out + residual), after an `MoEMLP`."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
+        self.LayerNorm = LayerNorm(config.hidden_size, config.layer_norm_eps,
+                                   compute_dtype(config))
+        self.dropout = Dropout(config.hidden_dropout_prob)
+
+    def forward(self, x, residual):
+        return self.LayerNorm(self.dropout(x) + residual)
+
+
+class TransformerLayer(nn.Module):
+    """One post-LN BERT layer: attention block + GELU MLP block; with
+    `use_moe`, an `MoEMLP` in place of the MLP (JAX `models/layers.py:
+    182-200`)."""
+
+    def __init__(self, config: ModelConfig, use_moe: bool = False):
+        super().__init__()
         self.attention = AttentionBlock(config)
-        self.intermediate = Intermediate(config)
-        self.output = SelfOutput(config, config.intermediate_size)
+        if use_moe:
+            from ..ops.moe import MoEMLP
+            self.moe = MoEMLP(config)
+            self.output = MoEOutput(config)
+        else:
+            self.intermediate = Intermediate(config)
+            self.output = SelfOutput(config, config.intermediate_size)
 
     def forward(self, hidden, bias, history_state=None):
         attn_out = self.attention(hidden, bias, history_state)
-        return self.output(self.intermediate(attn_out), attn_out)
+        if not hasattr(self, "moe"):
+            return self.output(self.intermediate(attn_out), attn_out)
+        region = current_region()
+        x = attn_out if region is None else unshard_seq(attn_out, region)
+        y = self.moe(x)
+        if region is not None:
+            y = shard_seq(y, region)
+        return self.output(y, attn_out)
+
+
+def _layer_generator(layer: nn.Module) -> Optional[torch.Generator]:
+    for m in layer.modules():
+        if isinstance(m, Dropout) and m.generator is not None:
+            return m.generator
+    return None
+
+
+def remat(layer: nn.Module, *args):
+    """`layer(*args)` under `torch.utils.checkpoint`: the backward recomputes
+    the layer, and the recompute draws the same dropout masks (the layer's
+    generator is put back to its state before the first forward)."""
+    from torch.utils.checkpoint import checkpoint
+    gen = _layer_generator(layer)
+    state = gen.get_state() if gen is not None else None
+    first = [True]
+
+    def run(*a):
+        if first[0] or gen is None:
+            first[0] = False
+            return layer(*a)
+        # the recompute runs in the backward, outside the caller's
+        # dropout_generator block
+        now = gen.get_state()
+        gen.set_state(state)
+        try:
+            with dropout_generator(layer, gen):
+                return layer(*a)
+        finally:
+            gen.set_state(now)
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class StreamEncoder(nn.Module):
@@ -292,27 +399,87 @@ class StreamEncoder(nn.Module):
     layer's keys and values prepend; with `collect_states` the return also
     carries each layer's INPUT hidden state (what a later call's
     `history_states` takes: the reference caches layer inputs, not keys and
-    values, modeling_vlbert.py:63-69)."""
+    values, modeling_vlbert.py:63-69).
+
+    With `config.moe_experts`, every `moe_every`-th layer's FFN is an
+    `MoEMLP`. Under a `pipeline_stages > 0` config (the JAX stacked layout,
+    `StreamEncoder._stacked`; the port keeps per-layer modules, and
+    `parallel.pipeline.unstack_model_params` carries stacked trees across)
+    the Trainer's GPipe scope pipelines the stack over the pipe ranks;
+    outside it the stack runs in order. That layout refuses MoE, history
+    states and per-layer bias lists, as the JAX one does."""
 
     def __init__(self, config: ModelConfig, num_layers: int):
         super().__init__()
+        self.config = config
+        every = max(config.moe_every, 1)
         self.layer = nn.ModuleList(
-            TransformerLayer(config) for _ in range(num_layers))
+            TransformerLayer(config, use_moe=config.moe_experts > 0
+                             and (i + 1) % every == 0)
+            for i in range(num_layers))
+        self.tp_mesh = None
+        self.sequence_parallel = False
+
+    def _check_stacked(self, bias, history_states, collect_states,
+                       return_at_layer):
+        cfg = self.config
+        if history_states is not None or collect_states:
+            raise NotImplementedError(
+                "pipeline_stages>0 does not support incremental-decoding "
+                "history/collect states; decode on an unstacked copy "
+                "(pipeline_stages=0), as tasks/captioning.py does")
+        if isinstance(bias, (list, tuple)):
+            raise NotImplementedError("pipeline_stages>0 requires a single "
+                                      "shared bias, not per-layer mask lists")
+        if cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "pipeline_stages>0 is incompatible with MoE stacks "
+                "(heterogeneous per-layer params cannot be stacked)")
+        if len(self.layer) % cfg.pipeline_stages:
+            raise ValueError(f"{len(self.layer)} layers not divisible by "
+                             f"{cfg.pipeline_stages} pipeline stages")
+        if return_at_layer is not None and not (
+                0 <= return_at_layer < len(self.layer)):
+            raise ValueError(f"return_at_layer {return_at_layer} outside "
+                             f"[0, {len(self.layer)})")
 
     def forward(self, hidden, bias, *, return_at_layer: Optional[int] = None,
                 history_states=None, collect_states: bool = False):
         per_layer = isinstance(bias, (list, tuple))
         if per_layer and len(bias) != len(self.layer):
             raise ValueError(f"{len(bias)} biases for {len(self.layer)} layers")
-        mid, states = None, []
-        for i, layer in enumerate(self.layer):
-            if collect_states:
-                states.append(hidden)
-            hidden = layer(hidden, bias[i] if per_layer else bias,
-                           None if history_states is None
-                           else history_states[i])
-            if return_at_layer is not None and i == return_at_layer:
-                mid = hidden
+        if self.config.pipeline_stages > 0:
+            self._check_stacked(bias, history_states, collect_states,
+                                return_at_layer)
+            from ..parallel.pipeline import current_pipeline, gpipe_apply
+            scope = current_pipeline()
+            if scope is not None and self.training:
+                return gpipe_apply(self, hidden, bias, scope,
+                                   return_at_layer=return_at_layer)
+        sp = self.sequence_parallel and self.tp_mesh is not None
+        if sp and (history_states is not None or collect_states):
+            raise NotImplementedError("history states under sequence "
+                                      "parallelism")
+        with (sequence_region(self.tp_mesh.model_group,
+                              self.tp_mesh.model_size, hidden.shape[1])
+              if sp else contextlib.nullcontext()) as region:
+            if sp:
+                hidden = shard_seq(hidden, region)
+            mid, states = None, []
+            for i, layer in enumerate(self.layer):
+                if collect_states:
+                    states.append(hidden)
+                b = bias[i] if per_layer else bias
+                hist = None if history_states is None else history_states[i]
+                if self.config.remat and self.training \
+                        and torch.is_grad_enabled():
+                    hidden = remat(layer, hidden, b, hist)
+                else:
+                    hidden = layer(hidden, b, hist)
+                if return_at_layer is not None and i == return_at_layer:
+                    mid = hidden if not sp else unshard_seq(hidden, region)
+            if sp:
+                hidden = unshard_seq(hidden, region)
         if collect_states:
             return hidden, mid, states
         return hidden, mid
@@ -336,7 +503,10 @@ def init_weights(module: nn.Module, std: float,
     """The JAX package's init for the Linear, Embedding and LayerNorm
     modules under `module`: normal(std) kernels and embedding tables, zero
     biases, unit LayerNorm scales."""
+    from ..ops.moe import MoEMLP
     for m in module.modules():
+        if isinstance(m, MoEMLP):
+            m.init_weights(std, generator)
         if isinstance(m, (nn.Linear, nn.Embedding)):
             m.weight.normal_(0.0, std, generator=generator)
             if getattr(m, "bias", None) is not None:

@@ -20,6 +20,7 @@ from torch import nn
 
 from ..ops.masked import (cross_entropy, gather_masked_positions, gather_span,
                           masked_cross_entropy)
+from ..parallel.collectives import dp_rows, global_mean
 from .bi_encoder import BiEncoder, l2_normalize
 from .config import ModelConfig
 from .heads import LMPredictionHead, SeqRelationshipHead
@@ -84,7 +85,7 @@ def wra_sample_loss(sequence_output, phrase_index, image_index,
                   im_valid[neg_idx], generator, pick=pick)
     loss = torch.clamp(neg + margin - pos, min=0.0)
     valid = (phrase_index[:, 1] > phrase_index[:, 0]).float()
-    return (loss * valid).sum() / valid.sum().clamp(min=1.0)
+    return global_mean((loss * valid).sum(), valid.sum())
 
 
 def wra_hard_loss(sequence_output, hard_sequence_output, phrase_index,
@@ -98,8 +99,9 @@ def wra_hard_loss(sequence_output, hard_sequence_output, phrase_index,
     im, im_valid = span_tokens(sequence_output, image_index, img_width)
     pos = t2i_sim(torch.einsum("bph,brh->bpr", ph, im), ph_valid, im_valid,
                   generator, pick=pick)
-    hard_phrase_index = phrase_index[hard_txt_index]
-    hard_image_index = image_index[hard_img_index]
+    # the hard pairs' indices are the global batch's (data-parallel step)
+    hard_phrase_index = dp_rows(phrase_index)[hard_txt_index]
+    hard_image_index = dp_rows(image_index)[hard_img_index]
     hph, hph_valid = span_tokens(hard_sequence_output, hard_phrase_index,
                                  phrase_width)
     him, him_valid = span_tokens(hard_sequence_output, hard_image_index,
@@ -109,7 +111,7 @@ def wra_hard_loss(sequence_output, hard_sequence_output, phrase_index,
     loss = torch.clamp(neg + margin - pos, min=0.0)
     valid = ((phrase_index[:, 1] > phrase_index[:, 0])
              & (hard_phrase_index[:, 1] > hard_phrase_index[:, 0])).float()
-    return (loss * valid).sum() / valid.sum().clamp(min=1.0)
+    return global_mean((loss * valid).sum(), valid.sum())
 
 
 # ---------------------------------------------------------------------------

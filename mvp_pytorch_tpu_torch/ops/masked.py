@@ -3,7 +3,8 @@ PyTorch.
 
 - `gather_masked_positions`: up to `max_pred` labelled positions per example,
   labelled ones first in their original order.
-- `masked_cross_entropy`: ignore-index cross entropy as a weighted mean.
+- `masked_cross_entropy`: ignore-index cross entropy as a weighted mean
+  (over the global batch's count inside a data-parallel step).
 - `cross_entropy`: mean cross entropy where an out-of-range label counts 0.
 - `gather_span`: a [start, end) span per example into a fixed-width buffer
   with a validity mask; positions past the span or past L are masked out.
@@ -15,6 +16,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import dp_count
 
 
 def gather_masked_positions(hidden: torch.Tensor, labels: torch.Tensor,
@@ -46,8 +49,9 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     unlabelled. 0 when nothing is labelled."""
     weights = weights * (labels < logits.shape[-1])
     total = (_nll(logits, labels) * weights).sum()
-    denom = weights.sum()
-    return torch.where(denom > 0, total / denom.clamp(min=1.0),
+    # inside a data-parallel step: the global batch's count
+    denom, ranks = dp_count(weights.sum())
+    return torch.where(denom > 0, total * ranks / denom.clamp(min=1.0),
                        torch.zeros_like(total))
 
 

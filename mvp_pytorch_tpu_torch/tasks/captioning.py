@@ -15,7 +15,11 @@ Decoding: `--decode_mode cached` (the history cache, one step over two
 positions) or `recompute` (the whole prefix every step), greedy or
 `--num_beams` beams, `--max_gen_length` positions, in chunks of
 `--eval_batch_size` images (the JAX driver decodes them all in one batch;
-rows never mix). A standalone `--do_eval` writes `test_eval.json`.
+rows never mix), the images split over the data ranks of a multi-rank run.
+A model of a pipeline-staged config (`--pipeline_parallel`) trains through
+GPipe and decodes as a per-layer model (`parallel.pipeline.unstacked`), as
+the JAX driver decodes on an unstacked copy. A standalone `--do_eval`
+writes `test_eval.json`.
 
 `--scst` fine-tunes after cross-entropy by self-critical sequence training
 (`scst_finetune`: `--scst_steps` steps of `--scst_batch` images, a sampled
@@ -40,13 +44,14 @@ import torch
 
 from ..data.datasets import FeatureStore
 from ..data.tokenization import FastBertTokenizer
-from ..models.config import ModelConfig
 from ..models.cbs import (NEG_INF, build_fsm, constrained_beam_search,
                           select_best_beam_with_constraints)
 from ..models.generation import (GenerateOutput, beam_search,
                                  beam_search_cached, generate,
                                  generate_cached)
 from ..models.img_bert import CaptioningModel
+from ..parallel.collectives import gather_eval_arrays, process_shard_indices
+from ..parallel.pipeline import unstacked
 from ..training.optim import AdamW
 from ..training.scst import ScstReward, sample_mask, scst_loss
 from ..utils.caption_eval import evaluate_captions
@@ -194,6 +199,19 @@ def caption_loss_fn(model, batch, generator, step):
     return loss, {}
 
 
+def _per_layer(fn):
+    """Decode a pipeline-staged model as a per-layer one (the history
+    cache needs the per-layer layout; `parallel.pipeline.unstacked`)."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapped(model, *args, **kw):
+        with unstacked(model):
+            return fn(model, *args, **kw)
+    return wrapped
+
+
+@_per_layer
 @torch.no_grad()
 def decode_output(model, ids_b, ctx_mask, feats, vocab, *, gen_len: int,
                   decode_mode: str, do_sample: bool = False,
@@ -224,6 +242,7 @@ def decode_output(model, ids_b, ctx_mask, feats, vocab, *, gen_len: int,
     return generate(logits_fn, cls, sep, pad, mask, n, gen_len, **kw)
 
 
+@_per_layer
 @torch.no_grad()
 def decode_batch(model, ids_b, ctx_mask, feats, vocab, *, gen_len: int,
                  num_beams: int, decode_mode: str) -> torch.Tensor:
@@ -257,6 +276,7 @@ def decode_batch(model, ids_b, ctx_mask, feats, vocab, *, gen_len: int,
                        device=dev)[0]
 
 
+@_per_layer
 @torch.no_grad()
 def constrained_decode(model, ids_b, ctx_mask, feats, fsm, vocab, *,
                        gen_len: int, num_beams: int
@@ -303,19 +323,21 @@ def caption_tokens(row, tokenizer) -> List[str]:
 def decode_captions(args, model, dataset, tokenizer, images=None
                     ) -> Dict[str, List[str]]:
     """Every image's (or `images`') caption tokens, decoded in chunks of
-    `--eval_batch_size` images on this process."""
+    `--eval_batch_size` images; the images are split over the data ranks
+    (`process_shard_indices`) and the token rows gathered in order."""
     images = dataset.images() if images is None else images
-    out = {}
-    for i in range(0, len(images), args.eval_batch_size):
-        chunk = images[i:i + args.eval_batch_size]
+    mine = [images[int(i)] for i in process_shard_indices(len(images))]
+    rows = []
+    for i in range(0, len(mine), args.eval_batch_size):
+        chunk = mine[i:i + args.eval_batch_size]
         ids_b, ctx_mask, feats = context_batch(dataset, chunk, model.device)
-        seqs = decode_batch(model, ids_b, ctx_mask, feats, tokenizer.vocab,
-                            gen_len=args.max_gen_length,
-                            num_beams=args.num_beams,
-                            decode_mode=args.decode_mode).cpu().numpy()
-        for img, row in zip(chunk, seqs):
-            out[img] = caption_tokens(row, tokenizer)
-    return out
+        rows.append(decode_batch(model, ids_b, ctx_mask, feats,
+                                 tokenizer.vocab, gen_len=args.max_gen_length,
+                                 num_beams=args.num_beams,
+                                 decode_mode=args.decode_mode).cpu().numpy())
+    (seqs,) = gather_eval_arrays(len(images), np.concatenate(rows))
+    return {img: caption_tokens(row, tokenizer)
+            for img, row in zip(images, seqs)}
 
 
 def prepare(args, tokenizer, device, logger=None):
@@ -338,18 +360,6 @@ def prepare(args, tokenizer, device, logger=None):
                             device=device, seed=args.seed)
     load_params_or_init(args, model, logger)
     return dataset, model
-
-
-def check_config(args) -> None:
-    """A checkpoint whose config has pipeline stages raises (its GPipe
-    layout is ROADMAP.md queue 1 item 6), before anything is written."""
-    if args.model_name_or_path and os.path.exists(
-            os.path.join(args.model_name_or_path, "config.json")):
-        cfg = ModelConfig.from_pretrained(args.model_name_or_path)
-        if cfg.pipeline_stages > 0:
-            raise NotImplementedError(
-                f"pipeline_stages {cfg.pipeline_stages} is not ported yet: "
-                f"it waits for ROADMAP.md queue 1 item 6 (GPipe PP)")
 
 
 def scst_optimizer(model, lr: float) -> AdamW:
@@ -482,7 +492,6 @@ def main(argv=None) -> dict:
     Flags that cannot run raise before anything is written."""
     args = get_args(argv)
     check_args(args)
-    check_config(args)
     device = run_device(args)
     os.makedirs(args.output_dir, exist_ok=True)
     logger = setup_logger("captioning", args.output_dir)

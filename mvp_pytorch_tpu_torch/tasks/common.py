@@ -3,11 +3,21 @@ package's `tasks/common.py` on one device, without JAX.
 
 `add_common_args` declares the flags; `check_args` makes each flag of a
 later port item raise, naming the item (ROADMAP.md queue 1); `run_device`
-picks the device (CUDA unless `--platform cpu`; no card raises);
+joins the process group when the launch has more than one rank or a
+parallel flag asks for one (`parallel/distributed.py` `init_runtime`) and
+picks the rank's device (CUDA, `cuda:{LOCAL_RANK}`, unless `--platform
+cpu`; no card raises);
 `build_config`, `load_params_or_init`, `restore_training_settings`,
 `tensorize_cfg` and `synth_root` build what a driver needs; `TrainLoop` trains
 over the dataset with the process loader (`data/loader.py`) through
-`training/loop.py`.
+`training/loop.py`, as one rank of a (data, model, pipe) mesh when the
+process group exists: `--model_parallel N` cuts the model over N model
+ranks (Megatron TP, and EP for MoE layers), `--sequence_parallel` adds SP,
+`--pipeline_parallel N` pipelines a `pipeline_stages = N` model over N pipe
+ranks (`--pipeline_microbatches`), `--fsdp` shards the parameters as well
+as the AdamW moments (ZeRO-2, always on over the data ranks). Each data
+rank loads its own rows of the global `--train_batch_size`; `predict`
+shards eval examples over the data ranks and gathers them in rank order.
 
 For the task drivers (VQA, SNLI-VE, referring expressions; NLVR2 with its
 second image side, `NLVR_INPUT_NAMES`): `TaskFetch` is their loader fetch,
@@ -28,7 +38,7 @@ import torch
 from ..data.loader import BatchSampler, ProcessLoader, _epoch_aware
 from ..data.tensorize import TensorizeConfig
 from ..models.config import ModelConfig
-from ..models.layers import hidden_dropouts, resolve_device
+from ..models.layers import hidden_dropouts
 from ..training.checkpoint import ARGS_NAME, WEIGHTS_NAME
 from ..training.loop import batch_on, run_training
 
@@ -52,11 +62,6 @@ ADJUSTED_DROPOUT = 0.3
 
 # flag -> (value that means "off", the ROADMAP queue 1 item it waits for)
 LATER_ITEMS = {
-    "model_parallel": (1, "item 6 (parallelism on torch.distributed)"),
-    "sequence_parallel": (False, "item 6 (parallelism on torch.distributed)"),
-    "pipeline_parallel": (1, "item 6 (parallelism on torch.distributed)"),
-    "fsdp": (False, "item 6 (parallelism on torch.distributed)"),
-    "coarse_block": (0, "item 6 (sharded retrieval, --coarse_block)"),
     "async_ckpt": (False, "item 8 (AsyncSaver)"),
     "profile_dir": (None, "item 8 (training/profiler.py)"),
 }
@@ -120,11 +125,20 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--use_img_layernorm", type=int, default=None,
                         choices=[0, 1])
     parser.add_argument("--img_layer_norm_eps", type=float, default=None)
+    parser.add_argument("--model_parallel", type=int, default=1,
+                        help="tensor-parallel degree (ranks = data x "
+                             "model_parallel x pipeline_parallel)")
+    parser.add_argument("--sequence_parallel", action="store_true",
+                        help="also cut the LayerNorm/dropout/residual regions "
+                             "along the sequence over the model ranks")
+    parser.add_argument("--pipeline_parallel", type=int, default=1,
+                        help="GPipe stages over the pipe ranks (the model "
+                             "config takes pipeline_stages = N)")
+    parser.add_argument("--pipeline_microbatches", type=int, default=4)
+    parser.add_argument("--fsdp", action="store_true",
+                        help="shard the parameters over the data ranks too "
+                             "(ZeRO-3 / FSDP; the moments always are)")
     # flags of later port items: accepted so that they can raise by name
-    parser.add_argument("--model_parallel", type=int, default=1)
-    parser.add_argument("--sequence_parallel", action="store_true")
-    parser.add_argument("--pipeline_parallel", type=int, default=1)
-    parser.add_argument("--fsdp", action="store_true")
     parser.add_argument("--async_ckpt", action="store_true")
     parser.add_argument("--profile_dir", type=str, default=None)
 
@@ -140,14 +154,27 @@ def check_args(args, later_items=None) -> None:
 
 
 def run_device(args) -> torch.device:
-    """CUDA unless `--platform cpu`; CUDA without a card raises."""
-    return resolve_device("cpu" if args.platform == "cpu" else "cuda")
+    """The rank's device: CUDA (`cuda:{LOCAL_RANK}`) unless `--platform
+    cpu`; CUDA without a card raises. Joins the process group first when
+    WORLD_SIZE > 1 or a parallel flag asks for one."""
+    from ..parallel.distributed import init_runtime
+    return init_runtime(args)["device"]
+
+
+def is_main() -> bool:
+    from ..parallel.distributed import is_main_process
+    return is_main_process()
 
 
 def synth_root(args, **kw) -> dict:
-    """Synthetic data under output_dir/synth (idempotent)."""
+    """Synthetic data under output_dir/synth (idempotent): rank 0 writes it,
+    the other ranks read it after a barrier."""
     from ..data.synthetic import make_synthetic_root
-    return make_synthetic_root(os.path.join(args.output_dir, "synth"), **kw)
+    from ..parallel.distributed import barrier
+    root = os.path.join(args.output_dir, "synth")
+    paths = make_synthetic_root(root, **kw) if is_main() else None
+    barrier()
+    return paths if paths is not None else make_synthetic_root(root, **kw)
 
 
 # train-time flags that define the tensorization/model contract: at eval
@@ -220,6 +247,10 @@ def build_config(args, tokenizer, **overrides) -> ModelConfig:
         cli["use_img_layernorm"] = bool(args.use_img_layernorm)
     if args.img_layer_norm_eps is not None:
         cli["img_layer_norm_eps"] = args.img_layer_norm_eps
+    # the pipeline layout is a config property; only an explicit > 1 flag
+    # sets it (a resumed pipeline checkpoint keeps its own)
+    if max(1, getattr(args, "pipeline_parallel", 1)) > 1:
+        cli["pipeline_stages"] = args.pipeline_parallel
     if args.model_name_or_path:
         return ModelConfig.from_pretrained(args.model_name_or_path,
                                            dtype=args.dtype,
@@ -281,11 +312,16 @@ def predict(model, dataset, batch_size: int, forward: Callable,
     its order. The last chunk is padded by repeating its last index (the JAX
     package's fixed eval shapes) and the padding's rows are dropped. Returns
     the outputs as fp32 numpy and the dataset's arrays named in `keep`."""
+    from ..parallel.collectives import (gather_eval_arrays,
+                                        process_shard_indices)
     model.eval()
     n = len(dataset)
+    # this data rank's examples (all of them on one rank), wrap-padded so
+    # that every rank runs as many batches
+    mine = process_shard_indices(n)
     outs, kept = [], {k: [] for k in keep}
-    for i in range(0, n, batch_size):
-        chunk = np.arange(i, min(i + batch_size, n))
+    for i in range(0, len(mine), batch_size):
+        chunk = mine[i:i + batch_size]
         m = len(chunk)
         if m < batch_size:
             chunk = np.concatenate([chunk, np.repeat(chunk[-1:],
@@ -296,8 +332,9 @@ def predict(model, dataset, batch_size: int, forward: Callable,
         outs.append(forward(model, *x.values())[:m].float().cpu().numpy())
         for k in keep:
             kept[k].append(batch[k][:m])
-    return np.concatenate(outs), {k: np.concatenate(v)
-                                  for k, v in kept.items()}
+    got = gather_eval_arrays(n, np.concatenate(outs),
+                             *(np.concatenate(kept[k]) for k in keep))
+    return got[0], dict(zip(keep, got[1:]))
 
 
 def adjust_dropout(model, step: int, adjust_dp_step: Optional[int]) -> None:
@@ -334,6 +371,32 @@ class TrainLoop:
         self.num_examples = num_examples
         self.logger = logger
         self.loader: Optional[ProcessLoader] = None
+        self.mesh = None
+        mp = max(1, args.model_parallel)
+        pp = max(1, args.pipeline_parallel)
+        import torch.distributed as dist
+        if dist.is_initialized():
+            from ..parallel.mesh import apply_tensor_parallel, make_mesh
+            self.mesh = make_mesh(model=mp, pipe=pp)
+            cfg = model.config
+            if pp > 1:
+                mb = max(1, args.pipeline_microbatches)
+                if args.train_batch_size % (mb * self.mesh.data_size):
+                    raise ValueError(
+                        f"--train_batch_size {args.train_batch_size} is not "
+                        f"divisible by --pipeline_microbatches {mb} x data "
+                        f"ranks {self.mesh.data_size}")
+                if cfg.pipeline_stages != pp:
+                    raise ValueError(
+                        f"--pipeline_parallel {pp} needs a model config with "
+                        f"pipeline_stages={pp} (got {cfg.pipeline_stages})")
+            if mp > 1 or args.sequence_parallel:
+                apply_tensor_parallel(model, self.mesh,
+                                      args.sequence_parallel)
+            logger.info(f"mesh {self.mesh}")
+        elif mp > 1 or pp > 1:
+            raise ValueError("--model_parallel / --pipeline_parallel need a "
+                             "process group (run under tools/launch.py)")
         if args.num_train_epochs:
             spe = max(1, -(-num_examples // args.train_batch_size))
             args.max_steps = int(spe * args.num_train_epochs)
@@ -342,8 +405,10 @@ class TrainLoop:
 
     def _batches(self, start_step: int) -> ProcessLoader:
         args = self.args
+        from ..parallel.mesh import data_shard_info
+        rank, world = data_shard_info(self.mesh)
         sampler = BatchSampler(self.num_examples, args.train_batch_size,
-                               seed=args.seed)
+                               seed=args.seed, rank=rank, world_size=world)
         self.loader = ProcessLoader(
             self.fetch, sampler, start_step=start_step,
             num_workers=max(1, min(args.num_workers, os.cpu_count() or 1)),
@@ -361,7 +426,7 @@ class TrainLoop:
             if eval_hook is None:
                 return
             res = eval_hook(step)
-            if res:
+            if res and is_main():
                 path = os.path.join(args.output_dir, "eval_logs.json")
                 logs = []
                 if os.path.exists(path):
@@ -384,4 +449,6 @@ class TrainLoop:
             logger=self.logger.info, saved_args=vars(args),
             on_checkpoint=on_checkpoint,
             timing=lambda: self.loader.timing(),
-            freeze_prefix=self.freeze_prefix, freeze_steps=self.freeze_steps)
+            freeze_prefix=self.freeze_prefix, freeze_steps=self.freeze_steps,
+            mesh=self.mesh, fsdp=args.fsdp,
+            pipeline_microbatches=args.pipeline_microbatches)

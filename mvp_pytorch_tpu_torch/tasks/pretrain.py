@@ -2,12 +2,14 @@
 dataset-driven command line.
 
 `pretrain_loss_fn` is the counterpart of the JAX package's pretraining
-task's `forward` + `loss_fn` (`mvp_pytorch_tpu/tasks/pretrain.py:303-358`)
-without MoE: the composite loss of `BiPretrainModel.train_step` at the
+task's `forward` + `loss_fn` (`mvp_pytorch_tpu/tasks/pretrain.py:303-358`):
+the composite loss of `BiPretrainModel.train_step` at the
 config's dropouts, with the tag MLM, CLIP, text MLM, ITM, WRA and (when the
 batch has them) QA losses as metrics; with `extra_loss_weight` w, also the
 extra uni-modal sub-batch's loss (`--extra_mode`), the total being
-(1 - w) main + w extra. `single_stream_loss_fn` is `--visual_learning`'s:
+(1 - w) main + w extra; with MoE layers (`--moe_experts`), plus
+`--moe_aux_weight` times the load-balance penalty sum(aux - 1) over every
+MoE call of the step (`ops/moe.py`). `single_stream_loss_fn` is `--visual_learning`'s:
 `ImgBertForPreTraining` (MLM, ITM, MRC, MRF) over the two streams fused into
 one sequence (`single_stream_batch`). `train_pretrain` runs the first under
 AdamW and the single-device `Trainer` over in-memory batches
@@ -34,8 +36,11 @@ With `--visual_learning` it trains the single-stream model over
 raw tag class ids); with `--extra_mode text_only | img_only` every batch
 carries a sub-batch of 1 / `--extra_batch_divisor` the size from a
 text-only or image-only stream (`CombinedDataset`), under keys prefixed
-`extra/` (the loader moves one flat dict of arrays). MoE (`--moe_experts`,
-`--moe_top_k`) raises, naming its ROADMAP.md item.
+`extra/` (the loader moves one flat dict of arrays). `--moe_experts E`
+(and `--moe_top_k`) make every `moe_every`-th encoder layer's FFN an
+`MoEMLP` of E experts; given explicitly, they override a checkpoint's
+config, else a resumed MoE run keeps its own. `--visual_learning` refuses
+them, as the JAX driver does.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from ..data.datasets import (FeatureStore, ImgOnlyDataset,
 from ..data.tokenization import FastBertTokenizer
 from ..models.img_bert import ImgBertForPreTraining
 from ..models.pretrain import BiPretrainModel
+from ..ops.moe import moe_aux_loss
 from ..training.loop import batch_on, train_on_batches
 from ..utils.logger import setup_logger
 from . import retrieval
@@ -84,14 +90,17 @@ def pretrain_loss_fn(*, max_tag_length: int = 20, hn_mod: str = "hard",
                      phrase_layer: Optional[int] = None, hn_dice=None,
                      wra_pick: Optional[int] = None,
                      wra_neg_offset: Optional[int] = None,
-                     extra_loss_weight: Optional[float] = None):
+                     extra_loss_weight: Optional[float] = None,
+                     moe_aux_weight: Optional[float] = None):
     """The Trainer's loss_fn for `BiPretrainModel.train_step`: the total
     loss, with `vis_mlm`, `clip`, `mlm`, `itm`, `wra` (with phrase spans in
     the batch) and `qa` (with `qa_ans` or `qa_is_next`) as metrics.
     With `extra_loss_weight` w the batch also holds the extra stream's
     sub-batch (keys prefixed `EXTRA_PREFIX`), which takes a second
     `train_step` without phrase spans or QA labels; the loss is then
-    (1 - w) main + w extra, and `extra` the extra stream's total. `hn_dice`,
+    (1 - w) main + w extra, and `extra` the extra stream's total. With
+    `moe_aux_weight` the loss adds that times `ops.moe.moe_aux_loss` over
+    both forwards, and `moe_aux` is a metric. `hn_dice`,
     `wra_pick` and `wra_neg_offset` pin those draws in every step and
     forward (test hooks, as in the JAX package)."""
     def forward(model, batch, generator):
@@ -118,6 +127,10 @@ def pretrain_loss_fn(*, max_tag_length: int = 20, hn_mod: str = "hard",
             total = ((1.0 - extra_loss_weight) * total
                      + extra_loss_weight * extra_total)
             metrics["extra"] = extra_total
+        if moe_aux_weight is not None:
+            aux = moe_aux_loss(model)
+            total = total + moe_aux_weight * aux
+            metrics["moe_aux"] = aux
         return total, metrics
     return loss_fn
 
@@ -209,11 +222,9 @@ def train_pretrain(model, batches: Sequence[Mapping], steps: int, *,
 # the dataset-driven command line
 # ---------------------------------------------------------------------------
 
-# flag -> (value that means "off", the ROADMAP queue 1 item it waits for)
-LATER_ITEMS = {
-    "moe_experts": (0, "item 6 (EP MoE, ops/moe.py)"),
-    "moe_top_k": (None, "item 6 (EP MoE, ops/moe.py)"),
-}
+# flag -> (value that means "off", the ROADMAP queue 1 item it waits for):
+# none of the pretraining driver's own flags waits any more
+LATER_ITEMS: Dict[str, tuple] = {}
 # what --visual_learning cannot be combined with (the JAX task's asserts,
 # mvp_pytorch_tpu/tasks/pretrain.py:157-172)
 VISUAL_LEARNING_REFUSES = ("use_qa", "use_qa_pairs", "mlm_debug",
@@ -260,12 +271,14 @@ def get_args(argv=None):
                         "--use_gtlabels, oscar_tsv4.py:201-207)")
     p.add_argument("--max_pred_a", type=int, default=20)
     p.add_argument("--max_pred_b", type=int, default=10)
-    # flags of later port items: accepted so that they can raise by name
     p.add_argument("--moe_experts", type=int, default=None,
-                   help="MoE FFN experts (not ported yet)")
+                   help="replace the FFN of every moe_every-th encoder "
+                        "layer with an E-expert MoE (experts split over "
+                        "--model_parallel ranks)")
     p.add_argument("--moe_top_k", type=int, default=None,
-                   help="experts per token (not ported yet)")
-    p.add_argument("--moe_aux_weight", type=float, default=0.01)
+                   help="experts per token (renormalised gates)")
+    p.add_argument("--moe_aux_weight", type=float, default=0.01,
+                   help="weight of the load-balance penalty sum(aux - 1)")
     # extra uni-modal stream (reference make_full_data_loader_ds +
     # --extra_dataset_file/--extra_loss_weight, run_pretrain_ml.py:59,149,
     # 618-623)
@@ -482,7 +495,10 @@ def prepare(args, tokenizer, device, logger) -> PretrainRun:
     `ImgBertForPreTraining` with an MRC head over --tag2id's classes), its
     weights (--model_name_or_path's, else seeded), its loss_fn and the
     loader's fetch, as `main` trains them."""
-    cfg = build_config(args, tokenizer, qa_answer_size=args.qa_answer_size)
+    moe = {k: getattr(args, k) for k in ("moe_experts", "moe_top_k")
+           if getattr(args, k) is not None}
+    cfg = build_config(args, tokenizer, qa_answer_size=args.qa_answer_size,
+                       **moe)
     main_dataset = build_dataset(args, tokenizer, cfg)
     logger.info(f"corpus: {len(main_dataset)} examples")
     extra = extra_dataset(args, tokenizer)
@@ -507,7 +523,9 @@ def prepare(args, tokenizer, device, logger) -> PretrainRun:
             phrase_mod=args.phrase_mod, max_pred_a=args.max_pred_a,
             max_pred_b=args.max_pred_b, phrase_layer=args.wra_layer,
             extra_loss_weight=(args.extra_loss_weight if extra is not None
-                               else None))
+                               else None),
+            moe_aux_weight=(args.moe_aux_weight if cfg.moe_experts > 0
+                            else None))
     load_params_or_init(args, model, logger)
     fetch = PretrainFetch(dataset, args.use_qa, args.use_qa_pairs,
                           args.visual_learning, args.max_tag_length)

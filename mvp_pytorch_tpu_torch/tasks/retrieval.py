@@ -7,14 +7,18 @@ metrics and saves a checkpoint every `ckpt_period` steps, resuming from the
 newest one.
 
 `two_stage_scoring` is the JAX package's `tasks/retrieval.py`
-`two_stage_eval` (:93-290, without `--coarse_block`) on the model's device:
+`two_stage_eval` (:93-290) on the model's device:
 1. each caption goes through `encode_text_full` once, each image through
    `encode_image_full` once, in batches of `enc_batch`;
 2. the coarse similarity matrix `img_glob @ txt_glob.T` and `torch.topk`
    pick `k_i2t` captions per image and `k_t2i` images per caption (or every
-   pair with `cross_image`, or an external i2t shortlist);
+   pair with `cross_image`, or an external i2t shortlist); with
+   `coarse_block` (`--coarse_block`) the corpus-scale path instead streams
+   the gallery in blocks with the query rows split over the ranks
+   (`parallel/sharded_retrieval.py`), and the matrix never exists;
 3. `score_cached` reranks the candidate pairs, `pair_batch` at a time, by
-   running only the fusion encoder over rows gathered from the caches;
+   running only the fusion encoder over rows gathered from the caches; the
+   pair batches are split over the data ranks and gathered in order;
 4. R@1/5/10 of the coarse and the fine ranks.
 
 `main` is the JAX package's `tasks/retrieval.py` `main` (:293-401): it reads
@@ -41,10 +45,11 @@ import torch
 from ..data.datasets import FeatureStore, RetrievalDataset, load_phrase_vocab
 from ..data.tokenization import FastBertTokenizer
 from ..models.tasks import RetrievalModel
+from ..parallel.collectives import gather_eval_arrays, process_shard_indices
 from ..training.loop import batch_on, train_on_batches
 from ..utils.logger import setup_logger
 from .common import (INPUT_NAMES, TrainLoop, add_common_args, build_config,
-                     check_args, load_params_or_init,
+                     check_args, is_main, load_params_or_init,
                      restore_training_settings, run_device, synth_root,
                      tensorize_cfg)
 from .retrieval_eval import (coarse_ranks, evaluate_ranks, fine_ranks_i2t,
@@ -88,7 +93,8 @@ def two_stage_scoring(model, caps: Mapping, imgs: Mapping, caps_per_img: int,
                       k_i2t: int, k_t2i: int, enc_batch: int,
                       pair_batch: int, *, max_tag_length: int = 20,
                       cross_image: bool = False,
-                      i2t_shortlist: Optional[np.ndarray] = None) -> dict:
+                      i2t_shortlist: Optional[np.ndarray] = None,
+                      coarse_block: int = 0) -> dict:
     """Coarse sweep -> candidates -> cached fine rerank -> R@K.
 
     `caps` holds input_ids_a, attention_mask_a, token_type_ids_a [n_cap, La];
@@ -141,8 +147,17 @@ def two_stage_scoring(model, caps: Mapping, imgs: Mapping, caps_per_img: int,
     vis, vis_mask, img_glob = torch.cat(vis), torch.cat(vis_mask), torch.cat(img_glob)
     stages.mark("encode_image")
 
-    sims = img_glob @ txt_glob.T                          # [n_img, n_cap]
-    if i2t_shortlist is not None:
+    streaming = bool(coarse_block) and not cross_image \
+        and i2t_shortlist is None
+    sims = None if streaming else img_glob @ txt_glob.T   # [n_img, n_cap]
+    if streaming:
+        from ..parallel.sharded_retrieval import sharded_coarse_eval
+        i2t_c, t2i_c, i2t_rank_c, t2i_rank_c = sharded_coarse_eval(
+            img_glob, txt_glob, caps_per_img, k_i2t, k_t2i,
+            block=coarse_block)
+        i2t_cands = torch.from_numpy(i2t_c).to(device)
+        t2i_cands = torch.from_numpy(t2i_c).to(device)
+    elif i2t_shortlist is not None:
         i2t_cands = torch.from_numpy(i2t_shortlist).to(device)
         k_i2t, k_t2i = i2t_cands.shape[1], 0
     elif cross_image:
@@ -150,7 +165,8 @@ def two_stage_scoring(model, caps: Mapping, imgs: Mapping, caps_per_img: int,
         k_i2t, k_t2i = n_cap, 0
     else:
         i2t_cands = torch.topk(sims, k_i2t, dim=1).indices    # caption ids
-    t2i_cands = torch.topk(sims.T, k_t2i, dim=1).indices      # image ids
+    if not streaming:
+        t2i_cands = torch.topk(sims.T, k_t2i, dim=1).indices  # image ids
     cap_idx = torch.cat([i2t_cands.reshape(-1),
                          torch.arange(n_cap, device=device)
                          .repeat_interleave(k_t2i)])
@@ -160,19 +176,26 @@ def two_stage_scoring(model, caps: Mapping, imgs: Mapping, caps_per_img: int,
     stages.mark("coarse")
 
     txt_mask = caps["attention_mask_a"]
+    n_pairs = cap_idx.shape[0]
+    n_batches = -(-n_pairs // pair_batch)
     scores = []
-    for i in range(0, cap_idx.shape[0], pair_batch):
+    # this data rank's pair batches (every batch on one rank)
+    for bi in process_shard_indices(n_batches):
+        i = int(bi) * pair_batch
         ci, ii = cap_idx[i:i + pair_batch], img_idx[i:i + pair_batch]
         logits = model.score_cached(txt_seq[ci], txt_mask[ci], vis[ii],
                                     vis_mask[ii])
         scores.append(torch.softmax(logits, dim=-1)[:, 1])
-    scores = torch.cat(scores)
     stages.mark("rerank")
 
-    sims_np = sims.float().cpu().numpy()
-    scores_np = scores.float().cpu().numpy()
+    (scores_np,) = gather_eval_arrays(
+        n_pairs, torch.cat(scores).float().cpu().numpy())
     i2t_np, t2i_np = i2t_cands.cpu().numpy(), t2i_cands.cpu().numpy()
-    coarse = evaluate_ranks(*coarse_ranks(sims_np, caps_per_img))
+    if streaming:
+        coarse = evaluate_ranks(i2t_rank_c, t2i_rank_c)
+    else:
+        coarse = evaluate_ranks(*coarse_ranks(sims.float().cpu().numpy(),
+                                              caps_per_img))
     i2t_scores = scores_np[:n_img * k_i2t].reshape(n_img, k_i2t)
     i2t_ranks = mask_shortlist_misses(
         fine_ranks_i2t(i2t_scores, i2t_np, caps_per_img), k_i2t)
@@ -289,7 +312,9 @@ def get_args(argv=None):
     p.add_argument("--eval_img_keys_file", type=str, default=None,
                    help="tsv of image keys; restrict eval to this subset")
     p.add_argument("--coarse_block", type=int, default=0,
-                   help="stream the coarse stage in blocks (not ported yet)")
+                   help="corpus-scale coarse stage: stream the gallery in "
+                        "blocks of this many rows, the query rows split over "
+                        "the ranks (0: the dense similarity matrix)")
     p.add_argument("--eval_caption_index_json", type=str, default=None,
                    help="external i2t rerank shortlist: {img_key: "
                         "[[img_key1, cap_idx1], ...]} (i2t only)")
@@ -332,7 +357,8 @@ def two_stage_eval(args, model, dataset: RetrievalDataset, logger,
         args.num_images_per_cap_val, args.eval_batch_size,
         args.rerank_batch_size or args.eval_batch_size,
         max_tag_length=args.max_tag_length,
-        cross_image=args.cross_image_eval, i2t_shortlist=shortlist)
+        cross_image=args.cross_image_eval, i2t_shortlist=shortlist,
+        coarse_block=args.coarse_block)
     res["seconds"]["arrays"] = arrays_s
     logger.info(f"coarse: {json.dumps(res['coarse'])}")
     logger.info(f"fine: {json.dumps(res['fine'])}")
@@ -410,8 +436,10 @@ def main(argv=None) -> dict:
             (lambda step: evaluate()) if args.do_eval else None)
     if args.do_eval and not args.do_train:
         res = evaluate()
-        with open(os.path.join(args.output_dir, "test_eval.json"), "w") as f:
-            json.dump(res, f, indent=2)
+        if is_main():
+            with open(os.path.join(args.output_dir, "test_eval.json"),
+                      "w") as f:
+                json.dump(res, f, indent=2)
     logger.info("retrieval done")
     return out
 

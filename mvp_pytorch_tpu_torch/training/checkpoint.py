@@ -13,6 +13,10 @@ directory, holding
   line's settings, which an eval-only run restores
   (`tasks/common.py` `restore_training_settings`).
 
+A checkpoint saved under a mesh holds `opt_shards/` (each rank's pieces of
+the optimizer state, `training/sharded_checkpoint.py`) in place of
+`optimizer.pt`; `training/consolidate.py` turns it into `optimizer.pt`.
+
 The output directory's `last_checkpoint` file names the newest one; older
 ones beyond `keep` are removed. Every file is written to a temporary name and
 renamed, with a few retries on OS errors.
@@ -30,6 +34,7 @@ import torch
 
 WEIGHTS_NAME = "pytorch_model.bin"
 OPT_NAME = "optimizer.pt"
+OPT_SHARDS_DIR = "opt_shards"
 LAST_CHECKPOINT = "last_checkpoint"
 TRAIN_STATE_NAME = "train_meta.json"
 ARGS_NAME = "training_args.json"
@@ -78,12 +83,23 @@ class CheckpointManager:
         return os.path.join(self.output_dir, f"checkpoint-{step:07d}")
 
     def save(self, step: int, model: torch.nn.Module, optimizer=None,
-             config=None, args: Optional[dict] = None) -> str:
+             config=None, args: Optional[dict] = None, *,
+             weights: Optional[dict] = None, sharded_optimizer=None,
+             main: bool = True) -> str:
+        """Write checkpoint `step`. Under a mesh every rank calls it with
+        the whole `weights` and its `sharded_optimizer` pieces; only `main`
+        writes anything but its pieces."""
         d = self._ckpt_dir(step)
         os.makedirs(d, exist_ok=True)
+        if sharded_optimizer is not None:
+            from .sharded_checkpoint import save_sharded
+            save_sharded(os.path.join(d, OPT_SHARDS_DIR), sharded_optimizer)
+        if not main:
+            return d
         if config is not None:
             _retry(lambda: config.save_pretrained(d))
-        weights = _on_cpu(dict(model.state_dict()))
+        weights = _on_cpu(dict(model.state_dict() if weights is None
+                               else weights))
         _retry(lambda: _atomic_save(weights, os.path.join(d, WEIGHTS_NAME)))
         if optimizer is not None:
             opt = _on_cpu(optimizer.state_dict())
@@ -139,18 +155,36 @@ class CheckpointManager:
                 best = (step, d)
         return best
 
+    def read_optimizer(self, directory: str):
+        """The whole optimizer state of a checkpoint (`optimizer.pt`, or its
+        consolidated `opt_shards/`), or None."""
+        opt_path = os.path.join(directory, OPT_NAME)
+        if os.path.exists(opt_path):
+            return torch.load(opt_path, map_location="cpu",
+                              weights_only=True)
+        shards = os.path.join(directory, OPT_SHARDS_DIR)
+        if os.path.isdir(shards):
+            from .sharded_checkpoint import consolidate
+            return consolidate(shards)
+        return None
+
     def restore(self, directory: str, model: torch.nn.Module,
-                optimizer=None) -> dict:
-        """Load the weights (strictly) and, if given, the optimizer state;
-        returns `train_meta.json`."""
+                optimizer=None, mesh=None) -> dict:
+        """Load the weights (strictly; each tensor-parallel parameter takes
+        its shard under `mesh`) and, if given, the optimizer state; returns
+        `train_meta.json`."""
         device = next(model.parameters()).device
         weights = torch.load(os.path.join(directory, WEIGHTS_NAME),
                              map_location=device, weights_only=True)
-        model.load_state_dict(weights, strict=True)
-        opt_path = os.path.join(directory, OPT_NAME)
-        if optimizer is not None and os.path.exists(opt_path):
-            optimizer.load_state_dict(torch.load(
-                opt_path, map_location=device, weights_only=True))
+        if mesh is not None and getattr(model, "tp_specs", None):
+            from ..parallel.mesh import tp_load_state_dict
+            tp_load_state_dict(model, weights, mesh)
+        else:
+            model.load_state_dict(weights, strict=True)
+        if optimizer is not None:
+            state = self.read_optimizer(directory)
+            if state is not None:
+                optimizer.load_state_dict(state)
         meta_path = os.path.join(directory, TRAIN_STATE_NAME)
         if not os.path.exists(meta_path):
             return {}

@@ -11,6 +11,14 @@ metrics also carry `data_ms` (the host's milliseconds waiting for the batch)
 and `step_ms` (from the end of the last step's `Trainer.step` to the end of
 this one's, so that checkpoints and logging count too).
 `train_on_batches` runs it over in-memory batches.
+
+With a `mesh` every rank runs it over its own batches: the Trainer steps as
+one rank (`training/trainer.py`), rank 0 alone logs and writes the metrics
+and the checkpoint's whole weights, every rank writes its pieces of the
+optimizer state into the checkpoint's `opt_shards/`
+(`training/sharded_checkpoint.py`), and a resume cuts whatever topology
+wrote the checkpoint to its own. At the end the model is whole on every
+rank (each pipe stage's layers from their owner, FSDP shards gathered).
 """
 
 from __future__ import annotations
@@ -54,7 +62,9 @@ def run_training(model, loss_fn: LossFn, source: BatchSource, steps: int, *,
                  saved_args: Optional[dict] = None,
                  on_checkpoint: Optional[Callable[[int], None]] = None,
                  timing: Optional[Callable[[], Dict[str, float]]] = None,
-                 freeze_prefix: Optional[str] = None, freeze_steps: int = 0
+                 freeze_prefix: Optional[str] = None, freeze_steps: int = 0,
+                 mesh=None, zero_sharding: bool = True, fsdp: bool = False,
+                 pipeline_microbatches: int = 4
                  ) -> List[Dict[str, float]]:
     """Train `model` with `loss_fn` for `steps` steps over `source`. Returns
     each step's metrics; the model is left in eval mode.
@@ -68,17 +78,25 @@ def run_training(model, loss_fn: LossFn, source: BatchSource, steps: int, *,
         schedule=schedule, weight_decay=weight_decay, eps=eps,
         max_grad_norm=max_grad_norm, freeze_prefix=freeze_prefix,
         freeze_steps=freeze_steps)
-    trainer = Trainer(model, loss_fn, optimizer, grad_accum=grad_accum,
-                      seed=seed)
-    ckpt = None
+    from ..parallel.distributed import is_main_process
+    main = is_main_process()
+    ckpt = latest = meta = None
     if output_dir is not None:
         ckpt = CheckpointManager(output_dir, keep=keep)
         latest = ckpt.latest()
-        if latest is not None:
-            meta = ckpt.restore(latest[1], model, optimizer)
-            trainer.step_count = int(meta.get("step", latest[0]))
-            logger(f"resumed from {latest[1]} at step {trainer.step_count}")
-    writer = MetricsWriter(metrics_dir) if metrics_dir is not None else None
+        if latest is not None:      # the weights before any sharding
+            meta = ckpt.restore(latest[1], model, mesh=mesh)
+    trainer = Trainer(model, loss_fn, optimizer, grad_accum=grad_accum,
+                      seed=seed, mesh=mesh, zero_sharding=zero_sharding,
+                      fsdp=fsdp, pipeline_microbatches=pipeline_microbatches)
+    if latest is not None:
+        opt_state = ckpt.read_optimizer(latest[1])
+        if opt_state is not None:
+            trainer.load_optimizer_state(opt_state)
+        trainer.step_count = int(meta.get("step", latest[0]))
+        logger(f"resumed from {latest[1]} at step {trainer.step_count}")
+    writer = (MetricsWriter(metrics_dir) if metrics_dir is not None and main
+              else None)
     meter, history = MetricLogger(), []
     batches = iter(source(trainer.step_count))
     try:
@@ -100,15 +118,24 @@ def run_training(model, loss_fn: LossFn, source: BatchSource, steps: int, *,
             meter.update(**metrics)
             if writer is not None:
                 writer.write(step, metrics)
-            if log_period and step % log_period == 0:
+            if log_period and step % log_period == 0 and main:
                 logger(f"step {step}/{steps}  {meter}")
             if ckpt is not None and ((ckpt_period and step % ckpt_period == 0)
                                      or step == steps):
-                ckpt.save(step, model, optimizer, config=model.config,
-                          args=saved_args)
+                if mesh is None:
+                    ckpt.save(step, model, optimizer, config=model.config,
+                              args=saved_args)
+                else:
+                    ckpt.save(step, model, config=model.config,
+                              args=saved_args,
+                              weights=trainer.full_state_dict(),
+                              sharded_optimizer=trainer.optimizer_state_tree(),
+                              main=main)
                 if on_checkpoint is not None:
+                    trainer.finish()        # evaluate the whole model
                     on_checkpoint(step)
             t_last = time.perf_counter()
+        trainer.finish()        # collective: only once every rank got here
     finally:
         close = getattr(batches, "close", None)
         if close is not None:

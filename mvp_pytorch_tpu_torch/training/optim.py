@@ -15,6 +15,12 @@ written out so that it matches optax step by step:
   for every parameter: `optax.adamw` without a mask);
 - a frozen prefix has its gradients zeroed before clipping (its moments still
   decay) and its updates zeroed while the count is below `freeze_steps`.
+
+`partition` (the Trainer's ZeRO-2 / FSDP / TP / pipeline layouts) makes each
+parameter's update and moments cover only the tensor this rank updates (a
+shard of it, or nothing for another pipe stage's layer), with the clipping
+norm summed over the ranks: `step(grads)` then takes those tensors'
+gradients.
 """
 
 from __future__ import annotations
@@ -115,18 +121,60 @@ class AdamW:
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        self.targets = list(self.params)
+        self.active = list(range(len(self.params)))
+        self.norm_weights = None
+        self.norm_group = None
+
+    def partition(self, targets, norm_weights, norm_group) -> None:
+        """Update `targets[i]` (a view or shard of parameter i this rank
+        owns, or None for one it does not) with moments of its shape. The
+        clipping norm is sqrt(sum_i w_i ||g_i||^2) summed over `norm_group`,
+        where w_i is 1 / (the number of ranks that hold the same tensor).
+        Call before the first step or restore."""
+        self.targets = list(targets)
+        self.active = [i for i, t in enumerate(targets) if t is not None]
+        empty = torch.empty(0)
+        self.mu = [torch.zeros_like(t) if t is not None else empty
+                   for t in targets]
+        self.nu = [torch.zeros_like(t) if t is not None else empty
+                   for t in targets]
+        self.norm_weights = list(norm_weights)
+        self.norm_group = norm_group
+
+    def clip_norm(self, grads, idx) -> torch.Tensor:
+        """The global norm of `grads` (those of parameters `idx`), summed
+        over the ranks under a partition."""
+        if self.norm_group is None:
+            return global_norm(grads)
+        sq = torch._foreach_norm([g.float() for g in grads])
+        w = torch.tensor([self.norm_weights[i] for i in idx],
+                         dtype=torch.float32, device=grads[0].device)
+        total = (torch.stack(sq).pow(2) * w).sum()
+        import torch.distributed as dist
+        dist.all_reduce(total, group=self.norm_group)
+        return total.sqrt()
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, grads=None) -> None:
         """One update. Every operation is a multi-tensor (`_foreach_`) op on
         the device, in optax's order of roundings; nothing waits for the
-        device."""
+        device (but the clipping norm's all-reduce under a partition).
+        `grads` (one per parameter, the shape of its target; None counts as
+        zeros) defaults to the parameters' `.grad`."""
         frozen = self.count < self.freeze_steps
-        grads = [torch.zeros_like(p) if p.grad is None or (frozen and masked)
-                 else p.grad for p, masked in zip(self.params, self.in_prefix)]
+        idx = self.active
+        if grads is None:
+            grads = [p.grad for p in self.params]
+        targets = [self.targets[i] for i in idx]
+        grads = [torch.zeros_like(t) if grads[i] is None
+                 or (frozen and self.in_prefix[i]) else grads[i]
+                 for t, i in zip(targets, idx)]
+        mu = [self.mu[i] for i in idx]
+        nu = [self.nu[i] for i in idx]
         if self.max_grad_norm is not None and self.max_grad_norm > 0:
             # optax: g where ||g|| < max, else (g / ||g||) * max
-            g_norm = global_norm(grads)
+            g_norm = self.clip_norm(grads, idx)
             keep = g_norm < self.max_grad_norm
             one = torch.ones_like(g_norm)
             grads = torch._foreach_div(grads, torch.where(keep, one, g_norm))
@@ -137,43 +185,50 @@ class AdamW:
         bc1 = float(np.float32(1) - np.float32(self.b1) ** count)
         bc2 = float(np.float32(1) - np.float32(self.b2) ** count)
         # mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
-        torch._foreach_mul_(self.mu, self.b1)
-        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - self.b1))
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - self.b1))
         sq = torch._foreach_mul(grads, grads)
         torch._foreach_mul_(sq, 1 - self.b2)
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_add_(self.nu, sq)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_add_(nu, sq)
         del sq, grads
         # u = (mu / bc1) / (sqrt(nu / bc2) + eps) [+ wd p], then p += -lr u
-        u = torch._foreach_div(self.mu, bc1)
-        denom = torch._foreach_div(self.nu, bc2)
+        u = torch._foreach_div(mu, bc1)
+        denom = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(u, denom)
         del denom
-        decay = [i for i, d in enumerate(self.decay) if d]
+        decay = [j for j, i in enumerate(idx) if self.decay[i]]
         if decay and self.weight_decay:
             torch._foreach_add_(
-                [u[i] for i in decay],
-                torch._foreach_mul([self.params[i] for i in decay],
+                [u[j] for j in decay],
+                torch._foreach_mul([targets[j] for j in decay],
                                    self.weight_decay))
-        live = [i for i, m in enumerate(self.in_prefix)
-                if not (frozen and m)]
+        live = [j for j, i in enumerate(idx)
+                if not (frozen and self.in_prefix[i])]
         torch._foreach_mul_(u, -self.schedule(self.count))
-        torch._foreach_add_([self.params[i] for i in live],
-                            [u[i] for i in live])
+        torch._foreach_add_([targets[j] for j in live], [u[j] for j in live])
         self.count += 1
 
     def state_dict(self) -> Dict:
+        """The count and the moments of the active parameters (their local
+        shards under a partition)."""
         return {"count": self.count,
-                "mu": dict(zip(self.names, self.mu)),
-                "nu": dict(zip(self.names, self.nu))}
+                "mu": {self.names[i]: self.mu[i] for i in self.active},
+                "nu": {self.names[i]: self.nu[i] for i in self.active}}
 
     def load_state_dict(self, state: Dict) -> None:
+        """The inverse of `state_dict`: moments of the targets' shapes."""
         self.count = int(state["count"])
-        for i, (n, p) in enumerate(zip(self.names, self.params)):
-            self.mu[i] = state["mu"][n].to(p.device, p.dtype)
-            self.nu[i] = state["nu"][n].to(p.device, p.dtype)
+        for i in self.active:
+            n, t = self.names[i], self.targets[i]
+            for key, moments in (("mu", self.mu), ("nu", self.nu)):
+                v = torch.as_tensor(state[key][n])
+                if tuple(v.shape) != tuple(t.shape):
+                    raise ValueError(f"{key}[{n}] of shape {tuple(v.shape)} "
+                                     f"for a target of {tuple(t.shape)}")
+                moments[i] = v.to(t.device, t.dtype).clone()
 
 
 def make_optimizer(model: torch.nn.Module, lr: float, *,

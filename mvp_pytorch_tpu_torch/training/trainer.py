@@ -1,5 +1,5 @@
-"""Single-device trainer: the JAX package's `training/trainer.py` step
-without the mesh, ZeRO, tensor and pipeline parallelism.
+"""The trainer: the JAX package's `training/trainer.py` step on one device,
+or as one rank of a (data, model, pipe) mesh.
 
 The loss_fn contract: loss_fn(model, batch, generator) -> (loss, metrics),
 where `batch` maps names to tensors with the batch first and `generator` is a
@@ -10,15 +10,44 @@ being the number of optimizer steps taken before this one (the JAX package's
 extended contract, for schedules such as VQA's kl -> bce switch). Gradients
 land on the model's fp32 master parameters; the model computes in its
 config's dtype.
+
+With a `mesh` (`parallel.mesh.make_mesh`) each rank steps on its own rows of
+the global batch (`parallel.mesh.shard_batch`, or the loader's sharded
+`BatchSampler`):
+- the loss runs inside `parallel_scope(mesh)`: the model gathers across the
+  data ranks, with gradients, what its loss reads of the whole batch (the
+  contrastive matrix, the hard negatives and their permutation; see
+  `models/bi_encoder.py`), and the masked means divide by the global count,
+  so the loss of each rank's share averages to the one-process loss;
+- gradients are averaged over the data ranks. AdamW's moments are sharded
+  over `data` (ZeRO-2, the JAX default; `zero_sharding=False` keeps them
+  whole): each rank reduce-scatters a parameter's gradient along the
+  dimension `zero_state_spec` (or `compose_data_spec` on a TP layout)
+  picks, updates its slice and all-gathers the parameter. `fsdp` also keeps
+  the parameters sharded between steps (all-gathered for the step);
+- clipping reads the global norm: each rank's sum of squares over the
+  tensors it holds, weighted by 1 / their replicas, all-reduced;
+- TP / SP / EP parameters are this model rank's shards
+  (`apply_tensor_parallel`, done before the optimizer is built); under SP
+  the grads of the parameters used in the sequence-cut regions are summed
+  over the model ranks;
+- a `pipeline_stages > 0` model pipelines its encoders over the pipe ranks
+  (`pipeline_microbatches` microbatches); each rank updates only its own
+  stage's layers.
+The dropout generator of a data rank folds that rank into its seed, so two
+data ranks draw different masks; the model and pipe ranks of one data
+coordinate share it, so replicated regions agree.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .optim import AdamW, global_norm
 
@@ -33,9 +62,26 @@ def takes_step(loss_fn: LossFn) -> bool:
         return False
 
 
+class _Layout:
+    """Where one parameter lives on this rank."""
+
+    def __init__(self, name, spec, global_shape, dim, active, sp_partial,
+                 replicas, staged):
+        self.name = name
+        self.staged = staged            # a pipe stage's layer
+        self.spec = spec                # axis per dim of the global shape
+        self.global_shape = global_shape
+        self.dim = dim                  # the dim sharded over `data`, or None
+        self.active = active            # this rank updates it
+        self.sp_partial = sp_partial    # grads summed over the model ranks
+        self.replicas = replicas        # ranks holding the same tensor
+
+
 class Trainer:
     def __init__(self, model: torch.nn.Module, loss_fn: LossFn,
-                 optimizer: AdamW, *, grad_accum: int = 1, seed: int = 0):
+                 optimizer: AdamW, *, grad_accum: int = 1, seed: int = 0,
+                 mesh=None, zero_sharding: bool = True, fsdp: bool = False,
+                 pipeline_microbatches: int = 4):
         self.model = model
         self.loss_fn = loss_fn
         self.loss_takes_step = takes_step(loss_fn)
@@ -43,19 +89,161 @@ class Trainer:
         self.grad_accum = max(1, grad_accum)
         self.seed = seed
         self.step_count = 0
+        self.mesh = mesh
+        self.zero_sharding = zero_sharding
+        self.fsdp = fsdp
+        self.pipeline_microbatches = max(1, pipeline_microbatches)
         self.device = next(model.parameters()).device
+        self.layouts: List[_Layout] = []
+        self._shards: Dict[int, torch.Tensor] = {}
+        if mesh is not None:
+            self._partition()
 
+    # ------------------------------------------------------------ layouts
+    def _partition(self) -> None:
+        from ..models.layers import StreamEncoder
+        from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS,
+                                     compose_data_spec, zero_state_spec)
+        from ..parallel.pipeline import stage_owners
+        mesh, model = self.mesh, self.model
+        sizes = dict(mesh.shape)
+        tp_specs = getattr(model, "tp_specs", {})
+        full_shapes = getattr(model, "tp_full_shapes", {})
+        owners = stage_owners(model, mesh.pipe_size)
+        if owners and any(isinstance(m, StreamEncoder) and m.sequence_parallel
+                          for m in model.modules()):
+            raise ValueError("sequence parallelism does not compose with "
+                             "the pipe mesh dimension")
+        sp_prefixes = [f"{n}.layer." for n, m in model.named_modules()
+                       if isinstance(m, StreamEncoder) and m.sequence_parallel
+                       and m.tp_mesh is not None]
+        targets, weights = [], []
+        for name, p in zip(self.optimizer.names, self.optimizer.params):
+            tp = tp_specs.get(name, (None,) * p.dim())
+            gshape = full_shapes.get(name, tuple(p.shape))
+            if self.fsdp or (self.zero_sharding and MODEL_AXIS in tp):
+                spec = compose_data_spec(tp, gshape, sizes)
+            elif self.zero_sharding:
+                spec = zero_state_spec(gshape, mesh.data_size)
+            else:
+                spec = tp
+            dim = spec.index(DATA_AXIS) if DATA_AXIS in spec else None
+            owner = owners.get(name)
+            active = owner is None or owner == mesh.pipe_rank
+            replicas = mesh.world
+            for ax in (DATA_AXIS, MODEL_AXIS):
+                if ax in spec:
+                    replicas //= sizes[ax]
+            if owner is not None:
+                replicas //= mesh.pipe_size
+            sp_partial = (MODEL_AXIS not in tp and ".moe." not in name
+                          and any(name.startswith(pre) for pre in sp_prefixes))
+            lay = _Layout(name, spec, gshape, dim, active, sp_partial,
+                          replicas, owner is not None)
+            self.layouts.append(lay)
+            if not active:
+                targets.append(None)
+            elif dim is None:
+                targets.append(p.data)
+            else:
+                n = p.shape[dim] // mesh.data_size
+                shard = p.data.narrow(dim, mesh.data_rank * n, n)
+                if self.fsdp:
+                    shard = shard.clone()
+                    self._shards[len(targets)] = shard
+                targets.append(shard)
+            weights.append(1.0 / replicas)
+        self.optimizer.partition(targets, weights, dist.group.WORLD)
+        if self.fsdp:
+            self.reshard()
+
+    # --------------------------------------------------------------- fsdp
+    def unshard(self) -> None:
+        """FSDP: all-gather every sharded parameter for the step (no-op
+        otherwise, or when they are whole)."""
+        if not self._shards:
+            return
+        from ..parallel.collectives import gather_nograd
+        for i, shard in self._shards.items():
+            p, lay = self.optimizer.params[i], self.layouts[i]
+            if p.data.numel() == 0:
+                p.data = gather_nograd(shard, self.mesh.data_group,
+                                       dim=lay.dim).contiguous()
+
+    def reshard(self) -> None:
+        """FSDP: free the whole parameters; the shards stay."""
+        for i in self._shards:
+            p = self.optimizer.params[i]
+            p.data = p.data.new_empty(0)
+
+    # --------------------------------------------------------------- step
     def generator(self, step: int, micro: int = 0) -> torch.Generator:
-        seed = np.random.SeedSequence([self.seed, step, micro])
         return torch.Generator(device=self.device).manual_seed(
-            int(seed.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+            self.seed_of(step, micro))
+
+    def seed_of(self, step: int, micro: int = 0) -> int:
+        words = [self.seed, step, micro]
+        if self.mesh is not None and self.mesh.data_rank:
+            words.append(self.mesh.data_rank)
+        seed = np.random.SeedSequence(words)
+        return int(seed.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+    def _scope(self, step: int, micro: int):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from ..parallel.mesh import parallel_scope
+        from ..parallel.pipeline import pipeline_scope
+        stack = contextlib.ExitStack()
+        stack.enter_context(parallel_scope(self.mesh))
+        stack.enter_context(pipeline_scope(
+            self.mesh, self.pipeline_microbatches, self.seed_of(step, micro)))
+        return stack
+
+    def _reduce_grads(self) -> list:
+        """Each parameter's gradient as this rank's target takes it: summed
+        over the model ranks where SP left it partial, averaged over the
+        data ranks (reduce-scattered along the ZeRO dimension)."""
+        from ..parallel.collectives import _reduce_scatter
+        mesh = self.mesh
+        out = []
+        for p, lay in zip(self.optimizer.params, self.layouts):
+            if not lay.active:
+                out.append(None)
+                continue
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            if lay.sp_partial:
+                g = g.contiguous()
+                dist.all_reduce(g, group=mesh.model_group)
+            if lay.dim is None:
+                g = g.contiguous()
+                dist.all_reduce(g, group=mesh.data_group)
+            else:
+                g = _reduce_scatter(g, lay.dim, mesh.data_group)
+            out.append(g.div_(mesh.data_size))
+        return out
+
+    def _gather_params(self) -> None:
+        """ZeRO-2: every rank's updated slices back into the parameters."""
+        for i, (p, lay) in enumerate(zip(self.optimizer.params,
+                                         self.layouts)):
+            if not lay.active or lay.dim is None:
+                continue
+            moved = p.data.movedim(lay.dim, 0)
+            n = moved.shape[0] // self.mesh.data_size
+            mine = moved[self.mesh.data_rank * n:
+                         (self.mesh.data_rank + 1) * n].contiguous()
+            buf = moved.new_empty(moved.shape)      # contiguous
+            dist.all_gather_into_tensor(buf, mine, group=self.mesh.data_group)
+            moved.copy_(buf)
 
     def step(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, float]:
-        """One optimizer step over `batch`, split into `grad_accum` micro
-        batches (each array into equal shares of its rows) whose gradients,
-        loss and metrics are averaged. Returns the
-        metrics, the loss and the global norm of the unclipped gradients."""
+        """One optimizer step over `batch` (this rank's rows under a mesh),
+        split into `grad_accum` micro batches (each array into equal shares
+        of its rows) whose gradients, loss and metrics are averaged. Returns
+        the metrics, the loss and the global norm of the unclipped
+        gradients (averaged over the data ranks)."""
         self.model.train()
+        self.unshard()
         params = list(self.model.parameters())
         for p in params:
             p.grad = None
@@ -72,10 +260,12 @@ class Trainer:
                 k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
                 for k, v in batch.items()}
             gen = self.generator(self.step_count, i)
-            loss, metrics = (
-                self.loss_fn(self.model, mb, gen, self.step_count)
-                if self.loss_takes_step else self.loss_fn(self.model, mb, gen))
-            loss.backward()
+            with self._scope(self.step_count, i):
+                loss, metrics = (
+                    self.loss_fn(self.model, mb, gen, self.step_count)
+                    if self.loss_takes_step
+                    else self.loss_fn(self.model, mb, gen))
+                loss.backward()
             loss_sum = loss_sum + loss.detach()
             for k, v in metrics.items():
                 metric_sums[k] = metric_sums.get(k, 0.0) + v.detach()
@@ -85,9 +275,117 @@ class Trainer:
                     p.grad.mul_(1.0 / n)
             loss_sum = loss_sum * (1.0 / n)
             metric_sums = {k: v * (1.0 / n) for k, v in metric_sums.items()}
-        gnorm = global_norm(p.grad for p in params if p.grad is not None)
-        self.optimizer.step()
+        if self.mesh is None:
+            gnorm = global_norm(p.grad for p in params if p.grad is not None)
+            self.optimizer.step()
+        else:
+            grads = self._reduce_grads()
+            opt = self.optimizer
+            live = [g for g in grads if g is not None]
+            gnorm = opt.clip_norm(live, opt.active)
+            opt.step(grads)
+            for p in params:
+                p.grad = None
+            if self.fsdp:
+                self.reshard()
+            else:
+                self._gather_params()
+            from ..parallel.collectives import all_reduce_metrics
+            metric_sums = all_reduce_metrics(
+                {**{k: torch.as_tensor(v) for k, v in metric_sums.items()},
+                 "__loss": torch.as_tensor(loss_sum)},
+                group=self.mesh.data_group, world=self.mesh.data_size)
+            loss_sum = metric_sums.pop("__loss")
         self.step_count += 1
         out = {k: float(v) for k, v in metric_sums.items()}
         out.update(loss=float(loss_sum), grad_norm=float(gnorm))
         return out
+
+    # -------------------------------------------------------- checkpoints
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The whole model's state dict on every rank (collective under a
+        mesh): FSDP shards gathered, TP shards gathered, each pipe stage's
+        layers from their owner. Leaves the parameters as the step left
+        them."""
+        if self.mesh is None:
+            return dict(self.model.state_dict())
+        self.sync_stages()
+        self.unshard()
+        from ..parallel.mesh import tp_gather_state_dict
+        sd = {k: v.detach().clone()
+              for k, v in tp_gather_state_dict(self.model, self.mesh).items()}
+        if self.fsdp:
+            self.reshard()
+        return sd
+
+    def sync_stages(self) -> None:
+        """Every pipe rank gets each stage's layers from their owner (for
+        eval and checkpoints; a step updates only the owner's copy)."""
+        if self.mesh is None:
+            return
+        from ..parallel.pipeline import stage_owners
+        owners = stage_owners(self.model, self.mesh.pipe_size)
+        if not owners:
+            return
+        named = dict(self.model.named_parameters())
+        for name, owner in owners.items():
+            dist.broadcast(named[name].data,
+                           src=self.mesh.group_rank_to_global("pipe", owner),
+                           group=self.mesh.pipe_group)
+
+    def finish(self) -> None:
+        """Leave the model whole on every rank (after training)."""
+        if self.mesh is not None:
+            self.sync_stages()
+            self.unshard()
+
+    def optimizer_state_tree(self) -> dict:
+        """The optimizer's state as `training/sharded_checkpoint.py` writes
+        it: the count, and each moment as this rank's piece of the global
+        tensor (`ShardedLeaf`), written by one holder of each piece."""
+        from ..parallel.mesh import AXES, PIPE_AXIS
+        from .sharded_checkpoint import ShardedLeaf
+        opt = self.optimizer
+        if self.mesh is None:
+            return opt.state_dict()
+        coords = {ax: getattr(self.mesh, f"{ax}_rank") for ax in AXES}
+        sizes = dict(self.mesh.shape)
+        tree = {"count": np.asarray(opt.count, np.int64), "mu": {}, "nu": {}}
+        for i in opt.active:
+            lay = self.layouts[i]
+            index = []
+            for d, ax in zip(lay.global_shape, lay.spec):
+                if ax:
+                    part = d // sizes[ax]
+                    index.append(slice(coords[ax] * part,
+                                       (coords[ax] + 1) * part))
+                else:
+                    index.append(slice(0, d))
+            # one holder writes each piece: coordinate 0 on every axis the
+            # piece is replicated over (a stage's layer lives on its owner)
+            writer = all(coords[ax] == 0 for ax in AXES
+                         if ax not in lay.spec
+                         and not (ax == PIPE_AXIS and lay.staged))
+            for key, moments in (("mu", opt.mu), ("nu", opt.nu)):
+                tree[key][lay.name] = ShardedLeaf(
+                    moments[i], lay.global_shape, tuple(index), writer)
+        return tree
+
+    def load_optimizer_state(self, tree: dict) -> None:
+        """Restore from a whole (consolidated) optimizer state, whatever
+        topology wrote it: each target takes its piece."""
+        from ..parallel.mesh import AXES, take_shard
+        opt = self.optimizer
+        if self.mesh is None:
+            opt.load_state_dict(tree)
+            return
+        coords = {ax: getattr(self.mesh, f"{ax}_rank") for ax in AXES}
+        sizes = dict(self.mesh.shape)
+        local = {"count": int(np.asarray(tree["count"])), "mu": {}, "nu": {}}
+        for i in opt.active:
+            lay = self.layouts[i]
+            for key in ("mu", "nu"):
+                full = torch.as_tensor(np.asarray(tree[key][lay.name]))
+                local[key][lay.name] = take_shard(full, lay.spec, coords,
+                                                  sizes)
+        opt.load_state_dict(local)

@@ -24,6 +24,7 @@ import functools
 import json
 import math
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -288,15 +289,21 @@ def test_scst_and_cbs_after_training(tmp_path):
     assert cbs["n_hits"] >= 1
 
 
-def test_pipeline_staged_checkpoint_raises(tmp_path):
+def test_pipeline_staged_checkpoint_raises(trained, tmp_path):
+    """A checkpoint whose config has pipeline stages no longer raises: the
+    driver decodes it as a per-layer model (the JAX driver's unstacked
+    copy), to the captions of the same weights without stages."""
+    out, res, _ = trained
     ckpt = tmp_path / "ckpt"
-    ckpt.mkdir()
-    (ckpt / "config.json").write_text(json.dumps({"pipeline_stages": 2}))
-    out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cap.main(["--output_dir", str(out), "--model_name_or_path",
-                  str(ckpt), "--do_eval", "--platform", "cpu"])
-    assert not out.exists()
+    shutil.copytree(os.path.join(out, f"checkpoint-{STEPS:07d}"), ckpt)
+    cfg = json.loads((ckpt / "config.json").read_text())
+    cfg["pipeline_stages"] = 2
+    (ckpt / "config.json").write_text(json.dumps(cfg))
+    got = cap.main(["--output_dir", str(tmp_path / "out"),
+                    "--model_name_or_path", str(ckpt), "--synthetic",
+                    "--tiny", "--platform", "cpu", "--do_eval", "--dtype",
+                    "float32", "--decode_mode", "cached"])
+    assert got["captions"] == res["captions"]
 
 
 def test_runs_on_cuda_unless_asked_for_the_cpu(tmp_path, monkeypatch):

@@ -309,7 +309,7 @@ def test_loader_batches_are_the_samplers_in_order(datasets, workers):
     want_sampler = jloader.BatchSampler(len(jd), 7, seed=2)
     loader = ploader.ProcessLoader(
         RetrievalFetch(pd, use_phrase=True), sampler, start_step=3,
-        num_workers=workers, multiprocessing_context="spawn",
+        num_workers=workers, device="cpu", multiprocessing_context="spawn",
         timeout=LOADER_TIMEOUT)
     seen = []
     for step, batch in loader:
@@ -324,7 +324,7 @@ def test_loader_batches_are_the_samplers_in_order(datasets, workers):
     assert not [f for f in os.listdir("/dev/shm") if loader._tag in f]
     with pytest.raises(ValueError):
         ploader.ProcessLoader(RetrievalFetch(pd, use_phrase=True), sampler,
-                              num_workers=0)
+                              num_workers=0, device="cpu")
 
 
 def test_loader_worker_error_reaches_the_consumer(datasets):
@@ -334,7 +334,8 @@ def test_loader_worker_error_reaches_the_consumer(datasets):
     sampler = ploader.BatchSampler(len(pd) + 40, 10, seed=0, shuffle=False)
     loader = ploader.ProcessLoader(
         RetrievalFetch(pd, use_phrase=False), sampler, num_workers=2,
-        multiprocessing_context="spawn", timeout=LOADER_TIMEOUT)
+        device="cpu", multiprocessing_context="spawn",
+        timeout=LOADER_TIMEOUT)
     steps = []
     with pytest.raises(RuntimeError, match="IndexError"):
         for step, _ in loader:
@@ -363,8 +364,8 @@ def fetch(idx):
 }
 RUN_LOADER = """
 loader = ProcessLoader(fetch, BatchSampler(100, 4, shuffle=False),
-                       num_workers=2, multiprocessing_context="fork",
-                       timeout={timeout})
+                       num_workers=2, device="cpu",
+                       multiprocessing_context="fork", timeout={timeout})
 seen = []
 try:
     for step, batch in loader:

@@ -29,7 +29,8 @@ def package_files():
 
 def test_import_leaves_jax_out_of_sys_modules():
     """In a fresh interpreter (the test process has jax already: conftest),
-    importing the package and every submodule pulls in none of them, nor
+    importing the package and every submodule (the parallel ones included)
+    pulls in none of them, nor
     `yaml` (only a `--dataset_yaml` manifest needs it, at its first read),
     nor `PIL` (only decoding an image file needs it)."""
     code = (
@@ -39,7 +40,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "for n in names: importlib.import_module(n)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}"
         " + ('yaml', 'PIL')]\n"
-        "assert len(names) >= 62, names\n"
+        "assert len(names) >= 73, names\n"
         "for n in ('models.pretrain', 'models.heads', 'tasks.pretrain',\n"
         "          'training.loop', 'native', 'data.tokenization',\n"
         "          'data.tsv', 'data.tensorize', 'data.datasets',\n"
@@ -55,7 +56,12 @@ def test_import_leaves_jax_out_of_sys_modules():
         "          'detection.roi_align', 'detection.detector',\n"
         "          'detection.frontend', 'detection.synthetic_boxes',\n"
         "          'detection.train_cli', 'tools', 'tools.transforms',\n"
-        "          'tools.img_feat_extract'):\n"
+        "          'tools.img_feat_extract', 'parallel',\n"
+        "          'parallel.distributed', 'parallel.collectives',\n"
+        "          'parallel.mesh', 'parallel.activation_sharding',\n"
+        "          'parallel.pipeline', 'parallel.sharded_retrieval',\n"
+        "          'ops.moe', 'training.sharded_checkpoint',\n"
+        "          'training.consolidate', 'tools.launch'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

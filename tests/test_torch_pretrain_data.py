@@ -308,7 +308,7 @@ def test_loader_fetches_each_step_with_its_epoch(root):
     want_sampler = jloader.BatchSampler(len(jd), 7, seed=2)
     fetch = PretrainFetch(pd, use_qa=True, use_qa_pairs=True)
     loader = ploader.ProcessLoader(
-        fetch, sampler, start_step=5, num_workers=2,
+        fetch, sampler, start_step=5, num_workers=2, device="cpu",
         multiprocessing_context="spawn", timeout=LOADER_TIMEOUT)
     seen = []
     for step, batch in loader:
