@@ -5680,7 +5680,7 @@ def cbs_scst_summary(p13):
 P14_STEPS, P14_TIMED_FROM = 10, 4    # MoE CLI steps; timed from step 4
 P14_MOE = ["--moe_experts", "8", "--moe_top_k", "2"]   # moe_every 2
 P14_MEM_WARMUP, P14_MEM_TIMED = 2, 5  # in-memory steps, dense and MoE
-P14_MODE_TIMED = 3                   # timed steps of each part B mode
+P14_MODE_TIMED = 5                   # timed steps of each part B mode
 P14_GPIPE_MB = 4
 P14_FLICKR = (1000, 5)               # images, captions an image
 P14_CORPUS = (100_000, 500_000)      # query rows (images), gallery rows
@@ -5709,7 +5709,8 @@ def phase14_moe(torch, attn, layers_mod, ModelConfig, root, p8=None):
     import dataclasses
     import gc
     from mvp_pytorch_tpu_torch.models import BiPretrainModel
-    from mvp_pytorch_tpu_torch.ops.moe import moe_aux_loss, moe_dropped_share
+    from mvp_pytorch_tpu_torch.ops.moe import (collect_aux, moe_aux_loss,
+                                               moe_dropped_share)
     from mvp_pytorch_tpu_torch.tasks import pretrain as pre
     from mvp_pytorch_tpu_torch.training.optim import make_optimizer
     from mvp_pytorch_tpu_torch.training.sharded_checkpoint import (
@@ -5843,12 +5844,13 @@ def phase14_moe(torch, attn, layers_mod, ModelConfig, root, p8=None):
 
     def step():
         model.zero_grad(set_to_none=True)
-        out = model.train_step(
-            *(batch.get(k) for k in pre.PRETRAIN_KEYS), hn_dice=dice,
-            wra_pick=1, wra_neg_offset=1,
-            generator=torch.Generator(device=DEVICE).manual_seed(0),
-            **step_kw)
-        aux = moe_aux_loss(model)
+        with collect_aux(model) as aux_values:
+            out = model.train_step(
+                *(batch.get(k) for k in pre.PRETRAIN_KEYS), hn_dice=dice,
+                wra_pick=1, wra_neg_offset=1,
+                generator=torch.Generator(device=DEVICE).manual_seed(0),
+                **step_kw)
+        aux = moe_aux_loss(aux_values)
         (out.total_loss + 0.01 * aux).backward()
         params = dict(model.named_parameters())
         return out, aux, {n: params[n].grad.detach().clone()
@@ -5948,19 +5950,25 @@ def phase14_world1(torch, attn, ModelConfig, RetrievalModel):
                 if not ok:
                     raise AssertionError(f"{mode} step: loss {loss_err}, "
                                          f"updates {errs}")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            steps_ms = []
             for _ in range(P14_MODE_TIMED):
                 reset_counts(attn)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
                 trainer.step(batch)
+                torch.cuda.synchronize()
+                steps_ms.append((time.perf_counter() - t0) * 1e3)
                 p14_launches(attn, launches, f"a {mode} step")
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3 / P14_MODE_TIMED
-            out[mode] = dict(step_ms=ms, loss=first["loss"],
-                             launches_per_step=launches,
+            # the median: a host hiccup in one step moves the mean by tens
+            # of ms at world size 1
+            ms = float(np.median(steps_ms))
+            out[mode] = dict(step_ms=ms, steps_ms=steps_ms,
+                             loss=first["loss"], launches_per_step=launches,
                              max_update_rel_err=max(errs.values(),
                                                     default=0.0))
-            log(f"  {mode:6s} {ms:.2f} ms/step ({launches} launches a step)")
+            log(f"  {mode:6s} {ms:.2f} ms/step median of "
+                f"{', '.join(f'{t:.2f}' for t in steps_ms)} ({launches} "
+                f"launches a step)")
             del trainer, model, after, before, upd
             gc.collect()
             torch.cuda.empty_cache()

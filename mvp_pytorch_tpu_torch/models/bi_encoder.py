@@ -14,15 +14,15 @@ Random choices (sampled negatives, the slot permutation) draw from a
 the JAX package. `forward_joint` is the NLVR2 forward: one text and two
 images through one fusion pass.
 
-Inside a data-parallel Trainer step (`parallel.collectives.data_parallel`)
-the contrastive matrix, the hard-negative mining and the slot permutation
-span the global batch, as in the JAX package, whose loss is global-batch
-(`mvp_pytorch_tpu/models/bi_encoder.py:196-222`): the global embeddings
-are all-gathered with gradients (`sim_mat` is [B, B] over every rank's
-rows), the mined pairs are data rank 0's (broadcast, so a sampled choice
-is one choice), each rank fuses its own B / ranks slots of them, reading the
-paired rows from the all-gathered text and vision streams, and
-`hard_txt_index` / `hard_img_index` hold global row indices.
+With a `global_batch` (`parallel.collectives.GlobalBatch`, passed by a
+data-parallel step's loss) the contrastive matrix, the hard-negative mining
+and the slot permutation span the global batch, as in the JAX package, whose
+loss is global-batch (`mvp_pytorch_tpu/models/bi_encoder.py:196-222`): the
+global embeddings are all-gathered with gradients (`sim_mat` is [B, B] over
+every rank's rows), the mined pairs are data rank 0's (broadcast, so a
+sampled choice is one choice), each rank fuses its own B / ranks slots of
+them, reading the paired rows from the all-gathered text and vision
+streams, and `hard_txt_index` / `hard_img_index` hold global row indices.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from ..parallel.collectives import data_parallel, gather_nograd, gather_rows
+from ..parallel.collectives import LOCAL, GlobalBatch
 from .config import ModelConfig
 from .layers import (Dense, Dropout, Embeddings, LayerNorm, Pooler,
                      StreamEncoder, compute_dtype, init_weights, mask_to_bias)
@@ -175,8 +175,8 @@ class BiEncoder(nn.Module):
                 *, max_tag_length: Optional[int] = None, use_b: bool = False,
                 encode_hn: bool = False, hn_mod: str = "hard", logit=None,
                 phrase_layer: Optional[int] = None, hn_dice=None,
-                generator: Optional[torch.Generator] = None
-                ) -> BiEncoderOutput:
+                generator: Optional[torch.Generator] = None,
+                global_batch: GlobalBatch = LOCAL) -> BiEncoderOutput:
         """The reference BiBertImgModel.forward (modeling_vlbert.py:411-609):
         both streams, the similarity matrix and the fusion pass; with
         `encode_hn` also the hard-negative pairs' fusion pass, as one pass
@@ -202,12 +202,9 @@ class BiEncoder(nn.Module):
         strip = 1 if use_b else max_tag_length
         only_vis = vis_seq[:, strip:, :]
         only_vis_mask = attention_mask_b[:, strip:]
-        dp = data_parallel()
-        if dp is None:
-            sim_mat = global_txt @ global_img.T
-        else:
-            sim_mat = (gather_rows(global_txt, dp.data_group)
-                       @ gather_rows(global_img, dp.data_group).T)
+        gb = global_batch
+        sim_mat = (gb.rows(global_txt, grad=True)
+                   @ gb.rows(global_img, grad=True).T)
 
         hard_seq = hard_pooled = hard_txt = hard_img = mid_hard = None
         if not encode_hn:
@@ -219,19 +216,11 @@ class BiEncoder(nn.Module):
                 sim_mat, hn_mod=hn_mod, logit=logit, hn_dice=hn_dice,
                 generator=generator)
             n = txt_seq.shape[0]
-            src = (txt_seq, attention_mask_a, only_vis, only_vis_mask)
-            if dp is not None:
-                pairs = torch.stack([hard_txt, hard_img])
-                torch.distributed.broadcast(
-                    pairs, src=dp.group_rank_to_global("data", 0),
-                    group=dp.data_group)
-                mine = slice(dp.data_rank * n, (dp.data_rank + 1) * n)
-                hard_txt, hard_img = pairs[0, mine], pairs[1, mine]
-                src = (gather_rows(txt_seq, dp.data_group),
-                       gather_nograd(attention_mask_a, dp.data_group),
-                       gather_rows(only_vis, dp.data_group),
-                       gather_nograd(only_vis_mask, dp.data_group))
-            txt_src, mask_src, vis_src, vmask_src = src
+            hard_txt, hard_img = gb.own_rows(gb.from_first(
+                torch.stack([hard_txt, hard_img], 1)), n).unbind(1)
+            txt_src, mask_src, vis_src, vmask_src = (
+                gb.rows(txt_seq, grad=True), gb.rows(attention_mask_a),
+                gb.rows(only_vis, grad=True), gb.rows(only_vis_mask))
             if self.config.fused_hn_pass:
                 both_seq, both_pooled, both_mid = self.fuse(
                     torch.cat([txt_seq, txt_src[hard_txt]], 0),

@@ -39,7 +39,9 @@ from typing import Dict, Mapping, Optional
 import torch
 from torch import nn
 
-from ..ops.masked import gather_masked_positions, masked_cross_entropy
+from ..ops.masked import (gather_masked_positions, masked_ce_terms,
+                          masked_cross_entropy)
+from ..parallel.collectives import LOCAL, GlobalBatch
 from .config import ModelConfig
 from .heads import (ClassifierHead, LMPredictionHead, MRFMRCHeads,
                     SeqRelationshipHead)
@@ -199,7 +201,8 @@ class ImgBertForPreTraining(_ImgBertBase):
                 masked_lm_labels, next_sentence_label=None,
                 masked_region_labels=None, masked_region_targets=None,
                 masked_region_flags=None, *, max_pred: int = 20,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                global_batch: GlobalBatch = LOCAL
                 ) -> Dict[str, torch.Tensor]:
         """The JAX `ImgBertForPreTraining.__call__`: `mlm_loss` over at most
         `max_pred` labelled text positions (`masked_lm_labels` spans the
@@ -209,7 +212,9 @@ class ImgBertForPreTraining(_ImgBertBase):
         and `mrf_loss` (the squared error to `masked_region_targets` over
         the regions `masked_region_flags` marks, or the labelled ones
         without flags, over max(sum of weights x img_dim, 1)); and
-        `total_loss`, their sum."""
+        `total_loss`, their sum. The MLM, ITM and MRC means are over
+        `global_batch`'s count."""
+        gb = global_batch
         with dropout_generator(self, generator):
             seq, pooled = self.bert(input_ids, attention_mask, token_type_ids,
                                     img_feats=img_feats)
@@ -217,15 +222,15 @@ class ImgBertForPreTraining(_ImgBertBase):
         table = self.bert.word_table()
         mh, ml, mw = gather_masked_positions(seq[:, :la], masked_lm_labels,
                                              max_pred)
-        mlm_loss = masked_cross_entropy(self.cls.predictions(mh, table), ml,
-                                        mw)
+        mlm_loss = gb.mean(*masked_ce_terms(self.cls.predictions(mh, table),
+                                            ml, mw))
         out = {"mlm_loss": mlm_loss}
         total = mlm_loss
         if next_sentence_label is not None:
             itm_logits = self.cls.seq_relationship(pooled)
-            itm_loss = masked_cross_entropy(
+            itm_loss = gb.mean(*masked_ce_terms(
                 itm_logits, next_sentence_label.clamp(min=0),
-                (next_sentence_label >= 0).float())
+                (next_sentence_label >= 0).float()))
             total = total + itm_loss
             out["itm_loss"] = itm_loss
         if self.use_mrfr and masked_region_labels is not None:
@@ -236,7 +241,8 @@ class ImgBertForPreTraining(_ImgBertBase):
                     "the MRF head regresses on)")
             mrf, mrc = self.cls.mrf_mrc(seq[:, la:], self.bert.img_kernel())
             w = (masked_region_labels >= 0).float()
-            mrc_loss = masked_cross_entropy(mrc, masked_region_labels, w)
+            mrc_loss = gb.mean(*masked_ce_terms(mrc, masked_region_labels,
+                                                w))
             w_mrf = (masked_region_flags.float()
                      if masked_region_flags is not None else w)
             sq = (mrf - masked_region_targets.float()) ** 2

@@ -19,8 +19,8 @@ import torch
 from torch import nn
 
 from ..ops.masked import (cross_entropy, gather_masked_positions, gather_span,
-                          masked_cross_entropy)
-from ..parallel.collectives import dp_rows, global_mean
+                          masked_ce_terms)
+from ..parallel.collectives import LOCAL, GlobalBatch
 from .bi_encoder import BiEncoder, l2_normalize
 from .config import ModelConfig
 from .heads import LMPredictionHead, SeqRelationshipHead
@@ -66,42 +66,49 @@ def wra_sample_loss(sequence_output, phrase_index, image_index,
                     generator: Optional[torch.Generator] = None, *,
                     phrase_width: int, img_width: int, margin: float = 0.2,
                     pick: Optional[int] = None,
-                    neg_offset: Optional[int] = None) -> torch.Tensor:
+                    neg_offset: Optional[int] = None,
+                    global_batch: GlobalBatch = LOCAL) -> torch.Tensor:
     """'sample' mode: the positive is the example's own image span, the
     negative a uniformly drawn other example's (or the one `neg_offset`
-    ahead)."""
+    ahead) in `global_batch` (data rank 0 draws for every row). The mean
+    is over its valid rows."""
+    gb = global_batch
     b = sequence_output.shape[0]
+    n = b * gb.ranks
     ph, ph_valid = span_tokens(sequence_output, phrase_index, phrase_width)
     im, im_valid = span_tokens(sequence_output, image_index, img_width)
     pos = t2i_sim(torch.einsum("bph,brh->bpr", ph, im), ph_valid, im_valid,
                   generator, pick=pick)
-    ar = torch.arange(b, device=sequence_output.device)
+    ar = torch.arange(n, device=sequence_output.device)
     if neg_offset is not None:
-        neg_idx = (ar + neg_offset) % b
+        neg_idx = (ar + neg_offset) % n
     else:
-        neg_idx = (ar + torch.randint(1, b, (b,), generator=generator,
-                                      device=ar.device)) % b
+        neg_idx = (ar + torch.randint(1, n, (n,), generator=generator,
+                                      device=ar.device)) % n
+    neg_idx = gb.own_rows(gb.from_first(neg_idx), b)
+    im, im_valid = gb.rows(im, grad=True), gb.rows(im_valid)
     neg = t2i_sim(torch.einsum("bph,brh->bpr", ph, im[neg_idx]), ph_valid,
                   im_valid[neg_idx], generator, pick=pick)
     loss = torch.clamp(neg + margin - pos, min=0.0)
     valid = (phrase_index[:, 1] > phrase_index[:, 0]).float()
-    return global_mean((loss * valid).sum(), valid.sum())
+    return global_batch.mean((loss * valid).sum(), valid.sum())
 
 
 def wra_hard_loss(sequence_output, hard_sequence_output, phrase_index,
                   image_index, hard_txt_index, hard_img_index,
                   generator: Optional[torch.Generator] = None, *,
                   phrase_width: int, img_width: int, margin: float = 0.2,
-                  pick: Optional[int] = None) -> torch.Tensor:
+                  pick: Optional[int] = None,
+                  global_batch: GlobalBatch = LOCAL) -> torch.Tensor:
     """'hard' mode: the negative similarities come from the hard-negative
-    fusion pass (reference modeling_vlbert.py:1272-1284)."""
+    fusion pass (reference modeling_vlbert.py:1272-1284). The hard pairs'
+    indices and the mean are `global_batch`'s."""
     ph, ph_valid = span_tokens(sequence_output, phrase_index, phrase_width)
     im, im_valid = span_tokens(sequence_output, image_index, img_width)
     pos = t2i_sim(torch.einsum("bph,brh->bpr", ph, im), ph_valid, im_valid,
                   generator, pick=pick)
-    # the hard pairs' indices are the global batch's (data-parallel step)
-    hard_phrase_index = dp_rows(phrase_index)[hard_txt_index]
-    hard_image_index = dp_rows(image_index)[hard_img_index]
+    hard_phrase_index = global_batch.rows(phrase_index)[hard_txt_index]
+    hard_image_index = global_batch.rows(image_index)[hard_img_index]
     hph, hph_valid = span_tokens(hard_sequence_output, hard_phrase_index,
                                  phrase_width)
     him, him_valid = span_tokens(hard_sequence_output, hard_image_index,
@@ -111,7 +118,7 @@ def wra_hard_loss(sequence_output, hard_sequence_output, phrase_index,
     loss = torch.clamp(neg + margin - pos, min=0.0)
     valid = ((phrase_index[:, 1] > phrase_index[:, 0])
              & (hard_phrase_index[:, 1] > hard_phrase_index[:, 0])).float()
-    return global_mean((loss * valid).sum(), valid.sum())
+    return global_batch.mean((loss * valid).sum(), valid.sum())
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +245,8 @@ class BiPretrainModel(nn.Module):
                    generator: Optional[torch.Generator] = None,
                    wra_pick: Optional[int] = None,
                    wra_neg_offset: Optional[int] = None,
-                   debug_mlm: bool = False) -> PretrainOutput:
+                   debug_mlm: bool = False,
+                   global_batch: GlobalBatch = LOCAL) -> PretrainOutput:
         """The JAX `BiPretrainModel.__call__`:
         1. tag MLM over the vision stream's labelled positions
            (`lm_label_ids_b`, -1 = unlabelled, at most `max_pred_b`);
@@ -257,7 +265,10 @@ class BiPretrainModel(nn.Module):
         the slot permutation, the WRA slot pick and the WRA negative. With
         `debug_mlm` the output's `mlm_debug` holds the text MLM's top-1
         prediction, labels and weights at its gathered positions (the JAX
-        package's `debug_mlm` intermediates, for `--mlm_debug`)."""
+        package's `debug_mlm` intermediates, for `--mlm_debug`). A
+        data-parallel step's `global_batch` makes the CLIP matrix, the hard
+        negatives, the masked means and WRA span its global batch."""
+        gb = global_batch
         # clamped at 100 (CLIP's guard; the reference has none)
         scale = torch.exp(torch.clamp(self.logit_scale, max=math.log(100.0)))
         with dropout_generator(self, generator):
@@ -266,13 +277,13 @@ class BiPretrainModel(nn.Module):
                             img_feats, max_tag_length=max_tag_length,
                             encode_hn=True, hn_mod=hn_mod, logit=scale,
                             phrase_layer=phrase_layer, hn_dice=hn_dice,
-                            generator=generator)
+                            generator=generator, global_batch=gb)
         table = self.bert.word_table()
 
         vis_h, vis_labels, vis_w = gather_masked_positions(
             out.vis_output, lm_label_ids_b, max_pred_b)
-        vis_mlm_loss = masked_cross_entropy(self.half_mlm(vis_h, table),
-                                            vis_labels, vis_w)
+        vis_mlm_loss = gb.mean(*masked_ce_terms(self.half_mlm(vis_h, table),
+                                                vis_labels, vis_w))
 
         logits_mat = out.sim_mat * scale
         labels = torch.arange(logits_mat.shape[0], device=logits_mat.device)
@@ -283,7 +294,8 @@ class BiPretrainModel(nn.Module):
         mlm_h, mlm_labels, mlm_w = gather_masked_positions(
             out.sequence_output[:, :la], lm_label_ids_a, max_pred_a)
         mlm_logits = self.cls.predictions(mlm_h, table)
-        masked_lm_loss = masked_cross_entropy(mlm_logits, mlm_labels, mlm_w)
+        masked_lm_loss = gb.mean(*masked_ce_terms(mlm_logits, mlm_labels,
+                                                  mlm_w))
         mlm_debug = ((mlm_logits.argmax(-1), mlm_labels, mlm_w)
                      if debug_mlm else None)
 
@@ -310,8 +322,9 @@ class BiPretrainModel(nn.Module):
             if not hasattr(self, "qa_seq_relation"):
                 raise ValueError("qa_is_next needs BiPretrainModel(..., "
                                  "qa_pairs=True)")
-            rel = masked_cross_entropy(self.qa_seq_relation(pooled32),
-                                       qa_is_next, (qa_is_next >= 0).float())
+            rel = gb.mean(*masked_ce_terms(self.qa_seq_relation(pooled32),
+                                           qa_is_next,
+                                           (qa_is_next >= 0).float()))
             total = total + rel
             qa_loss = rel if qa_loss is None else qa_loss + rel
 
@@ -320,7 +333,8 @@ class BiPretrainModel(nn.Module):
             mid = phrase_layer is not None
             seq = out.mid_joint if mid else out.sequence_output
             kw = dict(phrase_width=wra_phrase_width,
-                      img_width=img_feats.shape[1], pick=wra_pick)
+                      img_width=img_feats.shape[1], pick=wra_pick,
+                      global_batch=gb)
             if phrase_mod == "sample":
                 wra_loss = wra_sample_loss(seq, phrase_index, image_index,
                                            generator, neg_offset=wra_neg_offset,

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.masked import cross_entropy, gather_span
+from ..parallel.collectives import LOCAL, GlobalBatch
 from .bi_encoder import BiEncoder, l2_normalize
 from .config import ModelConfig
 from .heads import ClassifierHead, LMPredictionHead, QAPredictionHead
@@ -121,7 +122,9 @@ class RetrievalModel(nn.Module):
                    no_itm: bool = False, phrase_layer: Optional[int] = None,
                    wra_phrase_width: int = 10, hn_dice=None,
                    generator: Optional[torch.Generator] = None,
-                   wra_pick: Optional[int] = None) -> RetrievalTrainOutput:
+                   wra_pick: Optional[int] = None,
+                   global_batch: GlobalBatch = LOCAL
+                   ) -> RetrievalTrainOutput:
         """The symmetric CLIP cross-entropy over the in-batch similarities,
         plus ITM against mined hard negatives (unless `no_itm`), plus the
         hard-mode WRA loss when `phrase_index` is given (read at fusion layer
@@ -129,7 +132,9 @@ class RetrievalModel(nn.Module):
 
         Dropout follows the module's training mode. Every random draw
         (dropout, sampled negatives, the slot permutation, the WRA pick)
-        comes from `generator`; `hn_dice` and `wra_pick` pin the last two."""
+        comes from `generator`; `hn_dice` and `wra_pick` pin the last two.
+        A data-parallel step's `global_batch` makes the CLIP matrix, the
+        hard negatives and WRA span its global batch."""
         # the scale is clamped at 100 (CLIP's guard; the reference has none)
         scale = torch.exp(torch.clamp(self.logit_scale, max=math.log(100.0)))
         # the WRA loss needs the hard-negative pass even under no_itm
@@ -141,7 +146,7 @@ class RetrievalModel(nn.Module):
                             encode_hn=(not no_itm) or use_phrase,
                             hn_mod=hn_mod, logit=scale,
                             phrase_layer=phrase_layer, hn_dice=hn_dice,
-                            generator=generator)
+                            generator=generator, global_batch=global_batch)
             logits_mat = out.sim_mat * scale
             labels = torch.arange(logits_mat.shape[0],
                                   device=logits_mat.device)
@@ -156,7 +161,8 @@ class RetrievalModel(nn.Module):
                     phrase_index, image_index, out.hard_txt_index,
                     out.hard_img_index, generator,
                     phrase_width=wra_phrase_width,
-                    img_width=img_feats.shape[1], pick=wra_pick)
+                    img_width=img_feats.shape[1], pick=wra_pick,
+                    global_batch=global_batch)
             if no_itm:
                 b = input_ids_a.shape[0]
                 dev = logits_mat.device

@@ -3,8 +3,9 @@ PyTorch.
 
 - `gather_masked_positions`: up to `max_pred` labelled positions per example,
   labelled ones first in their original order.
-- `masked_cross_entropy`: ignore-index cross entropy as a weighted mean
-  (over the global batch's count inside a data-parallel step).
+- `masked_cross_entropy`: ignore-index cross entropy as a weighted mean;
+  `masked_ce_terms` gives its (total, count), for a mean over a global
+  batch (`parallel.collectives.GlobalBatch.mean`).
 - `cross_entropy`: mean cross entropy where an out-of-range label counts 0.
 - `gather_span`: a [start, end) span per example into a fixed-width buffer
   with a validity mask; positions past the span or past L are masked out.
@@ -16,8 +17,6 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
-
-from ..parallel.collectives import dp_count
 
 
 def gather_masked_positions(hidden: torch.Tensor, labels: torch.Tensor,
@@ -43,15 +42,21 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -logp.gather(-1, labels.clamp(0, v - 1).long()[..., None])[..., 0]
 
 
+def masked_ce_terms(logits: torch.Tensor, labels: torch.Tensor,
+                    weights: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of weighted CE, sum of weights) over positions with weight > 0;
+    labels >= V count as unlabelled."""
+    weights = weights * (labels < logits.shape[-1])
+    return (_nll(logits, labels) * weights).sum(), weights.sum()
+
+
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                          weights: torch.Tensor) -> torch.Tensor:
     """Mean CE over positions with weight > 0; labels >= V count as
     unlabelled. 0 when nothing is labelled."""
-    weights = weights * (labels < logits.shape[-1])
-    total = (_nll(logits, labels) * weights).sum()
-    # inside a data-parallel step: the global batch's count
-    denom, ranks = dp_count(weights.sum())
-    return torch.where(denom > 0, total * ranks / denom.clamp(min=1.0),
+    total, denom = masked_ce_terms(logits, labels, weights)
+    return torch.where(denom > 0, total / denom.clamp(min=1.0),
                        torch.zeros_like(total))
 
 

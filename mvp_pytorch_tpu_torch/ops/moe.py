@@ -9,10 +9,13 @@
   second choice; a choice over capacity, and a padding token, gets a combine
   weight of 0 (the residual path carries it);
 - the load-balance aux is E * sum_e(frac_dispatched_e * mean_prob_e) over
-  the real tokens, 1 at perfect balance. Each training forward appends its
-  aux to `aux_values`; `moe_aux_loss(model)` takes sum(aux - 1) over every
-  MoE call since the last take (the JAX package sows it into
-  `intermediates`).
+  the real tokens, 1 at perfect balance. The JAX package sows it into
+  `intermediates`, which keep it only where the caller made them mutable;
+  here `collect_aux(model)` is that caller's scope: inside it each training
+  forward records its aux into the list the scope yields, and
+  `moe_aux_loss(values)` takes sum(aux - 1) over them. Outside it a layer
+  keeps nothing, so a fine-tuning step and a remat recompute (which runs in
+  the backward, after the scope has closed) record nothing.
 
 Expert weights are stacked `wi` [E, H, F] and `wo` [E, F, H] (the flax
 layout, not transposed), the router `router.weight` [E, H].
@@ -30,7 +33,9 @@ XLA, outside any Pallas kernel).
 
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import List
 
 import torch
 import torch.nn.functional as F
@@ -49,7 +54,7 @@ class MoEMLP(nn.Module):
         self.wo = nn.Parameter(torch.empty(e, f, h))
         self.router = nn.Linear(h, e, bias=False)
         self.tp_mesh = None
-        self.aux_values = []
+        self.aux_sink = None        # the open `collect_aux` list, if any
         self.stats = {}
 
     @torch.no_grad()
@@ -143,8 +148,8 @@ class MoEMLP(nn.Module):
         frac = top1.sum((0, 1)) / nvalid
         mean_prob = (probs * valid[..., None]).sum((0, 1)) / nvalid
         aux = e * torch.sum(frac * mean_prob)
-        if self.training:
-            self.aux_values.append(aux)
+        if self.training and self.aux_sink is not None:
+            self.aux_sink.append(aux)
         with torch.no_grad():
             self.stats = {
                 "aux": aux.detach(),
@@ -157,17 +162,28 @@ def moe_layers(model: nn.Module):
     return [m for m in model.modules() if isinstance(m, MoEMLP)]
 
 
-def moe_aux_loss(model: nn.Module) -> torch.Tensor:
-    """sum(aux - 1) over every MoE call of `model` since the last call of
-    this function (0 at perfect balance), and forget them."""
-    total = None
-    for m in moe_layers(model):
-        for aux in m.aux_values:
-            total = aux - 1.0 if total is None else total + (aux - 1.0)
-        m.aux_values = []
-    if total is None:
-        return torch.zeros((), device=next(model.parameters()).device)
-    return total
+@contextlib.contextmanager
+def collect_aux(model: nn.Module):
+    """Inside, every training forward of `model`'s MoE layers appends its
+    load-balance aux to the list this yields. Close it before the
+    backward."""
+    layers = moe_layers(model)
+    values: List[torch.Tensor] = []
+    for m in layers:
+        m.aux_sink = values
+    try:
+        yield values
+    finally:
+        for m in layers:
+            m.aux_sink = None
+
+
+def moe_aux_loss(values, device=None) -> torch.Tensor:
+    """sum(aux - 1) over the recorded `values` (0 at perfect balance; a
+    zero on `device` when there are none)."""
+    if not values:
+        return torch.zeros((), device=device)
+    return torch.stack([aux - 1.0 for aux in values]).sum()
 
 
 def moe_dropped_share(model: nn.Module) -> torch.Tensor:
@@ -177,4 +193,5 @@ def moe_dropped_share(model: nn.Module) -> torch.Tensor:
     return torch.stack(vals).mean()
 
 
-__all__ = ["MoEMLP", "moe_aux_loss", "moe_layers", "moe_dropped_share"]
+__all__ = ["MoEMLP", "collect_aux", "moe_aux_loss", "moe_layers",
+           "moe_dropped_share"]

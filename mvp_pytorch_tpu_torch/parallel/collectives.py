@@ -9,7 +9,8 @@ distributed_concat):
   the driver's mesh (every model and pipe rank of one data coordinate takes
   the same shard, since they run one model together);
 - `gather_eval_arrays`: an all-gather in rank order, then the truncation;
-- `all_reduce_metrics`: the mean of scalar metrics over a group.
+- `all_reduce_metrics`: the mean of scalar metrics over a group;
+- `GlobalBatch`: how a data-parallel step's loss reads its global batch.
 
 The JAX package needs no more: GSPMD inserts the collectives its shardings
 imply. Here the parallel model paths call them by hand, as autograd
@@ -275,44 +276,76 @@ def gather_nograd(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the global batch inside a data-parallel training step
+# the global batch of a data-parallel training step
 # ---------------------------------------------------------------------------
 
-def data_parallel():
-    """The mesh of the Trainer step this code runs in, when it has more
-    than one data rank; else None."""
-    from .mesh import current_mesh
-    mesh = current_mesh()
-    return mesh if mesh is not None and mesh.data_size > 1 else None
+class GlobalBatch:
+    """How a loss reads the global batch of a data-parallel step: the one
+    owner of that rule. The Trainer makes one for its mesh and passes it to
+    a loss_fn that has a `global_batch` parameter; the loss_fn passes it to
+    the model, which hands it to each term that spans the batch (the
+    contrastive matrix and hard negatives in `models/bi_encoder.py`, WRA's
+    negative spans and the masked means in `models/pretrain.py`, the masked
+    means in `models/img_bert.py`).
+
+    Over more than one data rank every method but `rank` / `ranks` is a
+    collective of the data group, which every data rank calls in the same
+    order: a loss term that one rank skips hangs the step. `LOCAL` (one
+    rank, the default everywhere) computes each locally."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh if mesh is not None and mesh.data_size > 1 else None
+
+    @property
+    def ranks(self) -> int:
+        return 1 if self.mesh is None else self.mesh.data_size
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.data_rank
+
+    def rows(self, x: torch.Tensor, grad: bool = False) -> torch.Tensor:
+        """Every data rank's rows of `x` in rank order: the global batch's.
+        With `grad` the backward sums each rank's gradient of them back to
+        the rank that owns the rows (`gather_rows`)."""
+        if self.mesh is None:
+            return x
+        group = self.mesh.data_group
+        return gather_rows(x, group) if grad else gather_nograd(x, group)
+
+    def from_first(self, x: torch.Tensor) -> torch.Tensor:
+        """Data rank 0's `x` on every data rank (a sampled choice made
+        once for the global batch)."""
+        if self.mesh is None:
+            return x
+        x = x.contiguous()
+        dist.broadcast(x, src=self.mesh.group_rank_to_global("data", 0),
+                       group=self.mesh.data_group)
+        return x
+
+    def own_rows(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """This rank's `n` rows of a global-batch tensor `x`."""
+        return x if self.mesh is None else x[self.rank * n:
+                                             (self.rank + 1) * n]
+
+    def mean(self, total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+        """A masked mean over the global batch from this rank's `total` and
+        `count`: total * ranks / (the count summed over the data ranks), so
+        that the ranks' average is the global mean; 0 where nothing
+        counts."""
+        ranks = self.ranks
+        if ranks > 1:
+            count = count.detach().clone()
+            dist.all_reduce(count, group=self.mesh.data_group)
+        return torch.where(count > 0, total * ranks / count.clamp(min=1.0),
+                           torch.zeros_like(total))
 
 
-def dp_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every data rank's rows of `x` (no gradient), in rank order: the
-    global batch's. Identity outside a data-parallel step."""
-    mesh = data_parallel()
-    return x if mesh is None else gather_nograd(x, mesh.data_group)
-
-
-def dp_count(count: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """(the count summed over the data ranks, the number of data ranks):
-    a masked mean over this rank's rows is total * ranks / global count, so
-    that the ranks' average is the global batch's mean."""
-    mesh = data_parallel()
-    if mesh is None:
-        return count, 1
-    count = count.detach().clone()
-    dist.all_reduce(count, group=mesh.data_group)
-    return count, mesh.data_size
-
-
-def global_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
-    """total / max(count, 1) over the global batch (see `dp_count`)."""
-    count, ranks = dp_count(count)
-    return total * ranks / count.clamp(min=1.0)
+LOCAL = GlobalBatch()
 
 
 __all__ = [
-    "data_parallel", "dp_rows", "dp_count", "global_mean",
+    "GlobalBatch", "LOCAL",
     "sequential_shards", "unpad_concat", "process_shard_indices",
     "gather_eval_arrays", "all_reduce_metrics", "gather_rows",
     "gather_replicated", "split_replicated", "reduce_scatter",

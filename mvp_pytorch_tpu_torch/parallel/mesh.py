@@ -19,14 +19,10 @@ the JAX package's `parallel/mesh.py` on `torch.distributed`.
   `apply_tensor_parallel` cuts a model's parameters to this rank's shards.
 - `zero_state_spec` / `compose_data_spec` / `fit_spec`: the ZeRO-2 and FSDP
   partition rule (`data` on one dimension of a state or parameter).
-- `parallel_scope(mesh)`: the Trainer's step runs inside it; the model's
-  data-parallel loss pieces (`current_mesh`) and GPipe read it.
 """
 
 from __future__ import annotations
 
-import contextlib
-import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -69,7 +65,6 @@ class Mesh:
 
 
 _DEFAULT: Dict[str, Optional[Mesh]] = {"mesh": None}
-_SCOPE = threading.local()
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1, pipe: int = 1,
@@ -100,21 +95,6 @@ def make_mesh(data: Optional[int] = None, model: int = 1, pipe: int = 1,
 
 def default_mesh() -> Optional[Mesh]:
     return _DEFAULT["mesh"]
-
-
-@contextlib.contextmanager
-def parallel_scope(mesh: Optional[Mesh]):
-    """The model code inside runs as one rank of `mesh`'s training step."""
-    prev = getattr(_SCOPE, "mesh", None)
-    _SCOPE.mesh = mesh
-    try:
-        yield mesh
-    finally:
-        _SCOPE.mesh = prev
-
-
-def current_mesh() -> Optional[Mesh]:
-    return getattr(_SCOPE, "mesh", None)
 
 
 def data_shard_info(mesh: Optional[Mesh]) -> Tuple[int, int]:
@@ -350,8 +330,7 @@ def tp_load_state_dict(model: nn.Module, state_dict, mesh: Mesh) -> None:
 
 __all__ = [
     "DATA_AXIS", "MODEL_AXIS", "PIPE_AXIS", "Mesh", "make_mesh",
-    "default_mesh", "parallel_scope", "current_mesh",
-    "data_shard_info", "shard_batch", "EvalSharder", "tp_param_pspec",
+    "default_mesh", "data_shard_info", "shard_batch", "EvalSharder", "tp_param_pspec",
     "fit_spec", "compose_data_spec", "zero_state_spec", "take_shard",
     "apply_tensor_parallel", "tp_gather_state_dict", "tp_load_state_dict",
 ]

@@ -60,7 +60,8 @@ from ..data.datasets import (FeatureStore, ImgOnlyDataset,
 from ..data.tokenization import FastBertTokenizer
 from ..models.img_bert import ImgBertForPreTraining
 from ..models.pretrain import BiPretrainModel
-from ..ops.moe import moe_aux_loss
+from ..ops.moe import collect_aux, moe_aux_loss
+from ..parallel.collectives import LOCAL
 from ..training.loop import batch_on, train_on_batches
 from ..utils.logger import setup_logger
 from . import retrieval
@@ -102,19 +103,24 @@ def pretrain_loss_fn(*, max_tag_length: int = 20, hn_mod: str = "hard",
     `moe_aux_weight` the loss adds that times `ops.moe.moe_aux_loss` over
     both forwards, and `moe_aux` is a metric. `hn_dice`,
     `wra_pick` and `wra_neg_offset` pin those draws in every step and
-    forward (test hooks, as in the JAX package)."""
-    def forward(model, batch, generator):
+    forward (test hooks, as in the JAX package). The losses span the
+    Trainer's `global_batch`."""
+    def forward(model, batch, generator, global_batch):
         return model.train_step(
             *(batch.get(k) for k in PRETRAIN_KEYS),
             max_tag_length=max_tag_length, max_pred_a=max_pred_a,
             max_pred_b=max_pred_b, hn_mod=hn_mod, phrase_mod=phrase_mod,
             wra_phrase_width=wra_phrase_width, phrase_layer=phrase_layer,
             hn_dice=hn_dice, generator=generator, wra_pick=wra_pick,
-            wra_neg_offset=wra_neg_offset)
+            wra_neg_offset=wra_neg_offset, global_batch=global_batch)
 
-    def loss_fn(model, batch, generator):
+    def loss_fn(model, batch, generator, global_batch=LOCAL):
         main, extra = split_extra(batch)
-        out = forward(model, main, generator)
+        with collect_aux(model) as aux_values:
+            out = forward(model, main, generator, global_batch)
+            if extra_loss_weight is not None:
+                extra_total = forward(model, extra, generator,
+                                      global_batch).total_loss
         metrics = {"vis_mlm": out.vis_mlm_loss, "clip": out.retrieval_loss,
                    "mlm": out.masked_lm_loss, "itm": out.itm_loss}
         if out.wra_loss is not None:
@@ -123,12 +129,11 @@ def pretrain_loss_fn(*, max_tag_length: int = 20, hn_mod: str = "hard",
             metrics["qa"] = out.qa_loss
         total = out.total_loss
         if extra_loss_weight is not None:
-            extra_total = forward(model, extra, generator).total_loss
             total = ((1.0 - extra_loss_weight) * total
                      + extra_loss_weight * extra_total)
             metrics["extra"] = extra_total
         if moe_aux_weight is not None:
-            aux = moe_aux_loss(model)
+            aux = moe_aux_loss(aux_values, total.device)
             total = total + moe_aux_weight * aux
             metrics["moe_aux"] = aux
         return total, metrics
@@ -173,13 +178,15 @@ def single_stream_batch(batch: Mapping[str, np.ndarray],
 def single_stream_loss_fn(*, max_pred: int = 30):
     """The Trainer's loss_fn for `ImgBertForPreTraining` over a
     `single_stream_batch`: the total loss, with `mlm`, `itm`, `mrc` and
-    `mrf` as metrics (those the batch has labels for)."""
+    `mrf` as metrics (those the batch has labels for), over the Trainer's
+    `global_batch`."""
     names = {"mlm": "mlm_loss", "itm": "itm_loss", "mrc": "mrc_loss",
              "mrf": "mrf_loss"}
 
-    def loss_fn(model, batch, generator):
+    def loss_fn(model, batch, generator, global_batch=LOCAL):
         out = model(*(batch.get(k) for k in SINGLE_STREAM_KEYS),
-                    max_pred=max_pred, generator=generator)
+                    max_pred=max_pred, generator=generator,
+                    global_batch=global_batch)
         return out["total_loss"], {k: out[v] for k, v in names.items()
                                    if v in out}
     return loss_fn

@@ -45,7 +45,8 @@ import torch
 from ..data.datasets import FeatureStore, RetrievalDataset, load_phrase_vocab
 from ..data.tokenization import FastBertTokenizer
 from ..models.tasks import RetrievalModel
-from ..parallel.collectives import gather_eval_arrays, process_shard_indices
+from ..parallel.collectives import (LOCAL, gather_eval_arrays,
+                                    process_shard_indices)
 from ..training.loop import batch_on, train_on_batches
 from ..utils.logger import setup_logger
 from .common import (INPUT_NAMES, TrainLoop, add_common_args, build_config,
@@ -226,13 +227,14 @@ def retrieval_loss_fn(*, max_tag_length: int = 20, hn_mod: str = "hard",
                       phrase_layer: Optional[int] = None):
     """The Trainer's loss_fn for `RetrievalModel.train_step`: the total loss,
     with the CLIP, ITM and (with phrase spans in the batch) WRA losses as
-    metrics."""
-    def loss_fn(model, batch, generator):
+    metrics, over the Trainer's `global_batch`."""
+    def loss_fn(model, batch, generator, global_batch=LOCAL):
         out = model.train_step(
             *(batch[k] for k in CAPTION_KEYS + IMAGE_KEYS),
             *(batch.get(k) for k in PHRASE_KEYS),
             max_tag_length=max_tag_length, hn_mod=hn_mod, no_itm=no_itm,
-            phrase_layer=phrase_layer, generator=generator)
+            phrase_layer=phrase_layer, generator=generator,
+            global_batch=global_batch)
         metrics = {"clip": out.retrieval_loss, "itm": out.itm_loss}
         if out.wra_loss is not None:
             metrics["wra"] = out.wra_loss

@@ -63,7 +63,7 @@ def run_training(model, loss_fn: LossFn, source: BatchSource, steps: int, *,
                  on_checkpoint: Optional[Callable[[int], None]] = None,
                  timing: Optional[Callable[[], Dict[str, float]]] = None,
                  freeze_prefix: Optional[str] = None, freeze_steps: int = 0,
-                 mesh=None, zero_sharding: bool = True, fsdp: bool = False,
+                 mesh=None, fsdp: bool = False,
                  pipeline_microbatches: int = 4
                  ) -> List[Dict[str, float]]:
     """Train `model` with `loss_fn` for `steps` steps over `source`. Returns
@@ -87,8 +87,8 @@ def run_training(model, loss_fn: LossFn, source: BatchSource, steps: int, *,
         if latest is not None:      # the weights before any sharding
             meta = ckpt.restore(latest[1], model, mesh=mesh)
     trainer = Trainer(model, loss_fn, optimizer, grad_accum=grad_accum,
-                      seed=seed, mesh=mesh, zero_sharding=zero_sharding,
-                      fsdp=fsdp, pipeline_microbatches=pipeline_microbatches)
+                      seed=seed, mesh=mesh, fsdp=fsdp,
+                      pipeline_microbatches=pipeline_microbatches)
     if latest is not None:
         opt_state = ckpt.read_optimizer(latest[1])
         if opt_state is not None:

@@ -7,15 +7,18 @@ where `batch` maps names to tensors with the batch first and `generator` is a
 batch), from which every random draw of the step comes. A loss_fn with a
 `step` parameter is called loss_fn(model, batch, generator, step), `step`
 being the number of optimizer steps taken before this one (the JAX package's
-extended contract, for schedules such as VQA's kl -> bce switch). Gradients
+extended contract, for schedules such as VQA's kl -> bce switch); one with a
+`global_batch` parameter also gets the step's
+`parallel.collectives.GlobalBatch`, which it passes to the model's loss
+terms that span the batch. Gradients
 land on the model's fp32 master parameters; the model computes in its
 config's dtype.
 
 With a `mesh` (`parallel.mesh.make_mesh`) each rank steps on its own rows of
 the global batch (`parallel.mesh.shard_batch`, or the loader's sharded
 `BatchSampler`):
-- the loss runs inside `parallel_scope(mesh)`: the model gathers across the
-  data ranks, with gradients, what its loss reads of the whole batch (the
+- the loss_fn's `global_batch` spans the data ranks: the model gathers
+  across them, with gradients, what its loss reads of the whole batch (the
   contrastive matrix, the hard negatives and their permutation; see
   `models/bi_encoder.py`), and the masked means divide by the global count,
   so the loss of each rank's share averages to the one-process loss;
@@ -24,7 +27,12 @@ the global batch (`parallel.mesh.shard_batch`, or the loader's sharded
   whole): each rank reduce-scatters a parameter's gradient along the
   dimension `zero_state_spec` (or `compose_data_spec` on a TP layout)
   picks, updates its slice and all-gathers the parameter. `fsdp` also keeps
-  the parameters sharded between steps (all-gathered for the step);
+  the parameters sharded between steps (all-gathered for the step). The
+  collectives go by bucket (`_Bucket`: the parameters of one dtype sharded
+  over `data`, or replicated over it): one flat buffer, and so one
+  reduce-scatter and one all-gather (or one all-reduce), per bucket and
+  step, not per parameter. A rank's slices live in one flat buffer of its
+  own, which AdamW updates and the all-gather reads;
 - clipping reads the global norm: each rank's sum of squares over the
   tensors it holds, weighted by 1 / their replicas, all-reduced;
 - TP / SP / EP parameters are this model rank's shards
@@ -43,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import inspect
+import math
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -54,10 +63,10 @@ from .optim import AdamW, global_norm
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
-def takes_step(loss_fn: LossFn) -> bool:
-    """Whether `loss_fn` has a `step` parameter."""
+def takes(loss_fn: LossFn, name: str) -> bool:
+    """Whether `loss_fn` has a parameter `name`."""
     try:
-        return "step" in inspect.signature(loss_fn).parameters
+        return name in inspect.signature(loss_fn).parameters
     except (TypeError, ValueError):
         return False
 
@@ -77,6 +86,68 @@ class _Layout:
         self.replicas = replicas        # ranks holding the same tensor
 
 
+class _Bucket:
+    """Parameters whose collectives go in one flat buffer: those of one dtype
+    sharded over `data` along their `dims`, or replicated over it (`dims`
+    all None: the tensors side by side, for one all-reduce). Sharded, the
+    buffer is rank-major: rank r's slices of every tensor side by side, each
+    slice contiguous in its tensor's own layout, so one reduce-scatter
+    leaves each rank its slices, which AdamW updates in place through
+    contiguous views (its multi-tensor fast path), and one all-gather of
+    them rebuilds the tensors."""
+
+    def __init__(self, idx, shapes, dims, ranks):
+        self.idx, self.shapes, self.dims = list(idx), list(shapes), list(dims)
+        self.sharded = self.dims[0] is not None
+        self.ranks = ranks if self.sharded else 1
+        self.slices = [sh if d is None else
+                       sh[:d] + (sh[d] // self.ranks,) + sh[d + 1:]
+                       for sh, d in zip(self.shapes, self.dims)]
+        self.sizes = [math.prod(sl) for sl in self.slices]
+
+    def _by_rank(self, t: torch.Tensor, d: int) -> torch.Tensor:
+        """A view of whole `t` as [ranks, *slice]."""
+        return t.unflatten(d, (self.ranks, t.shape[d] // self.ranks)
+                           ).movedim(d, 0)
+
+    def pack(self, tensors) -> torch.Tensor:
+        """Whole tensors -> the flat buffer."""
+        if not self.sharded:
+            return torch.cat([t.reshape(-1) for t in tensors])
+        return torch.cat([self._by_rank(t, d).reshape(self.ranks, -1)
+                          for t, d in zip(tensors, self.dims)], 1).view(-1)
+
+    def views(self, part: torch.Tensor) -> list:
+        """One rank's part of the buffer (the whole buffer when replicated)
+        -> a contiguous view of each tensor's slice."""
+        return [piece.view(sl)
+                for piece, sl in zip(part.split(self.sizes), self.slices)]
+
+    def copy_whole(self, gathered: torch.Tensor, tensors) -> None:
+        """Every rank's part, all-gathered ([ranks * part]) -> copied into
+        the whole `tensors`."""
+        full = gathered.view(self.ranks, -1)
+        dst, src, off = [], [], 0
+        for t, sl, d, k in zip(tensors, self.slices, self.dims, self.sizes):
+            dst.append(self._by_rank(t, d))
+            src.append(full[:, off:off + k].view((self.ranks,) + sl))
+            off += k
+        torch._foreach_copy_(dst, src)
+
+
+def _buckets(layouts, params, key, dims, ranks) -> List[_Bucket]:
+    """One `_Bucket` per (sharded or not, dtype) over the parameters whose
+    layout passes `key`."""
+    groups: Dict[tuple, list] = {}
+    for i, lay in enumerate(layouts):
+        if key(lay):
+            d = dims(lay)
+            groups.setdefault((d is None, params[i].dtype), []).append(i)
+    return [_Bucket(idx, [tuple(params[i].shape) for i in idx],
+                    [dims(layouts[i]) for i in idx], ranks)
+            for idx in groups.values()]
+
+
 class Trainer:
     def __init__(self, model: torch.nn.Module, loss_fn: LossFn,
                  optimizer: AdamW, *, grad_accum: int = 1, seed: int = 0,
@@ -84,18 +155,24 @@ class Trainer:
                  pipeline_microbatches: int = 4):
         self.model = model
         self.loss_fn = loss_fn
-        self.loss_takes_step = takes_step(loss_fn)
+        self.loss_kw = [k for k in ("step", "global_batch")
+                        if takes(loss_fn, k)]
         self.optimizer = optimizer
         self.grad_accum = max(1, grad_accum)
         self.seed = seed
         self.step_count = 0
         self.mesh = mesh
+        from ..parallel.collectives import GlobalBatch
+        self.global_batch = GlobalBatch(mesh)
         self.zero_sharding = zero_sharding
         self.fsdp = fsdp
         self.pipeline_microbatches = max(1, pipeline_microbatches)
         self.device = next(model.parameters()).device
         self.layouts: List[_Layout] = []
-        self._shards: Dict[int, torch.Tensor] = {}
+        self._grad_buckets: List[_Bucket] = []      # over `data`
+        self._sp_buckets: List[_Bucket] = []        # over `model` (SP)
+        # each sharded bucket and this rank's updated slices of it
+        self._shards: List[Tuple[_Bucket, torch.Tensor]] = []
         if mesh is not None:
             self._partition()
 
@@ -141,18 +218,22 @@ class Trainer:
             lay = _Layout(name, spec, gshape, dim, active, sp_partial,
                           replicas, owner is not None)
             self.layouts.append(lay)
-            if not active:
-                targets.append(None)
-            elif dim is None:
-                targets.append(p.data)
-            else:
-                n = p.shape[dim] // mesh.data_size
-                shard = p.data.narrow(dim, mesh.data_rank * n, n)
-                if self.fsdp:
-                    shard = shard.clone()
-                    self._shards[len(targets)] = shard
-                targets.append(shard)
+            targets.append(p.data if active and dim is None else None)
             weights.append(1.0 / replicas)
+        params = self.optimizer.params
+        self._grad_buckets = _buckets(self.layouts, params,
+                                      lambda lay: lay.active,
+                                      lambda lay: lay.dim, mesh.data_size)
+        self._sp_buckets = _buckets(
+            self.layouts, params, lambda lay: lay.active and lay.sp_partial,
+            lambda lay: None, 1)
+        for b in self._grad_buckets:
+            if b.sharded:
+                mine = b.pack([params[i].data for i in b.idx]).view(
+                    b.ranks, -1)[mesh.data_rank].clone()
+                for i, v in zip(b.idx, b.views(mine)):
+                    targets[i] = v
+                self._shards.append((b, mine))
         self.optimizer.partition(targets, weights, dist.group.WORLD)
         if self.fsdp:
             self.reshard()
@@ -161,20 +242,32 @@ class Trainer:
     def unshard(self) -> None:
         """FSDP: all-gather every sharded parameter for the step (no-op
         otherwise, or when they are whole)."""
-        if not self._shards:
-            return
-        from ..parallel.collectives import gather_nograd
-        for i, shard in self._shards.items():
-            p, lay = self.optimizer.params[i], self.layouts[i]
-            if p.data.numel() == 0:
-                p.data = gather_nograd(shard, self.mesh.data_group,
-                                       dim=lay.dim).contiguous()
+        if self.fsdp:
+            self._gather_whole()
 
     def reshard(self) -> None:
         """FSDP: free the whole parameters; the shards stay."""
-        for i in self._shards:
-            p = self.optimizer.params[i]
-            p.data = p.data.new_empty(0)
+        params = self.optimizer.params
+        for b, _ in self._shards:
+            for i in b.idx:
+                params[i].data = params[i].data.new_empty(0)
+
+    def _gather_whole(self) -> None:
+        """Every rank's updated slices into the whole parameters, one
+        all-gather a bucket (into fresh storage where FSDP freed them)."""
+        params = self.optimizer.params
+        for b, mine in self._shards:
+            if self.fsdp and params[b.idx[0]].data.numel():
+                continue
+            gathered = mine.new_empty(b.ranks * mine.numel())
+            dist.all_gather_into_tensor(gathered, mine,
+                                        group=self.mesh.data_group)
+            if self.fsdp:
+                sizes = [math.prod(sh) for sh in b.shapes]
+                for i, piece, sh in zip(b.idx, mine.new_empty(
+                        sum(sizes)).split(sizes), b.shapes):
+                    params[i].data = piece.view(sh)
+            b.copy_whole(gathered, [params[i].data for i in b.idx])
 
     # --------------------------------------------------------------- step
     def generator(self, step: int, micro: int = 0) -> torch.Generator:
@@ -191,50 +284,38 @@ class Trainer:
     def _scope(self, step: int, micro: int):
         if self.mesh is None:
             return contextlib.nullcontext()
-        from ..parallel.mesh import parallel_scope
         from ..parallel.pipeline import pipeline_scope
-        stack = contextlib.ExitStack()
-        stack.enter_context(parallel_scope(self.mesh))
-        stack.enter_context(pipeline_scope(
-            self.mesh, self.pipeline_microbatches, self.seed_of(step, micro)))
-        return stack
+        return pipeline_scope(self.mesh, self.pipeline_microbatches,
+                              self.seed_of(step, micro))
 
     def _reduce_grads(self) -> list:
         """Each parameter's gradient as this rank's target takes it: summed
         over the model ranks where SP left it partial, averaged over the
-        data ranks (reduce-scattered along the ZeRO dimension)."""
-        from ..parallel.collectives import _reduce_scatter
+        data ranks (reduce-scattered along the ZeRO dimension). One
+        collective per bucket."""
         mesh = self.mesh
-        out = []
-        for p, lay in zip(self.optimizer.params, self.layouts):
-            if not lay.active:
-                out.append(None)
-                continue
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
-            if lay.sp_partial:
-                g = g.contiguous()
-                dist.all_reduce(g, group=mesh.model_group)
-            if lay.dim is None:
-                g = g.contiguous()
-                dist.all_reduce(g, group=mesh.data_group)
+        params = self.optimizer.params
+        grads = {i: params[i].grad if params[i].grad is not None
+                 else torch.zeros_like(params[i])
+                 for b in self._grad_buckets for i in b.idx}
+        for b in self._sp_buckets:
+            flat = b.pack([grads[i] for i in b.idx])
+            dist.all_reduce(flat, group=mesh.model_group)
+            grads.update(zip(b.idx, b.views(flat)))
+        out = [None] * len(params)
+        for b in self._grad_buckets:
+            flat = b.pack([grads[i] for i in b.idx])
+            if b.sharded:
+                mine = flat.new_empty(flat.numel() // b.ranks)
+                dist.reduce_scatter_tensor(mine, flat,
+                                           group=mesh.data_group)
+                flat = mine
             else:
-                g = _reduce_scatter(g, lay.dim, mesh.data_group)
-            out.append(g.div_(mesh.data_size))
+                dist.all_reduce(flat, group=mesh.data_group)
+            flat.div_(mesh.data_size)
+            for i, v in zip(b.idx, b.views(flat)):
+                out[i] = v
         return out
-
-    def _gather_params(self) -> None:
-        """ZeRO-2: every rank's updated slices back into the parameters."""
-        for i, (p, lay) in enumerate(zip(self.optimizer.params,
-                                         self.layouts)):
-            if not lay.active or lay.dim is None:
-                continue
-            moved = p.data.movedim(lay.dim, 0)
-            n = moved.shape[0] // self.mesh.data_size
-            mine = moved[self.mesh.data_rank * n:
-                         (self.mesh.data_rank + 1) * n].contiguous()
-            buf = moved.new_empty(moved.shape)      # contiguous
-            dist.all_gather_into_tensor(buf, mine, group=self.mesh.data_group)
-            moved.copy_(buf)
 
     def step(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, float]:
         """One optimizer step over `batch` (this rank's rows under a mesh),
@@ -260,11 +341,10 @@ class Trainer:
                 k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
                 for k, v in batch.items()}
             gen = self.generator(self.step_count, i)
+            kw = {"step": self.step_count, "global_batch": self.global_batch}
             with self._scope(self.step_count, i):
-                loss, metrics = (
-                    self.loss_fn(self.model, mb, gen, self.step_count)
-                    if self.loss_takes_step
-                    else self.loss_fn(self.model, mb, gen))
+                loss, metrics = self.loss_fn(
+                    self.model, mb, gen, **{k: kw[k] for k in self.loss_kw})
                 loss.backward()
             loss_sum = loss_sum + loss.detach()
             for k, v in metrics.items():
@@ -289,7 +369,7 @@ class Trainer:
             if self.fsdp:
                 self.reshard()
             else:
-                self._gather_params()
+                self._gather_whole()
             from ..parallel.collectives import all_reduce_metrics
             metric_sums = all_reduce_metrics(
                 {**{k: torch.as_tensor(v) for k, v in metric_sums.items()},

@@ -289,10 +289,10 @@ def test_scst_and_cbs_after_training(tmp_path):
     assert cbs["n_hits"] >= 1
 
 
-def test_pipeline_staged_checkpoint_raises(trained, tmp_path):
-    """A checkpoint whose config has pipeline stages no longer raises: the
-    driver decodes it as a per-layer model (the JAX driver's unstacked
-    copy), to the captions of the same weights without stages."""
+def test_pipeline_staged_checkpoint_decodes_like_unstaged(trained, tmp_path):
+    """A checkpoint whose config has pipeline stages decodes as a per-layer
+    model (the JAX driver's unstacked copy), to the captions of the same
+    weights without stages."""
     out, res, _ = trained
     ckpt = tmp_path / "ckpt"
     shutil.copytree(os.path.join(out, f"checkpoint-{STEPS:07d}"), ckpt)

@@ -12,6 +12,10 @@ package, in fp32 on the CPU.
   package's single-device `train_step` (loss 2e-4; gradients atol 2e-4,
   rtol 1e-3, as tests/test_torch_train.py holds the one-rank step): the
   contrastive matrix and the hard negatives span both ranks' rows;
+- two steps of the tiny pretraining model (WRA 'hard' and 'sample', QA
+  pairs, MLM labels that count differently on each rank) equal the
+  one-rank steps: the masked means divide by the global count and WRA's
+  negative spans come from the global batch (`GlobalBatch`);
 - two data ranks draw different dropout masks;
 - the eval shards and their gather equal the JAX package's
   `sequential_shards` / `unpad_concat`; `EvalSharder` splits a batch's rows
@@ -68,7 +72,8 @@ def setup(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def ranks(setup):
-    return tr.launch(["dp", "grads", "dropout", "eval"], setup[0]["dir"])
+    return tr.launch(["dp", "grads", "dropout", "eval", "pretrain"],
+                     setup[0]["dir"])
 
 
 @pytest.fixture(scope="module")
@@ -98,6 +103,22 @@ def test_global_grad_norm_is_equal(ranks, one_rank, mode):
     for out in ranks["dp"]:
         for a, b in zip(out[mode]["hist"], hist):
             assert abs(a["grad_norm"] - b["grad_norm"]) <= TOL * b["grad_norm"]
+
+
+@pytest.mark.parametrize("phrase_mod", ["hard", "sample"])
+def test_two_rank_pretrain_step_equals_one_rank(ranks, phrase_mod):
+    """The masked means (MLM, tag MLM, QA pairs) divide by the global
+    count and WRA reads its negatives' spans from the global batch: every
+    term of the 2-rank pretraining step equals the 1-rank step's."""
+    hist, state = tr.pretrain_step(tr.pretrain_batch(), phrase_mod)
+    for out in ranks["pretrain"]:
+        rhist, rstate = out[phrase_mod]
+        for a, b in zip(rhist, hist):
+            for k in ("loss", "mlm", "vis_mlm", "clip", "itm", "wra", "qa"):
+                assert abs(a[k] - b[k]) <= TOL, (k, a[k], b[k])
+        for k, v in state.items():
+            np.testing.assert_allclose(rstate[k].numpy(), v.numpy(),
+                                       rtol=TOL, atol=1e-6, err_msg=k)
 
 
 def test_zero2_shards_the_moments_and_fsdp_the_parameters(ranks, setup):

@@ -12,6 +12,10 @@ package's, in fp32 on the CPU.
   `convert.load_jax_params` (which names the MoE leaves);
 - the TP placement rule splits the experts over the model ranks as
   `tp_param_pspec` does, for every parameter of that model;
+- the aux is kept only inside `collect_aux`: two pretraining Trainer steps
+  with `moe_aux_weight` give the same losses and weights under `remat` as
+  without (the backward's recompute records no stale aux), and a Trainer
+  that never collects (fine-tuning an MoE model) leaves no aux behind;
 - expert parallelism over 2 gloo ranks (`all_to_all_single`) equals one
   rank: the MLP's output, aux and gradients, and two Trainer steps of a
   tiny MoE retrieval model (the ranks start through the port's launcher,
@@ -34,9 +38,11 @@ from mvp_pytorch_tpu.parallel import mesh as jax_mesh
 from mvp_pytorch_tpu_torch.convert import _flatten, _torch_key, load_jax_params
 from mvp_pytorch_tpu_torch.models import BiPretrainModel, ModelConfig
 from mvp_pytorch_tpu_torch.models.config import tiny_config
-from mvp_pytorch_tpu_torch.ops.moe import MoEMLP, moe_aux_loss
+from mvp_pytorch_tpu_torch.ops.moe import MoEMLP, collect_aux, moe_aux_loss
 from mvp_pytorch_tpu_torch.parallel.mesh import tp_param_pspec
-from mvp_pytorch_tpu_torch.tasks.pretrain import PRETRAIN_KEYS
+from mvp_pytorch_tpu_torch.tasks.pretrain import PRETRAIN_KEYS, pretrain_loss_fn
+from mvp_pytorch_tpu_torch.training.optim import make_optimizer
+from mvp_pytorch_tpu_torch.training.trainer import Trainer
 
 import torch_ranks as tr
 from test_torch_pretrain import (DICE, LAYERS, NEG_OFFSET, STEP_KW, WRA_PICK,
@@ -93,8 +99,9 @@ def test_moe_mlp_matches_jax(case):
     x = rs.randn(3, 13, 32).astype(np.float32)
     want, want_aux = jax_moe_apply(cfg, p, x)
     m = port_moe(cfg, p).train()
-    got = m(torch.from_numpy(x))
-    aux = moe_aux_loss(m)
+    with collect_aux(m) as aux_values:
+        got = m(torch.from_numpy(x))
+    aux = moe_aux_loss(aux_values)
     np.testing.assert_allclose(got.detach().numpy(), want, atol=TOL,
                                rtol=TOL)
     assert abs(float(aux.detach()) - want_aux) <= TOL
@@ -172,10 +179,11 @@ def moe_losses(golden):
     load_jax_params(port, tree)
     port.train()
     tb = torch_batch(batch)
-    out = port(*(tb.get(k) for k in PRETRAIN_KEYS), max_tag_length=mt,
-               hn_dice=torch.from_numpy(DICE), wra_pick=WRA_PICK,
-               wra_neg_offset=NEG_OFFSET, **STEP_KW, **kw)
-    aux = moe_aux_loss(port)
+    with collect_aux(port) as aux_values:
+        out = port(*(tb.get(k) for k in PRETRAIN_KEYS), max_tag_length=mt,
+                   hn_dice=torch.from_numpy(DICE), wra_pick=WRA_PICK,
+                   wra_neg_offset=NEG_OFFSET, **STEP_KW, **kw)
+    aux = moe_aux_loss(aux_values)
     return (float(jtotal), float(jaux),
             float((out.total_loss + AUX_WEIGHT * aux).detach()),
             float(aux.detach()), tree, port)
@@ -187,6 +195,66 @@ def test_moe_pretrain_loss_matches_jax(moe_losses):
     assert abs(total - jtotal) <= LOSS_TOL
     assert aux > 0                  # six MoE calls, off perfect balance
     assert sum(isinstance(m, MoEMLP) for m in port.modules()) == 6
+
+
+def moe_pretrain_steps(golden, tree, remat, steps=2):
+    """`steps` Trainer steps of the tiny MoE pretraining model with the aux
+    in the loss -> (each step's loss and aux, the weights after)."""
+    params, cfg_kw, mt, _ = golden
+    model = BiPretrainModel(ModelConfig(**config_kw(cfg_kw, **MOE,
+                                                    remat=remat)),
+                            device="cpu")
+    load_jax_params(model, tree)
+    loss_fn = pretrain_loss_fn(
+        max_tag_length=mt, hn_dice=torch.from_numpy(DICE),
+        wra_pick=WRA_PICK, wra_neg_offset=NEG_OFFSET,
+        moe_aux_weight=AUX_WEIGHT, **STEP_KW)
+    trainer = Trainer(model, loss_fn, make_optimizer(model, 1e-3))
+    batch = torch_batch(make_batch(mt, seed=3, qa=False))
+    hist = [trainer.step(batch) for _ in range(steps)]
+    return ([(h["loss"], h["moe_aux"]) for h in hist],
+            {k: v.detach().clone() for k, v in model.state_dict().items()},
+            model)
+
+
+def test_moe_remat_step_equals_plain(golden, moe_losses):
+    """Under remat the backward recomputes each MoE layer after the loss_fn's
+    `collect_aux` has closed: nothing is recorded then, so the second step's
+    loss holds no stale aux from the first."""
+    tree = moe_losses[4]
+    plain, plain_state, _ = moe_pretrain_steps(golden, tree, remat=False)
+    remat, remat_state, model = moe_pretrain_steps(golden, tree, remat=True)
+    for (loss, aux), (rloss, raux) in zip(plain, remat):
+        assert abs(rloss - loss) <= TOL * max(1.0, abs(loss))
+        assert abs(raux - aux) <= TOL
+    for k, v in plain_state.items():
+        np.testing.assert_allclose(remat_state[k].numpy(), v.numpy(),
+                                   rtol=TOL, atol=TOL, err_msg=k)
+    assert all(m.aux_sink is None for m in model.modules()
+               if isinstance(m, MoEMLP))
+
+
+def test_moe_finetune_keeps_no_aux():
+    """A loss_fn that never opens `collect_aux` (fine-tuning from an MoE
+    checkpoint) leaves no aux, and so no autograd graph, on the layers; an
+    eval forward inside the scope records nothing either."""
+    model = tr.RetrievalModel(tr.moe_config(), device="cpu", seed=3)
+    layers = [m for m in model.modules() if isinstance(m, MoEMLP)]
+    assert layers
+    loss_fn = tr.pinned_loss(tr.TP_T, np.arange(4)[::-1].copy())
+    trainer = Trainer(model, loss_fn, make_optimizer(model, 1e-3))
+    batch = tr.tensors(tr.make_batch(tr.TP_T, 4, b=4))
+    for _ in range(3):
+        assert np.isfinite(trainer.step(batch)["loss"])
+    assert all(m.aux_sink is None for m in layers)
+    assert not any(isinstance(v, (list, torch.Tensor)) and
+                   not isinstance(v, torch.nn.Parameter)
+                   for m in layers for k, v in vars(m).items()
+                   if k not in ("_parameters", "_buffers", "_modules"))
+    model.eval()
+    with collect_aux(model) as aux_values, torch.no_grad():
+        loss_fn(model, batch, None)
+    assert aux_values == []
 
 
 def test_moe_placement_matches_jax(moe_losses):

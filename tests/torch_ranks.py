@@ -23,6 +23,7 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 from mvp_pytorch_tpu_torch.models import ModelConfig, RetrievalModel  # noqa
+from mvp_pytorch_tpu_torch.parallel.collectives import LOCAL  # noqa
 from mvp_pytorch_tpu_torch.training.optim import make_optimizer  # noqa
 from mvp_pytorch_tpu_torch.training.trainer import Trainer  # noqa
 
@@ -57,9 +58,10 @@ def pinned_loss(mt, dice):
     """The retrieval loss with the hard-negative permutation pinned."""
     dice = torch.as_tensor(dice)
 
-    def loss_fn(model, batch, generator):
+    def loss_fn(model, batch, generator, global_batch=LOCAL):
         out = model.train_step(*(batch[k] for k in KEYS), max_tag_length=mt,
-                               hn_dice=dice, generator=generator)
+                               hn_dice=dice, generator=generator,
+                               global_batch=global_batch)
         return out.total_loss, {"clip": out.retrieval_loss,
                                 "itm": out.itm_loss}
     return loss_fn
@@ -118,9 +120,9 @@ def case_grads(setup, out):
     local = tensors(shard_batch(mesh, make_batch(setup["mt"],
                                                  setup["seed"])))
     model.train()
-    with trainer._scope(0, 0):
-        loss, _ = trainer.loss_fn(model, local, trainer.generator(0))
-        loss.backward()
+    loss, _ = trainer.loss_fn(model, local, trainer.generator(0),
+                              global_batch=trainer.global_batch)
+    loss.backward()
     grads = trainer._reduce_grads()
     total = loss.detach().clone()
     torch.distributed.all_reduce(total)
@@ -233,12 +235,12 @@ def encoder_grads(enc, return_at_layer, scope=None):
 def case_pipe(setup, out):
     """A 2-stage GPipe encoder (with and without the mid readout) and a
     2-stage GPipe Trainer step."""
-    from mvp_pytorch_tpu_torch.parallel.mesh import make_mesh, parallel_scope
+    from mvp_pytorch_tpu_torch.parallel.mesh import make_mesh
     from mvp_pytorch_tpu_torch.parallel.pipeline import pipeline_scope
     mesh = make_mesh(pipe=2)
     for r in (None, 1, 3):
         enc = pipe_encoder()
-        with parallel_scope(mesh), pipeline_scope(mesh, 2, seed=1):
+        with pipeline_scope(mesh, 2, seed=1):
             out[f"enc_{r}"] = encoder_grads(enc, r)
     out["step"] = seeded_step(tp_config(pipeline_stages=2), tp_batch(),
                               mesh=mesh, pipeline_microbatches=2)
@@ -271,12 +273,13 @@ def moe_inputs(seed=9, b=3, l=13, h=32):
 
 
 def moe_grads(holder):
-    from mvp_pytorch_tpu_torch.ops.moe import moe_aux_loss
+    from mvp_pytorch_tpu_torch.ops.moe import collect_aux, moe_aux_loss
     x, w = moe_inputs()
     x.requires_grad_(True)
     holder.train()
-    y = holder.moe(x)
-    aux = moe_aux_loss(holder)
+    with collect_aux(holder) as aux_values:
+        y = holder.moe(x)
+    aux = moe_aux_loss(aux_values)
     ((y * w).sum() + aux).backward()
     return (y.detach(), float(aux.detach()), x.grad.clone(),
             {n: p.grad.clone() for n, p in holder.named_parameters()})
@@ -337,8 +340,62 @@ def case_ckpt(setup, out):
                  fresh.optimizer_state_tree())
 
 
+# --- the global batch of a pretraining step ---------------------------------
+
+def pretrain_batch(seed=11, b=B, la=LA, mt=4, r=R):
+    """A pretraining batch whose masked means count differently on each
+    data rank: MLM labels on a few text and tag positions (one fewer in row
+    2), phrase spans (row 2's empty) and QA-pair labels with -1 rows."""
+    rs = np.random.RandomState(seed)
+    batch = make_batch(mt, seed, b=b, la=la, r=r)
+    la_lab = np.full((b, la), -1, np.int64)
+    la_lab[:, 1:4] = rs.randint(0, 99, (b, 3))
+    la_lab[2, 1] = -1
+    lb_lab = np.full((b, mt + r), -1, np.int64)
+    lb_lab[:, 1:3] = rs.randint(0, 99, (b, 2))
+    start = rs.randint(1, 4, b)
+    phrase = np.stack([start, start + rs.randint(1, 4, b)], 1)
+    phrase[2] = [3, 3]
+    qa_is_next = rs.randint(0, 2, b)
+    qa_is_next[[0, 1, 3]] = -1
+    batch.update(lm_label_ids_a=la_lab, lm_label_ids_b=lb_lab,
+                 phrase_index=phrase,
+                 image_index=np.stack([np.full(b, la),
+                                       np.full(b, la + r)], 1),
+                 qa_ans=rs.randint(0, 7, b), qa_is_next=qa_is_next)
+    return batch
+
+
+def pretrain_step(batch, phrase_mod, mesh=None, steps=2):
+    """`steps` Trainer steps of a seeded tiny BiPretrainModel over `batch`
+    (this rank's rows): hard negatives, the WRA pick and (in 'sample'
+    mode) the WRA negative pinned; the WRA negatives' spans are the global
+    batch's rows in either mode."""
+    from mvp_pytorch_tpu_torch.models import BiPretrainModel
+    from mvp_pytorch_tpu_torch.models.config import tiny_config
+    from mvp_pytorch_tpu_torch.tasks.pretrain import pretrain_loss_fn
+    model = BiPretrainModel(tiny_config(), qa_pairs=True, device="cpu",
+                            seed=3)
+    loss_fn = pretrain_loss_fn(
+        max_tag_length=4, hn_dice=torch.as_tensor(DICE), phrase_mod=phrase_mod,
+        wra_pick=1, wra_neg_offset=4, max_pred_a=3, max_pred_b=2,
+        wra_phrase_width=4)
+    trainer = Trainer(model, loss_fn, make_optimizer(model, LR), mesh=mesh)
+    hist = [trainer.step(tensors(batch)) for _ in range(steps)]
+    return hist, trainer.full_state_dict()
+
+
+def case_pretrain(setup, out):
+    """The pretraining step over 2 data ranks (ZeRO-2)."""
+    from mvp_pytorch_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    mesh = make_mesh(data=2)
+    for mod in ("hard", "sample"):
+        out[mod] = pretrain_step(shard_batch(mesh, pretrain_batch()), mod,
+                                 mesh)
+
+
 CASES = {"dp": case_dp, "grads": case_grads, "dropout": case_dropout,
-         "eval": case_eval, "tp": case_tp, "pipe": case_pipe, "ep": case_ep,
+         "eval": case_eval, "pretrain": case_pretrain, "tp": case_tp, "pipe": case_pipe, "ep": case_ep,
          "coarse": case_coarse, "ckpt": case_ckpt}
 
 
