@@ -13,6 +13,7 @@
     python3 chip_smoke.py --detection       # phase 13 A and B alone
     python3 chip_smoke.py --scst_cbs        # phase 13 C-E alone
     python3 chip_smoke.py --parallel        # phase 14 alone
+    python3 chip_smoke.py --tooling         # phase 15 alone
     (`--serve_clients URL JOBS OUT` is phase 10 B's client process, which
     the script starts itself)
 
@@ -316,7 +317,34 @@ script exits non-zero:
    shortlists and the ranks), then 100,000 x 500,000 (a 200 GB dense
    matrix) timed with its peak memory. The kernel at GPipe's B 24 shapes
    (fp32, p 0) against the plain version, timed beside SDPA and the bound;
-15. one JSON line of the detector's numbers, then one of kernel numbers
+15. the tooling around the training loop, at MVPTR-base on a root like
+   phase 7's: (A) the retrieval CLI (bf16, B 96, dropouts 0.1, 8 steps)
+   with `--profile_dir` over steps 4-5: exactly one trace file whose device
+   events of the hand-written kernel (by `kernel_key`) number the launch
+   counter's count for those steps (24 a step), with no library attention
+   kernel (SDPA, flash, fmha) in it; `hbm_peak_gb` and `step_peak_gb` of
+   metrics.jsonl within 1 % of `torch.cuda.max_memory_allocated`; the median
+   step ms inside and outside the window. (B) The trained state saved by
+   `CheckpointManager.save` and through `AsyncSaver` (the snapshot, then the
+   write on the writer thread while steps run): the two checkpoints equal
+   bit for bit; the sync save's seconds, the async submit's blocking
+   seconds, and the median step ms during the write against steps with no
+   write. (C) The CLI as a subprocess in its own session (fp32, constant
+   learning rate, `--async_ckpt`, --max_steps 500), SIGTERM to its process
+   group after its first metrics line: rc 0 within a deadline, exactly one
+   checkpoint at a step s < 500; a resume to s + 3 on the same root equal,
+   within 1e-6, to an uninterrupted run to s + 3; the seconds from SIGTERM
+   to exit; `inspect_ckpt`'s `n_params` of the checkpoint equal to the
+   model's. (D) `tools.load_test_serve` on `build_assets` at the JAX bench's
+   serving config (hidden 768, 12 layers, bf16 stored bf16, 30,522 vocab
+   rows, 86,051 model rows, 512 positions): 200 requests from 16 threads,
+   batched (16, 5 ms) then unbatched: 0 errors, batching seen; the first 16
+   requests' answers held against direct forwards at B 16 and B 1 (each its
+   own batch size's argmax where decided there; the two modes equal where
+   both top-2 gaps exceed twice the logits' difference between the batch
+   sizes); requests/s and p50 / p99 of each mode;
+16. one JSON line of the detector's numbers, one of phase 15's, then one of
+   kernel numbers
    (the bf16 kernel, then the fp32 one; phase 11's under `single_stream`,
    phase 12's under `captioning`, phase 13's under `cbs_scst`, phase 14's
    under `parallel` and its GPipe rows under the fp32 kernel's
@@ -331,7 +359,7 @@ phases 1 and 9; with `--nlvr_cli`, phases 1 and 10 A; with `--serve`, phases
 1 and 10 B; with `--single_stream`, phases 1 and 11; with `--captioning`,
 phases 1 and 12; with `--detection`, phases 1 and 13 A-B; with
 `--scst_cbs`, phases 1, 13 B's `train_cli` and 13 C-E; with `--parallel`,
-phases 1 and 14.
+phases 1 and 14; with `--tooling`, phases 1 and 15.
 
 Exits 2 without a result when no CUDA device is visible.
 """
@@ -6088,6 +6116,453 @@ def parallel_summary(p14):
     return {k: v for k, v in p14.items() if k != "gpipe_attention"}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the tooling around the training loop (the trace window, the
+# async checkpoint, the preemption checkpoint, inspect_ckpt, the load test)
+# ---------------------------------------------------------------------------
+
+P15_STEPS = 8                        # part A's CLI steps
+P15_PROFILE = (3, 2)                 # --profile_start (0-based), --profile_steps
+P15_FREE_STEPS = 5                   # part B's steps with no write in flight
+P15_DEADLINE_S = 300                 # part C's subprocess, to its first line and to exit
+P15_RESUME = 3                       # part C resumes to s + 3
+P15_WEIGHT_TOL = 1e-6
+P15_MEM_TOL = 0.01                   # metrics.jsonl memory against the allocator
+P15_LOAD = {"requests": 200, "threads": 16, "checked": 16}
+# the JAX bench's flagship serving config (bench.py:644-663)
+P15_SERVE = dict(hidden=768, layers=12, dtype="bfloat16", store_bf16=True,
+                 vocab_rows=30522, vocab_extra=86051 - 30522,
+                 max_position_embeddings=512)
+LIBRARY_ATTENTION = ("flash", "fmha", "sdpa", "efficient_attention",
+                     "scaled_dot_product")
+
+
+def trace_kernels(path):
+    """(device kernel names of a Chrome trace, by `kernel_key` where the name
+    is mangled, else without its unnamed namespaces; and the number of
+    `train_step` regions on the host: the profiler mirrors each on the
+    device's timeline as a `gpu_user_annotation`)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    steps = sum(1 for e in events if e.get("name") == "train_step"
+                and e.get("cat") == "user_annotation")
+    return [kernel_key(n) if n.startswith("_Z")
+            else n.replace("(anonymous namespace)::", "")
+            for n in names], steps
+
+
+def phase15_trace(torch, attn, paths, root, data):
+    """(A) The retrieval CLI with a trace window: one trace file holding the
+    window's kernel launches and no library attention."""
+    from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
+    from mvp_pytorch_tpu_torch.tasks import retrieval as ret
+    from mvp_pytorch_tpu_torch.tasks.common import build_config
+    start, n = P15_PROFILE
+    out = os.path.join(root, "trace_run")
+    prof = os.path.join(root, "trace")
+    argv = (["--output_dir", out, "--do_train", "--max_steps", str(P15_STEPS),
+             "--train_batch_size", str(TRAIN_B), "--log_period", "1",
+             "--ckpt_period", str(P15_STEPS), "--num_workers", "4",
+             "--worker_start_method", "fork", "--data_dir", root,
+             "--profile_dir", prof, "--profile_start", str(start),
+             "--profile_steps", str(n)] + data + CLI_ARGS + CLI_PLATFORM)
+    log("  python -m mvp_pytorch_tpu_torch.tasks.retrieval "
+        + " ".join(os.path.relpath(a, root) if a.startswith(root) else a
+                   for a in argv))
+    counts = {}         # step -> its launches
+
+    def after(trainer, metrics):
+        counts[trainer.step_count] = attn.masked_attention.launches
+    per_step = build_config(ret.get_args(argv),
+                            FastBertTokenizer(paths["vocab"]),
+                            num_labels=2).half_layers * 4
+    with counted_steps(attn, per_step, "a traced CLI step"):
+        with around_steps(after=after):
+            hist = ret.main(argv)["train"]
+    peak = torch.cuda.max_memory_allocated() / 1024.0 ** 3
+    files = sorted(os.listdir(prof))
+    if len(files) != 1 or not files[0].endswith(".pt.trace.json"):
+        raise AssertionError(f"want one trace file, got {files}")
+    names, steps = trace_kernels(os.path.join(prof, files[0]))
+    window = sum(counts[s] for s in range(start + 1, start + n + 1))
+    ours = [k for k in names if "masked_attention" in k]
+    library = sorted({k for k in names
+                      if any(w in k.lower() for w in LIBRARY_ATTENTION)})
+    log(f"  trace {files[0]}: {len(names)} device kernels, {len(ours)} of "
+        f"the hand-written kernel ({sorted(set(ours))[:2]}), {steps} "
+        f"train_step regions; launch counter over steps {start + 1}-"
+        f"{start + n}: {window}; library attention kernels: {library}")
+    if steps != n or library or (
+            DEVICE == "cuda" and (len(ours) != window
+                                  or window != per_step * n)):
+        raise AssertionError(f"the trace holds {len(ours)} kernel launches "
+                             f"over {steps} steps (counter {window}), "
+                             f"library attention {library}")
+    with open(os.path.join(out, "train_logs", "metrics.jsonl")) as f:
+        last = [json.loads(line) for line in f][-1]
+    mem = {k: last.get(f"train/{k}") for k in ("hbm_peak_gb", "step_peak_gb",
+                                               "step_args_gb", "step_temp_gb",
+                                               "hbm_gb", "hbm_limit_gb")}
+    log(f"  metrics.jsonl memory {json.dumps(mem)}; "
+        f"torch.cuda.max_memory_allocated {peak:.4f} GB")
+    for k in ("hbm_peak_gb", "step_peak_gb") if DEVICE == "cuda" else ():
+        if mem[k] is None or abs(mem[k] - peak) > P15_MEM_TOL * peak:
+            raise AssertionError(f"{k} {mem[k]} is not within 1 % of the "
+                                 f"allocator's peak {peak}")
+    ms = [m["step_ms"] for m in hist]
+    # the window's first step carries the profiler's start, the step after
+    # it the trace's export
+    inside = float(np.median(ms[start + 1:start + n]))
+    outside = float(np.median(ms[1:start] + ms[start + n + 1:]))
+    log(f"  step ms: traced {inside:.2f} (steps {start + 2}-{start + n}), "
+        f"untraced {outside:.2f} (steps 2-{start}, {start + n + 2}-"
+        f"{P15_STEPS}); the profiler's start (step {start + 1}) "
+        f"{ms[start]:.1f}, the export (step {start + n + 1}) "
+        f"{ms[start + n]:.1f}")
+    return dict(trace_launches=len(ours), window_launches=window,
+                trace_kernels=len(names), step_ms_traced=inside,
+                step_ms_untraced=outside, start_step_ms=ms[start],
+                export_step_ms=ms[start + n],
+                memory_gb=mem, max_memory_allocated_gb=peak,
+                ckpt=os.path.join(out, f"checkpoint-{P15_STEPS:07d}"))
+
+
+def phase15_async(torch, attn, paths, root, data, ckpt_dir):
+    """(B) One trained state saved synchronously and through AsyncSaver (the
+    snapshot, then the write while steps run): equal bit for bit."""
+    import threading
+    from mvp_pytorch_tpu_torch.data.datasets import (FeatureStore,
+                                                     RetrievalDataset,
+                                                     load_phrase_vocab)
+    from mvp_pytorch_tpu_torch.data.loader import BatchSampler
+    from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
+    from mvp_pytorch_tpu_torch.models import ModelConfig, RetrievalModel
+    from mvp_pytorch_tpu_torch.tasks import retrieval as ret
+    from mvp_pytorch_tpu_torch.tasks.common import tensorize_cfg
+    from mvp_pytorch_tpu_torch.training.checkpoint import (AsyncSaver,
+                                                           CheckpointManager)
+    from mvp_pytorch_tpu_torch.training.loop import batch_on
+    from mvp_pytorch_tpu_torch.training.optim import make_optimizer
+    from mvp_pytorch_tpu_torch.training.trainer import Trainer
+    args = ret.get_args(["--output_dir", root] + data + CLI_ARGS
+                        + CLI_PLATFORM)
+    cfg = ModelConfig.from_pretrained(ckpt_dir)
+    model = RetrievalModel(cfg, device=DEVICE, seed=args.seed)
+    opt = make_optimizer(model, args.learning_rate,
+                         weight_decay=args.weight_decay, schedule="constant")
+    restored = CheckpointManager(os.path.dirname(ckpt_dir))
+    meta = restored.restore(ckpt_dir, model, opt)
+    tokenizer = FastBertTokenizer(paths["vocab"])
+    dataset = RetrievalDataset(
+        paths["captions"], FeatureStore(paths["features"]), tokenizer,
+        sg2id=load_phrase_vocab(paths["id2phrase"]), cfg=tensorize_cfg(args))
+    batch = batch_on(model.device, ret.RetrievalFetch(dataset, False)(
+        BatchSampler(len(dataset), TRAIN_B, seed=args.seed).batch_at(0)))
+    trainer = Trainer(model, ret.retrieval_loss_fn(
+        max_tag_length=args.max_tag_length), opt, seed=args.seed)
+    trainer.step_count = int(meta["step"])
+    step = trainer.step_count
+    per_step = cfg.half_layers * 4
+    sync_dir, async_dir = (os.path.join(root, "save_sync"),
+                           os.path.join(root, "save_async"))
+    t0 = time.perf_counter()
+    CheckpointManager(sync_dir).save(step, model, opt, config=cfg)
+    sync_s = time.perf_counter() - t0
+    saver, done = AsyncSaver(), threading.Event()
+    mgr = CheckpointManager(async_dir)
+    with counted_steps(attn, per_step, "a step during an async write"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = mgr.snapshot(step, model, opt, config=cfg)
+
+        def write():
+            try:
+                mgr.write(snap)
+            finally:
+                done.set()      # saver.wait() re-raises a failed write
+        saver.submit(write)
+        block_s = time.perf_counter() - t0
+        during = []
+        while not done.is_set():
+            t = time.perf_counter()
+            trainer.step(batch)
+            during.append((time.perf_counter() - t) * 1e3)
+        write_s = time.perf_counter() - t0
+        saver.wait()
+        free = []
+        for _ in range(P15_FREE_STEPS):
+            t = time.perf_counter()
+            trainer.step(batch)
+            free.append((time.perf_counter() - t) * 1e3)
+    name = f"checkpoint-{step:07d}"
+    equal = True
+    for fname in ("pytorch_model.bin", "optimizer.pt"):
+        a = torch.load(os.path.join(sync_dir, name, fname),
+                       weights_only=True)
+        b = torch.load(os.path.join(async_dir, name, fname),
+                       weights_only=True)
+        for key in ("mu", "nu") if fname == "optimizer.pt" else (None,):
+            ta, tb = (a, b) if key is None else (a[key], b[key])
+            equal &= sorted(ta) == sorted(tb) and all(
+                ta[k].dtype == tb[k].dtype and torch.equal(ta[k], tb[k])
+                for k in ta)
+        if fname == "optimizer.pt":
+            equal &= a["count"] == b["count"]
+    n_params = sum(v.numel() for v in model.state_dict().values())
+    during_ms = float(np.median(during)) if during else float("nan")
+    free_ms = float(np.median(free))
+    log(f"  save: sync {sync_s:.2f} s; async submit blocked {block_s:.2f} s "
+        f"(the snapshot), the write took {write_s:.2f} s, {len(during)} "
+        f"steps ran meanwhile at median {during_ms:.2f} ms, against "
+        f"{free_ms:.2f} ms with no write; the two checkpoints "
+        f"{'equal' if equal else 'DIFFER'} bit for bit")
+    if not equal:
+        raise AssertionError("the async checkpoint differs from the sync one")
+    del model, opt, trainer, snap
+    return dict(sync_s=sync_s, async_block_s=block_s, async_write_s=write_s,
+                steps_during_write=len(during), step_ms_during_write=during_ms,
+                step_ms_no_write=free_ms), n_params
+
+
+def phase15_preempt(torch, attn, paths, root, data, n_params):
+    """(C) SIGTERM to the CLI's process group: rc 0, one checkpoint at s,
+    and a resume to s + 3 equal to an uninterrupted run to s + 3."""
+    import signal
+    from mvp_pytorch_tpu_torch.models import ModelConfig
+    from mvp_pytorch_tpu_torch.tasks import retrieval as ret
+    from mvp_pytorch_tpu_torch.tools import inspect_ckpt
+    out = os.path.join(root, "preempted")
+    flags = (["--do_train", "--train_batch_size", str(TRAIN_B),
+              "--log_period", "1", "--num_workers", "4",
+              "--worker_start_method", "fork", "--data_dir", root,
+              "--scheduler", "constant"] + data + CLI_ARGS
+             + ["--dtype", "float32"] + CLI_PLATFORM)
+    argv = (["--output_dir", out, "--max_steps", "500", "--ckpt_period",
+             "500", "--async_ckpt"] + flags)
+    log("  python -m mvp_pytorch_tpu_torch.tasks.retrieval "
+        + " ".join(os.path.relpath(a, root) if a.startswith(root) else a
+                   for a in argv) + "  (own session; SIGTERM to its group)")
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mvp_pytorch_tpu_torch.tasks.retrieval"]
+        + argv, cwd=here, start_new_session=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    metrics = os.path.join(out, "train_logs", "metrics.jsonl")
+    deadline = time.monotonic() + P15_DEADLINE_S
+    try:
+        while not (os.path.exists(metrics) and os.path.getsize(metrics)):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(
+                    f"no metrics line (rc {proc.poll()}): "
+                    f"{proc.stdout.read()[-3000:] if proc.poll() is not None else ''}")
+            time.sleep(0.05)
+        os.killpg(proc.pid, signal.SIGTERM)
+        t_sig = time.perf_counter()
+        output, _ = proc.communicate(timeout=P15_DEADLINE_S)
+        exit_s = time.perf_counter() - t_sig
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    ckpts = sorted(d for d in os.listdir(out) if d.startswith("checkpoint-"))
+    log(f"  preempted: rc {proc.returncode}, {exit_s:.2f} s from SIGTERM to "
+        f"exit, checkpoints {ckpts}; "
+        + " | ".join(line for line in output.splitlines()
+                     if "preemption" in line or "SIGTERM" in line))
+    if proc.returncode != 0 or len(ckpts) != 1:
+        raise AssertionError(f"preempted run: rc {proc.returncode}, "
+                             f"{ckpts}: {output[-3000:]}")
+    s = int(ckpts[0].split("-")[-1])
+    if not 1 <= s < 500:
+        raise AssertionError(f"preemption checkpoint at step {s}")
+    info = inspect_ckpt.describe_dir(os.path.join(out, ckpts[0]))
+    log(f"  inspect_ckpt: format {info['format']}, n_params "
+        f"{info['n_params']:,} in {info['n_leaves']} tensors, dtypes "
+        f"{info['dtypes']}; the model's numel {n_params:,}")
+    if info["n_params"] != n_params:
+        raise AssertionError("inspect_ckpt's n_params is not the model's")
+    per_step = ModelConfig.from_pretrained(
+        os.path.join(out, ckpts[0])).half_layers * 4
+    whole = os.path.join(root, "uninterrupted")
+    with counted_steps(attn, per_step, "an fp32 resumed step"):
+        resumed = ret.main(["--output_dir", out, "--max_steps",
+                            str(s + P15_RESUME)] + flags)["train"]
+        straight = ret.main(["--output_dir", whole, "--max_steps",
+                             str(s + P15_RESUME)] + flags)["train"]
+    name = f"checkpoint-{s + P15_RESUME:07d}"
+    a = torch.load(os.path.join(out, name, "pytorch_model.bin"),
+                   weights_only=True)
+    b = torch.load(os.path.join(whole, name, "pytorch_model.bin"),
+                   weights_only=True)
+    diff = max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+    log(f"  resumed {len(resumed)} steps to {s + P15_RESUME}; losses "
+        + " ".join(f"{m['loss']:.6f}" for m in resumed) + " against "
+        + " ".join(f"{m['loss']:.6f}" for m in straight[s:])
+        + f"; weights max|diff| {diff:.3e} (tol {P15_WEIGHT_TOL:g})")
+    if sorted(a) != sorted(b) or diff > P15_WEIGHT_TOL:
+        raise AssertionError("the resume differs from the uninterrupted run")
+    return dict(preempt_step=s, sigterm_to_exit_s=exit_s,
+                resume_max_diff=diff, n_params=info["n_params"])
+
+
+def phase15_load_test(torch, attn, root):
+    """(D) The load-test client at the JAX bench's serving config, batched
+    then unbatched."""
+    from mvp_pytorch_tpu_torch.models import ModelConfig
+    from mvp_pytorch_tpu_torch.tools import load_test_serve
+    t0 = time.perf_counter()
+    mdir, paths, vocab = load_test_serve.build_assets(
+        os.path.join(root, "serve"), **P15_SERVE)
+    cfg = ModelConfig.from_pretrained(mdir)
+    log(f"  serving assets: hidden {cfg.hidden_size}, "
+        f"{cfg.num_hidden_layers} layers, {vocab} vocab rows, "
+        f"{cfg.vocab_size} model rows, bf16 stored bf16, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset_counts(attn)
+    res = load_test_serve.main(
+        ["--device", DEVICE, "--requests", str(P15_LOAD["requests"]),
+         "--threads", str(P15_LOAD["threads"])], assets=(mdir, paths))
+    torch.cuda.synchronize()
+    launches = (attn.masked_attention.launches,
+                attn.masked_attention.dropout_launches,
+                attn.plain_attention.calls)
+    per_forward = cfg.half_layers * 3
+    forwards = res["batched"]["batches"] + res["unbatched"]["batches"]
+    for mode in ("batched", "unbatched"):
+        r = res[mode]
+        log(f"  {mode}: {r['requests']} requests, {r['errors']} errors, "
+            f"{r['rps']} requests/s, p50 {r['p50_ms']} ms, p99 "
+            f"{r['p99_ms']} ms, {r['batches']} batches, max batch "
+            f"{r['max_batch_seen']}")
+    same = res["batched"]["answers"] == res["unbatched"]["answers"]
+    log(f"  launches {launches} over {forwards} batched forwards and the "
+        f"warm-ups; the first {P15_LOAD['checked']} answers "
+        f"{'equal' if same else 'differ'} in both modes")
+    if (any(res[m]["errors"] for m in res)
+            or res["batched"]["max_batch_seen"] <= 1
+            or launches[1:] != (0, 0) or launches[0] % per_forward
+            or launches[0] < per_forward * forwards):
+        raise AssertionError(f"load test: {res}, launches {launches}")
+    answers = phase15_answers(torch, res, mdir, paths)
+    return {**{m: {k: v for k, v in r.items() if k != "answers"}
+               for m, r in res.items()}, "answers": answers}
+
+
+def phase15_answers(torch, res, mdir, paths):
+    """The load test's first answers against direct forwards of their
+    request at the two batch sizes the server ran (16 padded, and 1): each
+    served token is its own batch size's argmax wherever that position's
+    top-2 gap exceeds one bf16 ulp (phase 10 B's rule), and the two modes
+    agree wherever both gaps exceed twice the position's largest |logit
+    difference| between the batch sizes (bf16 GEMMs of other shapes round
+    differently; phase 10 B's rule for the kernel and the plain path)."""
+    from mvp_pytorch_tpu_torch.data.tensorize import collate
+    from mvp_pytorch_tpu_torch.pipeline import MODEL_INPUTS
+    from mvp_pytorch_tpu_torch.tasks import serve
+    from mvp_pytorch_tpu_torch.tools import load_test_serve as lt
+    from mvp_pytorch_tpu_torch.training.loop import batch_on
+    pipes, _ = serve.build_pipelines(lt.serving_args(mdir, paths, DEVICE))
+    pipe = pipes["mlm"]
+
+    def logits(ex, b):
+        x = batch_on(DEVICE, collate([ex] * b), MODEL_INPUTS)
+        with torch.no_grad():
+            out = pipe.model(*(x[k] for k in MODEL_INPUTS),
+                             max_tag_length=pipe.tcfg.max_tag_length)
+        return out[0].float()
+    decided = undecided = 0
+    sizes = {"batched": SERVE_MAX_BATCH, "unbatched": 1}
+    for i in range(P15_LOAD["checked"]):
+        ex = pipe.prepare_example(lt.request_image(i), lt.TEXT)
+        pos = np.nonzero(ex["input_ids_a"] == pipe.mask_id)[0]
+        lg = {m: logits(ex, b) for m, b in sizes.items()}
+        served = {m: mlm_tokens(res[m]["answers"][i]) for m in sizes}
+        for j, q in enumerate(pos):
+            gap, tok = {}, {}
+            for m in sizes:
+                top2 = lg[m][q].topk(2).values.tolist()
+                gap[m] = top2[0] - top2[1]
+                tok[m] = pipe.tokenizer.convert_ids_to_tokens(
+                    [int(lg[m][q].argmax())])[0]
+                if gap[m] > bf16_ulp(top2[0]) and served[m][j] != tok[m]:
+                    raise AssertionError(
+                        f"request {i} {m}: served {served[m][j]!r}, its "
+                        f"batch size's argmax {tok[m]!r} (gap {gap[m]:.3e})")
+            diff = float((lg["batched"][q] - lg["unbatched"][q]).abs().max())
+            if min(gap.values()) > 2 * diff:
+                decided += 1
+                if served["batched"][j] != served["unbatched"][j]:
+                    raise AssertionError(
+                        f"request {i}: batched {served['batched'][j]!r}, "
+                        f"unbatched {served['unbatched'][j]!r} at gaps "
+                        f"{gap} over a batch-size difference {diff:.3e}")
+            else:
+                undecided += 1
+            if i < 8:
+                log(f"    {lt.request_image(i)} [MASK] {q}: batched "
+                    f"{served['batched'][j]!r} (gap {gap['batched']:.4f}), "
+                    f"unbatched {served['unbatched'][j]!r} (gap "
+                    f"{gap['unbatched']:.4f}); max |logit B 16 - B 1| "
+                    f"{diff:.4f}")
+    log(f"  answers: {decided} positions decided at both batch sizes, all "
+        f"equal; {undecided} within the batch sizes' rounding")
+    if not decided:
+        raise AssertionError("no answer is decided at both batch sizes")
+    return dict(decided=decided, undecided=undecided)
+
+
+def phase15(torch, attn):
+    """Phase 15 on a root like phase 7's (deleted at the end)."""
+    import gc
+    import shutil
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke",
+                        "phase15")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        paths, feat_bytes, tsv_bytes = write_cli_root(root)
+        log(f"  root: {CLI_IMAGES} images x {CLI_CAPS} captions "
+            f"({tsv_bytes / 1e6:.1f} MB of TSV) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        data = ["--captions_json", paths["captions"],
+                "--feature_tsv", paths["features"],
+                "--id2phrase", paths["id2phrase"]]
+        res = {}
+        t0 = time.perf_counter()
+        log("  (A) the trace window")
+        res["trace"] = phase15_trace(torch, attn, paths, root, data)
+        res["trace"]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        log("  (B) the async checkpoint")
+        res["async_ckpt"], n_params = phase15_async(
+            torch, attn, paths, root, data, res["trace"].pop("ckpt"))
+        res["async_ckpt"]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        log("  (C) the preemption checkpoint")
+        res["preempt"] = phase15_preempt(torch, attn, paths, root, data,
+                                         n_params)
+        res["preempt"]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        log("  (D) the load test")
+        res["load_test"] = phase15_load_test(torch, attn, root)
+        res["load_test"]["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 15 took {res['seconds']:.1f} s")
+    return res
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -6122,6 +6597,10 @@ def main(argv) -> int:
                              "the parallel steps at world size 1, the "
                              "streaming coarse stage, sharded checkpoints) "
                              "alone")
+    parser.add_argument("--tooling", action="store_true",
+                        help="run phase 15 (the trace window, the async and "
+                             "the preemption checkpoints, inspect_ckpt and "
+                             "the load test) alone")
     parser.add_argument("--serve_clients", nargs=3,
                         metavar=("URL", "JOBS", "OUT"),
                         help="the client process of phase 10 B, which the "
@@ -6214,6 +6693,12 @@ def main(argv) -> int:
                           "parallel_attention": p14["gpipe_attention"],
                           "card": card}), flush=True)
         return 0
+    if args.tooling:
+        log("phase 15 alone: the tooling around the training loop, "
+            "MVPTR-base")
+        p15 = phase15(torch, attn)
+        print(json.dumps({"tooling": p15, "card": card}), flush=True)
+        return 0
     if args.nlvr_cli or args.serve:
         part = "nlvr" if args.nlvr_cli else "serve"
         log(f"phase 10 alone: {part}, MVPTR-base")
@@ -6299,6 +6784,12 @@ def main(argv) -> int:
         "full width, the parallel steps at world size 1 over NCCL, the "
         "streaming coarse stage at corpus scale, sharded checkpoints")
     p14 = phase14(torch, attn, layers_mod, ModelConfig, RetrievalModel, pcli)
+    torch.cuda.synchronize()
+
+    log("phase 15: the tooling around the training loop: a trace window, "
+        "the async and the preemption checkpoints, inspect_ckpt and the "
+        "load test, MVPTR-base")
+    p15 = phase15(torch, attn)
     torch.cuda.synchronize()
 
     main_t = timings[("fused", "bfloat16")]
@@ -6402,6 +6893,7 @@ def main(argv) -> int:
     print(json.dumps({"detector": p13["detector"],
                       "detector_train": p13["train"], "card": card}),
           flush=True)
+    print(json.dumps({"tooling": p15, "card": card}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

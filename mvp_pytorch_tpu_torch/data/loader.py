@@ -32,13 +32,19 @@ nothing for `timeout` seconds, raises too, never hangs. The start method is
 explicit (`multiprocessing_context`): `fork` shares the parent's dataset
 without pickling it; `spawn` pickles `fetch` and the sampler and starts
 clean, which a parent holding threads that must not be forked needs.
+Workers ignore SIGTERM, so that a scheduler's signal to the process group
+reaches the training loop (its preemption checkpoint) and not them: the
+consumer stops them (`close`, killing one that does not stop), and a worker
+whose parent has gone exits by itself.
 """
 
 from __future__ import annotations
 
 import inspect
 import multiprocessing
+import os
 import queue
+import signal
 import time
 import traceback
 import uuid
@@ -160,6 +166,8 @@ def _worker(wid: int, n_workers: int, fetch, sampler, start_step: int,
     slot ring, sending ("spec", layout, size) once, then ("batch", step,
     slot, fetch ms, fill ms) per batch, or ("error", traceback)."""
     shms = []
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    parent = os.getppid()
     try:
         call = _epoch_aware(fetch)
         step = start_step + wid
@@ -177,7 +185,7 @@ def _worker(wid: int, n_workers: int, fetch, sampler, start_step: int,
             resource_tracker.unregister(shm._name, "shared_memory")
         q.put(("spec", layout, size))
         slot = 0
-        while not stop.is_set():
+        while not stop.is_set() and os.getppid() == parent:
             if not free.acquire(timeout=0.2):
                 continue
             t0 = time.perf_counter()
@@ -403,8 +411,8 @@ class ProcessLoader:
                 except queue.Empty:
                     pass
                 p.join(timeout=0.05)
-            if p.is_alive():
-                p.terminate()
+            if p.is_alive():        # it ignores SIGTERM
+                p.kill()
                 p.join(timeout=5.0)
         if self._registered:
             cudart = torch.cuda.cudart()

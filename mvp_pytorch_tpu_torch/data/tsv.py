@@ -1,6 +1,6 @@
 """TSV storage with .lineidx random access: this package's copy of the JAX
-package's `data/tsv.py` (`TSVFile`, `build_lineidx`, `tsv_writer`; the
-concat / reorder / delete helpers are not on the retrieval path).
+package's `data/tsv.py` (`TSVFile`, `build_lineidx`, `tsv_writer` and the
+`tsv_concat` / `tsv_reorder` / `tsv_delete` helpers).
 
 Parity target: reference `oscar/utils/tsv_file.py` (TSVFile: on-demand
 .lineidx sidecar generation, seek(idx) random access, pid-change reopen for
@@ -137,6 +137,34 @@ class TSVFile:
 
     def __getitem__(self, idx: int) -> List[str]:
         return self.seek(idx)
+
+
+def tsv_concat(sources: Sequence[str], out_path: str) -> None:
+    """Concatenate TSVs (reference tsv_file_ops concat helper), dropping
+    empty lines. Streams the sources line by line: they need no .lineidx
+    (and get none; they may live in read-only dataset dirs)."""
+    def rows():
+        for src in sources:
+            with open(src, "rb") as f:
+                for line in f:
+                    line = line.decode("utf-8").rstrip("\r\n")
+                    if line:
+                        yield line.split("\t")
+    tsv_writer(rows(), out_path)
+
+
+def tsv_reorder(src: str, order: Sequence[int], out_path: str) -> None:
+    """Write rows of `src` in the given index order (reorder helper)."""
+    t = TSVFile(src)
+    tsv_writer((t.seek(i) for i in order), out_path)
+
+
+def tsv_delete(src: str, drop: Sequence[int], out_path: str) -> None:
+    """Write `src` without the dropped row indices (delete helper)."""
+    t = TSVFile(src)
+    dropset = set(int(i) for i in drop)
+    tsv_writer((t.seek(i) for i in range(len(t)) if i not in dropset),
+               out_path)
 
 
 def tsv_writer(rows: Iterable[Sequence], tsv_path: str) -> None:

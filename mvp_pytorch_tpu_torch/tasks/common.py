@@ -2,7 +2,8 @@
 package's `tasks/common.py` on one device, without JAX.
 
 `add_common_args` declares the flags; `check_args` makes each flag of a
-later port item raise, naming the item (ROADMAP.md queue 1); `run_device`
+driver's own later items raise, naming the item (`LATER_ITEMS`, shared by
+every driver, is empty: every common flag is ported); `run_device`
 joins the process group when the launch has more than one rank or a
 parallel flag asks for one (`parallel/distributed.py` `init_runtime`) and
 picks the rank's device (CUDA, `cuda:{LOCAL_RANK}`, unless `--platform
@@ -18,6 +19,10 @@ ranks (`--pipeline_microbatches`), `--fsdp` shards the parameters as well
 as the AdamW moments (ZeRO-2, always on over the data ranks). Each data
 rank loads its own rows of the global `--train_batch_size`; `predict`
 shards eval examples over the data ranks and gathers them in rank order.
+`TrainLoop` also takes the JAX loop's `--async_ckpt`, `--profile_dir` /
+`--profile_start` / `--profile_steps` and its SIGTERM preemption checkpoint
+(off with `--no_preempt_save`), and prints `EVALERR:` after an eval with an
+accuracy.
 
 For the task drivers (VQA, SNLI-VE, referring expressions; NLVR2 with its
 second image side, `NLVR_INPUT_NAMES`): `TaskFetch` is their loader fetch,
@@ -60,11 +65,10 @@ NLVR_MODEL_KEYS = tuple(NLVR_INPUT_NAMES.values())
 # --adjust_dp_step's hidden dropout (the reference's `.p = 0.3`)
 ADJUSTED_DROPOUT = 0.3
 
-# flag -> (value that means "off", the ROADMAP queue 1 item it waits for)
-LATER_ITEMS = {
-    "async_ckpt": (False, "item 8 (AsyncSaver)"),
-    "profile_dir": (None, "item 8 (training/profiler.py)"),
-}
+# flag -> (value that means "off", the ROADMAP queue 1 item it waits for):
+# empty, every common flag is ported; a driver may pass its own to
+# `check_args`
+LATER_ITEMS: Dict[str, tuple] = {}
 
 
 def add_common_args(parser: argparse.ArgumentParser) -> None:
@@ -138,14 +142,30 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--fsdp", action="store_true",
                         help="shard the parameters over the data ranks too "
                              "(ZeRO-3 / FSDP; the moments always are)")
-    # flags of later port items: accepted so that they can raise by name
-    parser.add_argument("--async_ckpt", action="store_true")
-    parser.add_argument("--profile_dir", type=str, default=None)
+    parser.add_argument("--async_ckpt", action="store_true",
+                        help="write checkpoints on a background thread "
+                             "while training goes on (one process only; a "
+                             "save under a process group stays synchronous)")
+    parser.add_argument("--no_preempt_save", action="store_true",
+                        help="no preemption checkpoint (by default a SIGTERM "
+                             "saves a checkpoint at the next step boundary "
+                             "and exits 0; under a process group every rank "
+                             "saves at the same step)")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler trace (TensorBoard / "
+                             "Perfetto) of --profile_steps training steps "
+                             "from step --profile_start into this dir")
+    parser.add_argument("--profile_start", type=int, default=2,
+                        help="first step traced (0-based; 2 skips the "
+                             "warm-up steps)")
+    parser.add_argument("--profile_steps", type=int, default=3,
+                        help="steps in the trace window")
 
 
 def check_args(args, later_items=None) -> None:
-    """Raise for a flag whose port item has not landed (`LATER_ITEMS`, and a
-    driver's own `later_items` of the same form)."""
+    """Raise for a flag whose port item has not landed (a driver's own
+    `later_items`, and `LATER_ITEMS`, of the form flag -> (off value,
+    item))."""
     for flag, (off, item) in {**LATER_ITEMS, **(later_items or {})}.items():
         if getattr(args, flag, off) not in (off, None):
             raise NotImplementedError(
@@ -419,7 +439,9 @@ class TrainLoop:
     def run(self, eval_hook: Optional[Callable[[int], Optional[Dict]]] = None):
         """Train to `--max_steps`; at each checkpoint run `eval_hook(step)`
         and append its result to eval_logs.json. Returns each step's
-        metrics."""
+        metrics. A SIGTERM (unless `--no_preempt_save`) saves a checkpoint
+        at the next step boundary and raises `SystemExit(0)`, before any
+        eval."""
         args = self.args
 
         def on_checkpoint(step):
@@ -427,6 +449,12 @@ class TrainLoop:
                 return
             res = eval_hook(step)
             if res and is_main():
+                # the reference's console marker (run_pretrain_ml.py:698-
+                # 701): 100 (1 - the first accuracy-like metric)
+                for k, v in res.items():
+                    if "acc" in k and np.isscalar(v):
+                        self.logger.info(f"EVALERR: {100.0 * (1 - v):.2f}%")
+                        break
                 path = os.path.join(args.output_dir, "eval_logs.json")
                 logs = []
                 if os.path.exists(path):
@@ -451,4 +479,8 @@ class TrainLoop:
             timing=lambda: self.loader.timing(),
             freeze_prefix=self.freeze_prefix, freeze_steps=self.freeze_steps,
             mesh=self.mesh, fsdp=args.fsdp,
-            pipeline_microbatches=args.pipeline_microbatches)
+            pipeline_microbatches=args.pipeline_microbatches,
+            batch_size=args.train_batch_size, async_ckpt=args.async_ckpt,
+            preempt_save=not args.no_preempt_save,
+            profile_dir=args.profile_dir, profile_start=args.profile_start,
+            profile_steps=args.profile_steps)

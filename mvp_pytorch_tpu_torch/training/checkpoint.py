@@ -20,6 +20,12 @@ the optimizer state, `training/sharded_checkpoint.py`) in place of
 The output directory's `last_checkpoint` file names the newest one; older
 ones beyond `keep` are removed. Every file is written to a temporary name and
 renamed, with a few retries on OS errors.
+
+A save is a host snapshot (`CheckpointManager.snapshot`: copies of the
+weights and of the optimizer's moments on the CPU, taken before the next
+step can change them) and its write (`write`: `torch.save` and the
+renames). `AsyncSaver` runs the writes on a background thread, one at a
+time (`--async_ckpt`); a save under a mesh stays synchronous.
 """
 
 from __future__ import annotations
@@ -27,8 +33,9 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 import time
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -64,11 +71,59 @@ def _atomic_write_text(path: str, text: str) -> None:
 
 
 def _on_cpu(tree):
+    """A copy of the tensors of `tree` on the CPU: a true copy also of a
+    tensor already there (`.cpu()` would return its storage, which the next
+    step changes in place)."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
+        return tree.detach().to("cpu", copy=True)
     if isinstance(tree, dict):
         return {k: _on_cpu(v) for k, v in tree.items()}
     return tree
+
+
+class AsyncSaver:
+    """Checkpoint writes on a background thread (the JAX package's
+    `training/checkpoint.py` `AsyncSaver`).
+
+    The caller takes the host snapshot synchronously
+    (`CheckpointManager.snapshot`); `submit(fn)` runs its write `fn()` on
+    the writer thread while training goes on. At most one write is in
+    flight: `submit` first joins the previous one, so checkpoints land in
+    order and memory holds at most one extra snapshot. A write's error is
+    re-raised at the next `submit` or `wait`; call `wait` before exiting.
+    One process only: a save under a mesh is collective and stays
+    synchronous."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._err: Optional[BaseException] = None
+
+    def _join(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+
+    def submit(self, fn: Callable[[], Any]) -> None:
+        """Run `fn()` on the writer thread once the previous write ended."""
+        self._join()
+
+        def run():
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 - re-raised on join
+                self._err = e
+
+        self._thread = threading.Thread(target=run, name="ckpt-writer",
+                                        daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Block until the write in flight (if any) ends; re-raise its
+        error."""
+        self._join()
 
 
 class CheckpointManager:
@@ -85,31 +140,59 @@ class CheckpointManager:
     def save(self, step: int, model: torch.nn.Module, optimizer=None,
              config=None, args: Optional[dict] = None, *,
              weights: Optional[dict] = None, sharded_optimizer=None,
-             main: bool = True) -> str:
-        """Write checkpoint `step`. Under a mesh every rank calls it with
+             main: bool = True, saver: Optional[AsyncSaver] = None) -> str:
+        """Write checkpoint `step` (its write on `saver`'s thread when one
+        is given, after the snapshot). Under a mesh every rank calls it with
         the whole `weights` and its `sharded_optimizer` pieces; only `main`
-        writes anything but its pieces."""
-        d = self._ckpt_dir(step)
-        os.makedirs(d, exist_ok=True)
+        writes anything but its pieces, and synchronously."""
         if sharded_optimizer is not None:
+            d = self._ckpt_dir(step)
+            os.makedirs(d, exist_ok=True)
             from .sharded_checkpoint import save_sharded
             save_sharded(os.path.join(d, OPT_SHARDS_DIR), sharded_optimizer)
-        if not main:
-            return d
-        if config is not None:
-            _retry(lambda: config.save_pretrained(d))
-        weights = _on_cpu(dict(model.state_dict() if weights is None
-                               else weights))
-        _retry(lambda: _atomic_save(weights, os.path.join(d, WEIGHTS_NAME)))
-        if optimizer is not None:
-            opt = _on_cpu(optimizer.state_dict())
-            _retry(lambda: _atomic_save(opt, os.path.join(d, OPT_NAME)))
+            if not main:
+                return d
+            return self.write(self.snapshot(step, model, None, config, args,
+                                            weights=weights))
+        snap = self.snapshot(step, model, optimizer, config, args,
+                             weights=weights)
+        if saver is None:
+            return self.write(snap)
+        saver.submit(lambda: self.write(snap))
+        return self._ckpt_dir(step)
+
+    def snapshot(self, step: int, model: torch.nn.Module, optimizer=None,
+                 config=None, args: Optional[dict] = None, *,
+                 weights: Optional[dict] = None) -> dict:
+        """What `write` writes, on the host: copies of the weights (the
+        model's, or `weights`) and of the optimizer's state (from its
+        `state_dict`, so the moments as the last step left them)."""
+        return {"step": step, "config": config,
+                "weights": _on_cpu(dict(model.state_dict() if weights is None
+                                        else weights)),
+                "optimizer": (None if optimizer is None
+                              else _on_cpu(optimizer.state_dict())),
+                "args": (None if args is None else json.dumps(
+                    args, indent=2, sort_keys=True, default=str))}
+
+    def write(self, snap: dict) -> str:
+        """Write a `snapshot` as checkpoint `snap["step"]`, point
+        `last_checkpoint` at it and drop the oldest beyond `keep`."""
+        d = self._ckpt_dir(snap["step"])
+        os.makedirs(d, exist_ok=True)
+        if snap["config"] is not None:
+            _retry(lambda: snap["config"].save_pretrained(d))
+        _retry(lambda: _atomic_save(snap["weights"],
+                                    os.path.join(d, WEIGHTS_NAME)))
+        if snap["optimizer"] is not None:
+            _retry(lambda: _atomic_save(snap["optimizer"],
+                                        os.path.join(d, OPT_NAME)))
         _retry(lambda: _atomic_write_text(
-            os.path.join(d, TRAIN_STATE_NAME), json.dumps({"step": step})))
-        if args is not None:
-            _retry(lambda: _atomic_write_text(
-                os.path.join(d, ARGS_NAME),
-                json.dumps(args, indent=2, sort_keys=True, default=str)))
+            os.path.join(d, TRAIN_STATE_NAME),
+            json.dumps({"step": snap["step"]})))
+        if snap["args"] is not None:
+            _retry(lambda: _atomic_write_text(os.path.join(d, ARGS_NAME),
+                                              snap["args"]))
         _retry(lambda: _atomic_write_text(
             os.path.join(self.output_dir, LAST_CHECKPOINT),
             os.path.basename(d)))

@@ -59,6 +59,7 @@ import torch
 import torch.distributed as dist
 
 from .optim import AdamW, global_norm
+from .profiler import step_memory_gb, tensor_bytes
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
@@ -161,6 +162,7 @@ class Trainer:
         self.grad_accum = max(1, grad_accum)
         self.seed = seed
         self.step_count = 0
+        self.step_memory: Optional[Dict[str, float]] = None
         self.mesh = mesh
         from ..parallel.collectives import GlobalBatch
         self.global_batch = GlobalBatch(mesh)
@@ -322,7 +324,19 @@ class Trainer:
         split into `grad_accum` micro batches (each array into equal shares
         of its rows) whose gradients, loss and metrics are averaged. Returns
         the metrics, the loss and the global norm of the unclipped
-        gradients (averaged over the data ranks)."""
+        gradients (averaged over the data ranks). The first step's memory
+        goes to `step_memory` (`profiler.step_memory_gb`; `{}` on the
+        CPU)."""
+        if self.step_memory is not None:
+            return self._step(batch)
+        held = tensor_bytes([list(self.model.parameters()),
+                             self.optimizer.mu, self.optimizer.nu,
+                             dict(batch)])
+        out, self.step_memory = step_memory_gb(lambda: self._step(batch),
+                                               self.device, held)
+        return out
+
+    def _step(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, float]:
         self.model.train()
         self.unshard()
         params = list(self.model.parameters())

@@ -16,9 +16,9 @@ Every step's loss (and VE's `acc`) agrees within 5e-4, the eval metrics in
 `eval_logs.json` are equal, and so is VQA's `{split}_results.json`.
 
 Also: an eval-only rerun from a checkpoint restores its training settings;
-each driver runs on CUDA unless asked for the CPU; the flags of later port
-items raise, naming the item. The port's loader workers are spawned: this
-process holds JAX.
+each driver runs on CUDA unless asked for the CPU; the tooling flags that
+once raised as later port items (`--profile_dir`, `--async_ckpt`) run. The
+port's loader workers are spawned: this process holds JAX.
 """
 
 import functools
@@ -46,8 +46,8 @@ from mvp_pytorch_tpu_torch.models import tasks as port_tasks
 from mvp_pytorch_tpu_torch.tasks import re_task as port_re
 from mvp_pytorch_tpu_torch.tasks import ve as port_ve
 from mvp_pytorch_tpu_torch.tasks import vqa as port_vqa
-from mvp_pytorch_tpu_torch.tasks.common import LATER_ITEMS
 from mvp_pytorch_tpu_torch.training.checkpoint import CheckpointManager
+from torch_flags import TOOLING_FLAGS, check_tooling_flag
 
 B, STEPS = 8, 4
 LOSS_TOL = 5e-4
@@ -221,20 +221,16 @@ def test_runs_on_cuda_unless_asked_for_the_cpu(tmp_path, driver):
     assert not os.path.exists(tmp_path / "synth")
 
 
-# (driver, flag) for each later item's flag that a driver takes
-LATER = [(d, f) for d in DRIVERS for f in sorted(LATER_ITEMS)
-         if f in vars(DRIVERS[d][1].get_args(["--output_dir", "x"]))]
+# (driver, flag) for each tooling flag, which each driver takes
+LATER = [(d, f) for d in DRIVERS for f in TOOLING_FLAGS]
 
 
 @pytest.mark.parametrize("driver,flag", LATER)
 def test_flags_of_later_items_raise(tmp_path, driver, flag):
-    off = LATER_ITEMS[flag][0]
-    value = ([] if isinstance(off, bool) else
-             ["/tmp/x" if off is None else str(int(off) + 1)])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        DRIVERS[driver][1].main(["--output_dir", str(tmp_path), "--synthetic",
-                                 "--tiny", "--platform", "cpu", f"--{flag}"]
-                                + value)
+    """The flags that raised until the tooling was ported now run: one
+    trace, or an async checkpoint equal to the synchronous one."""
+    check_tooling_flag(DRIVERS[driver][1].main, flag, str(tmp_path),
+                       ["--train_batch_size", str(B)])
 
 
 def test_vqa_flag_checks(tmp_path):

@@ -40,7 +40,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "for n in names: importlib.import_module(n)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}"
         " + ('yaml', 'PIL')]\n"
-        "assert len(names) >= 73, names\n"
+        "assert len(names) >= 77, names\n"
         "for n in ('models.pretrain', 'models.heads', 'tasks.pretrain',\n"
         "          'training.loop', 'native', 'data.tokenization',\n"
         "          'data.tsv', 'data.tensorize', 'data.datasets',\n"
@@ -61,7 +61,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "          'parallel.mesh', 'parallel.activation_sharding',\n"
         "          'parallel.pipeline', 'parallel.sharded_retrieval',\n"
         "          'ops.moe', 'training.sharded_checkpoint',\n"
-        "          'training.consolidate', 'tools.launch'):\n"
+        "          'training.consolidate', 'tools.launch',\n"
+        "          'training.profiler', 'tools.inspect_ckpt',\n"
+        "          'tools.load_test_serve', 'utils.file_utils'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

@@ -27,7 +27,8 @@ The CLI: JAX-seeded tiny weights saved for both drivers; both run `--synthetic
 `acc` within 5e-4 of the JAX driver's, equal `nlvr_accuracy`; step 1's loss
 equal to the same batch's loss in memory, and the eval accuracy equal to the
 checkpoint's forward over the eval split. Also: the driver runs on CUDA
-unless asked for the CPU, and the flags of later port items raise.
+unless asked for the CPU, and the tooling flags that once raised as later
+port items (`--profile_dir`, `--async_ckpt`) run.
 """
 
 import dataclasses
@@ -59,12 +60,12 @@ from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
 from mvp_pytorch_tpu_torch.models import ModelConfig, NLVRModel
 from mvp_pytorch_tpu_torch.models import layers as port_layers
 from mvp_pytorch_tpu_torch.tasks import nlvr as port_nlvr
-from mvp_pytorch_tpu_torch.tasks.common import (LATER_ITEMS,
-                                                NLVR_INPUT_NAMES,
+from mvp_pytorch_tpu_torch.tasks.common import (NLVR_INPUT_NAMES,
                                                 NLVR_MODEL_KEYS, TaskFetch,
                                                 predict)
 from mvp_pytorch_tpu_torch.training.checkpoint import CheckpointManager
 from mvp_pytorch_tpu_torch.training.loop import batch_on
+from torch_flags import TOOLING_FLAGS, check_tooling_flag
 
 SHAPES = {"small": (4, 10, 5, 4), "lk140": (4, 40, 20, 50)}
 LOGIT_TOL, LOSS_TOL, FUSED_TOL = 1e-5, 1e-5, 5e-4
@@ -430,15 +431,9 @@ def test_runs_on_cuda_unless_asked_for_the_cpu(tmp_path):
     assert not os.path.exists(tmp_path / "synth")
 
 
-LATER = sorted(f for f in LATER_ITEMS
-               if f in vars(port_nlvr.get_args(["--output_dir", "x"])))
-
-
-@pytest.mark.parametrize("flag", LATER)
+@pytest.mark.parametrize("flag", TOOLING_FLAGS)
 def test_flags_of_later_items_raise(tmp_path, flag):
-    off = LATER_ITEMS[flag][0]
-    value = ([] if isinstance(off, bool) else
-             ["/tmp/x" if off is None else str(int(off) + 1)])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        port_nlvr.main(["--output_dir", str(tmp_path), "--synthetic",
-                        "--tiny", "--platform", "cpu", f"--{flag}"] + value)
+    """The flags that raised until the tooling was ported now run: one
+    trace, or an async checkpoint equal to the synchronous one."""
+    check_tooling_flag(port_nlvr.main, flag, str(tmp_path),
+                       ["--train_batch_size", str(B)])

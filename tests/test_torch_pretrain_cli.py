@@ -13,9 +13,10 @@ streams never agree). Every step's total, `vis_mlm`, `clip`, `mlm`, `itm`,
 `wra` (and `qa`) agree within 5e-4; the `--mlm_debug` dumps hold the same
 labels, weights and predictions.
 
-Also: 2 steps and a rerun to 4 equal an uninterrupted 4; flags of later port
-items raise, naming the item; without `--platform cpu` the driver runs on
-CUDA and raises where there is no card.
+Also: 2 steps and a rerun to 4 equal an uninterrupted 4; the tooling flags
+that once raised as later port items (`--profile_dir`, `--async_ckpt`) run;
+without `--platform cpu` the driver runs on CUDA and raises where there is
+no card.
 """
 
 import dataclasses
@@ -40,6 +41,7 @@ from mvp_pytorch_tpu_torch.models import BiPretrainModel, ModelConfig
 from mvp_pytorch_tpu_torch.tasks import pretrain as port_pretrain
 from mvp_pytorch_tpu_torch.tasks.common import LATER_ITEMS
 from mvp_pytorch_tpu_torch.training.checkpoint import CheckpointManager
+from torch_flags import TOOLING_FLAGS, check_tooling_flag
 
 B, STEPS = 8, 4
 LOSS_TOL = 5e-4
@@ -218,26 +220,14 @@ def test_resume_equals_an_uninterrupted_run(weights, pinned, tmp_path):
     assert "resumed from" in open(os.path.join(out, "log.txt")).read()
 
 
-# the later items' flags that the pretraining command line takes
-PRETRAIN_LATER = {
-    k: v for k, v in {**LATER_ITEMS, **port_pretrain.LATER_ITEMS}.items()
-    if k in vars(port_pretrain.get_args(["--output_dir", "x"]))}
-
-
-@pytest.mark.parametrize("flag", sorted(PRETRAIN_LATER))
+@pytest.mark.parametrize("flag", TOOLING_FLAGS)
 def test_flags_of_later_items_raise(tmp_path, flag):
-    off = PRETRAIN_LATER[flag][0]
-    if isinstance(off, bool):
-        value = []
-    else:
-        value = ["/tmp/x" if flag == "profile_dir" else
-                 str(int(off or 0) + 1)]
-    with pytest.raises(NotImplementedError,
-                       match=f"--{flag} .*ROADMAP.md queue 1 item"):
-        port_pretrain.main(["--output_dir", str(tmp_path), "--synthetic",
-                            "--tiny", "--platform", "cpu", f"--{flag}"]
-                           + value)
-    assert not os.path.exists(tmp_path / "synth")
+    """The flags that raised until the tooling was ported now run: one
+    trace, or an async checkpoint equal to the synchronous one; no flag is
+    left for a later item."""
+    assert not port_pretrain.LATER_ITEMS and not LATER_ITEMS
+    check_tooling_flag(port_pretrain.main, flag, str(tmp_path),
+                       ["--train_batch_size", "8"])
 
 
 def test_runs_on_cuda_unless_asked_for_the_cpu(tmp_path):

@@ -9,8 +9,9 @@ then run `--synthetic --tiny --platform cpu` at dropouts 0 with `--do_train
 pinned on both sides (the two random streams never agree). Every step's
 losses agree within 5e-4, and the coarse and fine R@K are equal.
 
-Flags of later port items raise, naming the item; without `--platform cpu`
-the driver runs on CUDA and raises where there is no card.
+The tooling flags that once raised as later port items (`--profile_dir`,
+`--async_ckpt`) run; without `--platform cpu` the driver runs on CUDA and
+raises where there is no card.
 """
 
 import functools
@@ -33,8 +34,8 @@ from mvp_pytorch_tpu_torch.convert import load_jax_params
 from mvp_pytorch_tpu_torch.models import ModelConfig
 from mvp_pytorch_tpu_torch.models import tasks as port_tasks
 from mvp_pytorch_tpu_torch.tasks import retrieval as port_retrieval
-from mvp_pytorch_tpu_torch.tasks.common import LATER_ITEMS
 from mvp_pytorch_tpu_torch.training.checkpoint import CheckpointManager
+from torch_flags import TOOLING_FLAGS, check_tooling_flag
 
 B, STEPS = 8, 4
 LOSS_TOL = 5e-4
@@ -202,15 +203,12 @@ def test_eval_only_restores_training_settings_and_caption_index(
              str(tmp_path / "index.json")] + data)
 
 
-@pytest.mark.parametrize("flag", sorted(LATER_ITEMS))
+@pytest.mark.parametrize("flag", TOOLING_FLAGS)
 def test_flags_of_later_items_raise(tmp_path, flag):
-    off = LATER_ITEMS[flag][0]
-    value = ([] if isinstance(off, bool) else
-             ["/tmp/x" if off is None else str(int(off) + 1)])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        port_retrieval.main(["--output_dir", str(tmp_path), "--synthetic",
-                             "--tiny", "--platform", "cpu", f"--{flag}"]
-                            + value)
+    """The flags that raised until the tooling was ported now run: one
+    trace, or an async checkpoint equal to the synchronous one."""
+    check_tooling_flag(port_retrieval.main, flag, str(tmp_path),
+                       ["--train_batch_size", str(B)])
 
 
 def test_runs_on_cuda_unless_asked_for_the_cpu(tmp_path):
