@@ -14,6 +14,8 @@
     python3 chip_smoke.py --scst_cbs        # phase 13 C-E alone
     python3 chip_smoke.py --parallel        # phase 14 alone
     python3 chip_smoke.py --tooling         # phase 15 alone
+    python3 chip_smoke.py --runbook_ingest  # phase 16 alone
+        [--device_demand_ex_s N]            # its demand without phase 8
     (`--serve_clients URL JOBS OUT` is phase 10 B's client process, which
     the script starts itself)
 
@@ -343,8 +345,25 @@ script exits non-zero:
    own batch size's argmax where decided there; the two modes equal where
    both top-2 gaps exceed twice the logits' difference between the batch
    sizes); requests/s and p50 / p99 of each mode;
-16. one JSON line of the detector's numbers, one of phase 15's, then one of
-   kernel numbers
+16. the release tools, at MVPTR-base: (A) `tools.parity_runbook` over a
+   seeded `RetrievalModel` checkpoint in the reference's layout
+   (pytorch_model.bin, config.json, vocab.txt) on a generated 100-image eval
+   root at the bench geometry (LA 75, T 20, R 50, K 20 / 10), three times:
+   without --expected (exit 0), with its own metrics (exit 0), with one
+   metric 30 points off (exit 1); each eval subprocess launches the kernel
+   as phase 7's formula says (54) and the plain version never, the three
+   give the same R@K, equal to the retrieval driver's eval-only run in this
+   process on the same flags; the eval wall times; the kernel at the eval's
+   image batch (vision L 70, B 100, bf16) against the plain version, timed
+   beside SDPA and its bound. (B)
+   `tools.scale_ingest` as a subprocess onto the card: 2 GB of ~0.5 MB
+   rows in 4 chunks, B 96, 4 workers, 40 steps, resumed at step 20: its
+   four checks (partition, chunk fingerprints, RSS growth under its slots
+   plus 400 MB, 4 resumed batches bit for bit), more bytes streamed than
+   that bound; ingest_ex_s and feed_ratio against phase 8's CLI samples/s
+   (or --device_demand_ex_s when phase 8 does not run);
+17. one JSON line of the detector's numbers, one of phase 15's, one of
+   phase 16's, then one of kernel numbers
    (the bf16 kernel, then the fp32 one; phase 11's under `single_stream`,
    phase 12's under `captioning`, phase 13's under `cbs_scst`, phase 14's
    under `parallel` and its GPipe rows under the fp32 kernel's
@@ -359,7 +378,8 @@ phases 1 and 9; with `--nlvr_cli`, phases 1 and 10 A; with `--serve`, phases
 1 and 10 B; with `--single_stream`, phases 1 and 11; with `--captioning`,
 phases 1 and 12; with `--detection`, phases 1 and 13 A-B; with
 `--scst_cbs`, phases 1, 13 B's `train_cli` and 13 C-E; with `--parallel`,
-phases 1 and 14; with `--tooling`, phases 1 and 15.
+phases 1 and 14; with `--tooling`, phases 1 and 15; with `--runbook_ingest`,
+phases 1 and 16.
 
 Exits 2 without a result when no CUDA device is visible.
 """
@@ -1479,16 +1499,17 @@ CLI_EVAL_ARGS = ["--eval_batch_size", "500", "--rerank_batch_size", "1000",
 SCORE_TOL = 1e-6
 
 
-def write_cli_root(root, seed=0, corpus=False, finetune=False, nlvr=False):
+def write_cli_root(root, seed=0, corpus=False, finetune=False, nlvr=False,
+                   n_images=None):
     """A retrieval root at the real widths, written with the port's own
-    `tsv_writer`: a 30,522-word vocab, CLI_IMAGES images of CLI_REGIONS
-    regions x 2,054 fp32 features and CLI_TAGS tags each (predictions.tsv +
-    imageid2idx.json), CLI_CAPS captions an image of CLI_WORDS_PER_CAP words
-    (more than LA 75 holds) with phrases from id2phrase.json
-    (captions.json). An image's first five tags also open each of its
-    captions. With `corpus`, also a pretraining corpus of CLI_CAPS rows an
-    image, [image_id, caption, 8 phrases (JSON), answer id, answer]:
-    captions as above, every other row a QA pair whose answer is one of the
+    `tsv_writer`: a 30,522-word vocab, CLI_IMAGES (or `n_images`) images of
+    CLI_REGIONS regions x 2,054 fp32 features and CLI_TAGS tags each
+    (predictions.tsv + imageid2idx.json), CLI_CAPS captions an image of
+    CLI_WORDS_PER_CAP words (more than LA 75 holds) with phrases from
+    id2phrase.json (captions.json). An image's first five tags also open
+    each of its captions. With `corpus`, also a pretraining corpus of
+    CLI_CAPS rows an image, [image_id, caption, 8 phrases (JSON), answer id,
+    answer]: captions as above, every other row a QA pair whose answer is one of the
     image's tags (corpus.tsv), and tag2id.json over the tag words. With
     `finetune`, each region's last 6 feature dims are a valid box [x1, y1,
     x2, y2, w, h] and `write_finetune_files` adds the VQA, SNLI-VE and RE
@@ -1510,7 +1531,7 @@ def write_cli_root(root, seed=0, corpus=False, finetune=False, nlvr=False):
                for a, b in rng.integers(0, len(words), (CLI_PHRASES, 2))]
     with open(paths["id2phrase"], "w") as f:
         json.dump({str(CLI_VOCAB + i): p for i, p in enumerate(phrases)}, f)
-    keys = [f"img_{i:05d}" for i in range(CLI_IMAGES)]
+    keys = [f"img_{i:05d}" for i in range(n_images or CLI_IMAGES)]
     tag_words = words[:2000]
     tags = {k: [tag_words[int(t)] for t in rng.integers(0, 2000, CLI_TAGS)]
             for k in keys}
@@ -6563,6 +6584,212 @@ def phase15(torch, attn):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the release tools: the parity runbook over a seeded MVPTR-base
+# checkpoint in the reference's layout, and the corpus-scale ingest
+# rehearsal onto the card
+# ---------------------------------------------------------------------------
+
+P16_IMAGES = 100                     # the runbook's eval root, CLI_CAPS captions each
+P16_SHIFT = 30.0                     # points added to one expected metric
+P16_SHIFTED = "fine_t2i_retrieval_R@5"
+P16_EVAL_TIMEOUT_S = 300             # each runbook eval subprocess
+P16_INGEST = dict(gb=2.0, chunks=4, workers=4, steps=40)   # B TRAIN_B
+# the eval's one shape the earlier phases do not time: the image encoder's
+# batch of all P16_IMAGES images (its text batch and its rerank batches are
+# phase 3's B 500 L 75 and B 1000 L 125)
+P16_TIMED = (("vis", P16_IMAGES, LENGTHS["vis"], "bfloat16", (0.0,),
+              "key"),)
+P16_INGEST_TIMEOUT_S = 300
+
+
+def eval_log_counts(out):
+    """(kernel launches, plain calls) from the `eval attention:` line of a
+    retrieval eval's log.txt."""
+    with open(os.path.join(out, "eval", "log.txt")) as f:
+        line = [ln for ln in f if "eval attention:" in ln][-1]
+    words = dict(w.split("=") for w in line.split() if "=" in w)
+    return int(words["launches"]), int(words["calls"])
+
+
+def phase16_runbook(torch, attn, root):
+    """(A) `tools.parity_runbook` over a seeded MVPTR-base `RetrievalModel`
+    checkpoint (pytorch_model.bin, config.json, vocab.txt) on a generated
+    eval root at the bench geometry: without --expected (exit 0), with its
+    own metrics expected (exit 0), with one metric P16_SHIFT points off (exit
+    1). Each eval launches the kernel as phase 7's formula says and the
+    plain attention never; its R@K equal, in all three runs, the retrieval
+    driver's eval-only run in this process on the same flags."""
+    import shutil
+    from mvp_pytorch_tpu_torch.models import ModelConfig, RetrievalModel
+    from mvp_pytorch_tpu_torch.tasks import retrieval as ret
+    from mvp_pytorch_tpu_torch.tools import parity_runbook as runbook
+    t0 = time.perf_counter()
+    paths, _, tsv_bytes = write_cli_root(os.path.join(root, "eval_root"),
+                                         n_images=P16_IMAGES)
+    cfg = base_config(ModelConfig, "float32", dropout=0.1)
+    model = RetrievalModel(cfg, device=DEVICE, seed=16)
+    ckpt = os.path.join(root, "reference_ckpt")
+    cfg.save_pretrained(ckpt)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               os.path.join(ckpt, "pytorch_model.bin"))
+    shutil.copy(paths["vocab"], ckpt)
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+    log(f"  reference checkpoint: MVPTR-base RetrievalModel, "
+        f"{n_params:,} seeded fp32 parameters, hidden {cfg.hidden_size}, "
+        f"{cfg.half_layers}+{cfg.half_layers}+{cfg.half_layers} layers, "
+        f"{cfg.vocab_size:,} rows; eval root {P16_IMAGES} images x "
+        f"{CLI_CAPS} captions ({tsv_bytes / 1e6:.1f} MB of TSV); "
+        f"{time.perf_counter() - t0:.1f} s")
+    ek = dict(zip(CLI_EVAL_ARGS[::2], CLI_EVAL_ARGS[1::2]))
+    extra = CLI_ARGS + [a for k, v in ek.items() if k != "--eval_batch_size"
+                        for a in (k, v)] + CLI_PLATFORM
+    argv = ["--reference_ckpt", ckpt, "--feature_tsv", paths["features"],
+            "--captions_json", paths["captions"], "--id2phrase",
+            paths["id2phrase"], "--num_captions_per_img", str(CLI_CAPS),
+            "--eval_batch_size", ek["--eval_batch_size"],
+            "--extra_eval_args", " ".join(extra)]
+    n_cap, eb, rb = (P16_IMAGES * CLI_CAPS, int(ek["--eval_batch_size"]),
+                     int(ek["--rerank_batch_size"]))
+    n_pairs = (P16_IMAGES * int(ek["--num_captions_per_img_val"])
+               + n_cap * int(ek["--num_images_per_cap_val"]))
+    want = cfg.half_layers * (math.ceil(n_cap / eb)
+                              + math.ceil(P16_IMAGES / eb)
+                              + math.ceil(n_pairs / rb))
+    runs = []
+    for i, what in enumerate(("no --expected", "its own metrics",
+                              f"{P16_SHIFTED} + {P16_SHIFT:g}")):
+        out = os.path.join(root, f"run{i}")
+        expect = []
+        if i:
+            exp = {k: 100.0 * v for k, v in
+                   runbook.flatten_metrics(runs[0]["metrics"]).items()}
+            if i == 2:
+                exp[P16_SHIFTED] += P16_SHIFT
+            expect = ["--expected", json.dumps(exp)]
+        t0 = time.perf_counter()
+        rc = runbook.main(argv + ["--out", out] + expect,
+                          timeout=P16_EVAL_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out, "eval", "test_eval.json")) as f:
+            metrics = json.load(f)
+        launches, plain = eval_log_counts(out)
+        runs.append(dict(rc=rc, wall_s=wall, launches=launches, plain=plain,
+                         metrics=metrics))
+        log(f"  runbook with {what}: exit {rc}, {wall:.1f} s wall (the eval "
+            f"subprocess included); eval launches {launches} (want {want}), "
+            f"plain calls {plain}")
+        if (rc, launches, plain) != ((0, 0, 1)[i], want, 0):
+            raise AssertionError(f"runbook run {i}: exit {rc}, launches "
+                                 f"{launches}, plain {plain}; want exit "
+                                 f"{(0, 0, 1)[i]}, {want}, 0")
+    flat = runbook.flatten_metrics(runs[0]["metrics"])
+    log("  metrics " + " ".join(f"{k}={v:.4f}" for k, v in flat.items()))
+    if (len(flat) != 12 or not all(0.0 <= v <= 1.0 for v in flat.values())
+            or any(r["metrics"] != runs[0]["metrics"] for r in runs)):
+        raise AssertionError(f"runbook metrics malformed or not repeated: "
+                             f"{[r['metrics'] for r in runs]}")
+    # the reference: the driver's eval in this process, on the same flags
+    eval_args = runbook.eval_command(runbook.get_args(
+        argv + ["--out", os.path.join(root, "in_process")]))[3:]
+    reset_counts(attn)
+    t0 = time.perf_counter()
+    res = ret.main(eval_args)["eval"]
+    torch.cuda.synchronize()
+    got = (attn.masked_attention.launches,
+           attn.masked_attention.dropout_launches, attn.plain_attention.calls)
+    same = {k: res[k] for k in ("coarse", "fine")} == runs[0]["metrics"]
+    log(f"  the driver's eval in this process: {time.perf_counter() - t0:.1f}"
+        f" s, launches {got} (want ({want}, 0, 0)), R@K "
+        f"{'equal' if same else 'DIFFER'}")
+    if not same or got != (want, 0, 0):
+        raise AssertionError("the runbook's eval differs from the driver's "
+                             "eval in this process")
+    del res
+    times = attention_times(torch, attn, P16_TIMED, seed=16)
+    for k, row in times.items():
+        log(f"  kernel at {k}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f},"
+            f" SDPA {row['sdpa_ms']:.4f}, bound {row['bound_ms']:.4f} by "
+            f"{row['bound_by']}), max abs err {row['max_abs_err']:.2e}")
+    return dict(images=P16_IMAGES, captions=n_cap, pairs=n_pairs,
+                params=n_params, launches=runs[0]["launches"],
+                eval_wall_s=[r["wall_s"] for r in runs],
+                exits=[r["rc"] for r in runs], metrics=flat,
+                attention=times)
+
+
+def phase16_ingest(demand, demand_from, root):
+    """(B) `tools.scale_ingest` as a subprocess onto the card at
+    P16_INGEST: its four checks, and more bytes streamed than its memory
+    bound."""
+    flags = ["--root", os.path.join(root, "ingest")]
+    for k, v in dict(P16_INGEST, batch=TRAIN_B).items():
+        flags += [f"--{k}", str(v)]
+    if demand is not None:
+        flags += ["--device_demand_ex_s", f"{demand:.1f}"]
+    if DEVICE == "cpu":
+        flags += ["--platform", "cpu"]
+    log(f"  demand: {demand if demand is None else f'{demand:.1f}'} ex/s "
+        f"({demand_from})")
+    log("  python -m mvp_pytorch_tpu_torch.tools.scale_ingest "
+        + " ".join(os.path.relpath(a, root) if a.startswith(root) else a
+                   for a in flags))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mvp_pytorch_tpu_torch.tools.scale_ingest"]
+        + flags, cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=P16_INGEST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"scale_ingest exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    gen, res = [json.loads(ln) for ln in proc.stdout.splitlines()
+                if ln.startswith("{")]
+    log(f"  generated {gen['generated']} GB ({gen['n_images']:,} images, "
+        f"{P16_INGEST['chunks']} chunks) in {gen['gen_s']} s; "
+        f"{wall:.1f} s wall in all")
+    log(f"  ingest_ex_s {res['ingest_ex_s']}  feed_ratio {res['feed_ratio']}"
+        f"  rss_growth_mb {res['rss_growth_mb']} (bound "
+        f"{res['rss_bound_mb']}: slots {res['slot_mb']} + 400)  streamed_gb "
+        f"{res['streamed_gb']}  resume_bit_exact_steps "
+        f"{res['resume_bit_exact_steps']}  device {res['device']}")
+    if (res["resume_bit_exact_steps"] != 4
+            or res["streamed_gb"] * 1024 <= res["rss_bound_mb"]
+            or not res["device"].startswith(DEVICE)
+            or (demand is None) != (res["feed_ratio"] is None)):
+        raise AssertionError(f"scale_ingest result: {res}")
+    return dict(gen, wall_s=wall, demand_from=demand_from, **res)
+
+
+def phase16(torch, attn, demand=None, demand_from="none given"):
+    """Phase 16 under _smoke/phase16 (deleted at the end)."""
+    import gc
+    import shutil
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke",
+                        "phase16")
+    shutil.rmtree(root, ignore_errors=True)
+    res = {}
+    try:
+        t0 = time.perf_counter()
+        log("  (A) the parity runbook")
+        res["runbook"] = phase16_runbook(torch, attn, root)
+        res["runbook"]["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        log("  (B) the scale-ingest rehearsal")
+        res["ingest"] = phase16_ingest(demand, demand_from, root)
+        res["ingest"]["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 16 took {res['seconds']:.1f} s")
+    return res
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -6601,6 +6828,12 @@ def main(argv) -> int:
                         help="run phase 15 (the trace window, the async and "
                              "the preemption checkpoints, inspect_ckpt and "
                              "the load test) alone")
+    parser.add_argument("--runbook_ingest", action="store_true",
+                        help="run phase 16 (the parity runbook and the "
+                             "scale-ingest rehearsal) alone")
+    parser.add_argument("--device_demand_ex_s", type=float, default=None,
+                        help="phase 16 B's device demand in examples/s when "
+                             "phase 8 does not run in this invocation")
     parser.add_argument("--serve_clients", nargs=3,
                         metavar=("URL", "JOBS", "OUT"),
                         help="the client process of phase 10 B, which the "
@@ -6699,6 +6932,15 @@ def main(argv) -> int:
         p15 = phase15(torch, attn)
         print(json.dumps({"tooling": p15, "card": card}), flush=True)
         return 0
+    if args.runbook_ingest:
+        log("phase 16 alone: the parity runbook at MVPTR-base and the "
+            "scale-ingest rehearsal onto the card")
+        p16 = phase16(torch, attn, args.device_demand_ex_s,
+                      "the --device_demand_ex_s flag"
+                      if args.device_demand_ex_s is not None
+                      else "none given: feed_ratio null")
+        print(json.dumps({"runbook_ingest": p16, "card": card}), flush=True)
+        return 0
     if args.nlvr_cli or args.serve:
         part = "nlvr" if args.nlvr_cli else "serve"
         log(f"phase 10 alone: {part}, MVPTR-base")
@@ -6790,6 +7032,12 @@ def main(argv) -> int:
         "the async and the preemption checkpoints, inspect_ckpt and the "
         "load test, MVPTR-base")
     p15 = phase15(torch, attn)
+    torch.cuda.synchronize()
+
+    log("phase 16: the parity runbook over a seeded MVPTR-base checkpoint in "
+        "the reference's layout, and the scale-ingest rehearsal onto the card")
+    p16 = phase16(torch, attn, pcli["samples_per_s"],
+                  "phase 8's pretraining CLI samples/s in this run")
     torch.cuda.synchronize()
 
     main_t = timings[("fused", "bfloat16")]
@@ -6894,6 +7142,7 @@ def main(argv) -> int:
                       "detector_train": p13["train"], "card": card}),
           flush=True)
     print(json.dumps({"tooling": p15, "card": card}), flush=True)
+    print(json.dumps({"runbook_ingest": p16, "card": card}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -362,6 +362,11 @@ class ProcessLoader:
         while self._inflight and self._inflight[0][0].query():
             self._free[self._inflight.popleft()[1]].release()
 
+    def worker_pids(self) -> list:
+        """The process ids of the running workers (empty before the first
+        batch and after `close`)."""
+        return [p.pid for p in self._procs]
+
     def timing(self) -> dict:
         """worker_ms (and on CUDA h2d_ms) of the batch yielded last."""
         out = {"worker_ms": self._timing.get("worker_ms", 0.0)}

@@ -45,6 +45,7 @@ import torch
 from ..data.datasets import FeatureStore, RetrievalDataset, load_phrase_vocab
 from ..data.tokenization import FastBertTokenizer
 from ..models.tasks import RetrievalModel
+from ..ops.attention import masked_attention, plain_attention
 from ..parallel.collectives import (LOCAL, gather_eval_arrays,
                                     process_shard_indices)
 from ..training.loop import batch_on, train_on_batches
@@ -343,6 +344,7 @@ def two_stage_eval(args, model, dataset: RetrievalDataset, logger,
     shortlist sizes and modes. `caption_index` (parsed
     --eval_caption_index_json) is the external i2t shortlist."""
     model.eval()
+    launches0, plain0 = masked_attention.launches, plain_attention.calls
     t0 = time.perf_counter()
     caps = port_names(dataset.caption_arrays())
     imgs = port_names(dataset.image_arrays())
@@ -367,6 +369,9 @@ def two_stage_eval(args, model, dataset: RetrievalDataset, logger,
     logger.info("eval seconds: " + "  ".join(
         f"{k}={v:.4f}" for k, v in res["seconds"].items())
         + f"  pairs={res['n_pairs']}")
+    logger.info(f"eval attention: kernel launches="
+                f"{masked_attention.launches - launches0}  plain calls="
+                f"{plain_attention.calls - plain0}")
     return res
 
 

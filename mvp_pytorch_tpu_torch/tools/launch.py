@@ -8,7 +8,10 @@ MASTER_PORT. Rank 0's output passes through; every other rank's is
 prefixed with `[rank N]` on stderr. The first rank to fail takes the job
 down: the others get SIGTERM (then SIGKILL after 10 s), and the launcher
 exits with the first failure's code (128 + the signal for a rank killed by
-one). A SIGTERM to the launcher is forwarded to every rank.
+one). A SIGTERM to the launcher is forwarded to every rank. With more than
+one rank and no `OMP_NUM_THREADS` in the environment, each rank gets
+`OMP_NUM_THREADS=1` (as `torchrun` does), so that N ranks on one host do not
+each start a full intra-op thread pool; a value the caller set is kept.
 
     python -m mvp_pytorch_tpu_torch.tools.launch --nproc 2 -- \
         -m mvp_pytorch_tpu_torch.tasks.pretrain --synthetic --tiny \
@@ -38,10 +41,13 @@ def free_port() -> int:
 
 def rank_env(rank: int, nproc: int, coordinator: str, base=None) -> dict:
     host, _, port = coordinator.rpartition(":")
-    return dict(base if base is not None else os.environ,
-                WORLD_SIZE=str(nproc), RANK=str(rank), LOCAL_RANK=str(rank),
-                COORDINATOR_ADDRESS=coordinator, MASTER_ADDR=host,
-                MASTER_PORT=port)
+    env = dict(base if base is not None else os.environ,
+               WORLD_SIZE=str(nproc), RANK=str(rank), LOCAL_RANK=str(rank),
+               COORDINATOR_ADDRESS=coordinator, MASTER_ADDR=host,
+               MASTER_PORT=port)
+    if nproc > 1:
+        env.setdefault("OMP_NUM_THREADS", "1")
+    return env
 
 
 def _code(rc: int) -> int:
@@ -63,6 +69,10 @@ def main(argv=None) -> int:
     if not cmd:
         p.error("no rank command given (append: -- -m <module> ...)")
     coord = args.coordinator or f"localhost:{free_port()}"
+    if args.nproc > 1 and "OMP_NUM_THREADS" not in os.environ:
+        print("launch: OMP_NUM_THREADS is not set; setting it to 1 for each "
+              "of the ranks so that they do not overload the host (set it "
+              "yourself to tune)", file=sys.stderr)
     procs = []
     for rank in range(args.nproc):
         procs.append(subprocess.Popen(

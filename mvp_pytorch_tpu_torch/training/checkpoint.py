@@ -11,7 +11,11 @@ directory, holding
 - `train_meta.json`: the step;
 - `training_args.json`, when the caller gives its arguments: the command
   line's settings, which an eval-only run restores
-  (`tasks/common.py` `restore_training_settings`).
+  (`tasks/common.py` `restore_training_settings`);
+- the tokenizer files (`TOKENIZER_FILES`) that the output directory holds,
+  copied in, so that a checkpoint directory is on its own a model directory
+  for `InferencePipeline`, `tasks/serve.py` and any driver's
+  `--model_name_or_path` (config, weights and vocabulary).
 
 A checkpoint saved under a mesh holds `opt_shards/` (each rank's pieces of
 the optimizer state, `training/sharded_checkpoint.py`) in place of
@@ -45,6 +49,8 @@ OPT_SHARDS_DIR = "opt_shards"
 LAST_CHECKPOINT = "last_checkpoint"
 TRAIN_STATE_NAME = "train_meta.json"
 ARGS_NAME = "training_args.json"
+TOKENIZER_FILES = ("vocab.txt", "tokenizer_config.json",
+                   "special_tokens_map.json")
 
 
 def _retry(fn, tries: int = 5, delay: float = 1.0):
@@ -176,8 +182,9 @@ class CheckpointManager:
                     args, indent=2, sort_keys=True, default=str))}
 
     def write(self, snap: dict) -> str:
-        """Write a `snapshot` as checkpoint `snap["step"]`, point
-        `last_checkpoint` at it and drop the oldest beyond `keep`."""
+        """Write a `snapshot` as checkpoint `snap["step"]` with the output
+        directory's tokenizer files, point `last_checkpoint` at it and drop
+        the oldest beyond `keep`."""
         d = self._ckpt_dir(snap["step"])
         os.makedirs(d, exist_ok=True)
         if snap["config"] is not None:
@@ -187,6 +194,11 @@ class CheckpointManager:
         if snap["optimizer"] is not None:
             _retry(lambda: _atomic_save(snap["optimizer"],
                                         os.path.join(d, OPT_NAME)))
+        for name in TOKENIZER_FILES:
+            src = os.path.join(self.output_dir, name)
+            if os.path.exists(src):
+                _retry(lambda s=src, n=name: shutil.copyfile(
+                    s, os.path.join(d, n)))
         _retry(lambda: _atomic_write_text(
             os.path.join(d, TRAIN_STATE_NAME),
             json.dumps({"step": snap["step"]})))

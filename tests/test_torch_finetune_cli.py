@@ -185,7 +185,7 @@ def test_cli_matches_jax_driver(weights, tmp_path, case):
     ckpt = os.path.join(pout, f"checkpoint-{STEPS:07d}")
     assert sorted(os.listdir(ckpt)) == ["config.json", "optimizer.pt",
                                         "pytorch_model.bin", "train_meta.json",
-                                        "training_args.json"]
+                                        "training_args.json", "vocab.txt"]
 
 
 @pytest.mark.parametrize("driver", list(DRIVERS))

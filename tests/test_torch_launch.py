@@ -3,15 +3,20 @@
 
 - the env contract: WORLD_SIZE, RANK, LOCAL_RANK, COORDINATOR_ADDRESS and
   its MASTER_ADDR / MASTER_PORT; rank 0's output passes through, rank 1's
-  is prefixed;
+  is prefixed; OMP_NUM_THREADS=1 for more than one rank unless the caller
+  set it (said on stderr), a caller's value kept;
 - the first failure takes the job down and sets the launcher's exit code;
 - a SIGTERM to the launcher reaches every rank;
 - a rendezvous that cannot complete raises within DIST_INIT_TIMEOUT_S;
 - one rank joins no group unless a parallel flag asks for one (then gloo
   under --platform cpu); without --platform cpu the card is required, with
-  no fall back to the CPU or to gloo.
+  no fall back to the CPU or to gloo;
+- the drivers' parallel flags over 2 ranks write a checkpoint that holds
+  the optimizer's shards, the config and the vocabulary.
 
-Every launch runs with a deadline.
+Every launch runs with a deadline. The three driver runs share one module
+fixture; a run past its deadline is recorded as that run's result, so it
+fails its own case only.
 """
 
 import json
@@ -32,8 +37,11 @@ DEADLINE = 60
 
 
 def run(args, env=None, timeout=DEADLINE):
+    """`env` entries override the test's environment; a None value unsets
+    the variable."""
     env = dict({k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
                **(env or {}))
+    env = {k: v for k, v in env.items() if v is not None}
     return subprocess.run([sys.executable] + args, cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=timeout)
 
@@ -43,22 +51,46 @@ def launch(nproc, code, **kw):
                 str(nproc), "--", "-c", code], **kw)
 
 
-def test_env_contract_and_output():
-    code = ("import json, os; print(json.dumps({k: os.environ.get(k) for k "
+ENV_CODE = ("import json, os; print(json.dumps({k: os.environ.get(k) for k "
             "in ('WORLD_SIZE', 'RANK', 'LOCAL_RANK', 'COORDINATOR_ADDRESS', "
-            "'MASTER_ADDR', 'MASTER_PORT')}))")
-    res = launch(2, code)
+            "'MASTER_ADDR', 'MASTER_PORT', 'OMP_NUM_THREADS')}))")
+OMP_LINE = "launch: OMP_NUM_THREADS is not set"
+
+
+def rank_envs(res, nproc):
+    """The environment each rank printed (ENV_CODE)."""
+    envs = [json.loads(res.stdout.strip())]
+    for r in range(1, nproc):
+        line = next(ln for ln in res.stderr.splitlines()
+                    if ln.startswith(f"[rank {r}] {{"))
+        envs.append(json.loads(line[len(f"[rank {r}] "):]))
+    return envs
+
+
+def test_env_contract_and_output():
+    res = launch(2, ENV_CODE, env={"OMP_NUM_THREADS": None})
     assert res.returncode == 0, res.stderr
-    env0 = json.loads(res.stdout.strip())
-    line = next(ln for ln in res.stderr.splitlines()
-                if ln.startswith("[rank 1] {"))
-    env1 = json.loads(line[len("[rank 1] "):])
+    env0, env1 = rank_envs(res, 2)
     for rank, env in enumerate((env0, env1)):
         assert env["WORLD_SIZE"] == "2"
         assert env["RANK"] == env["LOCAL_RANK"] == str(rank)
         host, port = env["COORDINATOR_ADDRESS"].rsplit(":", 1)
         assert (env["MASTER_ADDR"], env["MASTER_PORT"]) == (host, port)
+        assert env["OMP_NUM_THREADS"] == "1"
     assert env0["COORDINATOR_ADDRESS"] == env1["COORDINATOR_ADDRESS"]
+    assert sum(OMP_LINE in ln for ln in res.stderr.splitlines()) == 1
+
+
+@pytest.mark.parametrize("nproc, given", [(2, "3"), (1, None)],
+                         ids=["callers_value_kept", "one_rank_unchanged"])
+def test_thread_setting_left_alone(nproc, given):
+    """A caller's own OMP_NUM_THREADS reaches every rank as it was; one rank
+    gets the environment unchanged (unset stays unset)."""
+    res = launch(nproc, ENV_CODE, env={"OMP_NUM_THREADS": given})
+    assert res.returncode == 0, res.stderr
+    assert [e["OMP_NUM_THREADS"] for e in rank_envs(res, nproc)] == \
+        [given] * nproc
+    assert OMP_LINE not in res.stderr
 
 
 def test_first_failure_takes_the_job_down():
@@ -165,7 +197,8 @@ CLI_RUNS = {
 
 def run_cli(task, flags, out):
     """One driver over 2 gloo ranks through the launcher, with a deadline;
-    returns (exit code, log)."""
+    returns (exit code, log), the exit code None for a run killed at the
+    deadline."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.Popen(
         [sys.executable, "-m", "mvp_pytorch_tpu_torch.tools.launch",
@@ -179,14 +212,15 @@ def run_cli(task, flags, out):
         log, _ = proc.communicate(timeout=DEADLINE)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise TimeoutError(f"{task} {flags} ran past {DEADLINE} s")
+        log, _ = proc.communicate()
+        return None, f"{log}\n{task} {flags} ran past {DEADLINE} s"
     return proc.returncode, log
 
 
 @pytest.fixture(scope="module")
 def cli_runs(tmp_path_factory):
-    """Each of CLI_RUNS once (the runs start processes: module setup)."""
+    """Each of CLI_RUNS once (the runs start processes: module setup); a
+    run past its deadline is that run's result, not the fixture's error."""
     out = {}
     for run, (task, flags) in CLI_RUNS.items():
         d = tmp_path_factory.mktemp(run) / "out"
@@ -205,5 +239,8 @@ def test_driver_flags_run_on_two_ranks(cli_runs, run):
     assert cfg["pipeline_stages"] == (2 if "gpipe" in run else 0)
     assert cfg["moe_experts"] == (4 if "moe" in run else 0)
     assert (ckpt / "pytorch_model.bin").exists()
+    # the driver's vocabulary, copied from the output directory
+    assert (ckpt / "vocab.txt").read_bytes() == \
+        (out / "vocab.txt").read_bytes()
     if "coarse_block" in run:
         assert "coarse:" in (out / "log.txt").read_text()

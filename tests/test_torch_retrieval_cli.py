@@ -156,7 +156,7 @@ def test_cli_matches_jax_driver(weights, pinned, tmp_path, case):
     ckpt = os.path.join(pout, f"checkpoint-{STEPS:07d}")
     assert sorted(os.listdir(ckpt)) == ["config.json", "optimizer.pt",
                                         "pytorch_model.bin", "train_meta.json",
-                                        "training_args.json"]
+                                        "training_args.json", "vocab.txt"]
 
 
 def test_eval_only_restores_training_settings_and_caption_index(
