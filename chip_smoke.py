@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (mvp_pytorch_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels         # phase 1, then the kernel table
     python3 chip_smoke.py --sweep float32   # phase 3 alone, in one dtype
     python3 chip_smoke.py --cli             # phase 7 alone
     python3 chip_smoke.py --pretrain_cli    # phase 8 alone
@@ -22,18 +23,26 @@
 Phases, each ended by torch.cuda.synchronize(); any failure raises and the
 script exits non-zero:
 1. print the card (name, power limit) and build the kernels from csrc/
-   (four translation units, one nvcc each, started together); print each
+   (nine translation units, one nvcc each, started together); print each
    kernel's registers and spills (ptxas), its tensor-core
-   instructions (HMMA/HGMMA in the SASS, from cuobjdump) and its resident
-   blocks per SM; fail if a bf16 or an fp32 (3xTF32) kernel has no
-   tensor-core instruction, or a dropout instantiation another count than
-   its p = 0 twin;
+   instructions (HMMA and HGMMA in the SASS, from cuobjdump), the host
+   microseconds that a bf16 launch spends encoding its TMA maps, and the
+   resident blocks per SM; fail unless every bf16 kernel (the wgmma
+   kernel, one per head dim, key-tile width and dropout setting) has HGMMA
+   and no HMMA, no kernel of the mma.sync family it replaced is left, every
+   fp32 (3xTF32) kernel has HMMA, and each dropout instantiation has the
+   counts of its p = 0 twin;
 2. hold the masked-attention kernel against its plain PyTorch version at the
    main path's shapes (fused L 125, text 75, vision 70; H 12, D 64; B 1,000
    and 8), both dtypes, both layouts, with padded 2-D key masks, 3-D masks,
-   Lk > Lq, fully-masked rows, a bf16 bias and D 32 / 128, and across the
-   bf16 kernel's 128-row tiles (Lk 200, L 160, B 1, odd lengths 17 / 129 and
-   1 / 1); tolerances fp32 2e-5, bf16 0.05. Time the kernel, the plain
+   Lk > Lq, fully-masked rows, a bf16 bias and D 32 / 128, across the
+   128-row tiles (Lk 200, L 160, B 1, odd lengths 17 / 129 and 1 / 1) and
+   across the bf16 kernel's own boundaries: one exact key tile up to 256
+   keys and the online softmax past it (Lk 256 / 257, 300, 512), 64-query
+   blocks (Lq 64 / 65; Lq 1, 2, 16, 17, where a tile holds two heads), a
+   per-query bias broadcast over heads and one given per head, each in fp32
+   and bf16, and D 32 / 128 under a per-query bias; tolerances fp32 2e-5,
+   bf16 0.05. Time the kernel, the plain
    version and, as a yardstick the port never calls,
    F.scaled_dot_product_attention with the same mask, at the main path's
    batches (1,000 pairs fused; 500 text or images). Then the attention
@@ -52,13 +61,14 @@ script exits non-zero:
    (fp32 2e-5, bf16 0.05) and its backward against fp32 autograd of the
    plain dropout version (fp32 1e-4, bf16 0.05); the dropout kernel timed
    beside the p = 0 kernel and F.scaled_dot_product_attention(dropout_p=0.1).
-   At NLVR2's fusion input (fused L 140, past the 128-key tile: the
-   online-softmax kernels; B 64 and 32, the text and both images' regions
+   At NLVR2's fusion input (fused L 140: one 160-key tile of the bf16
+   kernel, the online-softmax kernel in fp32; B 64 and 32, the text and both images' regions
    padded, so that masked keys fill most rows' second key tile): the kernel
    against the plain version in both dtypes and layouts, at p 0 and, with
    the backward, at p 0.1; the dropout mask read back bit for bit at Lq =
-   Lk = 140 (v one-hot over three windows of D keys, one launch each) with
-   its keep share; and the kernel timed beside the plain version, SDPA and
+   Lk = 140 and at Lq = Lk = 300 (the bf16 kernel's online softmax; v
+   one-hot over windows of D keys, one launch each) with its keep share;
+   and the kernel timed beside the plain version, SDPA and
    its bound at fused L 140 (B 64 / 32, bf16 p 0.1 and 0, fp32 p 0) and at
    the fine-tuning vision stream (L 70, B 64 / 32, bf16 p 0.1 and 0);
 3. two-stage retrieval scoring at MVPTR-base width and depth (hidden 768,
@@ -101,13 +111,13 @@ script exits non-zero:
    50 regions x 2,054 fp32 and 50 tags an image, captions past LA 75 =
    70 text + 5 phrase slots): 13 batches of 96 fetched into memory and
    trained with `train_retrieval` (bf16, the config's dropouts 0.1 / 0.1,
-   the CLI's default lr 4e-5, linear decay); then 26 steps through the CLI
+   the CLI's default lr 4e-5, linear decay); then 21 steps through the CLI
    and its process loader (4 forked workers),
    each step launching the dropout kernel exactly 24 times and the plain
    attention never, the losses finite and the last five below the first
    (from seeded weights they fall to chance and stay there), step 1's loss
    equal to the in-memory run's (the loader delivered the sampler's batch); samples/s over steps
-   6-26 beside the in-memory steps 4-13 (target ratio 0.90, not a failure),
+   6-21 beside the in-memory steps 4-13 (target ratio 0.90, not a failure),
    the main thread's data ms a step, the workers' ms a batch, the H2D copy's
    device ms and whether the native decode is on; then the CLI's eval of
    the trained checkpoint (K 20 / 10, encoder batch 500, rerank batch
@@ -127,11 +137,11 @@ script exits non-zero:
    one dropout-0 step on the first of them, kernel path against plain path:
    in fp32 the six losses and five named gradients (phase 5's fp32
    tolerances), in bf16 the losses (0.02) with the gradients printed beside
-   each path's distance from the fp32 gradient; 26 steps through
+   each path's distance from the fp32 gradient; 21 steps through
    the CLI and its process loader (4 forked workers), each launching the
    dropout kernel exactly 24 times and the plain attention never, finite
    losses, the last five below the first, step 1's loss equal to the
-   in-memory run's; samples/s over steps 6-26 beside the in-memory steps
+   in-memory run's; samples/s over steps 6-21 beside the in-memory steps
    4-13 (target ratio 0.90, not a failure), main-thread data ms, worker ms
    and H2D ms; then 3 CLI steps with `--use_qa --qa_answer_size 3129
    --use_qa_pairs`, finite QA losses. The root is deleted at the end;
@@ -150,7 +160,7 @@ script exits non-zero:
    path (logits and loss fp32 1e-4; bf16 logits 4 bf16 ulps at the largest
    |logit|, bf16 loss 1e-4 of the loss, each path's distance from fp32
    printed; the relative error of five named gradients fp32 1e-3, bf16
-   printed beside each path's distance from fp32); 13 steps in memory, then 26 through the CLI and its process loader
+   printed beside each path's distance from fp32); 13 steps in memory, then 21 through the CLI and its process loader
    (4 forked workers), each launching the dropout kernel exactly 18 times (6
    layers x text, vision, one fusion pass) and the plain attention never,
    finite losses, step 1's loss equal to the in-memory run's; the CLI's
@@ -183,7 +193,7 @@ script exits non-zero:
    examples' cross entropies (the loss is their mean, whose errors cancel
    by chance) likewise, plus 1e-4 of the largest, and the loss their mean.
    The first batch 13 times in memory (its loss must fall),
-   then 26 steps through the CLI and its process loader (4 forked workers),
+   then 21 steps through the CLI and its process loader (4 forked workers),
    each launching the dropout kernel exactly 24 times (6 layers x text, two
    images, one fusion pass), 6 of them at Lk 140, and the plain attention
    never, finite losses, step 1's loss equal to the in-memory run's; the
@@ -215,7 +225,7 @@ script exits non-zero:
    SIGTERM, which must drain and exit 0. The root is deleted at the end;
 11. the single-stream model (`ImgBertModel`, 12 layers over [text ; tags ;
    regions]) at MVPTR-base on phase 8's root: LA 75, T 20, R 50, one
-   sequence of 145 keys (every layer on the online kernels), bf16 over fp32
+   sequence of 145 keys (bf16: one 160-key tile; fp32: the online kernel), bf16 over fp32
    weights, dropouts 0.1 / 0.1, B 96, lr 1e-4. (a) The kernel at Lq = Lk =
    145, B 96, both dtypes and layouts, p 0 and 0.1, padded key masks and a
    [B, 1, L, L] seq2seq mask: against the plain version (fp32 2e-5, bf16
@@ -230,7 +240,7 @@ script exits non-zero:
    path against plain path (fp32: the five losses 1e-4 and five gradients
    1e-3 relative; bf16: the losses 0.02 and each gradient's relative
    distance from the fp32 plain path's at most 1.25 times the plain bf16
-   path's plus 2^-8); 13 batches in memory, then 26 CLI steps through the
+   path's plus 2^-8); 13 batches in memory, then 21 CLI steps through the
    process loader (4 forked workers), each launching the dropout kernel
    exactly 12 times, all at Lk 145, and the plain attention never, finite
    losses, the last five below the first, step 1's loss equal to the
@@ -255,7 +265,7 @@ script exits non-zero:
    (fp32 2e-5, bf16 0.05), timed beside the plain version, SDPA and the
    bound. (b) One dropout-0 step on the first real batch, kernel path
    against plain path (fp32: the loss 1e-4, five gradients 1e-3 relative;
-   bf16 by the 1.25 rule). (c) 13 batches in memory, then 26 CLI steps
+   bf16 by the 1.25 rule). (c) 13 batches in memory, then 21 CLI steps
    through the process loader (4 forked workers), each launching the
    dropout kernel 12 times, all at Lk 105, and the plain attention never;
    finite losses, the last five below the first, step 1 equal to memory's;
@@ -356,7 +366,7 @@ script exits non-zero:
    process on the same flags; the eval wall times; the kernel at the eval's
    image batch (vision L 70, B 100, bf16) against the plain version, timed
    beside SDPA and its bound. (B)
-   `tools.scale_ingest` as a subprocess onto the card: 2 GB of ~0.5 MB
+   `tools.scale_ingest` as a subprocess onto the card: 1.2 GB of ~0.5 MB
    rows in 4 chunks, B 96, 4 workers, 40 steps, resumed at step 20: its
    four checks (partition, chunk fingerprints, RSS growth under its slots
    plus 400 MB, 4 resumed batches bit for bit), more bytes streamed than
@@ -369,9 +379,16 @@ script exits non-zero:
    under `parallel` and its GPipe rows under the fp32 kernel's
    `gpipe_attention`), then the result line.
 
-With `--sweep DTYPE` only phase 3 runs, in that dtype (bf16: two sweeps,
-fp32: one), and the last line is a JSON object of its numbers; run from a
-copy of another tree, the script drives that tree's package. With `--cli`
+With `--kernels` phase 1 runs (its bf16 checks apply when the package has
+the wgmma kernel; an earlier tree's is reported as such), then every row of
+PERF.md's kernel table alone (`KERNEL_TABLE`, seeded inputs: the kernel
+against the plain version, its ms beside the plain version's, SDPA's and
+the bound), then the `kernels` line (each row under `rows`) and the result
+line. With `--sweep DTYPE` only phase 3 runs, in that dtype (bf16: two
+sweeps, fp32: one), and the last line is a JSON object of its numbers. Run
+from a copy of another tree (`git archive` of the parent commit), either
+drives that tree's package: that is how a parent and a change are timed in
+turns in one call. With `--cli`
 only phases 1 (the build) and 7 run, the last line a JSON object of phase
 7's numbers; with `--pretrain_cli`, phases 1 and 8; with `--finetune_cli`,
 phases 1 and 9; with `--nlvr_cli`, phases 1 and 10 A; with `--serve`, phases
@@ -431,11 +448,12 @@ DEVICE = "cuda"
 H, D = 12, 64
 LENGTHS = {"fused": 125, "text": 75, "vis": 70}
 MAIN_BATCH = {"fused": 1000, "text": 500, "vis": 500}   # pair / encoder batch
-KERNEL_SOURCE = "mvp_pytorch_tpu_torch/csrc/masked_attention.cuh"
+KERNEL_SOURCE = "mvp_pytorch_tpu_torch/csrc/masked_attention.cuh"       # fp32
+KERNEL_SOURCE_BF16 = "mvp_pytorch_tpu_torch/csrc/masked_attention_wgmma.cuh"
 REPLACES = "mvp_pytorch_tpu/ops/attention.py:114 (git 8625894^; also :169)"
 # NLVR2's fusion input: the text (LA 40 = 35 + 5 phrase slots) and both
-# images' tag-stripped regions (R 50 each), 140 keys: past the 128-key tile,
-# so its attention runs on the online-softmax kernels
+# images' tag-stripped regions (R 50 each), 140 keys: one 160-key tile of
+# the bf16 kernel, past the fp32 kernel's 128-key tile (its online softmax)
 NLVR_LA, NLVR_R = 40, 50
 NLVR_L = NLVR_LA + 2 * NLVR_R
 NLVR_BATCHES = (64, 32)              # the eval and the training batch
@@ -546,11 +564,13 @@ def kernel_key(name: str) -> str:
 
 def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
     """Registers, tensor-core instructions and resident blocks per SM of
-    every kernel; fails unless each bf16 and each fp32 (3xTF32) kernel has
-    HMMA/HGMMA in its SASS (TF32 shows as HMMA.1684.F32.TF32) and each
-    dropout instantiation has as many as its p = 0 twin (in another
-    translation unit). Kernels are listed by `kernel_key`, so that builds
-    compare line by line."""
+    every kernel. Fails unless each bf16 kernel
+    (`hopper::masked_attention_wgmma_kernel`) has HGMMA and no HMMA in its
+    SASS, each fp32 (3xTF32) kernel has HMMA (TF32 shows as
+    HMMA.1684.F32.TF32), and each dropout instantiation has the counts of
+    its p = 0 twin (in another translation unit). Kernels are listed by
+    `kernel_key`, so that builds compare line by line. Returns the bf16
+    kernels' report."""
     ptxas = {kernel_key(n): v for n, v in ptxas_report(
         os.path.join(kernels_mod.BUILD, "ptxas.log")).items()}
     sass = {kernel_key(n): v
@@ -558,15 +578,22 @@ def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
     names = sorted(n for n in set(ptxas) | set(sass) if "masked_attention" in n)
     log(f"  {len(names)} kernels")
     for name in names:
-        log(f"  {name}: HMMA/HGMMA={sass.get(name, 'missing')}  "
+        log(f"  {name}: {sass.get(name, 'no SASS')}  "
             + "  ".join(ptxas.get(name, ["no ptxas report"])))
-    for dn, key in (("bf16", "masked_attention_mma"),
-                    ("fp32", "masked_attention_3xtf32")):
-        tc = [n for n in names if key in n]
-        if not tc or any(sass.get(n, 0) == 0 for n in tc):
+    wgmma = [n for n in names if "masked_attention_wgmma" in n]
+    bad = [(n, sass.get(n)) for n in wgmma
+           if n not in sass or sass[n]["HGMMA"] == 0 or sass[n]["HMMA"]]
+    if not wgmma or bad:
+        raise AssertionError(f"bf16 kernels without HGMMA or with HMMA "
+                             f"({len(wgmma)} bf16 kernels): {bad}")
+    families = (("bf16", wgmma, "HGMMA"),
+                ("fp32", [n for n in names if "masked_attention_3xtf32" in n],
+                 "HMMA"))
+    for dn, family, op in families:
+        if not family or any(sass.get(n, {}).get(op, 0) == 0 for n in family):
             raise AssertionError(
-                f"a {dn} kernel has no tensor-core instruction in its SASS: "
-                f"{[(n, sass.get(n)) for n in tc]}")
+                f"a {dn} kernel has no {op} in its SASS: "
+                f"{[(n, sass.get(n)) for n in family]}")
     # each dropout instantiation (template argument kDrop = true, "Lb1E" in
     # the mangled name) runs the same products as its p = 0 twin
     drops = [n for n in names if "Lb1EE" in n]
@@ -575,11 +602,18 @@ def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
     for n in drops:
         twin = n.replace("Lb1EE", "Lb0EE")
         if sass.get(n) != sass.get(twin) or twin not in sass:
-            raise AssertionError(f"dropout kernel {n} has {sass.get(n)} "
-                                 f"HMMA, its p = 0 twin {sass.get(twin)}")
+            raise AssertionError(f"dropout kernel {n} has {sass.get(n)}, its "
+                                 f"p = 0 twin {sass.get(twin)}")
     for dn, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         log(f"  resident blocks per SM, {dn}, D {D}, fp32 bias: "
             f"{attn.kernel_blocks_per_sm(dt, D)}")
+    report = {n: dict(sass.get(n, {}), ptxas=ptxas.get(n)) for n in wgmma}
+    for layout in ("bhld", "blhd"):
+        us = attn.tma_encode_us(layout)
+        report[f"tma_encode_us {layout}"] = us
+        log(f"  TMA maps of one bf16 launch ({layout}, the rerank "
+            f"shape): {us:.3f} us on the host to encode")
+    return report
 
 
 def phase2_kernel_vs_plain(torch, attn):
@@ -617,6 +651,12 @@ def phase2_kernel_vs_plain(torch, attn):
             mask[:, lq // 2] = 0
         return mask
 
+    def head_bias(b, lq, lk):
+        """A per-query bias given per head, [b, H, lq, lk]."""
+        mask = (torch.rand(b, H, lq, lk, device="cuda", generator=gen) > 0.3)
+        mask[..., 0] = True
+        return (1.0 - mask.float()) * attn.MASK_VALUE
+
     cases = []
     for name, l in LENGTHS.items():
         for b in (1000, 8):
@@ -643,6 +683,37 @@ def phase2_kernel_vs_plain(torch, attn):
             ]
             cases += [("nlvr fused 2-D padded keys", b, NLVR_L, NLVR_L, dn,
                        layout, "nlvr", D, "float32") for b in NLVR_BATCHES]
+            # the bf16 kernel's tile boundaries: one exact key tile up to
+            # 256 keys, online past it; 64-query blocks (two heads a tile
+            # at Lq <= 64); a per-query bias broadcast over heads (staged
+            # once for all heads) and given per head, in fp32 and bf16
+            for bias_dt in ("float32", "bfloat16"):
+                cases += [
+                    ("Lk 256 per-query", 8, 64, 256, dn, layout, "query", D, bias_dt),
+                    ("Lk 257 per-query", 8, 64, 257, dn, layout, "query", D, bias_dt),
+                    ("Lq 64 per-query", 8, 64, 92, dn, layout, "query", D, bias_dt),
+                    ("Lq 65 per-query", 8, 65, 92, dn, layout, "query", D, bias_dt),
+                    ("Lk 512 online per-query", 8, 65, 512, dn, layout, "query", D, bias_dt),
+                    ("per-head bias L 90", 8, 90, 90, dn, layout, "head", D, bias_dt),
+                    ("per-head bias Lq 2", 8, 2, 92, dn, layout, "head", D, bias_dt),
+                    ("D=32 per-query", 8, 90, 90, dn, layout, "query", 32, bias_dt),
+                    ("D=128 per-query", 8, 90, 90, dn, layout, "query", 128, bias_dt),
+                    ("D=128 per-query Lq 2", 8, 2, 92, dn, layout, "query", 128, bias_dt),
+                ]
+                cases += [(f"Lq {lq} per-query", 8, lq, 92, dn, layout, "query",
+                           D, bias_dt) for lq in (1, 2, 16, 17)]
+            cases += [("Lk 300 online", 8, 75, 300, dn, layout, "key", D, "float32"),
+                      ("D=32 Lk 300 online", 8, 75, 300, dn, layout, "key", 32, "float32")]
+            # the online softmax's rescale across key tiles: keys past 256
+            # get +4 of bias on every other query row, so those rows' maxima
+            # rise clearly in the second 256-key tile (the fifth 64-key tile
+            # at D 128) and the first tile's weight must fall by about e^-4;
+            # an online softmax without that rescale is about ten times the
+            # bf16 tolerance off at this case's shape in
+            # tests/test_torch_kernels.py (its CPU test of the case)
+            cases += [(f"{label} online, tile maxima apart", 8, 65, 512, dn,
+                       layout, "shift", d, "float32")
+                      for label, d in (("Lk 512", D), ("D=128 Lk 512", 128))]
     errors = {}
     for label, b, lq, lk, dn, layout, mk, d, bias_dt in cases:
         q, k, v = qkv(b, lq, lk, dtypes[dn], layout, d,
@@ -651,6 +722,11 @@ def phase2_kernel_vs_plain(torch, attn):
             bias = None
         elif mk == "nlvr":
             bias = attn.mask_to_bias(nlvr_key_mask(torch, gen, b))
+        elif mk == "head":
+            bias = head_bias(b, lq, lk)
+        elif mk == "shift":
+            bias = attn.mask_to_bias(query_mask(b, lq, lk))
+            bias[:, :, ::2, 256:] += 4.0
         elif mk.startswith("key"):
             bias = attn.mask_to_bias(key_mask(b, lk, mk == "key_full"))
         else:
@@ -666,12 +742,13 @@ def phase2_kernel_vs_plain(torch, attn):
         finite = bool(torch.isfinite(got.float()).all())
         ok = finite and err <= TOL[dn]
         log(f"  kernel vs plain  {label:24s} B={b:<5d} Lq={lq:<4d} Lk={lk:<4d} "
-            f"D={d:<4d} {dn:9s} {layout}  max|err|={err:.3e}  "
+            f"D={d:<4d} {dn:9s} {layout} bias {bias_dt if mk else '-':8s}  "
+            f"max|err|={err:.3e}  "
             f"tol={TOL[dn]:g}  {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"kernel disagrees with plain: {label} "
                                  f"{dn} {layout} err={err} finite={finite}")
-        errors[(label, b, dn, layout)] = err
+        errors[(label, b, dn, layout, bias_dt, d)] = err
         del q, k, v, bias, got, want
 
     timings = {}
@@ -813,8 +890,9 @@ def phase2_backward(torch, attn):
 
 
 def online_mask_readback(torch, attn, b, l, dn, dt, layout, seed) -> dict:
-    """The dropout kernel's mask at Lq = Lk = l (the online kernels past 128
-    keys), read back bit for bit: q = k = 0 gives every key 1/l, v one-hot
+    """The dropout kernel's mask at Lq = Lk = l (bf16: one exact key tile up
+    to 256 keys, the online softmax past it; fp32: online past 128), read
+    back bit for bit: q = k = 0 gives every key 1/l, v one-hot
     over a window of D keys; the windows (one launch each, the same seed)
     read back all l columns. Fails unless it equals the plain hash's mask,
     its keep share is within KEEP_SHARE_TOL of 1 - p and every kept value is
@@ -851,7 +929,7 @@ def online_mask_readback(torch, attn, b, l, dn, dt, layout, seed) -> dict:
     ok = (launched == len(windows) and mismatched == 0 and rel <= rel_tol
           and abs(share - (1 - DROP_P)) <= KEEP_SHARE_TOL)
     log(f"  dropout mask     {dn:9s} {layout}  B={b} Lq={l} Lk={l} "
-        f"(online kernel, {launched} launches): {got.numel()} elements, "
+        f"({launched} launches): {got.numel()} elements, "
         f"{mismatched} differ from the plain hash, keep share {share:.6f} "
         f"(want {1 - DROP_P} +- {KEEP_SHARE_TOL}), kept values within "
         f"{rel:.2e} of 1/(Lk (1-p)) (tol {rel_tol:.1e})  "
@@ -915,12 +993,14 @@ def phase2_dropout(torch, attn):
                                      f"{mismatched} differ, share {share}")
             del q, k, v, out, got, want
 
-    # at Lk 140 (NLVR's fusion input: the online kernels, two key tiles and
-    # two query tiles)
+    # at Lk 140 (NLVR's fusion input: bf16 one exact 160-key tile, fp32 the
+    # online kernel; two query tiles) and at Lk 300 (the bf16 kernel's
+    # online softmax over 256-key tiles)
     for dn, dt in dtypes.items():
         for layout in ("bhld", "blhd"):
-            online_mask_readback(torch, attn, NLVR_BATCHES[1], NLVR_L, dn,
-                                 dt, layout, new_seed())
+            for b, l in ((NLVR_BATCHES[1], NLVR_L), (8, 300)):
+                online_mask_readback(torch, attn, b, l, dn, dt, layout,
+                                     new_seed())
 
     def inputs(l, dt, layout, b=TRAIN_B, nlvr=False):
         x = [torch.randn(b, l, H, D, device=DEVICE, generator=gen)
@@ -1487,7 +1567,7 @@ def phase6_pretraining(torch, attn, layers_mod, ModelConfig):
 # (bench.py:99-105's Flickr30k test geometry)
 CLI_IMAGES, CLI_CAPS, CLI_REGIONS, CLI_TAGS = 1000, 5, 50, 50
 CLI_VOCAB, CLI_WORDS_PER_CAP, CLI_PHRASES = 30522, 90, 1000
-CLI_MEM_STEPS, CLI_STEPS, CLI_TIMED_FROM = 13, 26, 6   # CLI steps 6-26 timed
+CLI_MEM_STEPS, CLI_STEPS, CLI_TIMED_FROM = 13, 21, 6   # CLI steps 6-21 timed
 CLI_MEM_TIMED_FROM = 4
 CLI_ARGS = ["--max_seq_length", "70", "--max_phrases", "5",   # LA 75
             "--max_tag_length", "20", "--max_img_seq_length", "50",
@@ -1724,7 +1804,7 @@ def phase7_cli(torch, attn, sweep_pairs_per_s=None):
         worker_ms = mean([m["worker_ms"] for m in timed])
         h2d_ms = mean([m.get("h2d_ms", float("nan")) for m in timed])
         # from seeded weights every caption and image starts with the same
-        # [CLS], whose symmetry 26 steps do not break on real-format data:
+        # [CLS], whose symmetry 21 steps do not break on real-format data:
         # the losses fall from their start to chance, ln B + ln 2, and stay
         # there (phase 5's batch, random ids at every position, learns)
         chance = math.log(TRAIN_B) + math.log(2)
@@ -2306,7 +2386,7 @@ def check_losses(hist, steps, what):
 
 def phase9_vqa(torch, attn, layers_mod, paths, root):
     """(a) VQA: kernel path against plain path on the first real batch,
-    13 steps in memory, 26 through the CLI, the CLI's eval and test output
+    13 steps in memory, 21 through the CLI, the CLI's eval and test output
     against the model's forward in memory, and the kl -> bce and dropout
     schedules."""
     import dataclasses
@@ -2915,7 +2995,7 @@ def nlvr_lengths(half):
 
 def phase10_nlvr(torch, attn, layers_mod, paths, root):
     """(A) NLVR2: kernel path against plain path on the first real batch,
-    the first batch 13 times in memory, 26 steps through the CLI, the CLI's
+    the first batch 13 times in memory, 21 steps through the CLI, the CLI's
     eval against the model's forward in memory."""
     import dataclasses
     import gc
@@ -3656,8 +3736,8 @@ def phase10(torch, attn, layers_mod, parts=("nlvr", "serve")):
 # ---------------------------------------------------------------------------
 
 # the pretraining geometry (LA 75 = 70 text + 5 phrase slots, T 20, R 50) as
-# one sequence: 145 keys, past the 128-key tile (17 rows and keys in the
-# second tiles), so every layer runs on the online kernels
+# one sequence: 145 keys (bf16: one 160-key tile; fp32: past its 128-key
+# tile, 17 rows and keys in the second tiles, the online kernel)
 SS_LA, SS_T, SS_R = 75, 20, 50
 SS_L = SS_LA + SS_T + SS_R
 SS_CLS_B = 64                        # the classifier's batch
@@ -3843,7 +3923,7 @@ def region_checks(run, idx, epoch, batch, max_tag_length):
 
 def phase11_visual_learning(torch, attn, layers_mod, paths, root):
     """(b) `--visual_learning`: the first batch's masks and targets, one
-    dropout-0 step kernel path against plain path, 13 steps in memory and 26
+    dropout-0 step kernel path against plain path, 13 steps in memory and 21
     through the CLI and its process loader."""
     import dataclasses
     import gc
@@ -4468,7 +4548,7 @@ def phase12_real_step(torch, attn, layers_mod, cfg, batch):
 
 def phase12_cli(torch, attn, layers_mod, paths, root):
     """(b) and (c): the first real batch's step kernel path against plain
-    path; 13 batches in memory, then 26 steps through the captioning CLI
+    path; 13 batches in memory, then 21 steps through the captioning CLI
     and its process loader (4 forked workers), each launching the dropout
     kernel 12 times, all at Lk 105, and the plain attention never. Returns
     the numbers and the CLI's checkpoint."""
@@ -6594,7 +6674,7 @@ P16_IMAGES = 100                     # the runbook's eval root, CLI_CAPS caption
 P16_SHIFT = 30.0                     # points added to one expected metric
 P16_SHIFTED = "fine_t2i_retrieval_R@5"
 P16_EVAL_TIMEOUT_S = 300             # each runbook eval subprocess
-P16_INGEST = dict(gb=2.0, chunks=4, workers=4, steps=40)   # B TRAIN_B
+P16_INGEST = dict(gb=1.2, chunks=4, workers=4, steps=40)   # B TRAIN_B
 # the eval's one shape the earlier phases do not time: the image encoder's
 # batch of all P16_IMAGES images (its text batch and its rerank batches are
 # phase 3's B 500 L 75 and B 1000 L 125)
@@ -6790,6 +6870,123 @@ def phase16(torch, attn, demand=None, demand_from="none given"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# --kernels: every row of PERF.md's kernel table, the kernel alone
+# ---------------------------------------------------------------------------
+
+# (name, B or N, Lq, Lk, dtype, dropout, mask): the shapes of PERF.md's
+# kernel table. Masks: "key" padded keys (random lengths from L / 2),
+# "nlvr" / "single" the NLVR2 and single-stream key masks, "seq2seq" the
+# captioning training mask, "recompute" the recompute forward's (CBS,
+# SCST), "step" the cached decode step's per-query mask.
+KERNEL_TABLE = tuple(row for group in (
+    (("rerank", 1000, 125, 125, dn, 0.0, "key") for dn in ("bfloat16", "float32")),
+    ((name, 500, l, l, dn, 0.0, "key") for dn in ("bfloat16", "float32")
+     for name, l in (("text", 75), ("vision", 70))),
+    ((f"training {name}", TRAIN_B, l, l, dn, p, "key")
+     for dn in ("bfloat16", "float32") for p in (0.0, DROP_P)
+     for name, l in LENGTHS.items()),
+    ((f"gpipe {name}", TRAIN_B // 4, l, l, "float32", 0.0, "key")
+     for name, l in (("text", 75), ("vision", 70), ("fused", 125))),
+    ((f"fine-tuning {name}", b, l, l, "bfloat16", p, "key")
+     for name, l in (("fused", 90), ("text", 40), ("vision", 70))
+     for b in (64, 32) for p in (DROP_P, 0.0)),
+    (("runbook vision", 100, 70, 70, "bfloat16", 0.0, "key"),),
+    (("nlvr fused", b, NLVR_L, NLVR_L, "bfloat16", p, "nlvr")
+     for b in NLVR_BATCHES for p in (DROP_P, 0.0)),
+    (("nlvr fused", b, NLVR_L, NLVR_L, "float32", 0.0, "nlvr")
+     for b in NLVR_BATCHES),
+    ((f"serving {name}", 16, l, l, "bfloat16", 0.0, "key")
+     for name, l in (("fused", 85), ("text", 35), ("vision", 70))),
+    (("single", TRAIN_B, SS_L, SS_L, "bfloat16", p, "single")
+     for p in (DROP_P, 0.0)),
+    (("single", TRAIN_B, SS_L, SS_L, "float32", 0.0, "single"),),
+    (("caption", CAP_B, CAP_L, CAP_L, "bfloat16", p, "seq2seq")
+     for p in (DROP_P, 0.0)),
+    (("caption", CAP_B, CAP_L, CAP_L, "float32", 0.0, "seq2seq"),),
+    (("cached decode", n, 2, CAP_DEC_L + 2, "bfloat16", 0.0, "step")
+     for n in (CAP_IMAGES, CAP_IMAGES * CAP_BEAMS)),
+    (("cached decode", CAP_IMAGES, 1, CAP_DEC_L + 1, "bfloat16", 0.0, "step"),),
+    (("recompute", CAP_IMAGES, CAP_DEC_L, CAP_DEC_L, "bfloat16", 0.0,
+      "recompute"),),
+    ((name, n, CAP_DEC_L, CAP_DEC_L, dn, 0.0, "recompute")
+     for name, n in (("cbs", 384), ("scst copies", 160))
+     for dn in ("bfloat16", "float32")),
+) for row in group)
+
+
+def kernel_table(torch, attn):
+    """Each row of KERNEL_TABLE on its own seeded inputs ([B, L, H, D], as
+    the models call it): the max abs error against the plain version (fails
+    past TOL), the kernel's ms, the plain version's, SDPA's with the same
+    mask and dropout, and the bound; for bf16 the kernel's plan (its tiles,
+    key tile and heads a tile, and the most tiles a resident block walks).
+    Rows are keyed "{name} B {b} Lq {lq} Lk {lk} {dtype} p {p}"."""
+    import torch.nn.functional as F
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    slots = (torch.cuda.get_device_properties(0).multi_processor_count
+             * attn.kernel_blocks_per_sm(torch.bfloat16, D))
+    rows = {}
+    for i, (name, b, lq, lk, dn, p, kind) in enumerate(KERNEL_TABLE):
+        gen = torch.Generator(device=DEVICE).manual_seed(1700 + i)
+        dt = dtypes[dn]
+        q = torch.randn(b, lq, H, D, device=DEVICE, generator=gen).to(dt)
+        k, v = (torch.randn(b, lk, H, D, device=DEVICE, generator=gen).to(dt)
+                for _ in range(2))
+        if kind == "nlvr":
+            bias = attn.mask_to_bias(nlvr_key_mask(torch, gen, b))
+        elif kind == "single":
+            bias = attn.mask_to_bias(single_stream_key_mask(torch, gen, b))
+        elif kind == "key":
+            lens = torch.randint(lk // 2, lk + 1, (b,), device=DEVICE,
+                                 generator=gen)
+            bias = attn.mask_to_bias((torch.arange(lk, device=DEVICE)[None]
+                                      < lens[:, None]).to(torch.int32))
+        else:
+            bias = caption_bias(torch, attn, gen, kind, b, lq)
+        seed = (torch.randint(-2 ** 63, 2 ** 63 - 1, (1,), dtype=torch.int64,
+                              device=DEVICE, generator=gen) if p else None)
+        got = attn.masked_attention(q, k, v, bias, layout="blhd", dropout_p=p,
+                                    seed=seed)
+        want = attn.plain_attention_blhd(q, k, v, bias, p, seed)
+        err = (got.float() - want.float()).abs().max().item()
+        key = f"{name} B {b} Lq {lq} Lk {lk} {dn} p {p:g}"
+        if not (err <= TOL[dn] and bool(torch.isfinite(got.float()).all())):
+            raise AssertionError(f"kernel vs plain at {key}: {err}")
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        mask_lib = bias.to(dt)
+        bound, by = attention_bound_ms(b, lq, lk, dn, bias)
+        row = dict(
+            max_abs_err=err, bound_ms=bound, bound_by=by,
+            ms=cuda_ms(lambda: attn.masked_attention(
+                q, k, v, bias, layout="blhd", dropout_p=p, seed=seed)),
+            plain_ms=cuda_ms(lambda: attn.plain_attention_blhd(
+                q, k, v, bias, p, seed), iters=5),
+            sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask_lib, dropout_p=p)))
+        row["share_of_bound"] = bound / row["ms"]
+        plan = ""
+        if dn == "bfloat16":
+            # the kernel's own plan for this launch: its tiles over the
+            # resident blocks (a block walks a contiguous range of tiles)
+            row.update(attn.kernel_plan(
+                lq, lk, H, D, bias.expand(b, H, lq, lk).stride()[:3], b=b))
+            grid = min(row["tiles"], slots)
+            row["tiles_a_block"] = -(-row["tiles"] // grid)
+            plan = (f"  tiles {row['tiles']} (key tile {row['key_tile']}, "
+                    f"{row['heads']} head(s) a tile) over {grid} blocks: "
+                    f"up to {row['tiles_a_block']} a block")
+        rows[key] = row
+        log(f"  {key:52s} kernel {row['ms']:.4f} ms  plain "
+            f"{row['plain_ms']:.4f}  sdpa {row['sdpa_ms']:.4f}  bound "
+            f"{bound:.4f} ({by}, {row['share_of_bound']:.0%})  kernel/sdpa "
+            f"{row['ms'] / row['sdpa_ms']:.3f}  max|err| {err:.2e}{plan}")
+        del q, k, v, bias, got, want, qh, kh, vh, mask_lib
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv) -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -6834,6 +7031,10 @@ def main(argv) -> int:
     parser.add_argument("--device_demand_ex_s", type=float, default=None,
                         help="phase 16 B's device demand in examples/s when "
                              "phase 8 does not run in this invocation")
+    parser.add_argument("--kernels", action="store_true",
+                        help="run phase 1, then every row of PERF.md's "
+                             "kernel table alone (kernel, plain, SDPA, "
+                             "bound)")
     parser.add_argument("--serve_clients", nargs=3,
                         metavar=("URL", "JOBS", "OUT"),
                         help="the client process of phase 10 B, which the "
@@ -6869,6 +7070,33 @@ def main(argv) -> int:
     _kernels.library()
     log(f"  built {os.path.relpath(lib_path, root)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    if args.kernels:
+        log(f"phase 1: the kernels' report, package at {root}")
+        build = phase1_kernel_report(torch, attn, _kernels, lib_path)
+        log("the kernel table, each row alone")
+        rows = kernel_table(torch, attn)
+        entries = []
+        for dn, what, source in (
+                ("bfloat16", "masked_attention_fwd", KERNEL_SOURCE_BF16),
+                ("float32", "masked_attention_fwd fp32 (3xTF32)", KERNEL_SOURCE)):
+            main = rows[f"rerank B 1000 Lq 125 Lk 125 {dn} p 0"]
+            entries.append({
+                "name": what, "route": "cuda", "source": source,
+                # no main path runs here: its launch counts come from the
+                # whole script (phase 3) or --sweep
+                "replaces": REPLACES, "launches": None,
+                "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "library_ms": main["sdpa_ms"],
+                "rows": {k: v for k, v in rows.items() if dn in k}})
+        entries[0]["build"] = build
+        log(f"  total {time.perf_counter() - t_all:.1f} s")
+        print(json.dumps({"kernels": entries, "card": card,
+                          "package": root}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.sweep:
         log(f"phase 3 alone: two-stage retrieval scoring, {args.sweep}, "
             f"package at {root}")
@@ -7041,7 +7269,8 @@ def main(argv) -> int:
     torch.cuda.synchronize()
 
     main_t = timings[("fused", "bfloat16")]
-    main_err = errors[("fused 2-D padded keys", 1000, "bfloat16", "blhd")]
+    main_err = errors[("fused 2-D padded keys", 1000, "bfloat16", "blhd",
+                       "float32", D)]
     train_t = bwd_timings[("fused", "bfloat16")]
     t32 = timings[("fused", "float32")]
     train32 = bwd_timings[("fused", "float32")]
@@ -7049,7 +7278,7 @@ def main(argv) -> int:
     drop32 = drop_timings[("fused", "float32")]
     kernels = {"kernels": [{
         "name": "masked_attention_fwd", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": REPLACES,
+        "source": KERNEL_SOURCE_BF16, "replaces": REPLACES,
         "launches": sweep["launches"], "max_abs_err": main_err,
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
@@ -7106,7 +7335,7 @@ def main(argv) -> int:
         "source": KERNEL_SOURCE, "replaces": REPLACES,
         "launches": sweep32["launches"],
         "max_abs_err": errors[("fused 2-D padded keys", 1000, "float32",
-                               "blhd")],
+                               "blhd", "float32", D)],
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
         "library_ms": t32["library_ms"],

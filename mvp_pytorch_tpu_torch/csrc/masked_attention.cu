@@ -1,18 +1,9 @@
 // masked_attention_fwd: masked multi-head attention forward for Hopper (sm_90a).
 // The kernels, their design and the TPU kernels they replace are in
-// masked_attention.cuh. This unit instantiates the bf16 kernels without
-// dropout and holds the C entry points, which pick the unit by dtype and by
+// masked_attention.cuh (fp32) and masked_attention_wgmma.cuh (bf16). This
+// unit holds the C entry points, which pick the unit by dtype, head dim and
 // whether the launch has a dropout seed.
-#include "masked_attention.cuh"
-
-int masked_attention_fwd_bf16(MASKED_ATTENTION_FWD_ARGS) {
-  return fwd<true, false>(q, k, v, bias, out, dims_ptr, stream_ptr, seed,
-                           drop_threshold, drop_scale);
-}
-
-int masked_attention_blocks_per_sm_bf16(int bias_dtype, int d, int* blocks) {
-  return occupancy<true>(bias_dtype, d, blocks);
-}
+#include "masked_attention_wgmma.cuh"
 
 // Plain C entry point, loaded with ctypes.
 //   dims: B, H, Lq, Lk, D, dtype (0 fp32, 1 bf16), bias dtype (0 fp32, 1 bf16;
@@ -27,21 +18,64 @@ extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* dims_ptr, void* stream_ptr,
                                     const void* seed, uint32_t drop_threshold,
                                     float drop_scale) {
-  const int dtype = static_cast<int>(static_cast<const int64_t*>(dims_ptr)[5]);
-  if (dtype == 1)
-    return (seed != nullptr ? masked_attention_fwd_bf16_drop : masked_attention_fwd_bf16)(
-        q, k, v, bias, out, dims_ptr, stream_ptr, seed, drop_threshold, drop_scale);
+  const int64_t* dims = static_cast<const int64_t*>(dims_ptr);
+  const int dtype = static_cast<int>(dims[5]);
+  const bool drop = seed != nullptr;
+  if (dtype == 1) {
+    int (*fn)(MASKED_ATTENTION_FWD_ARGS) = nullptr;
+    switch (dims[4]) {
+      case 32: fn = drop ? masked_attention_fwd_bf16_d32_drop : masked_attention_fwd_bf16_d32; break;
+      case 64: fn = drop ? masked_attention_fwd_bf16_d64_drop : masked_attention_fwd_bf16_d64; break;
+      case 128:
+        fn = drop ? masked_attention_fwd_bf16_d128_drop : masked_attention_fwd_bf16_d128;
+        break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return fn(q, k, v, bias, out, dims_ptr, stream_ptr, seed, drop_threshold, drop_scale);
+  }
   if (dtype == 0)
-    return (seed != nullptr ? masked_attention_fwd_fp32_drop : masked_attention_fwd_fp32)(
+    return (drop ? masked_attention_fwd_fp32_drop : masked_attention_fwd_fp32)(
         q, k, v, bias, out, dims_ptr, stream_ptr, seed, drop_threshold, drop_scale);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Resident blocks per SM of the kernel that masked_attention_fwd launches for
-// (dtype, bias dtype, D), written to *blocks. Returns a CUDA error code.
+// (dtype, bias dtype, D), written to *blocks (bf16: the kernel does not
+// depend on the bias dtype). Returns a CUDA error code.
 extern "C" int masked_attention_blocks_per_sm(int dtype, int bias_dtype, int d,
                                               int* blocks) {
-  if (dtype == 1) return masked_attention_blocks_per_sm_bf16(bias_dtype, d, blocks);
+  if (dtype == 1) {
+    switch (d) {
+      case 32: return masked_attention_blocks_per_sm_bf16_d32(blocks);
+      case 64: return masked_attention_blocks_per_sm_bf16_d64(blocks);
+      case 128: return masked_attention_blocks_per_sm_bf16_d128(blocks);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   if (dtype == 0) return masked_attention_blocks_per_sm_fp32(bias_dtype, d, blocks);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The plan of the bf16 launch that masked_attention_fwd makes for these dims
+// (the bias pointer stands as has_bias): out[0..5] = key-tile width, heads
+// of a tile, tile order (0: query tiles innermost, 1: head tiles innermost),
+// tiles, k/v stages and shared-memory bytes a block. Host only: launches
+// nothing. Returns a CUDA error code.
+extern "C" int masked_attention_plan(const void* dims_ptr, int has_bias, int64_t* out) {
+  const int64_t* dims = static_cast<const int64_t*>(dims_ptr);
+  switch (dims[4]) {
+    case 32: return hopper::plan<32>(dims, has_bias, out);
+    case 64: return hopper::plan<64>(dims, has_bias, out);
+    case 128: return hopper::plan<128>(dims, has_bias, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Host microseconds that the bf16 launch spends encoding its four TMA tensor
+// maps (layout 0: [B, H, L, D], 1: [B, L, H, D]) over `ptr`, a device
+// buffer of the rerank shape's q, averaged over `iters` launches, written to
+// *us. Returns the driver's CUresult (0 on success).
+extern "C" int masked_attention_tma_encode_us(int iters, int layout, const void* ptr,
+                                              float* us) {
+  return hopper::encode_us(iters, layout, ptr, us);
 }

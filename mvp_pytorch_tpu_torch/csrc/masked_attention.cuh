@@ -12,47 +12,14 @@
 // (mvp_pytorch_tpu/ops/attention.py:53-110), mirrored by `plain_attention*`
 // in mvp_pytorch_tpu_torch/ops/attention.py.
 //
-// The entry point picks the kernel by the input type and, for bf16, by Lk.
+// The entry point picks the kernel by the input type:
+//   - bf16: `hopper::masked_attention_wgmma_kernel` (masked_attention_wgmma.cuh,
+//     whose note gives its bound and design): wgmma and TMA, key tiles sized
+//     to Lk, the bias staged in shared memory once for all heads that share it;
+//   - fp32: `tf32::masked_attention_3xtf32_kernel` (Lk <= 128) and
+//     `masked_attention_3xtf32_online_kernel` (Lk > 128), below.
 //
-// bf16: `masked_attention_mma_kernel` (Lk <= 128) and
-// `masked_attention_mma_online_kernel` (Lk > 128), on the tensor cores.
-//   Bound. At the main path's rerank shape (1,000 pairs, fused L = 125,
-//   H = 12, D = 64) q, k, v and out are 4 x 192 MB = 768 MB, about 0.23 ms at
-//   3.35 TB/s, against 48 GFLOP, about 0.05 ms at the bf16 tensor-core peak:
-//   the function is memory-bound, so the design reads q, k, v once, writes
-//   out once, and keeps the next tile's copies in flight while it computes.
-//   - Work: 8 warps per (b, h, tile of 128 queries), each warp owning 16
-//     query rows. Every main-path length (125, 75, 70) fits one tile of
-//     queries and one of keys, so k and v of a (b, h) are read once.
-//   - Staging: q, k and v come in as bf16 through 16-byte `cp.async` copies
-//     into shared memory, rows padded by 16 bytes so that `ldmatrix` is free
-//     of bank conflicts; q and k form one copy group and v a second, so the
-//     scores are computed while v is still in flight.
-//   - Overlap: for Lk <= 128 the block is persistent (as many as fit on the
-//     card, 2 per SM at D 64) and keeps two stages of shared memory: it issues
-//     the next tile's copies before it computes this one. Blocks that each
-//     took one tile were measured slower: the two blocks of an SM load and
-//     compute in step, so copies and arithmetic did not overlap.
-//   - Products: q.k^T and p.v run as `mma.sync.m16n8k16` bf16 with fp32
-//     accumulation; the probabilities stay in registers as the A operand of
-//     p.v, and v is read with `ldmatrix.trans`.
-//   - Scores round to bf16 where the reference rounds them: q.k, times the
-//     bf16 scale, plus the bf16 bias, each a packed bf16x2 operation. The row
-//     max is taken over those, s - m rounds to bf16 as the reference's bf16
-//     subtraction does, and exp and the row sum run in fp32. With one key
-//     tile the softmax is exact over the whole row: the probabilities are
-//     normalised, then rounded to bf16 before p.v, in the reference's order.
-//     With more, the block walks the keys in tiles of 128 with an online
-//     softmax (running max and sum) and normalises after p.v. Keys past Lk
-//     get probability 0; a row whose keys are all masked (bias -10000) comes
-//     out uniform, as in the reference.
-//   - Output: staged through the warp's own q rows in shared memory and
-//     written in 16-byte stores.
-//   The wrapper checks that q, k, v and out are 16-byte aligned and that their
-//   (b, h, l) strides are multiples of 8 elements; the launch checks it again.
-//
-// fp32: `masked_attention_3xtf32_kernel` (Lk <= 128) and
-// `masked_attention_3xtf32_online_kernel` (Lk > 128), on the tensor cores.
+// fp32, on the tensor cores (`mma.sync`; the Hopper redesign is queued).
 //   Precision. One TF32 pass keeps 10 of fp32's 23 fraction bits and misses
 //   the fp32 tolerance (about 9e-4 against 2e-5), so every operand is split
 //   in registers into x = hi + lo, hi = tf32(x), lo = tf32(x - hi), and each
@@ -67,8 +34,8 @@
 //   so their scores are exact, as in the reference.
 //   Bound. At the rerank shape q, k, v and out are 4 x 384 MB, about 0.46 ms
 //   at 3.35 TB/s, against 3 x 48 GFLOP, about 0.29 ms at the 495 TFLOP/s
-//   TF32 peak: memory-bound on paper, so the design follows the bf16
-//   kernel's. On the card the three `mma.sync` passes and the operand splits,
+//   TF32 peak: memory-bound on paper, so the design follows the Ampere-style
+//   bf16 kernel that came before the Hopper one. On the card the three `mma.sync` passes and the operand splits,
 //   not the copies, set the pace (PERF.md).
 //   - Work: 8 warps per (b, h, tile of 128 queries), each warp owning 16
 //     query rows; one tile of 128 keys for Lk <= 128. Split-key variants
@@ -99,7 +66,7 @@
 //   The wrapper checks that q, k, v and out are 16-byte aligned and that their
 //   (b, h, l) strides are multiples of 4 elements; the launch checks it again.
 //
-// Attention-prob dropout (both dtypes, both kernels of each): the JAX package
+// Attention-prob dropout (every kernel of both dtypes): the JAX package
 // leaves its fused kernel for XLA einsums when it trains with attention
 // dropout (mvp_pytorch_tpu/models/layers.py:129-152); here the kernel carries
 // it. The mask is a counter-based hash of the launch's 64-bit seed, read from
@@ -113,12 +80,13 @@
 // the unrolled key loops: the kDrop = false instantiations are the kernels
 // without dropout. The hash is about a dozen integer operations a score.
 
-// This header holds the kernels and their launches. Four translation units
-// instantiate them, one dtype and dropout setting each, so that nvcc compiles
-// the four in parallel: masked_attention.cu (bf16 without dropout, and the C
-// entry points), masked_attention_bf16_drop.cu, masked_attention_fp32.cu and
-// masked_attention_fp32_drop.cu. Everything here is in an unnamed namespace,
-// so each unit keeps its own copy of what it instantiates.
+// This header holds what both dtypes share (the launch parameters, the
+// dropout hash) and the fp32 kernels with their launches. The translation
+// units, compiled in parallel (one nvcc each): masked_attention.cu (the C
+// entry points), masked_attention_bf16_d{32,64,128}{,_drop}.cu (the bf16
+// kernel for one head dim and dropout setting each), masked_attention_fp32.cu
+// and masked_attention_fp32_drop.cu. Everything here is in an unnamed
+// namespace, so each unit keeps its own copy of what it instantiates.
 
 #pragma once
 
@@ -181,20 +149,12 @@ __device__ __forceinline__ DropMask drop_mask(const Params& p) {
           p.drop_scale};
 }
 
+
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernel
+// cp.async helpers of the fp32 kernels
 // ---------------------------------------------------------------------------
 
-namespace tc {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockM = kWarps * 16;  // 128 queries per block, 16 per warp
-constexpr int kBlockN = 128;          // keys per tile
-constexpr int kPad = 8;               // bf16 of row padding: rows 16 bytes apart in the banks
-
+namespace cpasync {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -213,528 +173,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c += a . b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 fp32
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// rows [0, n_fill) of a [rows, D] tile with row stride `ls` (elements) into
-// shared memory at pitch D + kPad; rows from n_valid on are zero-filled
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int64_t ls,
-                                          int n_valid, int n_fill, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = tid; i < n_fill * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool ok = r < n_valid;
-    cp_async16(smem_u32(s + r * (D + kPad) + c), ok ? g + r * ls + c : g, ok);
-  }
-}
-
-// Shapes of one tile of work, and one stage of shared memory: the q, k and v
-// tiles (row pitch P), then the bf16 bias row of the key tile.
-template <int D>
-struct Tile {
-  static constexpr int P = D + kPad;      // smem row pitch, bf16
-  static constexpr int KD = D / 16;       // k-steps of q.k^T over the head dim
-  static constexpr int ND = D / 8;        // n-tiles of p.v over the head dim
-  static constexpr int NN = kBlockN / 8;  // n-tiles of q.k^T over the key tile
-  static constexpr int kQ = 0;            // offsets in a stage, bf16
-  static constexpr int kK = kBlockM * P;
-  static constexpr int kV = kK + kBlockN * P;
-  static constexpr int kBias = kV + kBlockN * P;
-  static constexpr int kElems = kBias + kBlockN;
-};
-
-template <int D>
-constexpr int smem_bytes(int stages) {
-  return stages * Tile<D>::kElems * 2;
-}
-
-// The loops over the key tile below run over all 128 keys with no branch, so
-// that the compiler can schedule the unrolled body as one block; keys past Lk
-// are zero rows of k and v and a bias of -inf, so they add nothing.
-
-// s = q.k^T for the warp's 16 rows against the key tile: s[j] holds keys
-// 8j .. 8j + 7 in the mma accumulator layout
-template <int D>
-__device__ __forceinline__ void qk_tile(float (&s)[Tile<D>::NN][4], const bf16* qs,
-                                        const bf16* ks, int row0, int lane) {
-  constexpr int P = Tile<D>::P;
-#pragma unroll
-  for (int j = 0; j < Tile<D>::NN; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < Tile<D>::KD; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(smem_u32(qs + (row0 + lane % 8 + 8 * (lane / 8 % 2)) * P
-                     + kk * 16 + 8 * (lane / 16)), a);
-#pragma unroll
-    for (int jj = 0; jj < Tile<D>::NN / 2; ++jj) {  // two 8-key n-tiles at a time
-      uint32_t kb[4];
-      ldsm_x4(smem_u32(ks + (jj * 16 + lane % 8 + 8 * (lane / 16)) * P
-                       + kk * 16 + 8 * (lane / 8 % 2)), kb);
-      mma_bf16(s[2 * jj], a, kb[0], kb[1]);
-      mma_bf16(s[2 * jj + 1], a, kb[2], kb[3]);
-    }
-  }
-}
-
-// The scores as the reference rounds them, two keys to a bf16x2 register:
-// q.k rounded to bf16, times the bf16 scale, plus the bf16 bias; keys past nk
-// -inf. Each bf16x2 operation is correctly rounded, which is what the
-// reference's fp32 operation followed by a rounding to bf16 gives (fp32 holds
-// more than 2 x 8 + 2 bits). sb[j][r] holds keys 8j + 2t, 8j + 2t + 1 of row
-// g + 8r. Returns the row maxima over the tile (finite: key 0 is in range).
-template <typename TB, int D>
-__device__ __forceinline__ void score_tile(const float (&acc)[Tile<D>::NN][4],
-                                           __nv_bfloat162 (&sb)[Tile<D>::NN][2],
-                                           float (&mx)[2], const bf16* bias_s,
-                                           const TB* bias_rows, int64_t row_stride,
-                                           int t, int nk, float scale) {
-  const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale);
-  const __nv_bfloat162 ninf2 = __float2bfloat162_rn(-INFINITY);
-  __nv_bfloat162 mx2[2] = {ninf2, ninf2};
-#pragma unroll
-  for (int j = 0; j < Tile<D>::NN; ++j) {
-    const int col = j * 8 + 2 * t;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      __nv_bfloat162 b2;
-      if (bias_rows != nullptr) {  // per-query bias, read through its strides
-        const TB* row = bias_rows + r * 8 * row_stride;
-        b2 = __floats2bfloat162_rn(col < nk ? to_f(row[col]) : -INFINITY,
-                                   col + 1 < nk ? to_f(row[col + 1]) : -INFINITY);
-      } else {                     // the block's bias row, already bf16
-        b2 = *reinterpret_cast<const __nv_bfloat162*>(bias_s + col);
-      }
-      __nv_bfloat162 x = __floats2bfloat162_rn(acc[j][2 * r], acc[j][2 * r + 1]);
-      x = __hmul2(x, scale2);
-      x = __hadd2(x, b2);
-      sb[j][r] = x;
-      mx2[r] = __hmax2(mx2[r], x);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(__low2float(mx2[r]), __high2float(mx2[r]));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-  }
-}
-
-// p = exp(bf16(s - m)) in fp32 (0 where s is -inf), as the reference
-// subtracts in bf16 and exponentiates in fp32; returns the row sums
-template <int D>
-__device__ __forceinline__ void exp_tile(const __nv_bfloat162 (&sb)[Tile<D>::NN][2],
-                                         float (&p)[Tile<D>::NN][4],
-                                         const float (&m)[2], float (&sum)[2]) {
-  const __nv_bfloat162 m2[2] = {__float2bfloat162_rn(m[0]), __float2bfloat162_rn(m[1])};
-  sum[0] = sum[1] = 0.f;
-#pragma unroll
-  for (int j = 0; j < Tile<D>::NN; ++j) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float2 d = __bfloat1622float2(__hsub2(sb[j][r], m2[r]));
-      const float x0 = __expf(d.x);
-      const float x1 = __expf(d.y);
-      p[j][2 * r] = x0;
-      p[j][2 * r + 1] = x1;
-      sum[r] += x0 + x1;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-  }
-}
-
-// o += p . v over the key tile. p is bf16 in the score
-// accumulator layout (pk[j][r]: keys 8j + 2t, + 1 of row g + 8r), which is the
-// A operand of the mma; v comes through ldmatrix.trans.
-template <int D>
-__device__ __forceinline__ void pv_tile(float (&o)[Tile<D>::ND][4],
-                                        const uint32_t (&pk)[Tile<D>::NN][2],
-                                        const bf16* vs, int lane) {
-  constexpr int P = Tile<D>::P;
-#pragma unroll
-  for (int kk = 0; kk < Tile<D>::NN / 2; ++kk) {  // 16 keys per step
-    const uint32_t a[4] = {pk[2 * kk][0], pk[2 * kk][1], pk[2 * kk + 1][0],
-                           pk[2 * kk + 1][1]};
-#pragma unroll
-    for (int dj = 0; dj < Tile<D>::ND; dj += 2) {
-      uint32_t vb[4];
-      ldsm_x4_trans(smem_u32(vs + (kk * 16 + lane % 8 + 8 * (lane / 8 % 2)) * P
-                             + dj * 8 + 8 * (lane / 16)), vb);
-      mma_bf16(o[dj], a, vb[0], vb[1]);
-      mma_bf16(o[dj + 1], a, vb[2], vb[3]);
-    }
-  }
-}
-
-// The block's share of one (b, h, query tile).
-struct Work {
-  const bf16* q;    // first query row of the tile
-  const bf16* k;
-  const bf16* v;
-  bf16* out;        // first query row of the tile
-  const void* bias; // bias at (b, h), or null
-  int q0, mq;       // first query, queries in the tile
-  int64_t bh;       // b H + h, for the dropout's element index
-};
-
-template <typename TB>
-__device__ __forceinline__ Work work_of(const Params& p, int64_t tile) {
-  const int n_qt = (p.Lq + kBlockM - 1) / kBlockM;
-  const int qt = static_cast<int>(tile % n_qt);
-  const int h = static_cast<int>((tile / n_qt) % p.H);
-  const int b = static_cast<int>(tile / (static_cast<int64_t>(n_qt) * p.H));
-  Work w;
-  w.q0 = qt * kBlockM;
-  w.mq = min(kBlockM, p.Lq - w.q0);
-  w.bh = static_cast<int64_t>(b) * p.H + h;
-  w.q = static_cast<const bf16*>(p.q) + b * p.q_s[0] + h * p.q_s[1] + w.q0 * p.q_s[2];
-  w.k = static_cast<const bf16*>(p.k) + b * p.k_s[0] + h * p.k_s[1];
-  w.v = static_cast<const bf16*>(p.v) + b * p.v_s[0] + h * p.v_s[1];
-  w.out = static_cast<bf16*>(p.out) + b * p.o_s[0] + h * p.o_s[1] + w.q0 * p.o_s[2];
-  w.bias = p.bias == nullptr ? nullptr
-           : static_cast<const TB*>(p.bias) + b * p.b_s[0] + h * p.b_s[1];
-  return w;
-}
-
-// The bias of key k0 + j for every query, before rounding: 0 without a bias,
-// -inf past the tile's nk keys. Only for a bias broadcast over queries.
-template <typename TB>
-__device__ __forceinline__ float bias_at(const Work& w, int k0, int j, int nk) {
-  if (j >= nk) return -INFINITY;
-  return w.bias == nullptr ? 0.f : to_f(static_cast<const TB*>(w.bias)[k0 + j]);
-}
-
-// q.k^T, the scores and their softmax for the warp's 16 rows of one key
-// tile: pk holds the probabilities rounded to bf16 (kExact: normalised over
-// the row; else exp(s - m_new), with m_r, l_r and o rescaled: the online
-// softmax). With kDrop each probability is first multiplied by its dropout
-// factor; m_r and l_r take the undropped ones.
-template <typename TB, int D, bool kExact, bool kDrop>
-__device__ __forceinline__ void softmax_tile(
-    uint32_t (&pk)[Tile<D>::NN][2], float (&o)[Tile<D>::ND][4], float (&m_r)[2],
-    float (&l_r)[2], const bf16* st, const Params& prm, const Work& w, int k0,
-    int nk, int row0, int lane, const DropMask& dm) {
-  constexpr int NN = Tile<D>::NN;
-  const int g = lane / 4, t = lane % 4;
-  // a per-query bias is read through its strides; rows past Lq repeat the last
-  const bool row_bias = w.bias != nullptr && prm.b_s[2] != 0;
-  const TB* rows = nullptr;
-  int64_t row_stride = 0;
-  if (row_bias) {
-    const int qa = min(w.q0 + row0 + g, prm.Lq - 1);
-    rows = static_cast<const TB*>(w.bias) + qa * prm.b_s[2] + k0;
-    row_stride = w.q0 + row0 + g + 8 < prm.Lq ? prm.b_s[2] : 0;
-  }
-  float p[NN][4], mx[2], sum[2];
-  __nv_bfloat162 sb[NN][2];
-  qk_tile<D>(p, st + Tile<D>::kQ, st + Tile<D>::kK, row0, lane);
-  score_tile<TB, D>(p, sb, mx, st + Tile<D>::kBias, rows, row_stride, t, nk,
-                    prm.scale);
-  if (kExact) {
-    exp_tile<D>(sb, p, mx, sum);
-    // normalised before the rounding to bf16, in the reference's order
-    const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
-    if constexpr (kDrop) {
-      uint64_t rb[2];
-      drop_rows(rb, prm, w.bh, w.q0 + row0 + g, k0, t);
-#pragma unroll
-      for (int j = 0; j < NN; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const uint64_t e = rb[r] + 8 * j;
-          pk[j][r] = pack_bf16(p[j][2 * r] * inv[r] * dm.factor(e),
-                               p[j][2 * r + 1] * inv[r] * dm.factor(e + 1));
-        }
-    } else {
-#pragma unroll
-      for (int j = 0; j < NN; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          pk[j][r] = pack_bf16(p[j][2 * r] * inv[r], p[j][2 * r + 1] * inv[r]);
-    }
-  } else {
-    float m_new[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) m_new[r] = fmaxf(m_r[r], mx[r]);
-    exp_tile<D>(sb, p, m_new, sum);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float corr = __expf(m_r[r] - m_new[r]);  // 0 on the first tile
-      l_r[r] = l_r[r] * corr + sum[r];
-      m_r[r] = m_new[r];
-#pragma unroll
-      for (int j = 0; j < Tile<D>::ND; ++j) {
-        o[j][2 * r] *= corr;
-        o[j][2 * r + 1] *= corr;
-      }
-    }
-    if constexpr (kDrop) {
-      uint64_t rb[2];
-      drop_rows(rb, prm, w.bh, w.q0 + row0 + g, k0, t);
-#pragma unroll
-      for (int j = 0; j < NN; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const uint64_t e = rb[r] + 8 * j;
-          pk[j][r] = pack_bf16(p[j][2 * r] * dm.factor(e), p[j][2 * r + 1] * dm.factor(e + 1));
-        }
-    } else {
-#pragma unroll
-      for (int j = 0; j < NN; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) pk[j][r] = pack_bf16(p[j][2 * r], p[j][2 * r + 1]);
-    }
-  }
-}
-
-// the warp's 16 output rows, times f per row, through its own q rows in
-// shared memory, in 16-byte stores; rows from `rows` on are not written
-template <int D>
-__device__ __forceinline__ void store_out(const float (&o)[Tile<D>::ND][4],
-                                          const float (&f)[2], bf16* os, bf16* og,
-                                          int64_t ls, int rows, int lane) {
-  constexpr int P = Tile<D>::P;
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int j = 0; j < Tile<D>::ND; ++j) {
-    *reinterpret_cast<uint32_t*>(os + g * P + j * 8 + 2 * t) =
-        pack_bf16(o[j][0] * f[0], o[j][1] * f[0]);
-    *reinterpret_cast<uint32_t*>(os + (g + 8) * P + j * 8 + 2 * t) =
-        pack_bf16(o[j][2] * f[1], o[j][3] * f[1]);
-  }
-  __syncwarp();
-  constexpr int kChunks = D / 8;
-#pragma unroll
-  for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    if (r < rows)
-      *reinterpret_cast<uint4*>(og + r * ls + c) =
-          *reinterpret_cast<const uint4*>(os + r * P + c);
-  }
-}
-
-// Lk <= 128: one key tile, the exact row softmax. The block is persistent: it
-// takes tiles blockIdx.x, blockIdx.x + gridDim.x, ... and keeps two stages of
-// shared memory, so the copies of the next tile are in flight while it
-// computes this one.
-template <typename TB, int D, bool kDrop>
-__global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
-masked_attention_mma_kernel(Params p) {
-  constexpr int ND = Tile<D>::ND;
-  constexpr int NN = Tile<D>::NN;
-  extern __shared__ float4 smem4[];
-  bf16* smem = reinterpret_cast<bf16*>(smem4);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int row0 = warp * 16;
-  const int nk = p.Lk;
-  const bool bias_row = p.bias == nullptr || p.b_s[2] == 0;  // broadcast over queries
-  const int64_t n_tiles = static_cast<int64_t>((p.Lq + kBlockM - 1) / kBlockM) * p.H * p.B;
-  DropMask dm{};
-  if constexpr (kDrop) dm = drop_mask(p);
-
-  // copies of one tile into a stage: q and k one group, v the next
-  auto issue = [&](const Work& w, bf16* st) {
-    load_tile<D>(st + Tile<D>::kQ, w.q, p.q_s[2], w.mq, (w.mq + 15) / 16 * 16, tid);
-    load_tile<D>(st + Tile<D>::kK, w.k, p.k_s[2], nk, kBlockN, tid);
-    cp_async_commit();
-    load_tile<D>(st + Tile<D>::kV, w.v, p.v_s[2], nk, kBlockN, tid);
-    cp_async_commit();
-  };
-
-  int64_t tile = blockIdx.x;
-  {
-    const Work w = work_of<TB>(p, tile);
-    issue(w, smem);
-    if (bias_row && tid < kBlockN)
-      smem[Tile<D>::kBias + tid] = __float2bfloat16_rn(bias_at<TB>(w, 0, tid, nk));
-  }
-
-  for (int i = 0; tile < n_tiles; ++i, tile += gridDim.x) {
-    bf16* st = smem + (i & 1) * Tile<D>::kElems;
-    bf16* nx = smem + ((i & 1) ^ 1) * Tile<D>::kElems;
-    const int64_t next = tile + gridDim.x;
-    __syncthreads();  // the last tile is done: its stage is free
-    float bias_next = 0.f;  // held in a register while this tile computes
-    if (next < n_tiles) {
-      const Work wn = work_of<TB>(p, next);
-      issue(wn, nx);
-      if (bias_row && tid < kBlockN) bias_next = bias_at<TB>(wn, 0, tid, nk);
-    } else {
-      cp_async_commit();  // empty groups keep the count
-      cp_async_commit();
-    }
-    cp_async_wait<3>();
-    __syncthreads();  // q, k (and the bias row) of this tile are in
-
-    const Work w = work_of<TB>(p, tile);
-    const bool active = row0 < w.mq;  // warp-uniform: the warp has query rows
-    uint32_t pk[NN][2];
-    float o[ND][4];
-    float m_r[2], l_r[2];
-    if (active)
-      softmax_tile<TB, D, true, kDrop>(pk, o, m_r, l_r, st, p, w, 0, nk, row0, lane, dm);
-
-    cp_async_wait<2>();
-    __syncthreads();  // v of this tile is in
-
-    if (active) {
-#pragma unroll
-      for (int j = 0; j < ND; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-      pv_tile<D>(o, pk, st + Tile<D>::kV, lane);
-      const float f[2] = {1.f, 1.f};
-      store_out<D>(o, f, st + Tile<D>::kQ + row0 * Tile<D>::P, w.out + row0 * p.o_s[2],
-                   p.o_s[2], w.mq - row0, lane);
-    }
-    if (bias_row && tid < kBlockN && next < n_tiles)
-      nx[Tile<D>::kBias + tid] = __float2bfloat16_rn(bias_next);
-  }
-}
-
-// Lk > 128: one block per (b, h, query tile) walks the keys in tiles of 128
-// with the online softmax.
-template <typename TB, int D, bool kDrop>
-__global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
-masked_attention_mma_online_kernel(Params p) {
-  constexpr int ND = Tile<D>::ND;
-  constexpr int NN = Tile<D>::NN;
-  extern __shared__ float4 smem4[];
-  bf16* st = reinterpret_cast<bf16*>(smem4);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int row0 = warp * 16;
-  const Work w = work_of<TB>(p, blockIdx.x);
-  const bool active = row0 < w.mq;  // warp-uniform: the warp has query rows
-  const bool bias_row = p.bias == nullptr || p.b_s[2] == 0;
-  DropMask dm{};
-  if constexpr (kDrop) dm = drop_mask(p);
-
-  load_tile<D>(st + Tile<D>::kQ, w.q, p.q_s[2], w.mq, (w.mq + 15) / 16 * 16, tid);
-  float o[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8
-  float l_r[2] = {0.f, 0.f};               // running sum
-
-  for (int k0 = 0; k0 < p.Lk; k0 += kBlockN) {
-    const int nk = min(kBlockN, p.Lk - k0);
-    if (k0 > 0) __syncthreads();  // every warp is done with the last tile
-    load_tile<D>(st + Tile<D>::kK, w.k + k0 * p.k_s[2], p.k_s[2], nk, kBlockN, tid);
-    cp_async_commit();  // group: (q and) k
-    load_tile<D>(st + Tile<D>::kV, w.v + k0 * p.v_s[2], p.v_s[2], nk, kBlockN, tid);
-    cp_async_commit();  // group: v
-    if (bias_row && tid < kBlockN)
-      st[Tile<D>::kBias + tid] = __float2bfloat16_rn(bias_at<TB>(w, k0, tid, nk));
-    cp_async_wait<1>();
-    __syncthreads();  // q, k and the bias row are in
-
-    uint32_t pk[NN][2];
-    if (active)
-      softmax_tile<TB, D, false, kDrop>(pk, o, m_r, l_r, st, p, w, k0, nk, row0, lane, dm);
-
-    cp_async_wait<0>();
-    __syncthreads();  // v is in
-
-    if (active) pv_tile<D>(o, pk, st + Tile<D>::kV, lane);
-  }
-  if (active) {
-    const float f[2] = {1.f / l_r[0], 1.f / l_r[1]};
-    store_out<D>(o, f, st + Tile<D>::kQ + row0 * Tile<D>::P, w.out + row0 * p.o_s[2],
-                 p.o_s[2], w.mq - row0, lane);
-  }
-}
-
-bool aligned16(const void* ptr, const int64_t* strides) {
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
-  for (int i = 0; i < 3; ++i)
-    if (strides[i] % 8 != 0) return false;
-  return true;
-}
-
-// resident blocks per SM of the persistent kernel, after allowing its shared memory
-template <typename TB, int D, bool kDrop = false>
-cudaError_t blocks_per_sm(int* n) {
-  constexpr int bytes = smem_bytes<D>(2);
-  auto kernel = masked_attention_mma_kernel<TB, D, kDrop>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, kernel, kThreads, bytes);
-}
-
-template <typename TB, int D, bool kDrop>
-cudaError_t launch_k(const Params& p, cudaStream_t stream) {
-  if (!aligned16(p.q, p.q_s) || !aligned16(p.k, p.k_s) || !aligned16(p.v, p.v_s)
-      || !aligned16(p.out, p.o_s))
-    return cudaErrorMisalignedAddress;
-  const int64_t n_tiles = static_cast<int64_t>((p.Lq + kBlockM - 1) / kBlockM) * p.H * p.B;
-  if (n_tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  if (p.Lk > kBlockN) {
-    constexpr int bytes = smem_bytes<D>(1);
-    auto kernel = masked_attention_mma_online_kernel<TB, D, kDrop>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<static_cast<unsigned>(n_tiles), kThreads, bytes, stream>>>(p);
-    return cudaGetLastError();
-  }
-  // as many persistent blocks as fit on the card at once, once per device
-  static int resident[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
-    int per_sm = 0, sms = 0;
-    err = blocks_per_sm<TB, D, kDrop>(&per_sm);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    if (per_sm == 0) return cudaErrorInvalidConfiguration;
-    resident[dev] = per_sm * sms;
-  }
-  constexpr int bytes = smem_bytes<D>(2);
-  auto kernel = masked_attention_mma_kernel<TB, D, kDrop>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const int64_t grid = n_tiles < resident[dev] ? n_tiles : resident[dev];
-  kernel<<<static_cast<unsigned>(grid), kThreads, bytes, stream>>>(p);
-  return cudaGetLastError();
-}
-
-}  // namespace tc
+}  // namespace cpasync
 
 // ---------------------------------------------------------------------------
 // fp32: tensor-core kernel, 3xTF32
@@ -812,7 +251,7 @@ __device__ __forceinline__ void load_tile(float* s, const float* g, int64_t ls,
   for (int i = tid; i < n_fill * kChunks; i += kThreads) {
     const int r = i / kChunks, c = (i % kChunks) * 4;
     const bool ok = r < n_valid;
-    tc::cp_async16(tc::smem_u32(s + r * P + c), ok ? g + r * ls + c : g, ok);
+    cpasync::cp_async16(cpasync::smem_u32(s + r * P + c), ok ? g + r * ls + c : g, ok);
   }
 }
 
@@ -1085,11 +524,11 @@ masked_attention_3xtf32_kernel(Params p) {
   auto issue_qk = [&](const Work& w, float* st) {
     load_tile<D, T::PQK>(st + T::kQ, w.q, p.q_s[2], w.mq, (w.mq + 15) / 16 * 16, tid);
     load_tile<D, T::PQK>(st + T::kK, w.k, p.k_s[2], nk, kBlockN, tid);
-    tc::cp_async_commit();
+    cpasync::cp_async_commit();
   };
   auto issue_v = [&](const Work& w, float* st) {
     load_tile<D, T::PV>(st + T::kV, w.v, p.v_s[2], nk, kBlockN, tid);
-    tc::cp_async_commit();
+    cpasync::cp_async_commit();
   };
 
   int64_t tile = blockIdx.x;
@@ -1115,12 +554,12 @@ masked_attention_3xtf32_kernel(Params p) {
         issue_qk(wn, nx);
         issue_v(wn, nx);
       } else {
-        tc::cp_async_commit();  // empty groups keep the count
-        tc::cp_async_commit();
+        cpasync::cp_async_commit();  // empty groups keep the count
+        cpasync::cp_async_commit();
       }
-      tc::cp_async_wait<2>();  // q, k and v of this tile
+      cpasync::cp_async_wait<2>();  // q, k and v of this tile
     } else {
-      tc::cp_async_wait<1>();  // q and k of this tile; v may be in flight
+      cpasync::cp_async_wait<1>();  // q and k of this tile; v may be in flight
     }
     __syncthreads();  // this tile's copies and bias row are in
 
@@ -1134,9 +573,9 @@ masked_attention_3xtf32_kernel(Params p) {
     if constexpr (T::kStages == 1) {
       __syncthreads();  // every warp is done with q, k and the bias row
       if (has_next) issue_qk(work_of<TB>(p, next), st);
-      else tc::cp_async_commit();
+      else cpasync::cp_async_commit();
       if (bias_row && tid < kBlockN && has_next) st[T::kBias + tid] = bias_next;
-      tc::cp_async_wait<1>();
+      cpasync::cp_async_wait<1>();
       __syncthreads();  // v of this tile is in
     }
 
@@ -1152,7 +591,7 @@ masked_attention_3xtf32_kernel(Params p) {
     if constexpr (T::kStages == 1) {
       __syncthreads();  // every warp is done with v
       if (has_next) issue_v(work_of<TB>(p, next), st);
-      else tc::cp_async_commit();
+      else cpasync::cp_async_commit();
     } else {
       if (bias_row && tid < kBlockN && has_next) nx[T::kBias + tid] = bias_next;
     }
@@ -1190,18 +629,18 @@ masked_attention_3xtf32_online_kernel(Params p) {
     const int nk = min(kBlockN, p.Lk - k0);
     if (k0 > 0) __syncthreads();  // every warp is done with the last tile
     load_tile<D, T::PQK>(st + T::kK, w.k + k0 * p.k_s[2], p.k_s[2], nk, kBlockN, tid);
-    tc::cp_async_commit();  // group: (q and) k
+    cpasync::cp_async_commit();  // group: (q and) k
     load_tile<D, T::PV>(st + T::kV, w.v + k0 * p.v_s[2], p.v_s[2], nk, kBlockN, tid);
-    tc::cp_async_commit();  // group: v
+    cpasync::cp_async_commit();  // group: v
     if (bias_row && tid < kBlockN) st[T::kBias + tid] = bias_at<TB>(w, k0, tid, nk);
-    tc::cp_async_wait<1>();
+    cpasync::cp_async_wait<1>();
     __syncthreads();  // q, k and the bias row are in
 
     float s[NN][4];
     if (active)
       softmax_tile<TB, D, false, kDrop>(s, o, m_r, l_r, st, p, w, k0, nk, row0, lane, dm);
 
-    tc::cp_async_wait<0>();
+    cpasync::cp_async_wait<0>();
     __syncthreads();  // v is in
 
     if (active) pv_tile<D>(o, s, st + T::kV, lane);
@@ -1272,53 +711,10 @@ cudaError_t launch_k(const Params& p, cudaStream_t stream) {
 
 }  // namespace tf32
 
-// The launch and the occupancy query share one dispatch on (bias dtype, D),
-// which calls op.run<kBf16, TB, D>().
-template <bool kDrop>
-struct Launch {
-  const Params* p;
-  cudaStream_t stream;
-  template <bool kBf16, typename TB, int D>
-  cudaError_t run() const {
-    if constexpr (kBf16) return tc::launch_k<TB, D, kDrop>(*p, stream);
-    else return tf32::launch_k<TB, D, kDrop>(*p, stream);
-  }
-};
-
-struct Occupancy {
-  int* n;
-  template <bool kBf16, typename TB, int D>
-  cudaError_t run() const {
-    if constexpr (kBf16) return tc::blocks_per_sm<TB, D>(n);
-    else return tf32::blocks_per_sm<TB, D>(n);
-  }
-};
-
-template <bool kBf16, typename TB, typename Op>
-cudaError_t dispatch_d(const Op& op, int d) {
-  switch (d) {
-    case 32: return op.template run<kBf16, TB, 32>();
-    case 64: return op.template run<kBf16, TB, 64>();
-    case 128: return op.template run<kBf16, TB, 128>();
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// bias dtype: 0 fp32, 1 bf16
-template <bool kBf16, typename Op>
-cudaError_t dispatch(const Op& op, int bias_dtype, int d) {
-  if (bias_dtype == 0) return dispatch_d<kBf16, float>(op, d);
-  if (bias_dtype == 1) return dispatch_d<kBf16, __nv_bfloat16>(op, d);
-  return cudaErrorInvalidValue;
-}
-
-// masked_attention_fwd (masked_attention.cu) for one dtype (kBf16) and
-// dropout setting (kDrop: the launch has a seed), with its arguments.
-template <bool kBf16, bool kDrop>
-int fwd(const void* q, const void* k, const void* v, const void* bias, void* out,
-        const void* dims_ptr, void* stream_ptr, const void* seed,
-        uint32_t drop_threshold, float drop_scale) {
-  const int64_t* dims = static_cast<const int64_t*>(dims_ptr);
+// masked_attention_fwd's arguments as Params (dims: see masked_attention.cu)
+inline Params parse_params(const void* q, const void* k, const void* v, const void* bias,
+                           void* out, const int64_t* dims, const void* seed,
+                           uint32_t drop_threshold, float drop_scale) {
   Params p;
   p.q = q;
   p.k = k;
@@ -1329,40 +725,80 @@ int fwd(const void* q, const void* k, const void* v, const void* bias, void* out
   p.H = static_cast<int>(dims[1]);
   p.Lq = static_cast<int>(dims[2]);
   p.Lk = static_cast<int>(dims[3]);
-  const int d = static_cast<int>(dims[4]);
-  const int bias_dtype = bias == nullptr ? 0 : static_cast<int>(dims[6]);
   int64_t* strides[5] = {p.q_s, p.k_s, p.v_s, p.o_s, p.b_s};
   for (int t = 0; t < 5; ++t)
     for (int i = 0; i < 3; ++i) strides[t][i] = dims[7 + 3 * t + i];
-  p.scale = 1.0f / sqrtf(static_cast<float>(d));
+  p.scale = 1.0f / sqrtf(static_cast<float>(dims[4]));
   p.seed = seed;
   p.drop_threshold = drop_threshold;
   p.drop_scale = drop_scale;
-  if (p.B <= 0 || p.H <= 0 || p.Lq <= 0 || p.Lk <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Launch<kDrop> op{&p, static_cast<cudaStream_t>(stream_ptr)};
-  return static_cast<int>(dispatch<kBf16>(op, bias_dtype, d));
+  return p;
 }
 
-// masked_attention_blocks_per_sm for one dtype
-template <bool kBf16>
-int occupancy(int bias_dtype, int d, int* blocks) {
-  const Occupancy op{blocks};
-  return static_cast<int>(dispatch<kBf16>(op, bias_dtype, d));
+// bias dtype: 0 fp32, 1 bf16
+template <typename Op>
+cudaError_t dispatch_fp32(const Op& op, int bias_dtype, int d) {
+  auto by_d = [&](auto tb) -> cudaError_t {
+    using TB = decltype(tb);
+    switch (d) {
+      case 32: return op.template run<TB, 32>();
+      case 64: return op.template run<TB, 64>();
+      case 128: return op.template run<TB, 128>();
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  if (bias_dtype == 0) return by_d(0.f);
+  if (bias_dtype == 1) return by_d(__nv_bfloat16());
+  return cudaErrorInvalidValue;
+}
+
+template <bool kDrop>
+struct LaunchFp32 {
+  const Params* p;
+  cudaStream_t stream;
+  template <typename TB, int D>
+  cudaError_t run() const { return tf32::launch_k<TB, D, kDrop>(*p, stream); }
+};
+
+struct OccupancyFp32 {
+  int* n;
+  template <typename TB, int D>
+  cudaError_t run() const { return tf32::blocks_per_sm<TB, D>(n); }
+};
+
+// masked_attention_fwd (masked_attention.cu) in fp32, for one dropout setting
+// (kDrop: the launch has a seed)
+template <bool kDrop>
+int fwd_fp32(const void* q, const void* k, const void* v, const void* bias, void* out,
+             const void* dims_ptr, void* stream_ptr, const void* seed,
+             uint32_t drop_threshold, float drop_scale) {
+  const int64_t* dims = static_cast<const int64_t*>(dims_ptr);
+  const Params p = parse_params(q, k, v, bias, out, dims, seed, drop_threshold, drop_scale);
+  if (p.B <= 0 || p.H <= 0 || p.Lq <= 0 || p.Lk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bias_dtype = bias == nullptr ? 0 : static_cast<int>(dims[6]);
+  const LaunchFp32<kDrop> op{&p, static_cast<cudaStream_t>(stream_ptr)};
+  return static_cast<int>(dispatch_fp32(op, bias_dtype, static_cast<int>(dims[4])));
 }
 
 }  // namespace
 
-// One launch per dtype and dropout setting, each defined in its own
-// translation unit, with masked_attention_fwd's arguments.
+// One launch per dtype, head dim (bf16) and dropout setting, each defined in
+// its own translation unit, with masked_attention_fwd's arguments.
 #define MASKED_ATTENTION_FWD_ARGS                                              \
   const void *q, const void *k, const void *v, const void *bias, void *out,   \
       const void *dims_ptr, void *stream_ptr, const void *seed,               \
       uint32_t drop_threshold, float drop_scale
-int masked_attention_fwd_bf16(MASKED_ATTENTION_FWD_ARGS);
-int masked_attention_fwd_bf16_drop(MASKED_ATTENTION_FWD_ARGS);
+int masked_attention_fwd_bf16_d32(MASKED_ATTENTION_FWD_ARGS);
+int masked_attention_fwd_bf16_d32_drop(MASKED_ATTENTION_FWD_ARGS);
+int masked_attention_fwd_bf16_d64(MASKED_ATTENTION_FWD_ARGS);
+int masked_attention_fwd_bf16_d64_drop(MASKED_ATTENTION_FWD_ARGS);
+int masked_attention_fwd_bf16_d128(MASKED_ATTENTION_FWD_ARGS);
+int masked_attention_fwd_bf16_d128_drop(MASKED_ATTENTION_FWD_ARGS);
 int masked_attention_fwd_fp32(MASKED_ATTENTION_FWD_ARGS);
 int masked_attention_fwd_fp32_drop(MASKED_ATTENTION_FWD_ARGS);
 // the occupancy of the kernels without dropout, beside them
-int masked_attention_blocks_per_sm_bf16(int bias_dtype, int d, int* blocks);
+int masked_attention_blocks_per_sm_bf16_d32(int* blocks);
+int masked_attention_blocks_per_sm_bf16_d64(int* blocks);
+int masked_attention_blocks_per_sm_bf16_d128(int* blocks);
 int masked_attention_blocks_per_sm_fp32(int bias_dtype, int d, int* blocks);

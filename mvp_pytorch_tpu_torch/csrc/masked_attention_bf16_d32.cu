@@ -1,0 +1,12 @@
+// The bf16 kernels of masked_attention_fwd at D 32, without dropout
+// (masked_attention_wgmma.cuh; the entry points are in masked_attention.cu).
+#include "masked_attention_wgmma.cuh"
+
+int masked_attention_fwd_bf16_d32(MASKED_ATTENTION_FWD_ARGS) {
+  return hopper::fwd<32, false>(q, k, v, bias, out, dims_ptr, stream_ptr, seed,
+                                  drop_threshold, drop_scale);
+}
+
+int masked_attention_blocks_per_sm_bf16_d32(int* blocks) {
+  return hopper::blocks_per_sm<32>(blocks);
+}

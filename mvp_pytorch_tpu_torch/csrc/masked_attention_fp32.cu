@@ -3,10 +3,10 @@
 #include "masked_attention.cuh"
 
 int masked_attention_fwd_fp32(MASKED_ATTENTION_FWD_ARGS) {
-  return fwd<false, false>(q, k, v, bias, out, dims_ptr, stream_ptr, seed,
-                           drop_threshold, drop_scale);
+  return fwd_fp32<false>(q, k, v, bias, out, dims_ptr, stream_ptr, seed, drop_threshold,
+                         drop_scale);
 }
 
 int masked_attention_blocks_per_sm_fp32(int bias_dtype, int d, int* blocks) {
-  return occupancy<false>(bias_dtype, d, blocks);
+  return static_cast<int>(dispatch_fp32(OccupancyFp32{blocks}, bias_dtype, d));
 }

@@ -3,6 +3,6 @@
 #include "masked_attention.cuh"
 
 int masked_attention_fwd_fp32_drop(MASKED_ATTENTION_FWD_ARGS) {
-  return fwd<false, true>(q, k, v, bias, out, dims_ptr, stream_ptr, seed,
-                           drop_threshold, drop_scale);
+  return fwd_fp32<true>(q, k, v, bias, out, dims_ptr, stream_ptr, seed, drop_threshold,
+                        drop_scale);
 }

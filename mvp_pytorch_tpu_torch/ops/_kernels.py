@@ -31,6 +31,8 @@ ENTRY_POINTS = {
     "masked_attention_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_uint32,
                                                      ctypes.c_float],
     "masked_attention_blocks_per_sm": [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "masked_attention_tma_encode_us": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2,
+    "masked_attention_plan": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -118,8 +120,9 @@ def find_cuobjdump() -> str:
 
 
 def sass_mma_counts(lib: str) -> dict:
-    """Tensor-core instructions (HMMA, HGMMA) in each kernel's SASS in the
-    built library, by mangled kernel name, from `cuobjdump --dump-sass`."""
+    """Tensor-core instructions in each kernel's SASS in the built library,
+    by mangled kernel name, from `cuobjdump --dump-sass`: {"HMMA": n (the
+    warp-level `mma.sync`), "HGMMA": n (the warpgroup-level `wgmma`)}."""
     res = subprocess.run([find_cuobjdump(), "--dump-sass", lib],
                          capture_output=True, text=True, check=True)
     counts, name = {}, None
@@ -127,7 +130,9 @@ def sass_mma_counts(lib: str) -> dict:
         line = line.strip()
         if line.startswith("Function :"):
             name = line.split(":", 1)[1].strip()
-            counts[name] = 0
-        elif name is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[name] += 1
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    counts[name][op] += 1
     return counts

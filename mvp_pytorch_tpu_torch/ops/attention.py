@@ -13,9 +13,11 @@ and normalisation run in fp32 before the probabilities are cast to bf16.
 for training. It always goes through `MaskedAttentionFn`, a
 `torch.autograd.Function`. Its forward runs the plain version on a CPU tensor;
 on a CUDA tensor it launches the hand-written kernel `masked_attention_fwd`
-(csrc/masked_attention.cuh, instantiated by the four csrc/*.cu units) or
-raises. Both dtypes run on the tensor cores: bf16 in bf16, fp32 in three
-TF32 passes (3xTF32). Its backward is the JAX package's `_attn_bwd` (git
+(csrc/: bf16 on `wgmma` and TMA, masked_attention_wgmma.cuh; fp32 in three
+TF32 passes (3xTF32), masked_attention.cuh) or raises. The bf16 kernel
+picks its key-tile width, the heads of a tile and the tile order itself
+(`kernel_plan` reads them back).
+Its backward is the JAX package's `_attn_bwd` (git
 8625894^, `mvp_pytorch_tpu/ops/attention.py:200-218`) in plain PyTorch: it
 saves only q, k, v, the bias and the dropout seed, recomputes the
 probabilities in fp32 and launches no kernel.
@@ -216,6 +218,10 @@ def _kernel_attention(q, k, v, bias, layout, dropout_p: float = 0.0,
     if k.shape != (b, h, lk, d) or v.shape != k.shape or lk == 0:
         raise ValueError(f"masked_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    # TMA (bf16) steps every dim of extent > 1 by a nonzero stride
+    if q.dtype == torch.bfloat16:
+        q, k, v = (t.contiguous() if any(s == 0 and n > 1 for s, n in zip(
+            t.stride(), t.shape)) else t for t in (q, k, v))
     # the kernels move rows in 16-byte copies: 8 bf16 or 4 fp32 elements
     per16 = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -232,6 +238,10 @@ def _kernel_attention(q, k, v, bias, layout, dropout_p: float = 0.0,
         if bias.dim() != 4 or bias.shape[-1] != lk:
             raise ValueError(f"masked_attention: bias {tuple(bias.shape)} is "
                              f"not [B, 1|H, 1|Lq, Lk={lk}]")
+        if q.dtype == torch.bfloat16 and bias.dtype == torch.bfloat16:
+            # the bf16 kernel stages an fp32 bias; widening is exact, and the
+            # kernel rounds it to bf16 again, where the reference does
+            bias = bias.float()
         bias = bias.expand(b, h, lq, lk)       # stride 0 on broadcast dims
         if bias.stride(-1) != 1:
             raise ValueError("masked_attention: bias last dim not contiguous")
@@ -260,12 +270,49 @@ def _kernel_attention(q, k, v, bias, layout, dropout_p: float = 0.0,
 def kernel_blocks_per_sm(dtype: torch.dtype, d: int,
                          bias_dtype: torch.dtype = torch.float32) -> int:
     """Resident blocks per SM of the kernel launched for (dtype, D, bias
-    dtype), as the CUDA occupancy calculator gives it on the current card."""
+    dtype), as the CUDA occupancy calculator gives it on the current card
+    (bf16: at a 128-key tile, 64 at D 128)."""
     n = ctypes.c_int(0)
     err = _kernels.library().masked_attention_blocks_per_sm(
         _DTYPE_CODE[dtype], _DTYPE_CODE[bias_dtype], d, ctypes.byref(n))
     _kernels.check(err, "masked_attention_blocks_per_sm")
     return n.value
+
+
+def kernel_plan(lq: int, lk: int, h: int, d: int, bias_strides=None,
+                b: int = 1) -> dict:
+    """The plan the bf16 kernel makes for a launch of B b, H h, Lq, Lk, head
+    dim d and a bias with these (b, h, l) strides (None: no bias), read from
+    the built library (`masked_attention_plan`; host only, launches
+    nothing): key_tile (the smallest instantiated width that holds Lk, else
+    the largest, walked by the online softmax), heads (of a tile: 2 when Lq
+    <= 64), order (1: head tiles innermost, for a per-query bias broadcast
+    over heads), tiles, stages (of k and v in shared memory) and smem_bytes
+    (a block)."""
+    dims = [b, h, lq, lk, d, _DTYPE_CODE[torch.bfloat16], 0] + [0] * 12
+    dims += bias_strides or (0, 0, 0)
+    arr = (ctypes.c_int64 * len(dims))(*dims)
+    out = (ctypes.c_int64 * 6)()
+    err = _kernels.library().masked_attention_plan(
+        ctypes.addressof(arr), int(bias_strides is not None),
+        ctypes.addressof(out))
+    _kernels.check(err, "masked_attention_plan")
+    return dict(zip(("key_tile", "heads", "order", "tiles", "stages",
+                     "smem_bytes"), out))
+
+
+def tma_encode_us(layout: str = "blhd", iters: int = 1000) -> float:
+    """Host microseconds that one bf16 launch spends encoding its three TMA
+    tensor maps (q, k, v of the rerank shape, B 1,000, L 125, H 12, D 64,
+    in `layout`), averaged over `iters` launches."""
+    buf = torch.empty(1000 * 125 * 12 * 64, dtype=torch.bfloat16,
+                      device="cuda")
+    us = ctypes.c_float(0.0)
+    err = _kernels.library().masked_attention_tma_encode_us(
+        iters, int(layout == "blhd"), buf.data_ptr(), ctypes.byref(us))
+    if err != 0:
+        raise RuntimeError(f"cuTensorMapEncodeTiled: CUresult {err}")
+    return us.value
 
 
 def _attention_grads(q, k, v, bias, g, layout, bias_grad: bool,

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from mvp_pytorch_tpu.models.img_bert import make_seq2seq_mask
 from mvp_pytorch_tpu.ops.attention import (mask_to_bias as jax_mask_to_bias,
                                            xla_attention, xla_attention_blhd)
 from mvp_pytorch_tpu_torch.ops.attention import (MASK_VALUE, mask_to_bias,
@@ -34,9 +35,14 @@ def _torch_one_thread():
 
 
 def make_case(kind: str, seed: int = 0, d: int = D, lq: int = 7):
-    """q, k, v in [B, H, L, d] and an fp32 bias, as numpy arrays."""
+    """q, k, v in [B, H, L, d] and an fp32 bias, as numpy arrays. `decode`
+    is the cached decode step's shape (2 queries over more keys, a bias per
+    query); `seq2seq` the captioning model's mask (a causal caption of 3
+    over lq - 3 context keys, padded)."""
     r = np.random.RandomState(seed)
-    lk = lq + 4 if kind == "lk_gt_lq" else lq
+    lk = lq + 4 if kind in ("lk_gt_lq", "decode") else lq
+    if kind == "decode":
+        lq = 2
     q = r.randn(B, H, lq, d).astype(np.float32)
     k = r.randn(B, H, lk, d).astype(np.float32)
     v = r.randn(B, H, lk, d).astype(np.float32)
@@ -45,10 +51,15 @@ def make_case(kind: str, seed: int = 0, d: int = D, lq: int = 7):
         # the -10000 bias an fp32 score keeps 10 fraction bits, so otherwise
         # two correct orders can round a score to neighbouring values there
         q, k = (np.clip(np.round(x * 8) / 8, -4, 4) for x in (q, k))
-    if kind == "mask3d":
+    if kind in ("mask3d", "decode"):
         mask = (r.rand(B, lq, lk) > 0.3).astype(np.int32)
         mask[..., 0] = 1
         return q, k, v, np.array(jax_mask_to_bias(jnp.asarray(mask)))
+    if kind == "seq2seq":
+        ctx = np.ones((B, lq - 3), np.int32)
+        ctx[1, -2:] = 0                      # padded context
+        mask = make_seq2seq_mask(3, jnp.asarray(ctx))
+        return q, k, v, np.array(jax_mask_to_bias(mask))
     mask = np.ones((B, lk), np.int32)
     mask[1, lk - 3:] = 0                     # padded keys
     mask[2, lk - 1:] = 0
@@ -82,7 +93,7 @@ def run_port(q, k, v, bias, layout, dtype):
     return out.float().numpy()
 
 
-KINDS = ["mask2d", "mask3d", "lk_gt_lq", "fully_masked"]
+KINDS = ["mask2d", "mask3d", "lk_gt_lq", "fully_masked", "decode", "seq2seq"]
 
 
 @pytest.mark.parametrize("layout", ["bhld", "blhd"])

@@ -9,7 +9,9 @@ Tests marked `cuda` skip without a card; the wrapper's argument checks and
 the build's missing-compiler error run everywhere.
 """
 
+import ctypes
 import shutil
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -19,21 +21,40 @@ from mvp_pytorch_tpu_torch.models.img_bert import make_seq2seq_mask
 from mvp_pytorch_tpu_torch.ops import _kernels
 from mvp_pytorch_tpu_torch.ops.attention import (MaskedAttentionFn,
                                                  _kernel_attention,
-                                                 dropout_keep, mask_to_bias,
+                                                 dropout_keep, kernel_plan,
+                                                 mask_to_bias,
                                                  masked_attention,
                                                  plain_attention,
                                                  plain_attention_blhd)
 
 B, H = 3, 4
-# kind -> (batch, Lq, Lk). The first five fit one 128-key tile of the
-# kernels (bf16 and fp32 tile alike); the others cross the tiles: keys over
-# two 128-key tiles (online softmax), queries over two 128-query tiles, one
-# batch row, odd lengths (one key past a tile, a single query and key).
+# kind -> (batch, Lq, Lk). The first five fit one 128-key tile of both
+# kernels; the next five cross the fp32 kernel's tiles (keys over two
+# 128-key tiles, its online softmax; queries over two 128-query tiles; one
+# batch row; odd lengths: one key past a tile, a single query and key).
 SHAPES = {"mask2d": (B, 75, 75), "mask3d": (B, 75, 75),
           "lk_gt_lq": (B, 75, 125), "fully_masked": (B, 75, 75),
           "no_bias": (B, 75, 75), "lk_gt_128": (B, 75, 200),
           "lq_gt_128": (B, 160, 160), "batch1": (1, 125, 125),
-          "odd": (B, 17, 129), "single": (B, 1, 1)}
+          "odd": (B, 17, 129), "single": (B, 1, 1),
+          # the bf16 kernel's boundaries: one exact key tile up to 256 keys
+          # and the online softmax past it; 64-query blocks (two heads a tile
+          # up to 64); a per-query bias broadcast over heads ("q_*": staged
+          # once for all heads) and one given per head ("head"), in fp32 and
+          # bf16 ("*_bf16")
+          "q_lk256": (B, 64, 256), "q_lk257": (B, 64, 257),
+          "q_lq64": (B, 64, 92), "q_lq65": (B, 65, 92),
+          "q_lq1": (B, 1, 92), "q_lq2": (B, 2, 92), "q_lq16": (B, 16, 92),
+          "q_lq17": (B, 17, 92), "q_lq2_bf16": (B, 2, 92),
+          "q_lk512": (B, 65, 512), "lk300": (B, 75, 300),
+          "head": (B, 90, 90), "head_lq2": (B, 2, 92), "head_bf16": (B, 90, 90),
+          # the online softmax's rescale across key tiles: the keys past 256
+          # carry +4 of bias on every other query row, so the second tile's
+          # row maxima lie clearly above the first's and the first tile's
+          # weight must fall by about e^-4; without that rescale the output
+          # is about ten times the bf16 tolerance off
+          # (test_shift_case_fails_a_kernel_without_the_rescale)
+          "q_lk512_shift": (B, 65, 512)}
 KINDS = list(SHAPES)
 
 
@@ -51,10 +72,21 @@ def make_case(kind, d, seed=3):
         q, k = (np.clip(np.round(x * 8) / 8, -4, 4) for x in (q, k))
     if kind == "no_bias":
         return q, k, v, None
-    if kind in ("mask3d", "lq_gt_128"):
+    if kind.startswith("head"):
+        mask = (r.rand(b, H, lq, lk) > 0.3).astype(np.float32)
+        mask[..., 0] = 1
+        return q, k, v, (1.0 - mask) * -10000.0
+    if kind in ("mask3d", "lq_gt_128") or kind.startswith("q_"):
         mask = (r.rand(b, lq, lk) > 0.3).astype(np.int32)
         mask[..., 0] = 1
         mask[1, lq // 2] = 0                 # one fully-masked query row
+        if kind == "q_lk512_shift":
+            # on kept keys only: a masked key stays at exactly -10000, so the
+            # fully-masked row stays uniform (next to -10000 an fp32 score
+            # keeps 10 fraction bits, see fully_masked)
+            bias = mask_to_bias(torch.from_numpy(mask)).numpy()
+            bias[:, :, ::2, 256:] += 4.0 * mask[:, None, ::2, 256:]
+            return q, k, v, bias
     else:
         mask = np.ones((b, lk), np.int32)
         if b > 1 and lk > 1:
@@ -65,6 +97,14 @@ def make_case(kind, d, seed=3):
         if kind == "fully_masked":
             mask[0] = 0                      # every key of batch row 0
     return q, k, v, mask_to_bias(torch.from_numpy(mask)).numpy()
+
+
+def bias_tensor(kind, bias, device):
+    """The case's bias on the device, bf16 for the `*_bf16` kinds."""
+    if bias is None:
+        return None
+    tb = torch.from_numpy(bias).to(device)
+    return tb.to(torch.bfloat16) if kind.endswith("_bf16") else tb
 
 
 def _bhld_to(layout, x):
@@ -97,7 +137,7 @@ def test_masked_attention_kernel_matches_plain(cuda, kind, layout, dtype,
     q, k, v, bias = make_case(kind, d)
     args = [torch.from_numpy(_bhld_to(layout, x)).to(cuda, dtype)
             for x in (q, k, v)]
-    tb = None if bias is None else torch.from_numpy(bias).to(cuda)
+    tb = bias_tensor(kind, bias, cuda)
     plain = plain_attention_blhd if layout == "blhd" else plain_attention
     before = masked_attention.launches
     got = masked_attention(*args, tb, layout=layout)
@@ -167,19 +207,23 @@ def card_seed(value):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["bhld", "blhd"])
 @pytest.mark.parametrize("lk,d,off", [(64, 64, 0), (128, 128, 0),
-                                      (200, 64, 0), (200, 64, 128)],
-                         ids=["lk64", "lk128", "lk200-first", "lk200-second"])
+                                      (200, 64, 0), (200, 64, 128),
+                                      (300, 64, 0), (300, 64, 256)],
+                         ids=["lk64", "lk128", "lk200-first", "lk200-second",
+                              "lk300-first", "lk300-online"])
 def test_dropout_mask_reads_back_equal_to_the_plain_hash(cuda, lk, d, off,
                                                          layout, dtype):
     """q = k = 0 gives every key probability 1/Lk; v holds one-hot rows for
     keys off .. off + d, so out[b, h, i, j] > 0 exactly where key off + j of
-    row i is kept. Lk 200 runs the online (two key tiles) kernel, read at
-    both tiles."""
+    row i is kept. Lk 200 is one 256-key tile of the bf16 kernel (the fp32
+    kernel's online path, read at both 128-key tiles); Lk 300 the bf16
+    kernel's online softmax, read in its second key tile."""
     b, lq, p = 3, 75, 0.1
+    n = min(d, lk - off)
     q = torch.zeros(b, H, lq, d, device=cuda, dtype=dtype)
     k = torch.zeros(b, H, lk, d, device=cuda, dtype=dtype)
     v = torch.zeros(b, H, lk, d, device=cuda, dtype=dtype)
-    v[:, :, off + torch.arange(d), torch.arange(d)] = 1
+    v[:, :, off + torch.arange(n), torch.arange(n)] = 1
     if layout == "blhd":
         q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     seed = card_seed(-123456789)
@@ -189,8 +233,8 @@ def test_dropout_mask_reads_back_equal_to_the_plain_hash(cuda, lk, d, off,
     assert masked_attention.dropout_launches == before + 1
     if layout == "blhd":
         out = out.transpose(1, 2)
-    want = dropout_keep(seed, p, (b, H, lq, lk))[..., off:off + d]
-    assert torch.equal(out > 0, want)
+    want = dropout_keep(seed, p, (b, H, lq, lk))[..., off:off + n]
+    assert torch.equal(out[..., :n] > 0, want)
 
 
 @pytest.mark.cuda
@@ -207,7 +251,7 @@ def test_dropout_kernel_matches_plain(cuda, kind, layout, dtype, atol,
     q, k, v, bias = make_case(kind, 64)
     args = [torch.from_numpy(_bhld_to(layout, x)).to(cuda, dtype)
             .requires_grad_() for x in (q, k, v)]
-    tb = None if bias is None else torch.from_numpy(bias).to(cuda)
+    tb = bias_tensor(kind, bias, cuda)
     seed = card_seed(2 ** 40 + 7)
     plain = plain_attention_blhd if layout == "blhd" else plain_attention
     out = masked_attention(*args, tb, layout=layout, dropout_p=0.1, seed=seed)
@@ -225,8 +269,8 @@ def test_dropout_kernel_matches_plain(cuda, kind, layout, dtype, atol,
 
 
 # the single-stream model's sequence at the pretraining geometry: text 75 +
-# tags 20 + regions 50 = 145, past the 128-key tile (17 rows and keys in
-# the second tiles)
+# tags 20 + regions 50 = 145 (bf16: one 160-key tile; fp32: past the
+# 128-key tile, 17 rows and keys in the second tiles)
 SINGLE_STREAM_L = 145
 
 
@@ -259,7 +303,7 @@ def single_stream_case(mask_kind, seed=5):
 @pytest.mark.parametrize("mask_kind", ["mask2d", "mask3d"])
 def test_single_stream_length_matches_plain(cuda, mask_kind, layout, dtype,
                                             atol, grad_atol, p):
-    """Lq = Lk = 145 on the online kernels, with and without dropout: the
+    """Lq = Lk = 145 (the fp32 online kernel), with and without dropout: the
     forward against the plain version on the same seed, the grads against
     fp32 autograd of the plain version."""
     q, k, v, bias = single_stream_case(mask_kind)
@@ -461,3 +505,153 @@ def test_build_without_nvcc_raises():
         pytest.skip("a CUDA toolkit is present")
     with pytest.raises(RuntimeError, match="nvcc"):
         _kernels.build()
+
+
+def _online_without_rescale(q, k, v, bias, key_tile):
+    """softmax(q.k^T / sqrt(d) + bias).v as an online softmax over key
+    tiles that never rescales what earlier tiles accumulated (the fault the
+    `q_lk512_shift` case is there to catch), in float64."""
+    s = q @ k.transpose(0, 1, 3, 2) / np.sqrt(q.shape[-1]) + bias
+    o, l, m = 0.0, 0.0, np.full(s.shape[:-1] + (1,), -np.inf)
+    for t in range(0, s.shape[-1], key_tile):
+        m = np.maximum(m, s[..., t:t + key_tile].max(-1, keepdims=True))
+        e = np.exp(s[..., t:t + key_tile] - m)
+        o = o + e @ v[..., t:t + key_tile, :]
+        l = l + e.sum(-1, keepdims=True)
+    return o / l
+
+
+@pytest.mark.parametrize("d,key_tile", [(32, 256), (64, 256), (128, 64),
+                                        (64, 128)])
+def test_shift_case_fails_a_kernel_without_the_rescale(d, key_tile):
+    """At `q_lk512_shift`, an online softmax without the cross-tile rescale
+    (bf16 key tiles 256, 64 at D 128; the fp32 kernel's 128) is more than
+    five times the bf16 tolerance away from the exact output (0.49-0.63 at
+    these four)."""
+    q, k, v, bias = (x.astype(np.float64) for x in make_case("q_lk512_shift", d))
+    s = q @ k.transpose(0, 1, 3, 2) / np.sqrt(d) + bias
+    p = np.exp(s - s.max(-1, keepdims=True))
+    exact = p / p.sum(-1, keepdims=True) @ v
+    assert np.abs(_online_without_rescale(q, k, v, bias, key_tile)
+                  - exact).max() > 5 * 0.05
+
+
+# The bf16 kernel's plan, which the kernel makes itself from the shape and
+# the bias strides, read back through `masked_attention_plan` (host code of
+# the built library).
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lk,d,want", [
+    (1, 64, 32), (32, 64, 32), (33, 64, 64), (70, 64, 96), (75, 64, 96),
+    (90, 64, 96), (92, 64, 96), (105, 64, 128), (125, 64, 128),
+    (140, 64, 160), (145, 64, 160), (161, 64, 256), (256, 64, 256),
+    (257, 64, 256), (512, 32, 256), (64, 128, 64), (65, 128, 64),
+    (125, 128, 64)])
+def test_kernel_plan_sizes_the_key_tile_to_lk(cuda, lk, d, want):
+    """The smallest instantiated key tile that holds Lk (one exact tile);
+    past the largest, the largest (the online softmax walks it)."""
+    key_tile = kernel_plan(8, lk, 12, d)["key_tile"]
+    assert key_tile == want
+    assert (key_tile >= lk) == (lk <= (64 if d == 128 else 256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,h,want", [(1, 12, 2), (2, 12, 2), (16, 12, 2),
+                                       (17, 12, 2), (64, 12, 2), (65, 12, 1),
+                                       (125, 12, 1), (2, 1, 1)])
+def test_kernel_plan_pairs_heads_when_the_queries_fit_one_block(cuda, lq, h,
+                                                                want):
+    """Two heads a tile (one per warpgroup) up to 64 queries, else one
+    head's 128 rows; a single head never pairs."""
+    assert kernel_plan(lq, 92, h, 64)["heads"] == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strides,want", [
+    (None, 0),                     # no bias
+    ((125, 0, 0), 0),              # key mask [B, 1, 1, L]
+    ((125 * 12, 125, 0), 0),       # key mask per head
+    ((8100, 0, 90), 1),            # seq2seq / decode [B, 1, Lq, Lk]
+    ((0, 0, 90), 1),               # one per-query bias for every batch row
+    ((8100 * 12, 8100, 90), 0)])   # per query and per head
+def test_kernel_plan_orders_heads_innermost_for_a_shared_query_bias(
+        cuda, strides, want):
+    """Heads innermost exactly when the bias is per query and broadcast over
+    heads, so consecutive tiles share one staged bias tile."""
+    assert kernel_plan(90, 90, 12, 64, strides)["order"] == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,want", [
+    (1000, 125, 125, 12000),       # rerank: one head's 128 rows a tile
+    (16, 70, 70, 192),             # serving B 16
+    (250, 2, 92, 1500),            # cached decode: two heads a tile
+    (8, 129, 129, 192)])           # Lq 129: two 128-row query tiles
+def test_kernel_plan_counts_tiles(cuda, b, lq, lk, want):
+    """Tiles: B x ceil(H / heads) x ceil(Lq / (128 / heads))."""
+    plan = kernel_plan(lq, lk, 12, 64, b=b)
+    assert plan["tiles"] == want
+    assert 1 <= plan["stages"] <= 4 and plan["smem_bytes"] <= 232448
+
+
+class _FakeLib:
+    """Stands in for the built library: records what the wrapper passes."""
+
+    def masked_attention_fwd(self, *args):
+        self.dims = list((ctypes.c_int64 * 22).from_address(args[5]))
+        self.ptrs = args[:5]
+        return 0
+
+
+@pytest.mark.parametrize("bias_kind", ["none", "key", "query", "head"])
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+def test_wrapper_passes_the_bias_strides_to_the_kernel(monkeypatch, layout,
+                                                       bias_kind):
+    """`_kernel_attention` ends dims with the expanded bias's (b, h, l)
+    strides, after the strides of q, k, v and out; the kernel picks its plan
+    from them."""
+    fake = _FakeLib()
+    monkeypatch.setattr(_kernels, "library", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    b, h, lq, lk, d = 3, 4, 2, 92, 64
+    shape = (b, h, lq, d) if layout == "bhld" else (b, lq, h, d)
+    kshape = (b, h, lk, d) if layout == "bhld" else (b, lk, h, d)
+    q = torch.zeros(shape, dtype=torch.bfloat16)
+    k = torch.zeros(kshape, dtype=torch.bfloat16)
+    bias = {"none": None, "key": torch.zeros(b, 1, 1, lk),
+            "query": torch.zeros(b, 1, lq, lk),
+            "head": torch.zeros(b, h, lq, lk)}[bias_kind]
+    _kernel_attention(q, k, k, bias, layout)
+    assert fake.dims[:7] == [b, h, lq, lk, d, 1, 0]
+    assert fake.dims[19:] == (
+        [0, 0, 0] if bias is None
+        else list(bias.expand(b, h, lq, lk).stride()[:3]))
+    assert (fake.ptrs[3] is None) == (bias is None)
+
+
+def test_wrapper_materialises_a_broadcast_bf16_operand(monkeypatch):
+    """TMA steps every dim of extent > 1 by a nonzero stride: a k expanded
+    over heads reaches the bf16 kernel as a dense copy."""
+    fake = _FakeLib()
+    monkeypatch.setattr(_kernels, "library", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    q = torch.zeros(2, 4, 5, 64, dtype=torch.bfloat16)
+    k = torch.zeros(2, 1, 5, 64, dtype=torch.bfloat16).expand(2, 4, 5, 64)
+    _kernel_attention(q, k, k, None, "bhld")
+    assert fake.dims[10:13] == [4 * 5 * 64, 5 * 64, 64]   # k's (b, h, l)
+    assert fake.ptrs[1] != k.data_ptr()
+
+
+def test_wrapper_hands_the_bf16_kernel_an_fp32_bias(monkeypatch):
+    """The bf16 kernel stages an fp32 bias: a bf16 one is widened (exactly;
+    the kernel rounds it to bf16 where the reference does)."""
+    fake = _FakeLib()
+    monkeypatch.setattr(_kernels, "library", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    q = torch.zeros(2, 4, 5, 64, dtype=torch.bfloat16)
+    bias = torch.zeros(2, 1, 5, 5, dtype=torch.bfloat16)
+    _kernel_attention(q, q, q, bias, "bhld")
+    assert fake.dims[6] == 0 and fake.ptrs[3] != bias.data_ptr()
