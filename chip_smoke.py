@@ -23,15 +23,16 @@
 Phases, each ended by torch.cuda.synchronize(); any failure raises and the
 script exits non-zero:
 1. print the card (name, power limit) and build the kernels from csrc/
-   (nine translation units, one nvcc each, started together); print each
-   kernel's registers and spills (ptxas), its tensor-core
+   (thirteen translation units, one nvcc each, started together); print
+   each kernel's registers and spills (ptxas), its tensor-core
    instructions (HMMA and HGMMA in the SASS, from cuobjdump), the host
    microseconds that a bf16 launch spends encoding its TMA maps, and the
-   resident blocks per SM; fail unless every bf16 kernel (the wgmma
-   kernel, one per head dim, key-tile width and dropout setting) has HGMMA
-   and no HMMA, no kernel of the mma.sync family it replaced is left, every
-   fp32 (3xTF32) kernel has HMMA, and each dropout instantiation has the
-   counts of its p = 0 twin;
+   resident blocks per SM; fail unless every kernel of both dtypes (the
+   bf16 wgmma kernel and the fp32 TF32 wgmma kernel, one per head dim,
+   key-tile width and dropout setting) has HGMMA and no HMMA, no kernel of
+   the mma.sync families they replaced is left (`tc::`, `tf32::`), no fp32
+   kernel spills at p = 0 and D <= 64 (key tiles up to 160), and each
+   dropout instantiation has the counts of its p = 0 twin;
 2. hold the masked-attention kernel against its plain PyTorch version at the
    main path's shapes (fused L 125, text 75, vision 70; H 12, D 64; B 1,000
    and 8), both dtypes, both layouts, with padded 2-D key masks, 3-D masks,
@@ -448,7 +449,7 @@ DEVICE = "cuda"
 H, D = 12, 64
 LENGTHS = {"fused": 125, "text": 75, "vis": 70}
 MAIN_BATCH = {"fused": 1000, "text": 500, "vis": 500}   # pair / encoder batch
-KERNEL_SOURCE = "mvp_pytorch_tpu_torch/csrc/masked_attention.cuh"       # fp32
+KERNEL_SOURCE = "mvp_pytorch_tpu_torch/csrc/masked_attention_tf32.cuh"  # fp32
 KERNEL_SOURCE_BF16 = "mvp_pytorch_tpu_torch/csrc/masked_attention_wgmma.cuh"
 REPLACES = "mvp_pytorch_tpu/ops/attention.py:114 (git 8625894^; also :169)"
 # NLVR2's fusion input: the text (LA 40 = 35 + 5 phrase slots) and both
@@ -562,15 +563,32 @@ def kernel_key(name: str) -> str:
     return name[3 + digits + int(name[3:3 + digits]):]
 
 
+def kernel_args(name: str):
+    """(D, key tile, kDrop) of a Hopper kernel's mangled name: its template
+    arguments <int, int, bool>."""
+    import re
+    m = re.search(r"ILi(\d+)ELi(\d+)ELb([01])EE", name)
+    return (int(m.group(1)), int(m.group(2)), m.group(3) == "1") if m else None
+
+
+def spill_bytes(lines) -> int:
+    """Spill stores plus loads in a kernel's ptxas lines."""
+    import re
+    return sum(int(n) for line in lines or ()
+               for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
+
+
 def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
     """Registers, tensor-core instructions and resident blocks per SM of
-    every kernel. Fails unless each bf16 kernel
-    (`hopper::masked_attention_wgmma_kernel`) has HGMMA and no HMMA in its
-    SASS, each fp32 (3xTF32) kernel has HMMA (TF32 shows as
-    HMMA.1684.F32.TF32), and each dropout instantiation has the counts of
-    its p = 0 twin (in another translation unit). Kernels are listed by
-    `kernel_key`, so that builds compare line by line. Returns the bf16
-    kernels' report."""
+    every kernel. Fails unless each kernel of both dtypes
+    (`hopper::masked_attention_wgmma_kernel`, bf16, and
+    `hopper::f32::masked_attention_tf32_kernel`, fp32) has HGMMA and no
+    HMMA in its SASS, no kernel of the `mma.sync` families they replaced is
+    left (`masked_attention_mma`, `masked_attention_3xtf32`), no fp32
+    kernel at p = 0 and D <= 64 spills, and each dropout instantiation has
+    the counts of its p = 0 twin (in another translation unit). Kernels are
+    listed by `kernel_key`, so that builds compare line by line. Returns
+    the report of both families (the fp32 kernels' with their spills)."""
     ptxas = {kernel_key(n): v for n, v in ptxas_report(
         os.path.join(kernels_mod.BUILD, "ptxas.log")).items()}
     sass = {kernel_key(n): v
@@ -581,19 +599,23 @@ def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
         log(f"  {name}: {sass.get(name, 'no SASS')}  "
             + "  ".join(ptxas.get(name, ["no ptxas report"])))
     wgmma = [n for n in names if "masked_attention_wgmma" in n]
-    bad = [(n, sass.get(n)) for n in wgmma
-           if n not in sass or sass[n]["HGMMA"] == 0 or sass[n]["HMMA"]]
-    if not wgmma or bad:
-        raise AssertionError(f"bf16 kernels without HGMMA or with HMMA "
-                             f"({len(wgmma)} bf16 kernels): {bad}")
-    families = (("bf16", wgmma, "HGMMA"),
-                ("fp32", [n for n in names if "masked_attention_3xtf32" in n],
-                 "HMMA"))
-    for dn, family, op in families:
-        if not family or any(sass.get(n, {}).get(op, 0) == 0 for n in family):
-            raise AssertionError(
-                f"a {dn} kernel has no {op} in its SASS: "
-                f"{[(n, sass.get(n)) for n in family]}")
+    tf32 = [n for n in names if "masked_attention_tf32_kernel" in n]
+    for dn, family in (("bf16", wgmma), ("fp32", tf32)):
+        bad = [(n, sass.get(n)) for n in family
+               if n not in sass or sass[n]["HGMMA"] == 0 or sass[n]["HMMA"]]
+        if not family or bad:
+            raise AssertionError(f"{dn} kernels without HGMMA or with HMMA "
+                                 f"({len(family)} {dn} kernels): {bad}")
+    old = [n for n in names
+           if "masked_attention_3xtf32" in n or "masked_attention_mma" in n]
+    if old:
+        raise AssertionError(f"mma.sync kernels left in the build: {old}")
+    spills = {n: spill_bytes(ptxas.get(n)) for n in tf32}
+    main = [n for n in tf32 if kernel_args(n) and kernel_args(n)[0] <= 64
+            and not kernel_args(n)[2]]
+    if len(main) != 10 or any(spills[n] for n in main):
+        raise AssertionError(f"fp32 kernels at p 0, D <= 64 that spill: "
+                             f"{[(n, spills[n]) for n in main]}")
     # each dropout instantiation (template argument kDrop = true, "Lb1E" in
     # the mangled name) runs the same products as its p = 0 twin
     drops = [n for n in names if "Lb1EE" in n]
@@ -605,9 +627,11 @@ def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
             raise AssertionError(f"dropout kernel {n} has {sass.get(n)}, its "
                                  f"p = 0 twin {sass.get(twin)}")
     for dn, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        log(f"  resident blocks per SM, {dn}, D {D}, fp32 bias: "
+        log(f"  resident blocks per SM, {dn}, D {D}: "
             f"{attn.kernel_blocks_per_sm(dt, D)}")
     report = {n: dict(sass.get(n, {}), ptxas=ptxas.get(n)) for n in wgmma}
+    report.update({n: dict(sass.get(n, {}), ptxas=ptxas.get(n),
+                           spill_bytes=spills[n]) for n in tf32})
     for layout in ("bhld", "blhd"):
         us = attn.tma_encode_us(layout)
         report[f"tma_encode_us {layout}"] = us
@@ -6919,13 +6943,14 @@ def kernel_table(torch, attn):
     """Each row of KERNEL_TABLE on its own seeded inputs ([B, L, H, D], as
     the models call it): the max abs error against the plain version (fails
     past TOL), the kernel's ms, the plain version's, SDPA's with the same
-    mask and dropout, and the bound; for bf16 the kernel's plan (its tiles,
-    key tile and heads a tile, and the most tiles a resident block walks).
+    mask and dropout, and the bound; the kernel's plan (its tiles, key tile,
+    heads a tile and k/v stages, and the most tiles a resident block walks).
     Rows are keyed "{name} B {b} Lq {lq} Lk {lk} {dtype} p {p}"."""
     import torch.nn.functional as F
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    slots = (torch.cuda.get_device_properties(0).multi_processor_count
-             * attn.kernel_blocks_per_sm(torch.bfloat16, D))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slots = {dn: sms * attn.kernel_blocks_per_sm(dt, D)
+             for dn, dt in dtypes.items()}
     rows = {}
     for i, (name, b, lq, lk, dn, p, kind) in enumerate(KERNEL_TABLE):
         gen = torch.Generator(device=DEVICE).manual_seed(1700 + i)
@@ -6965,17 +6990,16 @@ def kernel_table(torch, attn):
             sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=mask_lib, dropout_p=p)))
         row["share_of_bound"] = bound / row["ms"]
-        plan = ""
-        if dn == "bfloat16":
-            # the kernel's own plan for this launch: its tiles over the
-            # resident blocks (a block walks a contiguous range of tiles)
-            row.update(attn.kernel_plan(
-                lq, lk, H, D, bias.expand(b, H, lq, lk).stride()[:3], b=b))
-            grid = min(row["tiles"], slots)
-            row["tiles_a_block"] = -(-row["tiles"] // grid)
-            plan = (f"  tiles {row['tiles']} (key tile {row['key_tile']}, "
-                    f"{row['heads']} head(s) a tile) over {grid} blocks: "
-                    f"up to {row['tiles_a_block']} a block")
+        # the kernel's own plan for this launch: its tiles over the resident
+        # blocks (a block walks a contiguous range of tiles)
+        row.update(attn.kernel_plan(
+            lq, lk, H, D, bias.expand(b, H, lq, lk).stride()[:3], b=b,
+            dtype=dt))
+        grid = min(row["tiles"], slots[dn])
+        row["tiles_a_block"] = -(-row["tiles"] // grid)
+        plan = (f"  tiles {row['tiles']} (key tile {row['key_tile']}, "
+                f"{row['heads']} head(s) a tile, {row['stages']} stage(s)) "
+                f"over {grid} blocks: up to {row['tiles_a_block']} a block")
         rows[key] = row
         log(f"  {key:52s} kernel {row['ms']:.4f} ms  plain "
             f"{row['plain_ms']:.4f}  sdpa {row['sdpa_ms']:.4f}  bound "
@@ -7078,7 +7102,8 @@ def main(argv) -> int:
         entries = []
         for dn, what, source in (
                 ("bfloat16", "masked_attention_fwd", KERNEL_SOURCE_BF16),
-                ("float32", "masked_attention_fwd fp32 (3xTF32)", KERNEL_SOURCE)):
+                ("float32", "masked_attention_fwd fp32 (TF32 wgmma, 3xTF32)",
+                 KERNEL_SOURCE)):
             main = rows[f"rerank B 1000 Lq 125 Lk 125 {dn} p 0"]
             entries.append({
                 "name": what, "route": "cuda", "source": source,
@@ -7329,9 +7354,10 @@ def main(argv) -> int:
         "captioning": captioning_summary(p12),
         "cbs_scst": cbs_scst_summary(p13),
         "parallel": parallel_summary(p14)}, {
-        # the fp32 kernels (3xTF32) behind the same entry point; launches
-        # and pairs/s from the fp32 sweep of phase 3
-        "name": "masked_attention_fwd fp32 (3xTF32)", "route": "cuda",
+        # the fp32 kernel (TF32 wgmma, 3xTF32) behind the same entry point;
+        # launches and pairs/s from the fp32 sweep of phase 3
+        "name": "masked_attention_fwd fp32 (TF32 wgmma, 3xTF32)",
+        "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES,
         "launches": sweep32["launches"],
         "max_abs_err": errors[("fused 2-D padded keys", 1000, "float32",

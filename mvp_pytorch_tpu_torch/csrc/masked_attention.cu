@@ -1,8 +1,10 @@
 // masked_attention_fwd: masked multi-head attention forward for Hopper (sm_90a).
 // The kernels, their design and the TPU kernels they replace are in
-// masked_attention.cuh (fp32) and masked_attention_wgmma.cuh (bf16). This
-// unit holds the C entry points, which pick the unit by dtype, head dim and
-// whether the launch has a dropout seed.
+// masked_attention.cuh, masked_attention_wgmma.cuh (bf16) and
+// masked_attention_tf32.cuh (fp32). This unit holds the C entry points,
+// which pick the unit by dtype, head dim and whether the launch has a
+// dropout seed.
+#include "masked_attention_tf32.cuh"
 #include "masked_attention_wgmma.cuh"
 
 // Plain C entry point, loaded with ctypes.
@@ -21,29 +23,33 @@ extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
   const int64_t* dims = static_cast<const int64_t*>(dims_ptr);
   const int dtype = static_cast<int>(dims[5]);
   const bool drop = seed != nullptr;
+  int (*fn)(MASKED_ATTENTION_FWD_ARGS) = nullptr;
   if (dtype == 1) {
-    int (*fn)(MASKED_ATTENTION_FWD_ARGS) = nullptr;
     switch (dims[4]) {
       case 32: fn = drop ? masked_attention_fwd_bf16_d32_drop : masked_attention_fwd_bf16_d32; break;
       case 64: fn = drop ? masked_attention_fwd_bf16_d64_drop : masked_attention_fwd_bf16_d64; break;
       case 128:
         fn = drop ? masked_attention_fwd_bf16_d128_drop : masked_attention_fwd_bf16_d128;
         break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
+      default: break;
     }
-    return fn(q, k, v, bias, out, dims_ptr, stream_ptr, seed, drop_threshold, drop_scale);
+  } else if (dtype == 0) {
+    switch (dims[4]) {
+      case 32: fn = drop ? masked_attention_fwd_fp32_d32_drop : masked_attention_fwd_fp32_d32; break;
+      case 64: fn = drop ? masked_attention_fwd_fp32_d64_drop : masked_attention_fwd_fp32_d64; break;
+      case 128:
+        fn = drop ? masked_attention_fwd_fp32_d128_drop : masked_attention_fwd_fp32_d128;
+        break;
+      default: break;
+    }
   }
-  if (dtype == 0)
-    return (drop ? masked_attention_fwd_fp32_drop : masked_attention_fwd_fp32)(
-        q, k, v, bias, out, dims_ptr, stream_ptr, seed, drop_threshold, drop_scale);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(q, k, v, bias, out, dims_ptr, stream_ptr, seed, drop_threshold, drop_scale);
 }
 
 // Resident blocks per SM of the kernel that masked_attention_fwd launches for
-// (dtype, bias dtype, D), written to *blocks (bf16: the kernel does not
-// depend on the bias dtype). Returns a CUDA error code.
-extern "C" int masked_attention_blocks_per_sm(int dtype, int bias_dtype, int d,
-                                              int* blocks) {
+// (dtype, D), written to *blocks. Returns a CUDA error code.
+extern "C" int masked_attention_blocks_per_sm(int dtype, int d, int* blocks) {
   if (dtype == 1) {
     switch (d) {
       case 32: return masked_attention_blocks_per_sm_bf16_d32(blocks);
@@ -52,17 +58,32 @@ extern "C" int masked_attention_blocks_per_sm(int dtype, int bias_dtype, int d,
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  if (dtype == 0) return masked_attention_blocks_per_sm_fp32(bias_dtype, d, blocks);
+  if (dtype == 0) {
+    switch (d) {
+      case 32: return masked_attention_blocks_per_sm_fp32_d32(blocks);
+      case 64: return masked_attention_blocks_per_sm_fp32_d64(blocks);
+      case 128: return masked_attention_blocks_per_sm_fp32_d128(blocks);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The plan of the bf16 launch that masked_attention_fwd makes for these dims
-// (the bias pointer stands as has_bias): out[0..5] = key-tile width, heads
-// of a tile, tile order (0: query tiles innermost, 1: head tiles innermost),
-// tiles, k/v stages and shared-memory bytes a block. Host only: launches
-// nothing. Returns a CUDA error code.
+// The plan of the launch that masked_attention_fwd makes for these dims
+// (dims[5]: 1 bf16, 0 fp32; the bias pointer stands as has_bias):
+// out[0..5] = key-tile width, heads of a tile, tile order (0: query tiles
+// innermost, 1: head tiles innermost), tiles, k/v stages and shared-memory
+// bytes a block. Host only: launches nothing. Returns a CUDA error code.
 extern "C" int masked_attention_plan(const void* dims_ptr, int has_bias, int64_t* out) {
   const int64_t* dims = static_cast<const int64_t*>(dims_ptr);
+  if (dims[5] == 0) {
+    switch (dims[4]) {
+      case 32: return hopper::f32::plan<32>(dims, has_bias, out);
+      case 64: return hopper::f32::plan<64>(dims, has_bias, out);
+      case 128: return hopper::f32::plan<128>(dims, has_bias, out);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (dims[4]) {
     case 32: return hopper::plan<32>(dims, has_bias, out);
     case 64: return hopper::plan<64>(dims, has_bias, out);

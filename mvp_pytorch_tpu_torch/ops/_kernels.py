@@ -30,7 +30,7 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 ENTRY_POINTS = {
     "masked_attention_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_uint32,
                                                      ctypes.c_float],
-    "masked_attention_blocks_per_sm": [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "masked_attention_blocks_per_sm": [ctypes.c_int] * 2 + [ctypes.c_void_p],
     "masked_attention_tma_encode_us": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2,
     "masked_attention_plan": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
 }

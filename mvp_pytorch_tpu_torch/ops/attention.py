@@ -13,10 +13,10 @@ and normalisation run in fp32 before the probabilities are cast to bf16.
 for training. It always goes through `MaskedAttentionFn`, a
 `torch.autograd.Function`. Its forward runs the plain version on a CPU tensor;
 on a CUDA tensor it launches the hand-written kernel `masked_attention_fwd`
-(csrc/: bf16 on `wgmma` and TMA, masked_attention_wgmma.cuh; fp32 in three
-TF32 passes (3xTF32), masked_attention.cuh) or raises. The bf16 kernel
-picks its key-tile width, the heads of a tile and the tile order itself
-(`kernel_plan` reads them back).
+(csrc/, both dtypes on `wgmma` and TMA: bf16 in masked_attention_wgmma.cuh;
+fp32 in three TF32 passes (3xTF32), masked_attention_tf32.cuh) or raises.
+Each kernel picks its key-tile width, the heads of a tile and the tile
+order itself (`kernel_plan` reads them back).
 Its backward is the JAX package's `_attn_bwd` (git
 8625894^, `mvp_pytorch_tpu/ops/attention.py:200-218`) in plain PyTorch: it
 saves only q, k, v, the bias and the dropout seed, recomputes the
@@ -218,10 +218,9 @@ def _kernel_attention(q, k, v, bias, layout, dropout_p: float = 0.0,
     if k.shape != (b, h, lk, d) or v.shape != k.shape or lk == 0:
         raise ValueError(f"masked_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    # TMA (bf16) steps every dim of extent > 1 by a nonzero stride
-    if q.dtype == torch.bfloat16:
-        q, k, v = (t.contiguous() if any(s == 0 and n > 1 for s, n in zip(
-            t.stride(), t.shape)) else t for t in (q, k, v))
+    # TMA steps every dim of extent > 1 by a nonzero stride
+    q, k, v = (t.contiguous() if any(s == 0 and n > 1 for s, n in zip(
+        t.stride(), t.shape)) else t for t in (q, k, v))
     # the kernels move rows in 16-byte copies: 8 bf16 or 4 fp32 elements
     per16 = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -238,9 +237,9 @@ def _kernel_attention(q, k, v, bias, layout, dropout_p: float = 0.0,
         if bias.dim() != 4 or bias.shape[-1] != lk:
             raise ValueError(f"masked_attention: bias {tuple(bias.shape)} is "
                              f"not [B, 1|H, 1|Lq, Lk={lk}]")
-        if q.dtype == torch.bfloat16 and bias.dtype == torch.bfloat16:
-            # the bf16 kernel stages an fp32 bias; widening is exact, and the
-            # kernel rounds it to bf16 again, where the reference does
+        if bias.dtype == torch.bfloat16:
+            # both kernels stage an fp32 bias; widening is exact (the bf16
+            # kernel rounds it to bf16 again, where the reference does)
             bias = bias.float()
         bias = bias.expand(b, h, lq, lk)       # stride 0 on broadcast dims
         if bias.stride(-1) != 1:
@@ -267,29 +266,28 @@ def _kernel_attention(q, k, v, bias, layout, dropout_p: float = 0.0,
     return out
 
 
-def kernel_blocks_per_sm(dtype: torch.dtype, d: int,
-                         bias_dtype: torch.dtype = torch.float32) -> int:
-    """Resident blocks per SM of the kernel launched for (dtype, D, bias
-    dtype), as the CUDA occupancy calculator gives it on the current card
-    (bf16: at a 128-key tile, 64 at D 128)."""
+def kernel_blocks_per_sm(dtype: torch.dtype, d: int) -> int:
+    """Resident blocks per SM of the kernel launched for (dtype, D), as the
+    CUDA occupancy calculator gives it on the current card (at a 128-key
+    tile, 64 at D 128)."""
     n = ctypes.c_int(0)
     err = _kernels.library().masked_attention_blocks_per_sm(
-        _DTYPE_CODE[dtype], _DTYPE_CODE[bias_dtype], d, ctypes.byref(n))
+        _DTYPE_CODE[dtype], d, ctypes.byref(n))
     _kernels.check(err, "masked_attention_blocks_per_sm")
     return n.value
 
 
 def kernel_plan(lq: int, lk: int, h: int, d: int, bias_strides=None,
-                b: int = 1) -> dict:
-    """The plan the bf16 kernel makes for a launch of B b, H h, Lq, Lk, head
-    dim d and a bias with these (b, h, l) strides (None: no bias), read from
-    the built library (`masked_attention_plan`; host only, launches
+                b: int = 1, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The plan the kernel of `dtype` makes for a launch of B b, H h, Lq, Lk,
+    head dim d and a bias with these (b, h, l) strides (None: no bias), read
+    from the built library (`masked_attention_plan`; host only, launches
     nothing): key_tile (the smallest instantiated width that holds Lk, else
-    the largest, walked by the online softmax), heads (of a tile: 2 when Lq
-    <= 64), order (1: head tiles innermost, for a per-query bias broadcast
-    over heads), tiles, stages (of k and v in shared memory) and smem_bytes
-    (a block)."""
-    dims = [b, h, lq, lk, d, _DTYPE_CODE[torch.bfloat16], 0] + [0] * 12
+    the largest, walked by the online softmax; fp32: of those whose plan
+    fits shared memory), heads (of a tile: 2 when Lq <= 64), order (1: head
+    tiles innermost, for a per-query bias broadcast over heads), tiles,
+    stages (of k and v in shared memory) and smem_bytes (a block)."""
+    dims = [b, h, lq, lk, d, _DTYPE_CODE[dtype], 0] + [0] * 12
     dims += bias_strides or (0, 0, 0)
     arr = (ctypes.c_int64 * len(dims))(*dims)
     out = (ctypes.c_int64 * 6)()

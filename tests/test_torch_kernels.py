@@ -28,9 +28,9 @@ from mvp_pytorch_tpu_torch.ops.attention import (MaskedAttentionFn,
                                                  plain_attention_blhd)
 
 B, H = 3, 4
-# kind -> (batch, Lq, Lk). The first five fit one 128-key tile of both
-# kernels; the next five cross the fp32 kernel's tiles (keys over two
-# 128-key tiles, its online softmax; queries over two 128-query tiles; one
+# kind -> (batch, Lq, Lk). The first five fit one key tile of both kernels;
+# the next five cross tiles (keys past the fp32 kernel's 160-key tile, its
+# online softmax over 128-key tiles; queries over two 128-query tiles; one
 # batch row; odd lengths: one key past a tile, a single query and key).
 SHAPES = {"mask2d": (B, 75, 75), "mask3d": (B, 75, 75),
           "lk_gt_lq": (B, 75, 125), "fully_masked": (B, 75, 75),
@@ -216,8 +216,8 @@ def test_dropout_mask_reads_back_equal_to_the_plain_hash(cuda, lk, d, off,
     """q = k = 0 gives every key probability 1/Lk; v holds one-hot rows for
     keys off .. off + d, so out[b, h, i, j] > 0 exactly where key off + j of
     row i is kept. Lk 200 is one 256-key tile of the bf16 kernel (the fp32
-    kernel's online path, read at both 128-key tiles); Lk 300 the bf16
-    kernel's online softmax, read in its second key tile."""
+    kernel's online path, read in both of its 128-key tiles); Lk 300 the
+    bf16 kernel's online softmax, read in its second key tile."""
     b, lq, p = 3, 75, 0.1
     n = min(d, lk - off)
     q = torch.zeros(b, H, lq, d, device=cuda, dtype=dtype)
@@ -303,9 +303,11 @@ def single_stream_case(mask_kind, seed=5):
 @pytest.mark.parametrize("mask_kind", ["mask2d", "mask3d"])
 def test_single_stream_length_matches_plain(cuda, mask_kind, layout, dtype,
                                             atol, grad_atol, p):
-    """Lq = Lk = 145 (the fp32 online kernel), with and without dropout: the
-    forward against the plain version on the same seed, the grads against
-    fp32 autograd of the plain version."""
+    """Lq = Lk = 145 (both kernels: one 160-key tile for a key mask; the fp32
+    kernel's online softmax over 128-key tiles for the 3-D mask, whose
+    160-key bias tile would not fit beside a stage), with and without
+    dropout: the forward against the plain version on the same seed, the
+    grads against fp32 autograd of the plain version."""
     q, k, v, bias = single_stream_case(mask_kind)
     args = [torch.from_numpy(_bhld_to(layout, x)).to(cuda, dtype)
             .requires_grad_() for x in (q, k, v)]
@@ -655,3 +657,120 @@ def test_wrapper_hands_the_bf16_kernel_an_fp32_bias(monkeypatch):
     bias = torch.zeros(2, 1, 5, 5, dtype=torch.bfloat16)
     _kernel_attention(q, q, q, bias, "bhld")
     assert fake.dims[6] == 0 and fake.ptrs[3] != bias.data_ptr()
+
+
+# The fp32 kernel's key tiles (`hopper::f32::choose`): the smallest of 32,
+# 64, 96, 128 and 160 (32, 64 at D 128) that holds Lk and fits shared
+# memory, else the online softmax over the largest up to 128 that fits.
+# Its cases sit on each side of every boundary, for each bias kind, with
+# and without dropout, and with one head (Lq 75) or two (Lq 17) a tile.
+FP32_BOUNDARIES = ([(64, lk) for lk in (32, 33, 64, 65, 96, 97, 128, 129, 160,
+                                        161)]
+                   + [(32, 160), (32, 161), (128, 64), (128, 65)])
+
+
+def fp32_case(d, lq, lk, kind, seed=11):
+    """q, k, v [3, H, lq|lk, d] and an fp32 bias: padded keys ("key"), a
+    per-query mask broadcast over heads with a fully-masked row ("query")
+    or a per-head per-query bias ("head"), as numpy arrays."""
+    r = np.random.RandomState(seed + lk)
+    q, k, v = (r.randn(3, H, n, d).astype(np.float32) for n in (lq, lk, lk))
+    if kind == "key":
+        mask = np.ones((3, lk), np.int32)
+        mask[1, lk - min(30, lk // 2):] = 0
+        mask[2, lk - 1:] = 0
+    elif kind == "query":
+        mask = (r.rand(3, lq, lk) > 0.3).astype(np.int32)
+        mask[..., 0] = 1
+    else:
+        mask = (r.rand(3, H, lq, lk) > 0.3).astype(np.float32)
+        mask[..., 0] = 1
+        return q, k, v, (1.0 - mask) * -10000.0
+    return q, k, v, mask_to_bias(torch.from_numpy(mask)).numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+@pytest.mark.parametrize("kind", ["key", "query", "head"])
+@pytest.mark.parametrize("lq", [75, 17])
+@pytest.mark.parametrize("d,lk", FP32_BOUNDARIES)
+def test_fp32_kernel_at_every_key_tile_boundary(cuda, d, lk, lq, kind, layout,
+                                                p):
+    """The fp32 kernel against the plain version (2e-5) on each side of each
+    key-tile boundary of its plan, and the plan's key tile: one exact tile
+    when it holds Lk, else 128 keys or fewer."""
+    q, k, v, bias = fp32_case(d, lq, lk, kind)
+    args = [torch.from_numpy(_bhld_to(layout, x)).to(cuda) for x in (q, k, v)]
+    tb = torch.from_numpy(bias).to(cuda)
+    seed = card_seed(2 ** 43 + lk) if p else None
+    plain = plain_attention_blhd if layout == "blhd" else plain_attention
+    got = masked_attention(*args, tb, layout=layout, dropout_p=p, seed=seed)
+    want = plain(*args, tb, p, seed)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    plan = kernel_plan(lq, lk, H, d, tb.expand(3, H, lq, lk).stride()[:3],
+                       b=3, dtype=torch.float32)
+    assert plan["key_tile"] >= lk or plan["key_tile"] <= 128
+    assert plan["smem_bytes"] <= 232448 and plan["stages"] >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lk,d,want", [
+    (1, 64, 32), (32, 64, 32), (33, 64, 64), (70, 64, 96), (75, 64, 96),
+    (92, 64, 96), (105, 64, 128), (125, 64, 128), (140, 64, 160),
+    (145, 64, 160), (160, 64, 160), (161, 64, 128), (512, 64, 128),
+    (160, 32, 160), (300, 32, 128), (64, 128, 64), (65, 128, 64),
+    (125, 128, 64)])
+def test_fp32_kernel_plan_sizes_the_key_tile_to_lk(cuda, lk, d, want):
+    """Under a key mask every width fits: the smallest that holds Lk, past
+    160 keys the online softmax over 128 (64 at D 128)."""
+    assert kernel_plan(75, lk, 12, d, (lk, 0, 0), b=8,
+                       dtype=torch.float32)["key_tile"] == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strides,lk,want", [
+    ((140 * 140, 0, 140), 140, 160),      # NLVR-length seq2seq: fits
+    ((145 * 145, 0, 145), 145, 128),      # a 160-key bias tile does not
+    ((90 * 90, 0, 90), 90, 96)])          # CBS, SCST
+def test_fp32_kernel_plan_fits_a_per_query_bias(cuda, strides, lk, want):
+    """A per-query bias broadcast over heads is staged in shared memory
+    beside q, a k/v stage and the split buffer: the widest key tile is the
+    one whose plan fits 227 KB."""
+    plan = kernel_plan(lk, lk, 12, 64, strides, b=8, dtype=torch.float32)
+    assert plan["key_tile"] == want and plan["order"] == 1
+    assert plan["smem_bytes"] <= 232448
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,want", [
+    (1000, 125, 125, 12000),       # rerank: one head's 128 rows a tile
+    (32, 140, 140, 768),           # NLVR B 32: two 128-row query tiles
+    (250, 2, 92, 1500),            # two heads a tile at Lq <= 64
+    (96, 145, 145, 2304)])         # single-stream B 96
+def test_fp32_kernel_plan_counts_tiles(cuda, b, lq, lk, want):
+    """Tiles: B x ceil(H / heads) x ceil(Lq / (128 / heads)), as the bf16
+    kernel's."""
+    plan = kernel_plan(lq, lk, 12, 64, b=b, dtype=torch.float32)
+    assert plan["tiles"] == want
+    assert 1 <= plan["stages"] <= 4 and plan["smem_bytes"] <= 232448
+
+
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+def test_wrapper_materialises_a_broadcast_fp32_operand(monkeypatch, layout):
+    """The fp32 kernel reads q, k and v by TMA too: a k expanded over heads
+    reaches it as a dense copy, and a bf16 bias as an fp32 one."""
+    fake = _FakeLib()
+    monkeypatch.setattr(_kernels, "library", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    q = torch.zeros(2, 4, 5, 64)
+    k = torch.zeros(2, 1, 5, 64).expand(2, 4, 5, 64)
+    if layout == "blhd":
+        q, k = q.transpose(1, 2), k.transpose(1, 2)
+    bias = torch.zeros(2, 1, 5, 5, dtype=torch.bfloat16)
+    _kernel_attention(q, k, k, bias, layout)
+    assert fake.dims[5:7] == [0, 0]                      # fp32 q, fp32 bias
+    assert 0 not in fake.dims[10:13]                     # k's (b, h, l)
+    assert fake.ptrs[1] != k.data_ptr() and fake.ptrs[3] != bias.data_ptr()
