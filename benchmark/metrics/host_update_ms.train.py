@@ -1,0 +1,14 @@
+"""Host ms a step of the trainer's `trainer.update` span: the gradients'
+norm and AdamW's step (the median over the untraced window's steps;
+`host_fwd_ms.train.py`)."""
+
+import os
+
+from benchmark import harness
+
+_fwd = harness.load_module(os.path.join(os.path.dirname(__file__),
+                                        "host_fwd_ms.train.py"))
+
+
+def read(r):
+    return _fwd.span_median(r, "train_step", "trainer.update", 1e-6)

@@ -34,6 +34,7 @@ cpu`:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -49,6 +50,7 @@ from ..ops.attention import masked_attention, plain_attention
 from ..parallel.collectives import (LOCAL, gather_eval_arrays,
                                     process_shard_indices)
 from ..training.loop import batch_on, train_on_batches
+from ..training.profiler import annotate
 from ..utils.logger import setup_logger
 from .common import (INPUT_NAMES, TrainLoop, add_common_args, build_config,
                      check_args, is_main, load_params_or_init,
@@ -72,22 +74,24 @@ def port_names(arrays: Mapping) -> Dict:
 
 
 class _Stages:
-    """Wall time of each stage, closed by a device synchronise."""
+    """Wall time of each stage (`seconds`): `with stages("coarse"):` is a
+    `retrieval.coarse` span, closed after a device synchronise."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.seconds: Dict[str, float] = {}
-        self._t = self._now()
 
     def _now(self) -> float:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
-    def mark(self, name: str) -> None:
-        t = self._now()
-        self.seconds[name] = t - self._t
-        self._t = t
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t0 = self._now()
+        with annotate("retrieval." + name):
+            yield
+            self.seconds[name] = self._now() - t0
 
 
 @torch.inference_mode()
@@ -112,112 +116,115 @@ def two_stage_scoring(model, caps: Mapping, imgs: Mapping, caps_per_img: int,
     number of pairs scored and each stage's seconds."""
     device = model.device
     stages = _Stages(device)
-    caps = batch_on(device, caps, CAPTION_KEYS)
-    imgs = batch_on(device, imgs, IMAGE_KEYS)
-    n_cap = caps["input_ids_a"].shape[0]
-    n_img = imgs["input_ids_b"].shape[0]
-    k_i2t, k_t2i = min(k_i2t, n_cap), min(k_t2i, n_img)
-    if i2t_shortlist is not None:
-        i2t_shortlist = np.asarray(i2t_shortlist, np.int64)
-        # a stale or mismatched shortlist would otherwise index out of range
-        # on the device
-        if (i2t_shortlist.ndim != 2 or i2t_shortlist.shape[0] != n_img
-                or i2t_shortlist.min() < 0 or i2t_shortlist.max() >= n_cap):
-            raise ValueError(
-                f"caption shortlist of shape {i2t_shortlist.shape} with ids "
-                f"{i2t_shortlist.min()}..{i2t_shortlist.max()} does not fit "
-                f"{n_img} images and {n_cap} captions: was it built for this "
-                "split and num_captions_per_img?")
+    with annotate("two_stage_scoring"):
+        with stages("encode_text"):
+            caps = batch_on(device, caps, CAPTION_KEYS)
+            imgs = batch_on(device, imgs, IMAGE_KEYS)
+            n_cap = caps["input_ids_a"].shape[0]
+            n_img = imgs["input_ids_b"].shape[0]
+            k_i2t, k_t2i = min(k_i2t, n_cap), min(k_t2i, n_img)
+            if i2t_shortlist is not None:
+                i2t_shortlist = np.asarray(i2t_shortlist, np.int64)
+                # a stale or mismatched shortlist would otherwise index out
+                # of range on the device
+                if (i2t_shortlist.ndim != 2 or i2t_shortlist.shape[0] != n_img
+                        or i2t_shortlist.min() < 0
+                        or i2t_shortlist.max() >= n_cap):
+                    raise ValueError(
+                        f"caption shortlist of shape {i2t_shortlist.shape} "
+                        f"with ids {i2t_shortlist.min()}.."
+                        f"{i2t_shortlist.max()} does not fit {n_img} images "
+                        f"and {n_cap} captions: was it built for this split "
+                        "and num_captions_per_img?")
+            txt_seq, txt_glob = [], []
+            for i in range(0, n_cap, enc_batch):
+                s, g = model.encode_text_full(
+                    *(caps[k][i:i + enc_batch] for k in CAPTION_KEYS))
+                txt_seq.append(s)
+                txt_glob.append(g)
+            txt_seq, txt_glob = torch.cat(txt_seq), torch.cat(txt_glob)
 
-    txt_seq, txt_glob = [], []
-    for i in range(0, n_cap, enc_batch):
-        s, g = model.encode_text_full(
-            *(caps[k][i:i + enc_batch] for k in CAPTION_KEYS))
-        txt_seq.append(s)
-        txt_glob.append(g)
-    txt_seq, txt_glob = torch.cat(txt_seq), torch.cat(txt_glob)
-    stages.mark("encode_text")
+        with stages("encode_image"):
+            vis, vis_mask, img_glob = [], [], []
+            for i in range(0, n_img, enc_batch):
+                vp, vm, g = model.encode_image_full(
+                    *(imgs[k][i:i + enc_batch] for k in IMAGE_KEYS),
+                    max_tag_length=max_tag_length)
+                vis.append(vp)
+                vis_mask.append(vm)
+                img_glob.append(g)
+            vis, vis_mask = torch.cat(vis), torch.cat(vis_mask)
+            img_glob = torch.cat(img_glob)
 
-    vis, vis_mask, img_glob = [], [], []
-    for i in range(0, n_img, enc_batch):
-        vp, vm, g = model.encode_image_full(
-            *(imgs[k][i:i + enc_batch] for k in IMAGE_KEYS),
-            max_tag_length=max_tag_length)
-        vis.append(vp)
-        vis_mask.append(vm)
-        img_glob.append(g)
-    vis, vis_mask, img_glob = torch.cat(vis), torch.cat(vis_mask), torch.cat(img_glob)
-    stages.mark("encode_image")
+        with stages("coarse"):
+            streaming = bool(coarse_block) and not cross_image \
+                and i2t_shortlist is None
+            sims = None if streaming else img_glob @ txt_glob.T  # [img, cap]
+            if streaming:
+                from ..parallel.sharded_retrieval import sharded_coarse_eval
+                i2t_c, t2i_c, i2t_rank_c, t2i_rank_c = sharded_coarse_eval(
+                    img_glob, txt_glob, caps_per_img, k_i2t, k_t2i,
+                    block=coarse_block)
+                i2t_cands = torch.from_numpy(i2t_c).to(device)
+                t2i_cands = torch.from_numpy(t2i_c).to(device)
+            elif i2t_shortlist is not None:
+                i2t_cands = torch.from_numpy(i2t_shortlist).to(device)
+                k_i2t, k_t2i = i2t_cands.shape[1], 0
+            elif cross_image:
+                i2t_cands = torch.argsort(sims, dim=1, descending=True)
+                k_i2t, k_t2i = n_cap, 0
+            else:
+                i2t_cands = torch.topk(sims, k_i2t, dim=1).indices  # caps
+            if not streaming:
+                t2i_cands = torch.topk(sims.T, k_t2i, dim=1).indices  # imgs
+            cap_idx = torch.cat([i2t_cands.reshape(-1),
+                                 torch.arange(n_cap, device=device)
+                                 .repeat_interleave(k_t2i)])
+            img_idx = torch.cat([torch.arange(n_img, device=device)
+                                 .repeat_interleave(k_i2t),
+                                 t2i_cands.reshape(-1)])
 
-    streaming = bool(coarse_block) and not cross_image \
-        and i2t_shortlist is None
-    sims = None if streaming else img_glob @ txt_glob.T   # [n_img, n_cap]
-    if streaming:
-        from ..parallel.sharded_retrieval import sharded_coarse_eval
-        i2t_c, t2i_c, i2t_rank_c, t2i_rank_c = sharded_coarse_eval(
-            img_glob, txt_glob, caps_per_img, k_i2t, k_t2i,
-            block=coarse_block)
-        i2t_cands = torch.from_numpy(i2t_c).to(device)
-        t2i_cands = torch.from_numpy(t2i_c).to(device)
-    elif i2t_shortlist is not None:
-        i2t_cands = torch.from_numpy(i2t_shortlist).to(device)
-        k_i2t, k_t2i = i2t_cands.shape[1], 0
-    elif cross_image:
-        i2t_cands = torch.argsort(sims, dim=1, descending=True)
-        k_i2t, k_t2i = n_cap, 0
-    else:
-        i2t_cands = torch.topk(sims, k_i2t, dim=1).indices    # caption ids
-    if not streaming:
-        t2i_cands = torch.topk(sims.T, k_t2i, dim=1).indices  # image ids
-    cap_idx = torch.cat([i2t_cands.reshape(-1),
-                         torch.arange(n_cap, device=device)
-                         .repeat_interleave(k_t2i)])
-    img_idx = torch.cat([torch.arange(n_img, device=device)
-                         .repeat_interleave(k_i2t),
-                         t2i_cands.reshape(-1)])
-    stages.mark("coarse")
+        with stages("rerank"):
+            txt_mask = caps["attention_mask_a"]
+            n_pairs = cap_idx.shape[0]
+            n_batches = -(-n_pairs // pair_batch)
+            scores = []
+            # this data rank's pair batches (every batch on one rank)
+            for bi in process_shard_indices(n_batches):
+                i = int(bi) * pair_batch
+                ci, ii = cap_idx[i:i + pair_batch], img_idx[i:i + pair_batch]
+                logits = model.score_cached(txt_seq[ci], txt_mask[ci],
+                                            vis[ii], vis_mask[ii])
+                scores.append(torch.softmax(logits, dim=-1)[:, 1])
 
-    txt_mask = caps["attention_mask_a"]
-    n_pairs = cap_idx.shape[0]
-    n_batches = -(-n_pairs // pair_batch)
-    scores = []
-    # this data rank's pair batches (every batch on one rank)
-    for bi in process_shard_indices(n_batches):
-        i = int(bi) * pair_batch
-        ci, ii = cap_idx[i:i + pair_batch], img_idx[i:i + pair_batch]
-        logits = model.score_cached(txt_seq[ci], txt_mask[ci], vis[ii],
-                                    vis_mask[ii])
-        scores.append(torch.softmax(logits, dim=-1)[:, 1])
-    stages.mark("rerank")
-
-    (scores_np,) = gather_eval_arrays(
-        n_pairs, torch.cat(scores).float().cpu().numpy())
-    i2t_np, t2i_np = i2t_cands.cpu().numpy(), t2i_cands.cpu().numpy()
-    if streaming:
-        coarse = evaluate_ranks(i2t_rank_c, t2i_rank_c)
-    else:
-        coarse = evaluate_ranks(*coarse_ranks(sims.float().cpu().numpy(),
-                                              caps_per_img))
-    i2t_scores = scores_np[:n_img * k_i2t].reshape(n_img, k_i2t)
-    i2t_ranks = mask_shortlist_misses(
-        fine_ranks_i2t(i2t_scores, i2t_np, caps_per_img), k_i2t)
-    if i2t_shortlist is not None:
-        t2i_ranks = None
-    elif cross_image:
-        # scatter the full product back to [n_img, n_cap] order and read the
-        # t2i ranks from its transpose
-        full = np.empty((n_img, n_cap), np.float32)
-        np.put_along_axis(full, i2t_np, i2t_scores, axis=1)
-        t2i_full = np.argsort(-full.T, axis=1)            # [n_cap, n_img]
-        t2i_ranks = mask_shortlist_misses(
-            fine_ranks_t2i(np.take_along_axis(full.T, t2i_full, 1), t2i_full,
-                           caps_per_img), n_img)
-    else:
-        t2i_scores = scores_np[n_img * k_i2t:].reshape(n_cap, k_t2i)
-        t2i_ranks = mask_shortlist_misses(
-            fine_ranks_t2i(t2i_scores, t2i_np, caps_per_img), k_t2i)
-    fine = evaluate_ranks(i2t_ranks, t2i_ranks)
-    stages.mark("ranks")
+        with stages("ranks"):
+            (scores_np,) = gather_eval_arrays(
+                n_pairs, torch.cat(scores).float().cpu().numpy())
+            i2t_np, t2i_np = i2t_cands.cpu().numpy(), t2i_cands.cpu().numpy()
+            if streaming:
+                coarse = evaluate_ranks(i2t_rank_c, t2i_rank_c)
+            else:
+                coarse = evaluate_ranks(*coarse_ranks(
+                    sims.float().cpu().numpy(), caps_per_img))
+            i2t_scores = scores_np[:n_img * k_i2t].reshape(n_img, k_i2t)
+            i2t_ranks = mask_shortlist_misses(
+                fine_ranks_i2t(i2t_scores, i2t_np, caps_per_img), k_i2t)
+            if i2t_shortlist is not None:
+                t2i_ranks = None
+            elif cross_image:
+                # scatter the full product back to [n_img, n_cap] order and
+                # read the t2i ranks from its transpose
+                full = np.empty((n_img, n_cap), np.float32)
+                np.put_along_axis(full, i2t_np, i2t_scores, axis=1)
+                t2i_full = np.argsort(-full.T, axis=1)        # [n_cap, n_img]
+                t2i_ranks = mask_shortlist_misses(
+                    fine_ranks_t2i(np.take_along_axis(full.T, t2i_full, 1),
+                                   t2i_full, caps_per_img), n_img)
+            else:
+                t2i_scores = scores_np[n_img * k_i2t:].reshape(n_cap, k_t2i)
+                t2i_ranks = mask_shortlist_misses(
+                    fine_ranks_t2i(t2i_scores, t2i_np, caps_per_img), k_t2i)
+            fine = evaluate_ranks(i2t_ranks, t2i_ranks)
     return {"coarse": coarse, "fine": fine, "i2t_cands": i2t_np,
             "t2i_cands": t2i_np, "scores": scores_np,
             "n_pairs": int(cap_idx.shape[0]), "seconds": stages.seconds}

@@ -40,7 +40,7 @@ import torch
 from .checkpoint import AsyncSaver, CheckpointManager
 from .metrics import MetricLogger, MetricsWriter
 from .optim import make_optimizer
-from .profiler import StepTimer, annotate, device_memory_gb, device_trace
+from .profiler import StepTimer, device_memory_gb, device_trace
 from .trainer import LossFn, Trainer
 
 # start step -> iterable of (step, batch of tensors on the model's device)
@@ -129,8 +129,8 @@ def run_training(model, loss_fn: LossFn, source: BatchSource, steps: int, *,
     `async_ckpt` writes checkpoints on a background thread
     (`checkpoint.AsyncSaver`; one process only). `profile_dir` traces
     `profile_steps` steps from the first step at or past `profile_start`
-    (0-based), once, on rank 0 (`profiler.device_trace`; each step is an
-    `annotate("train_step")` region). With `preempt_save` a SIGTERM stops
+    (0-based), once, on rank 0 (`profiler.device_trace`; each step is the
+    trainer's `train_step` span). With `preempt_save` a SIGTERM stops
     the run at the next step boundary: it saves a checkpoint there, skips
     `on_checkpoint` and raises `SystemExit(0)`."""
     optimizer = make_optimizer(
@@ -182,8 +182,7 @@ def run_training(model, loss_fn: LossFn, source: BatchSource, steps: int, *,
                 trace.enter_context(device_trace(profile_dir))
                 traced = trainer.step_count
             data_ms = (time.perf_counter() - t_last) * 1e3
-            with annotate("train_step"):
-                metrics = trainer.step(batch)       # ends in a device sync
+            metrics = trainer.step(batch)       # ends in a device sync
             now = time.perf_counter()
             metrics.update(data_ms=data_ms, step_ms=(now - t_end) * 1e3)
             t_end = now

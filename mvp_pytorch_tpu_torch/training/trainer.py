@@ -59,7 +59,7 @@ import torch
 import torch.distributed as dist
 
 from .optim import AdamW, global_norm
-from .profiler import step_memory_gb, tensor_bytes
+from .profiler import annotate, step_memory_gb, tensor_bytes
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
@@ -326,27 +326,30 @@ class Trainer:
         the metrics, the loss and the global norm of the unclipped
         gradients (averaged over the data ranks). The first step's memory
         goes to `step_memory` (`profiler.step_memory_gb`; `{}` on the
-        CPU)."""
-        if self.step_memory is not None:
-            return self._step(batch)
-        held = tensor_bytes([list(self.model.parameters()),
-                             self.optimizer.mu, self.optimizer.nu,
-                             dict(batch)])
-        out, self.step_memory = step_memory_gb(lambda: self._step(batch),
-                                               self.device, held)
-        return out
+        CPU). The step is a `train_step` span, its phases spans inside it
+        (`profiler.annotate`)."""
+        with annotate("train_step"):
+            if self.step_memory is not None:
+                return self._step(batch)
+            held = tensor_bytes([list(self.model.parameters()),
+                                 self.optimizer.mu, self.optimizer.nu,
+                                 dict(batch)])
+            out, self.step_memory = step_memory_gb(
+                lambda: self._step(batch), self.device, held)
+            return out
 
     def _step(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, float]:
-        self.model.train()
-        self.unshard()
-        params = list(self.model.parameters())
-        for p in params:
-            p.grad = None
-        n = self.grad_accum
-        sizes = {v.shape[0] for v in batch.values()}
-        if any(size % n for size in sizes):
-            raise ValueError(f"batch sizes {sorted(sizes)} are not divisible "
-                             f"by grad_accum {n}")
+        with annotate("trainer.prologue"):
+            self.model.train()
+            self.unshard()
+            params = list(self.model.parameters())
+            for p in params:
+                p.grad = None
+            n = self.grad_accum
+            sizes = {v.shape[0] for v in batch.values()}
+            if any(size % n for size in sizes):
+                raise ValueError(f"batch sizes {sorted(sizes)} are not "
+                                 f"divisible by grad_accum {n}")
         loss_sum, metric_sums = 0.0, {}
         for i in range(n):
             # each array gives its own i-th share of rows: a batch may hold
@@ -357,9 +360,12 @@ class Trainer:
             gen = self.generator(self.step_count, i)
             kw = {"step": self.step_count, "global_batch": self.global_batch}
             with self._scope(self.step_count, i):
-                loss, metrics = self.loss_fn(
-                    self.model, mb, gen, **{k: kw[k] for k in self.loss_kw})
-                loss.backward()
+                with annotate("trainer.forward"):
+                    loss, metrics = self.loss_fn(
+                        self.model, mb, gen,
+                        **{k: kw[k] for k in self.loss_kw})
+                with annotate("trainer.backward"):
+                    loss.backward()
             loss_sum = loss_sum + loss.detach()
             for k, v in metrics.items():
                 metric_sums[k] = metric_sums.get(k, 0.0) + v.detach()
@@ -370,29 +376,36 @@ class Trainer:
             loss_sum = loss_sum * (1.0 / n)
             metric_sums = {k: v * (1.0 / n) for k, v in metric_sums.items()}
         if self.mesh is None:
-            gnorm = global_norm(p.grad for p in params if p.grad is not None)
-            self.optimizer.step()
+            with annotate("trainer.update"):
+                gnorm = global_norm(p.grad for p in params
+                                    if p.grad is not None)
+                self.optimizer.step()
         else:
-            grads = self._reduce_grads()
-            opt = self.optimizer
-            live = [g for g in grads if g is not None]
-            gnorm = opt.clip_norm(live, opt.active)
-            opt.step(grads)
-            for p in params:
-                p.grad = None
-            if self.fsdp:
-                self.reshard()
-            else:
-                self._gather_whole()
-            from ..parallel.collectives import all_reduce_metrics
-            metric_sums = all_reduce_metrics(
-                {**{k: torch.as_tensor(v) for k, v in metric_sums.items()},
-                 "__loss": torch.as_tensor(loss_sum)},
-                group=self.mesh.data_group, world=self.mesh.data_size)
-            loss_sum = metric_sums.pop("__loss")
+            with annotate("trainer.collectives"):
+                grads = self._reduce_grads()
+            with annotate("trainer.update"):
+                opt = self.optimizer
+                live = [g for g in grads if g is not None]
+                gnorm = opt.clip_norm(live, opt.active)
+                opt.step(grads)
+                for p in params:
+                    p.grad = None
+            with annotate("trainer.collectives"):
+                if self.fsdp:
+                    self.reshard()
+                else:
+                    self._gather_whole()
+                from ..parallel.collectives import all_reduce_metrics
+                metric_sums = all_reduce_metrics(
+                    {**{k: torch.as_tensor(v)
+                        for k, v in metric_sums.items()},
+                     "__loss": torch.as_tensor(loss_sum)},
+                    group=self.mesh.data_group, world=self.mesh.data_size)
+                loss_sum = metric_sums.pop("__loss")
         self.step_count += 1
-        out = {k: float(v) for k, v in metric_sums.items()}
-        out.update(loss=float(loss_sum), grad_norm=float(gnorm))
+        with annotate("trainer.readback"):
+            out = {k: float(v) for k, v in metric_sums.items()}
+            out.update(loss=float(loss_sum), grad_norm=float(gnorm))
         return out
 
     # -------------------------------------------------------- checkpoints
