@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels         # phase 1, then the kernel table
+    python3 chip_smoke.py --backward        # phase 1, phase 2's backward
     python3 chip_smoke.py --sweep float32   # phase 3 alone, in one dtype
     python3 chip_smoke.py --cli             # phase 7 alone
     python3 chip_smoke.py --pretrain_cli    # phase 8 alone
@@ -47,12 +48,14 @@ script exits non-zero:
    version and, as a yardstick the port never calls,
    F.scaled_dot_product_attention with the same mask, at the main path's
    batches (1,000 pairs fused; 500 text or images). Then the attention
-   backward (`MaskedAttentionFn`: the kernel forward, the recompute backward)
-   at the training shapes (B 96; L 125, 75, 70), both dtypes and layouts,
-   padded key masks with a fully-masked row and a 3-D mask: q, k, v and bias
-   grads against torch autograd through the plain version in fp32 on the
-   same values (fp32 1e-4, bf16 0.05); the forward and the backward timed
-   beside the plain version's and, as a yardstick the port never calls,
+   backward (`MaskedAttentionFn`: the kernel forward, the backward kernel
+   `masked_attention_bwd`, launched once a call) at the training shapes
+   (B 96; L 125, 75, 70), both dtypes and layouts, padded key masks with a
+   fully-masked row and a 3-D mask: q, k, v and bias grads against torch
+   autograd through the plain version in fp32 on the same values (fp32
+   1e-4, bf16 0.05); the backward kernel timed at L 125, 75, 70 and 145,
+   p 0 and 0.1, beside its bound, the plain recompute it replaced, plain
+   autograd and, as a yardstick the port never calls,
    F.scaled_dot_product_attention forward and forward+backward. Then the
    attention-prob dropout (p 0.1) inside the kernel, both dtypes and
    layouts: the kernel's mask read back (q = k = 0, v = I at Lk = D = 64, so
@@ -448,6 +451,7 @@ KEEP_SHARE_TOL = 0.002
 DEVICE = "cuda"
 H, D = 12, 64
 LENGTHS = {"fused": 125, "text": 75, "vis": 70}
+SINGLE_L = 145                       # the single-stream model: 75 + 20 + 50
 MAIN_BATCH = {"fused": 1000, "text": 500, "vis": 500}   # pair / encoder batch
 KERNEL_SOURCE = "mvp_pytorch_tpu_torch/csrc/masked_attention_tf32.cuh"  # fp32
 KERNEL_SOURCE_BF16 = "mvp_pytorch_tpu_torch/csrc/masked_attention_wgmma.cuh"
@@ -582,8 +586,9 @@ def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
     """Registers, tensor-core instructions and resident blocks per SM of
     every kernel. Fails unless each kernel of both dtypes
     (`hopper::masked_attention_wgmma_kernel`, bf16, and
-    `hopper::f32::masked_attention_tf32_kernel`, fp32) has HGMMA and no
-    HMMA in its SASS, no kernel of the `mma.sync` families they replaced is
+    `hopper::f32::masked_attention_tf32_kernel`, fp32) and of the backward
+    (`hopper::bwd::masked_attention_bwd_kernel`) has HGMMA and no HMMA in
+    its SASS, no kernel of the `mma.sync` families they replaced is
     left (`masked_attention_mma`, `masked_attention_3xtf32`), no fp32
     kernel at p = 0 and D <= 64 spills, and each dropout instantiation has
     the counts of its p = 0 twin (in another translation unit). Kernels are
@@ -600,7 +605,8 @@ def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
             + "  ".join(ptxas.get(name, ["no ptxas report"])))
     wgmma = [n for n in names if "masked_attention_wgmma" in n]
     tf32 = [n for n in names if "masked_attention_tf32_kernel" in n]
-    for dn, family in (("bf16", wgmma), ("fp32", tf32)):
+    bwd = [n for n in names if "masked_attention_bwd_kernel" in n]
+    for dn, family in (("bf16", wgmma), ("fp32", tf32), ("backward", bwd)):
         bad = [(n, sass.get(n)) for n in family
                if n not in sass or sass[n]["HGMMA"] == 0 or sass[n]["HMMA"]]
         if not family or bad:
@@ -632,6 +638,9 @@ def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
     report = {n: dict(sass.get(n, {}), ptxas=ptxas.get(n)) for n in wgmma}
     report.update({n: dict(sass.get(n, {}), ptxas=ptxas.get(n),
                            spill_bytes=spills[n]) for n in tf32})
+    report.update({n: dict(sass.get(n, {}), ptxas=ptxas.get(n),
+                           spill_bytes=spill_bytes(ptxas.get(n)))
+                   for n in bwd})
     for layout in ("bhld", "blhd"):
         us = attn.tma_encode_us(layout)
         report[f"tma_encode_us {layout}"] = us
@@ -815,7 +824,13 @@ def phase2_backward(torch, attn):
 
     def inputs(l, dt, layout, mask_kind):
         x = [torch.randn(TRAIN_B, l, H, D, device=DEVICE, generator=gen)
-             .to(dt) for _ in range(4)]              # q, k, v, grad of out
+             for _ in range(4)]                      # q, k, v, grad of out
+        # q and k in multiples of 1/8: q.k is exact in every summation order,
+        # as the fully-masked fp32 row needs (phase2_kernel_vs_plain's qkv):
+        # the kernel sums q.k in another order than the plain version's
+        # matmul, and next to the -10000 bias a score keeps 10 fraction bits
+        x[:2] = [torch.clamp(torch.round(t * 8) / 8, -4, 4) for t in x[:2]]
+        x = [t.to(dt) for t in x]
         if layout == "bhld":
             x = [t.transpose(1, 2).contiguous() for t in x]
         lens = torch.randint(l // 2, l + 1, (TRAIN_B,), device=DEVICE,
@@ -839,6 +854,7 @@ def phase2_backward(torch, attn):
                     (q, k, v, g), bias = inputs(l, dt, layout, mk)
                     leaves = [t.requires_grad_() for t in (q, k, v, bias)]
                     before = attn.masked_attention.launches
+                    before_bwd = attn.masked_attention.backward_launches
                     out = attn.masked_attention(q, k, v, bias, layout=layout)
                     if not isinstance(out.grad_fn,
                                       attn.MaskedAttentionFn._backward_cls):
@@ -852,7 +868,13 @@ def phase2_backward(torch, attn):
                                                g.float())
                     torch.cuda.synchronize()
                     if attn.masked_attention.launches != before + 1:
-                        raise AssertionError("the backward launched a kernel")
+                        raise AssertionError("the backward launched the "
+                                             "forward kernel")
+                    if (attn.masked_attention.backward_launches
+                            != before_bwd + 1):
+                        raise AssertionError(
+                            "the backward did not launch masked_attention_bwd"
+                            " once")
                     err = max((a.float() - b).abs().max().item()
                               for a, b in zip(got, want))
                     finite = all(bool(torch.isfinite(a).all()) for a in got)
@@ -868,46 +890,64 @@ def phase2_backward(torch, attn):
                     del q, k, v, g, bias, leaves, out, got, ref_in, want
 
     timings = {}
-    for name, l in LENGTHS.items():
+    for name, l in {**LENGTHS, "single": SINGLE_L}.items():
         for dn, dt in dtypes.items():
-            (q, k, v, g), bias = inputs(l, dt, "blhd", "key")
-            qkv = [t.requires_grad_() for t in (q, k, v)]
-            out = attn.masked_attention(*qkv, bias, layout="blhd")
-            fwd = cuda_ms(lambda: attn.masked_attention(q, k, v, bias,
-                                                        layout="blhd"))
-            bwd = cuda_ms(lambda: torch.autograd.grad(out, qkv, g,
-                                                      retain_graph=True))
-            plain_fwd = cuda_ms(lambda: attn.plain_attention_blhd(
-                q, k, v, bias), iters=5)
-            p_out = attn.plain_attention_blhd(*qkv, bias)
-            plain_bwd = cuda_ms(lambda: torch.autograd.grad(
-                p_out, qkv, g, retain_graph=True))
-            qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
-                          for t in (q, k, v))
-            mask_lib = bias.to(dt)
-            sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask_lib))
-            gh = g.transpose(1, 2)
-            sdpa_fb = cuda_ms(lambda: torch.autograd.grad(
-                F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask_lib),
-                (qh, kh, vh), gh))
-            bound, by = attention_bwd_bound_ms(TRAIN_B, l, l, dn, bias)
-            fwd_bound, fwd_by = attention_bound_ms(TRAIN_B, l, l, dn, bias)
-            timings[(name, dn)] = dict(
-                fwd_ms=fwd, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
-                plain_fwd_ms=plain_fwd, bwd_ms=bwd, plain_bwd_ms=plain_bwd,
-                sdpa_fwd_ms=sdpa_fwd, sdpa_fwd_bwd_ms=sdpa_fb,
-                bwd_bound_ms=bound, bwd_bound_by=by,
-                grad_err=max(v for k_, v in errs.items()
-                             if k_[:2] == (name, dn)))
-            log(f"  time train {name:5s} B={TRAIN_B} L={l} {dn:9s} blhd: "
-                f"kernel fwd {fwd:.4f} ms (bound {fwd_bound:.4f}, {fwd_by}; "
-                f"kernel/sdpa {fwd / sdpa_fwd:.3f})  "
-                f"plain fwd {plain_fwd:.4f} ms  recompute bwd {bwd:.4f} ms  "
-                f"plain bwd {plain_bwd:.4f} ms  sdpa fwd {sdpa_fwd:.4f} ms  "
-                f"sdpa fwd+bwd {sdpa_fb:.4f} ms  bwd bound {bound:.4f} ms "
-                f"({by})")
-            del q, k, v, g, bias, qkv, out, p_out, qh, kh, vh, gh, mask_lib
+            for p in (0.0, DROP_P):
+                (q, k, v, g), bias = inputs(l, dt, "blhd", "key")
+                seed = (torch.randint(-2 ** 62, 2 ** 62, (1,), device=DEVICE,
+                                      dtype=torch.int64, generator=gen)
+                        if p else None)
+                qkv = [t.requires_grad_() for t in (q, k, v)]
+                out = attn.masked_attention(*qkv, bias, layout="blhd",
+                                            dropout_p=p, seed=seed)
+                fwd = cuda_ms(lambda: attn.masked_attention(
+                    q, k, v, bias, layout="blhd", dropout_p=p, seed=seed))
+                before = attn.masked_attention.backward_launches
+                bwd = cuda_ms(lambda: torch.autograd.grad(out, qkv, g,
+                                                          retain_graph=True))
+                # cuda_ms: 3 warm-up calls and 20 timed ones
+                if attn.masked_attention.backward_launches - before != 23:
+                    raise AssertionError("the timed backward did not launch "
+                                         "masked_attention_bwd once a call")
+                recompute = cuda_ms(lambda: attn._attention_grads(
+                    q, k, v, bias, g, "blhd", False, p, seed), iters=5)
+                plain_fwd = cuda_ms(lambda: attn.plain_attention_blhd(
+                    q, k, v, bias, p, seed), iters=5)
+                p_out = attn.plain_attention_blhd(*qkv, bias, p, seed)
+                plain_bwd = cuda_ms(lambda: torch.autograd.grad(
+                    p_out, qkv, g, retain_graph=True), iters=5)
+                qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
+                              for t in (q, k, v))
+                mask_lib = bias.to(dt)
+                sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask_lib, dropout_p=p))
+                gh = g.transpose(1, 2)
+                sdpa_fb = cuda_ms(lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(qh, kh, vh,
+                                                   attn_mask=mask_lib,
+                                                   dropout_p=p),
+                    (qh, kh, vh), gh))
+                bound, by = attention_bwd_bound_ms(TRAIN_B, l, l, dn, bias)
+                fwd_bound, fwd_by = attention_bound_ms(TRAIN_B, l, l, dn,
+                                                       bias)
+                timings[(name, dn, p)] = dict(
+                    fwd_ms=fwd, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
+                    plain_fwd_ms=plain_fwd, bwd_ms=bwd,
+                    recompute_bwd_ms=recompute,
+                    plain_bwd_ms=plain_bwd, sdpa_fwd_ms=sdpa_fwd,
+                    sdpa_fwd_bwd_ms=sdpa_fb, bwd_bound_ms=bound,
+                    bwd_bound_by=by,
+                    grad_err=max((v_ for k_, v_ in errs.items()
+                                  if k_[:2] == (name, dn)), default=None))
+                log(f"  time train {name:6s} B={TRAIN_B} L={l} {dn:9s} p={p} "
+                    f"blhd: kernel bwd {bwd:.4f} ms (bound {bound:.4f}, {by}"
+                    f"; {bound / bwd:.1%} of it)  plain recompute "
+                    f"{recompute:.4f} ms  plain autograd bwd "
+                    f"{plain_bwd:.4f} ms  sdpa fwd+bwd {sdpa_fb:.4f} ms  "
+                    f"kernel fwd {fwd:.4f} ms (bound {fwd_bound:.4f})  sdpa "
+                    f"fwd {sdpa_fwd:.4f} ms")
+                del q, k, v, g, bias, qkv, out, p_out, qh, kh, vh, gh
+                del mask_lib
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return timings
@@ -1099,7 +1139,7 @@ def phase2_dropout(torch, attn):
             mask_lib = bias.to(dt)
             sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=mask_lib, dropout_p=DROP_P))
-            # the recompute backward with and without the mask regeneration
+            # the backward kernel with and without the mask regeneration
             qkv = [t.requires_grad_() for t in (q, k, v)]
             g = torch.randn_like(q)
             out_d = attn.masked_attention(*qkv, bias, layout="blhd",
@@ -1120,7 +1160,7 @@ def phase2_dropout(torch, attn):
                 f"kernel p=0.1 {drop_ms:.4f} ms  p=0 {p0_ms:.4f} ms "
                 f"(ratio {drop_ms / p0_ms:.3f})  plain {plain_ms:.4f} ms  "
                 f"sdpa p=0.1 {sdpa_ms:.4f} ms  bound {bound:.4f} ms ({by})  "
-                f"recompute bwd p=0.1 {bwd_ms:.4f} ms  p=0 {bwd_p0_ms:.4f} ms")
+                f"kernel bwd p=0.1 {bwd_ms:.4f} ms  p=0 {bwd_p0_ms:.4f} ms")
             del q, k, v, g, qkv, out_d, out_0, bias, qh, kh, vh, mask_lib
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1316,6 +1356,7 @@ def hard_pairs(model, pinned=None):
 def reset_counts(attn):
     attn.masked_attention.launches = 0
     attn.masked_attention.dropout_launches = 0
+    attn.masked_attention.backward_launches = 0
     attn.plain_attention.calls = 0
 
 
@@ -1343,6 +1384,11 @@ def timed_steps(torch, attn, trainer, batch, per_step):
         reset_counts(attn)
         history.append(trainer.step(batch))     # ends in a device sync
         check_counts(attn, per_step, "a training step")
+        if attn.masked_attention.backward_launches != per_step:
+            raise AssertionError(
+                f"a training step launched the backward kernel "
+                f"{attn.masked_attention.backward_launches} times; want "
+                f"{per_step}, one per forward call")
         launches += attn.masked_attention.launches
     torch.cuda.synchronize()
     return history, launches, (time.perf_counter() - t0) / TRAIN_TIMED
@@ -7059,6 +7105,10 @@ def main(argv) -> int:
                         help="run phase 1, then every row of PERF.md's "
                              "kernel table alone (kernel, plain, SDPA, "
                              "bound)")
+    parser.add_argument("--backward", action="store_true",
+                        help="run phase 1, then phase 2's backward and "
+                             "dropout checks alone (the backward kernel "
+                             "against plain autograd, and its times)")
     parser.add_argument("--serve_clients", nargs=3,
                         metavar=("URL", "JOBS", "OUT"),
                         help="the client process of phase 10 B, which the "
@@ -7094,6 +7144,20 @@ def main(argv) -> int:
     _kernels.library()
     log(f"  built {os.path.relpath(lib_path, root)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    if args.backward:
+        phase1_kernel_report(torch, attn, _kernels, lib_path)
+        log("phase 2: attention backward against plain autograd, training "
+            "shapes")
+        bwd = phase2_backward(torch, attn)
+        log("phase 2: attention-prob dropout inside the kernel")
+        drop = phase2_dropout(torch, attn)
+        print(json.dumps({"backward": {" ".join(map(str, k)): v
+                                       for k, v in bwd.items()},
+                          "dropout_bwd_ms": {" ".join(k): (v["bwd_ms"],
+                                                           v["bwd_p0_ms"])
+                                             for k, v in drop.items()},
+                          "card": card}), flush=True)
+        return 0
     if args.kernels:
         log(f"phase 1: the kernels' report, package at {root}")
         build = phase1_kernel_report(torch, attn, _kernels, lib_path)
@@ -7296,9 +7360,9 @@ def main(argv) -> int:
     main_t = timings[("fused", "bfloat16")]
     main_err = errors[("fused 2-D padded keys", 1000, "bfloat16", "blhd",
                        "float32", D)]
-    train_t = bwd_timings[("fused", "bfloat16")]
+    train_t = bwd_timings[("fused", "bfloat16", 0.0)]
     t32 = timings[("fused", "float32")]
-    train32 = bwd_timings[("fused", "float32")]
+    train32 = bwd_timings[("fused", "float32", 0.0)]
     drop_t = drop_timings[("fused", "bfloat16")]
     drop32 = drop_timings[("fused", "float32")]
     kernels = {"kernels": [{
@@ -7317,6 +7381,7 @@ def main(argv) -> int:
             "fwd_bound_ms": train_t["fwd_bound_ms"],
             "bwd_ms": train_t["bwd_ms"],
             "bwd_plain_ms": train_t["plain_bwd_ms"],
+            "bwd_recompute_ms": train_t["recompute_bwd_ms"],
             "bwd_bound_ms": train_t["bwd_bound_ms"],
             "bwd_bound_by": train_t["bwd_bound_by"],
             "bwd_max_abs_err": train_t["grad_err"],

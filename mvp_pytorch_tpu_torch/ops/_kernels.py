@@ -33,6 +33,11 @@ ENTRY_POINTS = {
     "masked_attention_blocks_per_sm": [ctypes.c_int] * 2 + [ctypes.c_void_p],
     "masked_attention_tma_encode_us": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2,
     "masked_attention_plan": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    # q, k, v, g, bias, dq, dk, dv, dbias, scratch, dims, stream, seed; then
+    # the dropout threshold and scale, as masked_attention_fwd takes them
+    "masked_attention_bwd": [ctypes.c_void_p] * 13 + [ctypes.c_uint32,
+                                                      ctypes.c_float],
+    "masked_attention_bwd_plan": [ctypes.c_void_p] * 2,
 }
 
 

@@ -17,10 +17,20 @@ on a CUDA tensor it launches the hand-written kernel `masked_attention_fwd`
 fp32 in three TF32 passes (3xTF32), masked_attention_tf32.cuh) or raises.
 Each kernel picks its key-tile width, the heads of a tile and the tile
 order itself (`kernel_plan` reads them back).
-Its backward is the JAX package's `_attn_bwd` (git
-8625894^, `mvp_pytorch_tpu/ops/attention.py:200-218`) in plain PyTorch: it
-saves only q, k, v, the bias and the dropout seed, recomputes the
-probabilities in fp32 and launches no kernel.
+Its backward saves only q, k, v, the bias and the dropout seed and
+recomputes the probabilities in fp32. On a CUDA tensor it launches the
+hand-written kernel `masked_attention_bwd` once a call
+(csrc/masked_attention_bwd.cuh: `wgmma` and TMA, the recompute, the dropout
+hash and dq, dk, dv in one launch, nothing of size [B, H, Lq, Lk] in device
+memory) or raises. That kernel replaces no TPU kernel: the JAX package's
+backward was XLA einsums (`_attn_bwd`, git 8625894^,
+`mvp_pytorch_tpu/ops/attention.py:200-218`). It was added because the
+plain recompute of those einsums, about 60 launches over fp32 and int64
+[B, H, Lq, Lk] tensors a call, took 70 ms of a training step on the H100;
+its bound is the bytes of q, k, v, the output's gradient and the bias read
+once and dq, dk, dv written once (0.02-0.05 ms a call at the training
+shapes). On a CPU tensor the backward is `_attention_grads`, the JAX
+package's `_attn_bwd` in plain PyTorch.
 
 Attention-prob dropout (inverted, as flax `nn.Dropout` does it) runs inside
 the kernel and the plain version alike. Its mask is a counter-based hash of a
@@ -344,11 +354,147 @@ def _attention_grads(q, k, v, bias, g, layout, bias_grad: bool,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
+def _tma_ready(t):
+    """`t` with a contiguous last dim, 16-byte aligned, (b, h, l) strides in
+    16-byte multiples and no zero stride on a dim of extent > 1 (what TMA
+    and the fp32 loads take), copied only when it is not."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t               # rows of D in {32, 64, 128}: 16-byte strides
+    per16 = 16 // t.element_size()
+    if (t.stride(-1) != 1 or t.data_ptr() % 16
+            or any(s % per16 for s in t.stride()[:3])
+            or any(s == 0 and n > 1 for s, n in zip(t.stride(), t.shape))):
+        return t.contiguous()
+    return t
+
+
+def _kernel_attention_grads(q, k, v, bias, g, layout, bias_grad: bool,
+                            dropout_p: float = 0.0, seed=None):
+    """Launch `masked_attention_bwd` on CUDA tensors (no fallback): the
+    gradients of `_attention_grads` in one kernel, which recomputes the
+    probabilities from q, k and the bias and regenerates the dropout mask
+    from `seed`. dq, dk, dv come back in the inputs' dtype and layout; with
+    `bias_grad` the kernel writes ds in fp32, summed here to the bias's
+    shape."""
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype
+                                         for t in (k, v, g)):
+        raise TypeError(f"masked_attention backward: q, k, v and the grad "
+                        f"must share a dtype in {list(_DTYPE_CODE)}, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}, {g.dtype}")
+    if not (q.device == k.device == v.device == g.device):
+        raise ValueError("masked_attention backward: q, k, v, grad on "
+                         "different devices")
+    for name, t in (("q", q), ("k", k), ("v", v), ("grad", g)):
+        if t.dim() != 4:
+            raise ValueError(f"masked_attention backward: {name} must be "
+                             f"4-D, got shape {tuple(t.shape)}")
+    if g.shape != q.shape:
+        raise ValueError(f"masked_attention backward: grad {tuple(g.shape)} "
+                         f"is not q's {tuple(q.shape)}")
+    grads = [torch.empty_like(t, memory_format=torch.contiguous_format)
+             for t in (q, k, v)]
+    q, k, v, g = (_tma_ready(t) for t in (q, k, v, g))
+    tensors = (q, k, v, g, *grads)
+    # the kernel reads [B, H, L, D]: "blhd" tensors by their strides swapped
+    # (no view objects: this wrapper's host time is part of every step's)
+    order = (0, 2, 1, 3) if layout == "blhd" else (0, 1, 2, 3)
+    shapes = [tuple(t.shape[i] for i in order) for t in (q, k, v)]
+    b, h, lq, d = shapes[0]
+    lk = shapes[1][2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"masked_attention backward: head dim {d} not in "
+                         f"{HEAD_DIMS}")
+    if shapes[1] != (b, h, lk, d) or shapes[2] != shapes[1] or lk == 0:
+        raise ValueError(f"masked_attention backward: shapes q {shapes[0]}, "
+                         f"k {shapes[1]}, v {shapes[2]} ([B, H, L, D])")
+    bias_ptr, bias_strides, dbias = None, (0, 0, 0), None
+    if bias is not None:
+        if bias.dtype not in _DTYPE_CODE or bias.device != q.device:
+            raise TypeError(f"masked_attention backward: bias must be fp32 "
+                            f"or bf16 on {q.device}, got {bias.dtype} on "
+                            f"{bias.device}")
+        if bias.dim() != 4 or bias.shape[-1] != lk:
+            raise ValueError(f"masked_attention backward: bias "
+                             f"{tuple(bias.shape)} is not [B, 1|H, 1|Lq, "
+                             f"Lk={lk}]")
+        wide = bias.float().expand(b, h, lq, lk)   # widening is exact
+        if wide.stride(-1) != 1:
+            wide = wide.contiguous()
+        bias_ptr, bias_strides = wide.data_ptr(), wide.stride()[:3]
+        if bias_grad:
+            dbias = torch.empty(b, h, lq, lk, dtype=torch.float32,
+                                device=q.device)
+    dims = [b, h, lq, lk, d, _DTYPE_CODE[q.dtype], 0]
+    for t in tensors:
+        st = t.stride()
+        dims += (st[order[0]], st[order[1]], st[order[2]])
+    dims += bias_strides
+    arr = (ctypes.c_int64 * len(dims))(*dims)
+    lib = _kernels.library()
+    plan = (ctypes.c_int64 * 6)()
+    _kernels.check(lib.masked_attention_bwd_plan(ctypes.addressof(arr),
+                                                 ctypes.addressof(plan)),
+                   "masked_attention_bwd_plan")
+    scratch = (torch.empty(plan[5], dtype=torch.float32, device=q.device)
+               if plan[5] else None)
+    seed_ptr, threshold, scale = None, 0, 1.0
+    if dropout_p > 0:
+        _check_seed(seed, q.device)
+        seed_ptr = seed.data_ptr()
+        threshold, scale = dropout_threshold(dropout_p), 1.0 / (1.0 - dropout_p)
+    ptrs = [t.data_ptr() for t in tensors]
+    err = lib.masked_attention_bwd(
+        *ptrs[:4], bias_ptr, *ptrs[4:],
+        None if dbias is None else dbias.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        ctypes.addressof(arr), torch.cuda.current_stream(q.device).cuda_stream,
+        seed_ptr, threshold, scale)
+    _kernels.check(err, "masked_attention_bwd")
+    if dbias is not None:
+        dbias = dbias.sum_to_size(bias.shape).to(bias.dtype)
+    return (*grads, dbias)
+
+
+def kernel_bwd_plan(lq: int, lk: int, h: int = 12, d: int = 64, b: int = 1,
+                    dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The plan `masked_attention_bwd` makes for a launch of these dims,
+    read from the built library (host only): key_tile (the smallest
+    instantiated width that holds Lk, else the largest), key_tiles, multi
+    (1: past one key tile, two passes), acc_smem (1: dk and dv add up in
+    shared memory, 0: in a scratch buffer), smem_bytes (a block) and
+    scratch_floats."""
+    dims = [b, h, lq, lk, d, _DTYPE_CODE[dtype], 0] + [0] * 24
+    arr = (ctypes.c_int64 * len(dims))(*dims)
+    out = (ctypes.c_int64 * 6)()
+    err = _kernels.library().masked_attention_bwd_plan(ctypes.addressof(arr),
+                                                       ctypes.addressof(out))
+    _kernels.check(err, "masked_attention_bwd_plan")
+    return dict(zip(("key_tile", "key_tiles", "multi", "acc_smem",
+                     "smem_bytes", "scratch_floats"), out))
+
+
+class _BackwardKernel(torch.autograd.Function):
+    """`_kernel_attention_grads` under an operator record of its own: the
+    profiler attributes a kernel to the innermost operator open on its
+    thread, and inside a backward that is the autograd node, which encloses
+    any range opened around `MaskedAttentionFn.backward`. Applied there,
+    the launch is a child of such a range, as the forward's launch is of a
+    range around the forward (it runs inside `MaskedAttentionFn`'s own
+    record). It defines no backward: the kernel's gradients are not
+    differentiated again."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        return _kernel_attention_grads(*args)
+
+
 class MaskedAttentionFn(torch.autograd.Function):
     """Differentiable masked attention: forward on the kernel (CUDA) or the
-    plain version (CPU), backward by recompute (`_attention_grads`). Saves
-    q, k, v, the bias and the dropout seed only, never the [B, H, Lq, Lk]
-    probabilities or the mask."""
+    plain version (CPU); backward on the kernel `masked_attention_bwd`
+    (CUDA, one launch a call, counted by
+    `masked_attention.backward_launches`) or by the plain recompute
+    (`_attention_grads`, CPU). Saves q, k, v, the bias and the dropout seed
+    only, never the [B, H, Lq, Lk] probabilities or the mask."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, layout, dropout_p, seed):
@@ -369,8 +515,15 @@ class MaskedAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, seed = ctx.saved_tensors
-        grads = _attention_grads(q, k, v, bias, g, ctx.layout,
-                                 ctx.needs_input_grad[3], ctx.dropout_p, seed)
+        if q.device.type == "cuda":
+            grads = _BackwardKernel.apply(q, k, v, bias, g, ctx.layout,
+                                          ctx.needs_input_grad[3],
+                                          ctx.dropout_p, seed)
+            masked_attention.backward_launches += 1
+        else:
+            grads = _attention_grads(q, k, v, bias, g, ctx.layout,
+                                     ctx.needs_input_grad[3], ctx.dropout_p,
+                                     seed)
         return (*grads, None, None, None)
 
 
@@ -387,7 +540,10 @@ def masked_attention(q, k, v, bias: Optional[torch.Tensor] = None, *,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (and adds one to `masked_attention.launches`, and with dropout to
-    `masked_attention.dropout_launches`) or raises.
+    `masked_attention.dropout_launches`) or raises. Its backward launches
+    `masked_attention_bwd` on a CUDA tensor (one more
+    `masked_attention.backward_launches`) and runs the plain recompute on a
+    CPU tensor.
     """
     if layout not in ("bhld", "blhd"):
         raise ValueError(f"unknown layout {layout!r}")
@@ -406,3 +562,4 @@ def masked_attention(q, k, v, bias: Optional[torch.Tensor] = None, *,
 
 masked_attention.launches = 0
 masked_attention.dropout_launches = 0
+masked_attention.backward_launches = 0

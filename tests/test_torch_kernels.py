@@ -19,10 +19,13 @@ import torch
 
 from mvp_pytorch_tpu_torch.models.img_bert import make_seq2seq_mask
 from mvp_pytorch_tpu_torch.ops import _kernels
+from mvp_pytorch_tpu_torch.ops import attention as attention_mod
 from mvp_pytorch_tpu_torch.ops.attention import (MaskedAttentionFn,
+                                                 _attention_grads,
                                                  _kernel_attention,
-                                                 dropout_keep, kernel_plan,
-                                                 mask_to_bias,
+                                                 _kernel_attention_grads,
+                                                 dropout_keep, kernel_bwd_plan,
+                                                 kernel_plan, mask_to_bias,
                                                  masked_attention,
                                                  plain_attention,
                                                  plain_attention_blhd)
@@ -176,12 +179,13 @@ def test_masked_attention_grads_match_plain_autograd(cuda, kind, layout,
     """A CUDA output has the Function's grad_fn (the kernel's output used to
     come back detached), and its q, k, v and bias grads match torch autograd
     through the plain version in fp32 on the same values. The backward
-    launches no kernel."""
+    launches the backward kernel once, and the forward kernel no more."""
     q, k, v, bias = make_case(kind, 64)
     args = [torch.from_numpy(_bhld_to(layout, x)).to(cuda, dtype)
             .requires_grad_() for x in (q, k, v)]
     tb = torch.from_numpy(bias).to(cuda).requires_grad_()
     before = masked_attention.launches
+    before_bwd = masked_attention.backward_launches
     out = masked_attention(*args, tb, layout=layout)
     assert isinstance(out.grad_fn, MaskedAttentionFn._backward_cls)
     g = torch.randn(out.shape, device=cuda,
@@ -189,6 +193,7 @@ def test_masked_attention_grads_match_plain_autograd(cuda, kind, layout,
     grads = torch.autograd.grad(out, (*args, tb), g.to(dtype))
     torch.cuda.synchronize()
     assert masked_attention.launches == before + 1
+    assert masked_attention.backward_launches == before_bwd + 1
     ref_in = [a.detach().float().requires_grad_() for a in (*args, tb)]
     plain = plain_attention_blhd if layout == "blhd" else plain_attention
     want = torch.autograd.grad(plain(*ref_in), ref_in, g.to(dtype).float())
@@ -774,3 +779,332 @@ def test_wrapper_materialises_a_broadcast_fp32_operand(monkeypatch, layout):
     assert fake.dims[5:7] == [0, 0]                      # fp32 q, fp32 bias
     assert 0 not in fake.dims[10:13]                     # k's (b, h, l)
     assert fake.ptrs[1] != k.data_ptr() and fake.ptrs[3] != bias.data_ptr()
+
+
+# The backward kernel (`masked_attention_bwd`) against the plain recompute
+# (`_attention_grads`) on the same card and inputs. Cases: (bias kind, B,
+# Lq, Lk, D). The training lengths (two-stream 125 / 75 / 70, single-stream
+# 145, NLVR2 140, captioning 105 under its seq2seq bias, fine-tuning 40),
+# the other head dims, keys past one key tile (257, 300: the two-pass
+# path), one batch row and odd lengths. Every kind with a mask has a
+# fully-masked row ("key": batch row 0; "query", "seq2seq": one query row).
+BWD_CASES = {
+    "two_stream_fused": ("key", 3, 125, 125, 64),
+    "two_stream_text": ("key", 3, 75, 75, 64),
+    "two_stream_vision": ("key", 3, 70, 70, 64),
+    "single_stream": ("key", 2, 145, 145, 64),
+    "single_stream_mask3d": ("query", 2, 145, 145, 64),
+    "nlvr_fused": ("key", 2, 140, 140, 64),
+    "captioning": ("seq2seq", 2, 105, 105, 64),
+    "finetune_text": ("key", 3, 40, 40, 64),
+    "per_head": ("head", 3, 90, 90, 64),
+    "no_bias": ("none", 3, 75, 75, 64),
+    "d32": ("key", 3, 75, 75, 32),
+    "d32_mask3d": ("query", 2, 145, 145, 32),
+    "d128": ("key", 2, 125, 125, 128),
+    "d128_mask3d": ("query", 2, 70, 70, 128),
+    "lk257": ("key", 2, 75, 257, 64),
+    "lk300_mask3d": ("query", 2, 65, 300, 64),
+    "lk300_d128_head": ("head", 2, 40, 300, 128),
+    "lk257_d32": ("key", 2, 17, 257, 32),
+    "batch1": ("key", 1, 125, 125, 64),
+    "odd": ("query", 3, 17, 129, 64),
+    "single": ("key", 2, 1, 1, 64),
+}
+
+
+def bwd_case(name, layout, dtype, device, seed=13):
+    """q, k, v, the output's grad (in `layout`, `dtype`) and an fp32 bias
+    (or None) of BWD_CASES[name], on `device`."""
+    kind, b, lq, lk, d = BWD_CASES[name]
+    r = np.random.RandomState(seed)
+    q, k, v = (r.randn(b, H, n, d).astype(np.float32) for n in (lq, lk, lk))
+    g = r.randn(b, H, lq, d).astype(np.float32)
+    # multiples of 1/8: q.k is exact in every summation order. Next to the
+    # -10000 bias of a fully-masked row an fp32 score keeps 10 fraction bits,
+    # so two correct orders could otherwise round it to neighbouring values
+    q, k = (np.clip(np.round(x * 8) / 8, -4, 4) for x in (q, k))
+    bias = None
+    if kind == "key":
+        mask = np.ones((b, lk), np.int32)
+        if b > 1:
+            mask[0] = 0                          # a fully-masked batch row
+            mask[1, lk - min(30, lk // 2):] = 0  # padded keys
+    elif kind == "query":
+        mask = (r.rand(b, lq, lk) > 0.3).astype(np.int32)
+        mask[..., 0] = 1
+        mask[0, lq // 2] = 0                     # a fully-masked query row
+    elif kind == "seq2seq":
+        ctx = np.zeros((b, CAP_CTX), np.int32)
+        for i in range(b):
+            ctx[i, :r.randint(3, 21)] = 1
+            ctx[i, 20:20 + r.randint(10, 51)] = 1
+        mask = make_seq2seq_mask(CAP_L, torch.from_numpy(ctx)).numpy()
+    elif kind == "head":
+        bias = r.randn(b, H, lq, lk).astype(np.float32)
+    if kind in ("key", "query", "seq2seq"):
+        bias = mask_to_bias(torch.from_numpy(mask)).numpy()
+    x = [torch.from_numpy(_bhld_to(layout, t)).to(device, dtype)
+         for t in (q, k, v, g)]
+    return (*x, None if bias is None else torch.from_numpy(bias).to(device))
+
+
+def rel_err(got, want):
+    """Norm of the difference over the norm of `want`, in fp32 (a `want` of
+    all zeros, as dq and dk over a single key, asks for zeros)."""
+    got, want = got.float(), want.float()
+    tiny = torch.finfo(torch.float32).tiny
+    return ((got - want).norm() / want.norm().clamp_min(tiny)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 4e-3)])
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+@pytest.mark.parametrize("name", list(BWD_CASES))
+def test_backward_kernel_matches_the_plain_recompute(cuda, name, layout, dtype,
+                                                     tol, p):
+    """dq, dk, dv and dbias of the kernel against `_attention_grads` on the
+    same card, inputs and seed, relative in the norm of each gradient.
+    fp32 1e-5: both compute the same fp32 function; the kernel's products
+    split each fp32 operand into three bf16 terms (a product's dropped terms
+    lie 2^-24 below it) and sum in another order, and its exponential is
+    within a few ulps (the card's measured worst, 2.3e-6). bf16 4e-3: about
+    one bf16 rounding of the outputs (2^-8), since both round the same fp32
+    values to bf16 and may round a value near a tie to neighbours (measured
+    worst 2.5e-4)."""
+    q, k, v, g, bias = bwd_case(name, layout, dtype, cuda)
+    seed = card_seed(2 ** 43 + 11) if p else None
+    before = masked_attention.launches
+    got = _kernel_attention_grads(q, k, v, bias, g, layout, bias is not None,
+                                  p, seed)
+    want = _attention_grads(q, k, v, bias, g, layout, bias is not None, p,
+                            seed)
+    torch.cuda.synchronize()
+    assert masked_attention.launches == before
+    for gname, a, b, t in zip(("dq", "dk", "dv", "dbias"), got, want,
+                              (q, k, v, bias)):
+        if t is None:
+            assert a is None and b is None
+            continue
+        assert a.dtype == t.dtype and a.shape == t.shape, gname
+        assert torch.isfinite(a.float()).all(), gname
+        assert rel_err(a, b) <= tol, (gname, rel_err(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_launches_the_kernel_once_a_call(cuda, monkeypatch, dtype):
+    """Through autograd a CUDA call's backward launches `masked_attention_bwd`
+    once (`masked_attention.backward_launches`) and never runs the plain
+    recompute."""
+    def refuse(*a, **kw):
+        raise AssertionError("the plain recompute ran on a CUDA tensor")
+    monkeypatch.setattr(attention_mod, "_attention_grads", refuse)
+    q, k, v, g, bias = bwd_case("two_stream_text", "blhd", dtype, cuda)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    before = (masked_attention.launches, masked_attention.backward_launches)
+    out = masked_attention(*leaves, bias, layout="blhd", dropout_p=0.1,
+                           seed=card_seed(5))
+    torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (masked_attention.launches - before[0],
+            masked_attention.backward_launches - before[1]) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lk,d,dtype,want", [
+    (40, 64, torch.bfloat16, (64, 1, 0)), (70, 64, torch.bfloat16, (96, 1, 0)),
+    (125, 64, torch.bfloat16, (128, 1, 0)),
+    (145, 64, torch.bfloat16, (160, 1, 0)),
+    (257, 64, torch.bfloat16, (160, 2, 1)),
+    (125, 128, torch.bfloat16, (128, 1, 0)),
+    (145, 128, torch.bfloat16, (128, 2, 1)),
+    (64, 64, torch.float32, (64, 1, 0)), (125, 64, torch.float32, (64, 2, 1))])
+def test_backward_plan_sizes_the_key_tile_to_lk(cuda, lk, d, dtype, want):
+    """The smallest instantiated key tile that holds Lk (one pass), else the
+    largest, walked twice; every plan fits shared memory, and dk and dv's
+    sums sit there at the two-stream training shapes."""
+    plan = kernel_bwd_plan(lk, lk, 12, d, 96, dtype)
+    assert (plan["key_tile"], plan["key_tiles"], plan["multi"]) == want
+    assert plan["smem_bytes"] <= 232448
+    assert (plan["scratch_floats"] == 0) == bool(plan["acc_smem"])
+    if dtype == torch.bfloat16 and d == 64 and lk <= 160:
+        assert plan["acc_smem"] == 1
+
+
+class _FakeBwdLib:
+    """Stands in for the built library's backward entry points: records what
+    the wrapper passes, and plans `scratch` floats."""
+
+    def __init__(self, scratch=0):
+        self.scratch = scratch
+
+    def masked_attention_bwd_plan(self, dims, out):
+        plan = (ctypes.c_int64 * 6).from_address(out)
+        plan[:] = [128, 1, 0, int(self.scratch == 0), 1024, self.scratch]
+        return 0
+
+    def masked_attention_bwd(self, *args):
+        self.dims = list((ctypes.c_int64 * 31).from_address(args[10]))
+        self.ptrs = args[:10]
+        self.seed, self.threshold, self.scale = args[12:]
+        return 0
+
+
+def _fake_bwd(monkeypatch, scratch=0):
+    fake = _FakeBwdLib(scratch)
+    monkeypatch.setattr(_kernels, "library", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    return fake
+
+
+@pytest.mark.parametrize("bias_kind", ["none", "key", "query", "head"])
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+def test_backward_wrapper_passes_dims_strides_and_pointers(monkeypatch,
+                                                           layout, bias_kind):
+    """`_kernel_attention_grads` passes B, H, Lq, Lk, D, the dtype, then the
+    (b, h, l) strides of q, k, v, the grad, dq, dk, dv and the expanded
+    bias; the outputs in the inputs' dtype and layout; a dbias buffer
+    [B, H, Lq, Lk] fp32 only when the bias's grad is asked for, summed back
+    to the bias's shape."""
+    fake = _fake_bwd(monkeypatch)
+    b, h, lq, lk, d = 3, 4, 2, 92, 64
+    shape = (b, h, lq, d) if layout == "bhld" else (b, lq, h, d)
+    kshape = (b, h, lk, d) if layout == "bhld" else (b, lk, h, d)
+    q = torch.zeros(shape, dtype=torch.bfloat16)
+    k = torch.zeros(kshape, dtype=torch.bfloat16)
+    bias = {"none": None, "key": torch.zeros(b, 1, 1, lk),
+            "query": torch.zeros(b, 1, lq, lk),
+            "head": torch.zeros(b, h, lq, lk)}[bias_kind]
+    dq, dk, dv, dbias = _kernel_attention_grads(q, k, k, bias, q, layout,
+                                                bias is not None)
+    assert fake.dims[:7] == [b, h, lq, lk, d, 1, 0]
+    view = (lambda t: t.transpose(1, 2)) if layout == "blhd" else (lambda t: t)
+    for i, t in enumerate((q, k, k, q, dq, dk, dv)):
+        assert fake.dims[7 + 3 * i:10 + 3 * i] == list(view(t).stride()[:3])
+    assert fake.dims[28:] == (
+        [0, 0, 0] if bias is None
+        else list(bias.expand(b, h, lq, lk).stride()[:3]))
+    assert (fake.ptrs[4] is None) == (bias is None)
+    assert (fake.ptrs[8] is None) == (bias is None)
+    assert fake.ptrs[9] is None                 # no scratch planned
+    assert fake.seed is None
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, k.shape)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    if bias is not None:
+        assert dbias.shape == bias.shape and dbias.dtype == bias.dtype
+
+
+def test_backward_wrapper_hands_over_the_seed_and_the_scratch(monkeypatch):
+    """With dropout the seed's pointer, round(p 2^32) and 1 / (1 - p); a
+    scratch buffer of the planned floats when dk and dv's sums do not fit
+    shared memory; a bf16 bias widened to fp32."""
+    fake = _fake_bwd(monkeypatch, scratch=4096)
+    q = torch.zeros(2, 4, 5, 128)
+    seed = torch.tensor([7], dtype=torch.int64)
+    bias = torch.zeros(2, 1, 1, 5, dtype=torch.bfloat16)
+    _kernel_attention_grads(q, q, q, bias, q, "bhld", False, 0.1, seed)
+    assert fake.dims[4:7] == [128, 0, 0]
+    assert fake.seed == seed.data_ptr()
+    assert fake.threshold == round(0.1 * 2 ** 32)
+    assert fake.scale == pytest.approx(1 / 0.9)
+    assert fake.ptrs[9] is not None and fake.ptrs[8] is None
+    assert fake.ptrs[4] != bias.data_ptr()
+
+
+def test_backward_wrapper_materialises_a_broadcast_grad(monkeypatch):
+    """TMA steps every dim of extent > 1 by a nonzero stride: the grad of a
+    summed output (ones expanded over every dim) reaches the kernel as a
+    dense copy."""
+    fake = _fake_bwd(monkeypatch)
+    q = torch.zeros(2, 4, 5, 64, dtype=torch.bfloat16)
+    g = torch.ones((), dtype=torch.bfloat16).expand(2, 4, 5, 64)
+    _kernel_attention_grads(q, q, q, None, g, "bhld", False)
+    assert fake.dims[16:19] == [4 * 5 * 64, 5 * 64, 64]   # the grad's strides
+    assert fake.ptrs[3] != g.data_ptr()
+
+
+@pytest.mark.parametrize("bad", ["dtype", "grad_dtype", "head_dim", "shape",
+                                 "grad_shape", "bias_len"])
+def test_backward_wrapper_rejects_what_the_kernel_cannot_take(monkeypatch,
+                                                              bad):
+    """The checks run before anything reaches the card."""
+    _fake_bwd(monkeypatch)
+    q = torch.zeros(2, 4, 5, 64)
+    k = torch.zeros(2, 4, 5, 64)
+    g = torch.zeros(2, 4, 5, 64)
+    bias = torch.zeros(2, 1, 1, 5)
+    if bad == "dtype":
+        q = k = q.half()
+    elif bad == "grad_dtype":
+        g = g.bfloat16()
+    elif bad == "head_dim":
+        q = k = g = torch.zeros(2, 4, 5, 48)
+    elif bad == "shape":
+        k = torch.zeros(2, 3, 5, 64)
+    elif bad == "grad_shape":
+        g = torch.zeros(2, 4, 6, 64)
+    else:
+        bias = torch.zeros(2, 1, 1, 6)
+    with pytest.raises((TypeError, ValueError)):
+        _kernel_attention_grads(q, k, k, bias, g, "bhld", True)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_cpu_backward_runs_the_plain_recompute(monkeypatch, p):
+    """A CPU tensor's backward takes `_attention_grads` (once a call) and
+    never the kernel; `masked_attention.backward_launches` does not move."""
+    calls = []
+    plain = attention_mod._attention_grads
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return plain(*a, **kw)
+
+    def no_kernel(*a, **kw):
+        raise AssertionError("the kernel wrapper ran on a CPU tensor")
+    monkeypatch.setattr(attention_mod, "_attention_grads", spy)
+    monkeypatch.setattr(attention_mod, "_kernel_attention_grads", no_kernel)
+    q, k, v, g, bias = bwd_case("two_stream_text", "blhd", torch.float32,
+                                "cpu")
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    seed = torch.tensor([3], dtype=torch.int64) if p else None
+    before = masked_attention.backward_launches
+    out = masked_attention(*leaves, bias, layout="blhd", dropout_p=p,
+                           seed=seed)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert calls == [1]
+    assert masked_attention.backward_launches == before
+    assert all(torch.isfinite(t).all() for t in grads)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_time_falls_inside_a_range_around_the_backward(cuda):
+    """A `record_function` range opened around `MaskedAttentionFn.backward`
+    (as the benchmark's `bench.attn_bwd` is) holds the backward kernel's
+    device time: the launch runs under an operator record inside the range,
+    not straight under the autograd node that encloses it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    q, k, v, g, bias = bwd_case("two_stream_text", "blhd", torch.bfloat16,
+                                cuda)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    out = masked_attention(*leaves, bias, layout="blhd")
+    backward = MaskedAttentionFn.backward
+
+    def ranged(ctx, grad):
+        with record_function("test.attn_bwd"):
+            return backward(ctx, grad)
+    MaskedAttentionFn.backward = staticmethod(ranged)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(out, leaves, g)
+            torch.cuda.synchronize()
+    finally:
+        MaskedAttentionFn.backward = staticmethod(backward)
+    ranges = [e for e in prof.events() if e.name == "test.attn_bwd"
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    assert ranges and all(e.device_time_total > 0 for e in ranges)
