@@ -14,6 +14,7 @@
 //   seed: null (no dropout), or one int64 on the device: attention-prob
 //         dropout, dropping an element whose hash is below drop_threshold
 //         (round(p 2^32)) and scaling the kept ones by drop_scale (1 / (1 - p)).
+//         D 72 has no dropout instantiation: a seed there is refused.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* bias, void* out,
@@ -31,6 +32,9 @@ extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
       case 128:
         fn = drop ? masked_attention_fwd_bf16_d128_drop : masked_attention_fwd_bf16_d128;
         break;
+      case 72:  // no dropout instantiation: a seed is refused
+        if (!drop) fn = masked_attention_fwd_bf16_d72;
+        break;
       default: break;
     }
   } else if (dtype == 0) {
@@ -39,6 +43,9 @@ extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
       case 64: fn = drop ? masked_attention_fwd_fp32_d64_drop : masked_attention_fwd_fp32_d64; break;
       case 128:
         fn = drop ? masked_attention_fwd_fp32_d128_drop : masked_attention_fwd_fp32_d128;
+        break;
+      case 72:  // no dropout instantiation: a seed is refused
+        if (!drop) fn = masked_attention_fwd_fp32_d72;
         break;
       default: break;
     }
@@ -55,6 +62,7 @@ extern "C" int masked_attention_blocks_per_sm(int dtype, int d, int* blocks) {
       case 32: return masked_attention_blocks_per_sm_bf16_d32(blocks);
       case 64: return masked_attention_blocks_per_sm_bf16_d64(blocks);
       case 128: return masked_attention_blocks_per_sm_bf16_d128(blocks);
+      case 72: return masked_attention_blocks_per_sm_bf16_d72(blocks);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -63,6 +71,7 @@ extern "C" int masked_attention_blocks_per_sm(int dtype, int d, int* blocks) {
       case 32: return masked_attention_blocks_per_sm_fp32_d32(blocks);
       case 64: return masked_attention_blocks_per_sm_fp32_d64(blocks);
       case 128: return masked_attention_blocks_per_sm_fp32_d128(blocks);
+      case 72: return masked_attention_blocks_per_sm_fp32_d72(blocks);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -71,9 +80,10 @@ extern "C" int masked_attention_blocks_per_sm(int dtype, int d, int* blocks) {
 
 // The plan of the launch that masked_attention_fwd makes for these dims
 // (dims[5]: 1 bf16, 0 fp32; the bias pointer stands as has_bias):
-// out[0..5] = key-tile width, heads of a tile, tile order (0: query tiles
-// innermost, 1: head tiles innermost), tiles, k/v stages and shared-memory
-// bytes a block. Host only: launches nothing. Returns a CUDA error code.
+// out[0..6] = key-tile width, heads of a tile, tile order (0: query tiles
+// innermost, 1: head tiles innermost), tiles, k/v stages, shared-memory
+// bytes a block and the head dim's tile width (D, or 128 at D 72). Host
+// only: launches nothing. Returns a CUDA error code.
 extern "C" int masked_attention_plan(const void* dims_ptr, int has_bias, int64_t* out) {
   const int64_t* dims = static_cast<const int64_t*>(dims_ptr);
   if (dims[5] == 0) {
@@ -81,6 +91,7 @@ extern "C" int masked_attention_plan(const void* dims_ptr, int has_bias, int64_t
       case 32: return hopper::f32::plan<32>(dims, has_bias, out);
       case 64: return hopper::f32::plan<64>(dims, has_bias, out);
       case 128: return hopper::f32::plan<128>(dims, has_bias, out);
+      case 72: return hopper::f32::plan<72>(dims, has_bias, out);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -88,6 +99,7 @@ extern "C" int masked_attention_plan(const void* dims_ptr, int has_bias, int64_t
     case 32: return hopper::plan<32>(dims, has_bias, out);
     case 64: return hopper::plan<64>(dims, has_bias, out);
     case 128: return hopper::plan<128>(dims, has_bias, out);
+    case 72: return hopper::plan<72>(dims, has_bias, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

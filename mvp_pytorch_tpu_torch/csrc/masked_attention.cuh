@@ -43,8 +43,9 @@
 // This header holds what both dtypes share (the launch parameters, the
 // dropout hash) and the entry points' declarations. The translation units,
 // compiled in parallel (one nvcc each): masked_attention.cu (the C entry
-// points), masked_attention_{bf16,fp32}_d{32,64,128}{,_drop}.cu (one kernel
-// for one dtype, head dim and dropout setting each). Everything here is in
+// points), masked_attention_{bf16,fp32}_d{32,64,128}{,_drop}.cu and
+// masked_attention_{bf16,fp32}_d72.cu (one kernel for one dtype, head dim and
+// dropout setting each; D 72 has no dropout instantiation). Everything here is in
 // an unnamed namespace, so each unit keeps its own copy of what it
 // instantiates.
 
@@ -150,6 +151,9 @@ int masked_attention_fwd_fp32_d64(MASKED_ATTENTION_FWD_ARGS);
 int masked_attention_fwd_fp32_d64_drop(MASKED_ATTENTION_FWD_ARGS);
 int masked_attention_fwd_fp32_d128(MASKED_ATTENTION_FWD_ARGS);
 int masked_attention_fwd_fp32_d128_drop(MASKED_ATTENTION_FWD_ARGS);
+// head dim 72 (SigLIP), in the D 128 tile, without dropout only
+int masked_attention_fwd_bf16_d72(MASKED_ATTENTION_FWD_ARGS);
+int masked_attention_fwd_fp32_d72(MASKED_ATTENTION_FWD_ARGS);
 // the occupancy of the kernels without dropout, beside them
 int masked_attention_blocks_per_sm_bf16_d32(int* blocks);
 int masked_attention_blocks_per_sm_bf16_d64(int* blocks);
@@ -157,3 +161,5 @@ int masked_attention_blocks_per_sm_bf16_d128(int* blocks);
 int masked_attention_blocks_per_sm_fp32_d32(int* blocks);
 int masked_attention_blocks_per_sm_fp32_d64(int* blocks);
 int masked_attention_blocks_per_sm_fp32_d128(int* blocks);
+int masked_attention_blocks_per_sm_bf16_d72(int* blocks);
+int masked_attention_blocks_per_sm_fp32_d72(int* blocks);

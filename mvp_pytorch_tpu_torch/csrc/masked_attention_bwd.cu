@@ -15,7 +15,8 @@
 //         bias.
 //   seed: null (no dropout), or one int64 on the device: the forward's
 //         dropout mask, regenerated (a hash below drop_threshold drops its
-//         element; the kept ones scale by drop_scale).
+//         element; the kept ones scale by drop_scale). D 72 has no dropout
+//         instantiation: a seed there is refused.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int masked_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                     const void* bias, void* dq, void* dk, void* dv, void* dbias,
@@ -31,6 +32,9 @@ extern "C" int masked_attention_bwd(const void* q, const void* k, const void* v,
       case 128:
         fn = drop ? masked_attention_bwd_bf16_d128_drop : masked_attention_bwd_bf16_d128;
         break;
+      case 72:  // no dropout instantiation: a seed is refused
+        if (!drop) fn = masked_attention_bwd_bf16_d72;
+        break;
       default: break;
     }
   } else if (dims[5] == 0) {
@@ -39,6 +43,9 @@ extern "C" int masked_attention_bwd(const void* q, const void* k, const void* v,
       case 64: fn = drop ? masked_attention_bwd_fp32_d64_drop : masked_attention_bwd_fp32_d64; break;
       case 128:
         fn = drop ? masked_attention_bwd_fp32_d128_drop : masked_attention_bwd_fp32_d128;
+        break;
+      case 72:  // no dropout instantiation: a seed is refused
+        if (!drop) fn = masked_attention_bwd_fp32_d72;
         break;
       default: break;
     }
@@ -49,9 +56,10 @@ extern "C" int masked_attention_bwd(const void* q, const void* k, const void* v,
 }
 
 // The plan of the launch masked_attention_bwd makes for these dims (as it
-// takes them): out[0..5] = key tile, key tiles, 1 past one key tile, 1 when
-// dk and dv's sums sit in shared memory, shared-memory bytes a block, and
-// the scratch floats the caller allocates (0 when the sums fit). Host only:
+// takes them): out[0..6] = key tile, key tiles, 1 past one key tile, 1 when
+// dk and dv's sums sit in shared memory, shared-memory bytes a block, the
+// scratch floats the caller allocates (0 when the sums fit) and the head
+// dim's tile width (D, or 128 at D 72). Host only:
 // launches nothing. Returns a CUDA error code.
 extern "C" int masked_attention_bwd_plan(const void* dims_ptr, int64_t* out) {
   const int64_t* dims = static_cast<const int64_t*>(dims_ptr);
@@ -60,6 +68,7 @@ extern "C" int masked_attention_bwd_plan(const void* dims_ptr, int64_t* out) {
       case 32: return hopper::bwd::plan<32, true>(dims, out);
       case 64: return hopper::bwd::plan<64, true>(dims, out);
       case 128: return hopper::bwd::plan<128, true>(dims, out);
+      case 72: return hopper::bwd::plan<72, true>(dims, out);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -68,6 +77,7 @@ extern "C" int masked_attention_bwd_plan(const void* dims_ptr, int64_t* out) {
     case 32: return hopper::bwd::plan<32, false>(dims, out);
     case 64: return hopper::bwd::plan<64, false>(dims, out);
     case 128: return hopper::bwd::plan<128, false>(dims, out);
+    case 72: return hopper::bwd::plan<72, false>(dims, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -69,9 +69,18 @@
 //     [B, H, Lq, Lk] buffer that the wrapper sums to the bias's shape.
 //     Without the request nothing of that size is written.
 //
+//   - Head dim 72 (SigLIP's 16 heads of 1,152) runs in the D 128 tile
+//     (`tile_dim`, masked_attention_hopper.cuh): TMA zero-fills the columns
+//     past 72 of q, k, v and g (the fp32 path's loads write zeros there), so
+//     S and dP are exact, and the stores of dq, dk and dv skip those
+//     columns. Its every launch (vision Lk 729, the MAP probe's Lq 1 over
+//     729, text Lk 64) takes the D 128 key tiles: 64 keys, or 128 walked
+//     twice past one tile.
+//
 // The C entry points are in masked_attention_bwd.cu, the instantiations in
-// masked_attention_bwd_{bf16,fp32}_d{32,64,128}{,_drop}.cu (one kernel for
-// one dtype, head dim and dropout setting each, compiled in parallel).
+// masked_attention_bwd_{bf16,fp32}_d{32,64,128}{,_drop}.cu and
+// masked_attention_bwd_{bf16,fp32}_d72.cu (one kernel for one dtype, head dim
+// and dropout setting each, compiled in parallel).
 
 #pragma once
 
@@ -184,18 +193,19 @@ __device__ __forceinline__ int swz(int r, int u) {
 // The fp32 path's load: rows row0 .. row0 + rows - 1 of one (b, h) of a
 // [B, H, L, D] fp32 tensor with strides s, as three bf16 planes (plane_bytes
 // apart) laid out as TMA lays a bf16 tile out (chunks of kCC columns,
-// rows_alloc rows each, swizzled); rows from `valid` on are zeros.
+// rows_alloc rows each, swizzled); rows from `valid` on, and the tile's
+// columns past D, are zeros.
 template <int D>
 __device__ __forceinline__ void load_split(uint8_t* dst, uint32_t plane_bytes, int rows_alloc,
                                            const float* src, const int64_t* s, int b, int h,
                                            int row0, int rows, int valid, int tid) {
   using C = Chunk<D, 2>;
-  constexpr int kG = D / 8;  // 8-element groups a row
+  constexpr int kG = C::kD / 8;  // 8-element groups a row of the tile
   const float* at = src + b * s[0] + h * s[1];
   for (int i = tid; i < rows * kG; i += kThreadsB) {
     const int r = i / kG, col = 8 * (i - r * kG);
     float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-    if (r < valid) {
+    if (r < valid && (C::kD == D || col < D)) {
       const float4* row = reinterpret_cast<const float4*>(at + (row0 + r) * s[2] + col);
       lo = __ldg(row);
       hi = __ldg(row + 1);
@@ -228,10 +238,11 @@ masked_attention_bwd_kernel(const __grid_constant__ BParams p, const __grid_cons
   constexpr int kP = kF32 ? 3 : 1;   // bf16 terms of an input
   constexpr int kPc = kF32 ? 3 : 2;  // bf16 terms of p m and ds
   constexpr int kSub = (kN + 63) / 64, kPad = 64 * kSub;  // 64-key subtiles
-  constexpr int NS = kN / 2, NJ = kN / 8, NO = D / 2;
   using C = Chunk<D, 2>;
+  constexpr int kD = C::kD;  // the tile's width (128 at D 72)
+  constexpr int NS = kN / 2, NJ = kN / 8, NO = kD / 2;
   constexpr uint32_t kRB = C::kRowBytes;
-  constexpr uint32_t kKvPlane = kPad * D * 2, kQgPlane = kRows * D * 2;
+  constexpr uint32_t kKvPlane = kPad * kD * 2, kQgPlane = kRows * kD * 2;
   constexpr uint32_t kKChunk = kPad * kRB, kQChunk = kRows * kRB;  // column-chunk strides
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -278,7 +289,7 @@ masked_attention_bwd_kernel(const __grid_constant__ BParams p, const __grid_cons
   // copies: bf16 by TMA (thread 0 issues, everyone waits on the barrier);
   // fp32 by every thread, split into three planes, then a block barrier
   auto issue_kv = [&](int c) {
-    bar_expect_tx(bar_kv, 2 * kN * D * 2);
+    bar_expect_tx(bar_kv, 2 * kN * kD * 2);
 #pragma unroll
     for (int cc = 0; cc < C::kChunks; ++cc) {
       tma_load(k_s + cc * kKChunk, &tk, bar_kv, cc * C::kCC, c * kN, h, b);
@@ -288,7 +299,7 @@ masked_attention_bwd_kernel(const __grid_constant__ BParams p, const __grid_cons
   auto issue_qg = [&](int qb) {
     const int slot = qb & 1;
     const uint32_t bar = bar_q + 8 * slot;
-    bar_expect_tx(bar, 2 * kRows * D * 2);
+    bar_expect_tx(bar, 2 * kRows * kD * 2);
 #pragma unroll
     for (int cc = 0; cc < C::kChunks; ++cc) {
       tma_load(base + pl.off_q + slot * pl.qg_slot + cc * kQChunk, &tq, bar, cc * C::kCC,
@@ -373,7 +384,7 @@ masked_attention_bwd_kernel(const __grid_constant__ BParams p, const __grid_cons
 #pragma unroll
         for (int j = 0; j < kP - i; ++j)
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk) {
+          for (int kk = 0; kk < kD / 16; ++kk) {
             const uint32_t cc = kk / C::kKSteps, ko = (kk % C::kKSteps) * 32;
             const int add = i + j + kk > 0;
             wgmma_ss<kN>(s, desc(q_s + i * kQgPlane + cc * kQChunk + ko, 16, 8 * kRB, kRB),
@@ -581,7 +592,7 @@ masked_attention_bwd_kernel(const __grid_constant__ BParams p, const __grid_cons
             if (i + j >= (kPc > kP ? kPc : kP)) continue;
 #pragma unroll
             for (int kk = 0; kk < kRows / 16; ++kk)
-              wgmma_t<1, 1, D>(part,
+              wgmma_t<1, 1, kD>(part,
                                desc(pl_s + (i * kSub + sub) * kPlaneBytes + kk * 2048,
                                     kPlaneBytes, 1024, 128),
                                desc(y + j * kQgPlane + kk * 16 * kRB, kQChunk, 8 * kRB, kRB),
@@ -590,11 +601,31 @@ masked_attention_bwd_kernel(const __grid_constant__ BParams p, const __grid_cons
         wgmma_commit();
       };
       // the fragment's sum over the query blocks: each thread its own
-      // elements, 128 floats apart
+      // elements, 128 floats apart, 64 D floats a subtile (at D 72 the
+      // elements past 4 (D / 8) hold only the tile's zero columns)
       auto rmw = [&](int which, int sub, const float (&part)[NO]) {
         float* a = acc + ((static_cast<int64_t>(which) * pl.n_kt + c) * kSub + sub) * (64 * D) + tid;
+        if constexpr (kD != D) {
+          // D 72: the elements of columns past 72 (8j + 2 (lane % 4) with
+          // j >= 9, so e >= 36) are never stored and are not summed; the
+          // rest load in batches of 12 before their stores. At SigLIP's
+          // vision shape the sums sit in the scratch buffer, where a load
+          // waiting on the previous element's store cost a device-memory
+          // round trip each: 46.6 ms a call at B 48, 7.75 ms batched (H100).
+          constexpr int kUsed = 4 * (D / 8), kBatch = 12;
+          static_assert(kUsed % kBatch == 0, "whole batches");
 #pragma unroll
-        for (int e = 0; e < NO; ++e) a[e * kThreadsB] = qb == 0 ? part[e] : a[e * kThreadsB] + part[e];
+          for (int e0 = 0; e0 < kUsed; e0 += kBatch) {
+            float old[kBatch];
+#pragma unroll
+            for (int e = 0; e < kBatch; ++e) old[e] = qb == 0 ? 0.f : a[(e0 + e) * kThreadsB];
+#pragma unroll
+            for (int e = 0; e < kBatch; ++e) a[(e0 + e) * kThreadsB] = old[e] + part[e0 + e];
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < NO; ++e) a[e * kThreadsB] = qb == 0 ? part[e] : a[e * kThreadsB] + part[e];
+        }
       };
 
       write_planes(s);  // p m
@@ -620,7 +651,7 @@ masked_attention_bwd_kernel(const __grid_constant__ BParams p, const __grid_cons
             if (i + j >= (kPc > kP ? kPc : kP)) continue;
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk)
-              wgmma_t<0, 1, D>(dq,
+              wgmma_t<0, 1, kD>(dq,
                                desc(pl_s + (i * kSub + sub) * kPlaneBytes + kk * 32, 16, 1024, 128),
                                desc(k_s + j * kKvPlane + (sub * 64 + kk * 16) * kRB, kKChunk,
                                     8 * kRB, kRB),
@@ -639,13 +670,15 @@ masked_attention_bwd_kernel(const __grid_constant__ BParams p, const __grid_cons
       __syncthreads();  // before the planes (and k, v) are written again
     }
 
-    // dq of this query block, complete: rows past Lq skipped
+    // dq of this query block, complete: rows past Lq and the tile's columns
+    // past D skipped
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (!rv[r]) continue;
       T* row = static_cast<T*>(p.dq) + b * p.dq_s[0] + h * p.dq_s[1] + qrow[r] * p.dq_s[2] + 2 * t4;
 #pragma unroll
       for (int j = 0; j < NO / 4; ++j) {
+        if (8 * j >= D) continue;
         const float x0 = dq[4 * j + 2 * r] * p.scale, x1 = dq[4 * j + 2 * r + 1] * p.scale;
         if constexpr (kF32) *reinterpret_cast<float2*>(row + 8 * j) = make_float2(x0, x1);
         else *reinterpret_cast<uint32_t*>(row + 8 * j) = pack_bf16(x0, x1);
@@ -659,7 +692,7 @@ masked_attention_bwd_kernel(const __grid_constant__ BParams p, const __grid_cons
   }
 
   // dv, and dk times D^-1/2, from the sums: keys past Lk (and a tile's
-  // padding rows) skipped
+  // padding rows) and the tile's columns past D skipped
   for (int which = 0; which < 2; ++which) {
     T* out = static_cast<T*>(which ? p.dk : p.dv);
     const int64_t* os = which ? p.dk_s : p.dv_s;
@@ -676,6 +709,7 @@ masked_attention_bwd_kernel(const __grid_constant__ BParams p, const __grid_cons
           T* row = out + b * os[0] + h * os[1] + key * os[2] + 2 * t4;
 #pragma unroll
           for (int j = 0; j < NO / 4; ++j) {
+            if (8 * j >= D) continue;
             const float x0 = a[(4 * j + 2 * r) * kThreadsB] * sc;
             const float x1 = a[(4 * j + 2 * r + 1) * kThreadsB] * sc;
             if constexpr (kF32) *reinterpret_cast<float2*>(row + 8 * j) = make_float2(x0, x1);
@@ -690,13 +724,13 @@ masked_attention_bwd_kernel(const __grid_constant__ BParams p, const __grid_cons
 
 // The key tile of a launch: the smallest instantiated width that holds Lk,
 // else the largest (then `kMulti`). bf16: 64, 96, 128, 160 (64, 128 at
-// D 128: the scores, dP and dq share the registers); fp32: 64 (its three
-// planes of q, k, v and g fill shared memory).
+// D 128 and 72: the scores, dP and dq share the registers); fp32: 64 (its
+// three planes of q, k, v and g fill shared memory).
 template <int D, bool kF32>
 int key_tile(int lk) {
   if (kF32) return 64;
   constexpr int kTiles[4] = {64, 96, 128, 160};
-  constexpr int kStep = D < 128 ? 1 : 2;
+  constexpr int kStep = tile_dim(D) < 128 ? 1 : 2;
   int kn = 0;
   for (int i = 0; i < 4; i += kStep) {
     kn = kTiles[i];
@@ -706,23 +740,24 @@ int key_tile(int lk) {
 }
 
 // The shared-memory layout and the sums' place, for key tile kN at head
-// dim D: k, v (kPad rows a plane), q and g (2 slots in bf16, 1 in fp32),
-// the planes of p m / ds, then dk and dv's sums when everything fits.
-inline cudaError_t make_bplan(const BParams& p, int D, int kN, bool f32, BPlan* pl) {
+// dim d in a tile kd wide: k, v (kPad rows a plane), q and g (2 slots in
+// bf16, 1 in fp32), the planes of p m / ds, then dk and dv's sums (64 d
+// floats a 64-key subtile: no column past d) when everything fits.
+inline cudaError_t make_bplan(const BParams& p, int kd, int d, int kN, bool f32, BPlan* pl) {
   *pl = BPlan{};
   const int kp = f32 ? 3 : 1, kpc = f32 ? 3 : 2, sub = (kN + 63) / 64;
   pl->n_kt = (p.Lk + kN - 1) / kN;
   pl->n_qb = (p.Lq + kRows - 1) / kRows;
   const int q_slots = f32 ? 1 : 2;  // bf16: the next block's q, g load ahead
-  const uint32_t kv = static_cast<uint32_t>(kp * 64 * sub * D * 2);
-  pl->qg_slot = static_cast<uint32_t>(kp * kRows * D * 2);
+  const uint32_t kv = static_cast<uint32_t>(kp * 64 * sub * kd * 2);
+  pl->qg_slot = static_cast<uint32_t>(kp * kRows * kd * 2);
   pl->off_k = 0;
   pl->off_v = kv;
   pl->off_q = 2 * kv;
   pl->off_g = pl->off_q + q_slots * pl->qg_slot;
   pl->off_pl = pl->off_g + q_slots * pl->qg_slot;
   uint32_t end = pl->off_pl + kpc * sub * kPlaneBytes;
-  pl->acc_floats = 2LL * pl->n_kt * sub * 64 * D;
+  pl->acc_floats = 2LL * pl->n_kt * sub * 64 * d;
   constexpr uint32_t kBarBytes = 64;
   const int64_t with_acc = end + pl->acc_floats * 4 + kBarBytes + 1024;
   pl->acc_smem = with_acc <= kSmemLimit;
@@ -745,7 +780,7 @@ cudaError_t launch(const BParams& p, cudaStream_t stream) {
       || !aligned16(p.g, p.g_s, elem))
     return cudaErrorMisalignedAddress;
   BPlan pl;
-  cudaError_t err = make_bplan(p, D, kN, kF32, &pl);
+  cudaError_t err = make_bplan(p, tile_dim(D), D, kN, kF32, &pl);
   if (err != cudaSuccess) return err;
   if (!pl.acc_smem && p.scratch == nullptr) return cudaErrorInvalidValue;
   alignas(64) CUtensorMap tq{}, tk{}, tv{}, tg{};
@@ -819,7 +854,7 @@ int run(const void* q, const void* k, const void* v, const void* g, const void* 
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int kn = key_tile<D, kF32>(p.Lk);
   if (p.Lk > kn) {
-    constexpr int kMax = kF32 ? 64 : D < 128 ? 160 : 128;
+    constexpr int kMax = kF32 ? 64 : tile_dim(D) < 128 ? 160 : 128;
     return static_cast<int>(launch<T, D, kMax, true, kDrop>(p, stream));
   }
   if constexpr (kF32) {
@@ -830,7 +865,7 @@ int run(const void* q, const void* k, const void* v, const void* g, const void* 
       case 128: return static_cast<int>(launch<T, D, 128, false, kDrop>(p, stream));
       default: break;
     }
-    if constexpr (D < 128) {
+    if constexpr (tile_dim(D) < 128) {
       switch (kn) {
         case 96: return static_cast<int>(launch<T, D, 96, false, kDrop>(p, stream));
         case 160: return static_cast<int>(launch<T, D, 160, false, kDrop>(p, stream));
@@ -843,7 +878,8 @@ int run(const void* q, const void* k, const void* v, const void* g, const void* 
 
 // The plan of a launch of these dims (host only): out = {key tile, key
 // tiles, multi (past one tile), sums in shared memory, shared-memory bytes,
-// scratch floats the wrapper allocates (0 when the sums fit)}
+// scratch floats the wrapper allocates (0 when the sums fit), the head
+// dim's tile width}
 template <int D, bool kF32>
 int plan(const int64_t* dims, int64_t* out) {
   BParams p = parse_bparams(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
@@ -852,11 +888,12 @@ int plan(const int64_t* dims, int64_t* out) {
     return static_cast<int>(cudaErrorInvalidValue);
   const int kn = key_tile<D, kF32>(p.Lk);
   BPlan pl;
-  const cudaError_t err = make_bplan(p, D, kn, kF32, &pl);
+  const cudaError_t err = make_bplan(p, tile_dim(D), D, kn, kF32, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t got[6] = {kn, pl.n_kt, p.Lk > kn, pl.acc_smem, pl.smem_bytes,
-                          pl.acc_smem ? 0 : static_cast<int64_t>(p.B) * p.H * pl.acc_floats};
-  for (int i = 0; i < 6; ++i) out[i] = got[i];
+  const int64_t got[7] = {kn, pl.n_kt, p.Lk > kn, pl.acc_smem, pl.smem_bytes,
+                          pl.acc_smem ? 0 : static_cast<int64_t>(p.B) * p.H * pl.acc_floats,
+                          tile_dim(D)};
+  for (int i = 0; i < 7; ++i) out[i] = got[i];
   return 0;
 }
 
@@ -883,3 +920,6 @@ int masked_attention_bwd_fp32_d64(MASKED_ATTENTION_BWD_ARGS);
 int masked_attention_bwd_fp32_d64_drop(MASKED_ATTENTION_BWD_ARGS);
 int masked_attention_bwd_fp32_d128(MASKED_ATTENTION_BWD_ARGS);
 int masked_attention_bwd_fp32_d128_drop(MASKED_ATTENTION_BWD_ARGS);
+// head dim 72 (SigLIP), in the D 128 tile, without dropout only
+int masked_attention_bwd_bf16_d72(MASKED_ATTENTION_BWD_ARGS);
+int masked_attention_bwd_fp32_d72(MASKED_ATTENTION_BWD_ARGS);

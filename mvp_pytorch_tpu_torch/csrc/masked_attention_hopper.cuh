@@ -32,15 +32,26 @@ constexpr int kBiasPad = 8;  // floats a bias row: a warp's reads of 8 rows take
 // empty barriers: every consumer warp arrives (2 warpgroups x 4)
 constexpr int kConsumerWarps = kConsumers * 4;
 
+// The width a head of D dims takes in shared memory and in the products: D
+// itself, or 128 at D 72 (SigLIP's 1,152 / 16). A 72-dim row is 144 bytes,
+// which no swizzle span divides; its tile is the D 128 tile, whose columns
+// 72-127 TMA fills with zeros on load (past the map's extent of 72) and
+// whose stores skip them, so no padded copy of q, k, v, the output or a
+// gradient exists in device memory. The zero columns add nothing to q.k^T
+// or g.v^T; the products that write them (P.v, ds.k, ds^T.q, p^T.g) waste
+// 56 of 128 columns.
+__host__ __device__ constexpr int tile_dim(int D) { return D == 72 ? 128 : D; }
+
 // Head-dim chunking of a tile of kElem-byte elements in shared memory: rows
 // of kCC elements (128 bytes, 64 for bf16 at D 32), the swizzle span; wider
 // heads are chunks side by side (bf16 D 128: two; fp32 D 64: two, D 128:
-// four).
+// four; D 72 as D 128).
 template <int D, int kElem>
 struct Chunk {
-  static constexpr int kCC = D * kElem < 128 ? D : 128 / kElem;
+  static constexpr int kD = tile_dim(D);
+  static constexpr int kCC = kD * kElem < 128 ? kD : 128 / kElem;
   static constexpr int kRowBytes = kCC * kElem;
-  static constexpr int kChunks = D / kCC;
+  static constexpr int kChunks = kD / kCC;
   static constexpr int kKSteps = kRowBytes / 32;  // 32-byte k-steps (bf16 k16, tf32 k8)
 };
 
@@ -212,7 +223,7 @@ __device__ __forceinline__ void produce(const Plan& pl, uint32_t base, const CUt
   const uint32_t bars = base + pl.off_bar;
   const uint32_t q_chunk = 2 * kRows * C::kRowBytes;
   const uint32_t kv_chunk = pl.hb * kN * C::kRowBytes;
-  const uint32_t kv_bytes = pl.hb * kN * D * kElem;  // k (or v) of a stage
+  const uint32_t kv_bytes = pl.hb * kN * C::kD * kElem;  // k (or v) of a stage
   int slot = 0;
   uint32_t phase = 0;
   TileWalk walk(pl, start);
@@ -433,7 +444,8 @@ inline EncodeTiled encode_tiled() {
 // a [B, H, L, D] tensor of kElem-byte elements (2: bf16, 4: fp32) with
 // element strides s (b, h, l) as a 4-D map over (D, L, H, B), in boxes of
 // (kCC, rows, heads, 1); a dim of extent 1 gets a stride that TMA accepts
-// (it is never stepped). Returns the driver's CUresult
+// (it is never stepped). At D 72 the boxes span the 128-wide tile: columns
+// past 72 lie outside the map and load as zeros. Returns the driver's CUresult
 // (CUDA_ERROR_NOT_FOUND without the entry point).
 template <int D, int kElem>
 int encode(CUtensorMap* map, const void* ptr, int B, int H, int L, const int64_t* s, int rows,

@@ -58,8 +58,10 @@
 //     (k split, v^T written) and release k's buffers when S is done and the
 //     stage when P.v is done; the next stage's split runs during this
 //     stage's softmax and P.v.
+//   - D 72 (SigLIP) runs in the D 128 tile (`tile_dim`): TMA zero-fills q,
+//     k and v past column 72, the output stores skip those columns.
 //   - Key tiles sized to Lk, chosen on the host (`choose`): the smallest of
-//     {32, 64, 96, 128, 160} (32, 64 at D 128) that holds Lk and whose plan
+//     {32, 64, 96, 128, 160} (32, 64 at D 128 and 72) that holds Lk and whose plan
 //     fits 227 KB of shared memory (q, a bias slot, one stage of six times
 //     the bf16 stage's bytes), one exact tile with an
 //     exact row softmax, normalised before P.v; else the largest up to
@@ -347,8 +349,9 @@ template <int D, int kN, bool kDrop>
 __device__ __forceinline__ void consume(const Params& p, const Plan& pl, uint8_t* smem,
                                         uint32_t base, int w, int start, int end) {
   static_assert(Chunk<D, 4>::kRowBytes == 128, "fp32 rows are 128-byte swizzled");
-  constexpr int NS = kN / 2;  // score accumulators a thread
-  constexpr int NO = D / 2;   // output accumulators a thread
+  constexpr int kD = tile_dim(D);  // the tile's width (128 at D 72)
+  constexpr int NS = kN / 2;       // score accumulators a thread
+  constexpr int NO = kD / 2;       // output accumulators a thread
   constexpr int NJ = kN / 8;  // 8-key blocks
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
@@ -359,8 +362,8 @@ __device__ __forceinline__ void consume(const Params& p, const Plan& pl, uint8_t
   const uint32_t q_chunk = 2 * kRows * 128;
   const uint32_t kv_chunk = pl.hb * kN * 128;
   const uint32_t kv_head = wh * kN * 128;
-  const uint32_t kv_bytes = pl.hb * kN * D * 4;
-  const uint32_t vt_head = wh * kN * D * 4;  // v^T of head wh: kN / 32 chunks of D rows
+  const uint32_t kv_bytes = pl.hb * kN * kD * 4;
+  const uint32_t vt_head = wh * kN * kD * 4;  // v^T of head wh: kN / 32 chunks of kD rows
   const int bias_row = pl.bias_rows > 1 ? r0 * pl.bias_pitch : 0;
   const int bias_row8 = pl.bias_rows > 1 ? 8 * pl.bias_pitch : 0;
   const int bias_blk = pl.bias_blocks == 2 ? w * pl.bias_blk_floats : 0;
@@ -386,7 +389,7 @@ __device__ __forceinline__ void consume(const Params& p, const Plan& pl, uint8_t
   // time; k hi at k_base, k lo at lo_base
   auto compute_s = [&](float (&acc)[NS], const uint8_t* qb, uint32_t k_base, uint32_t lo_base) {
 #pragma unroll
-    for (int c = 0; c < D / 8 / kStepsAtOnce; ++c) {
+    for (int c = 0; c < kD / 8 / kStepsAtOnce; ++c) {
       uint32_t ah[kStepsAtOnce][4], al[kStepsAtOnce][4];
 #pragma unroll
       for (int kk = 0; kk < kStepsAtOnce; ++kk)
@@ -444,12 +447,12 @@ __device__ __forceinline__ void consume(const Params& p, const Plan& pl, uint8_t
         const uint32_t ah[4] = {__float_as_uint(s[j]), __float_as_uint(s[j + 2]),
                                 __float_as_uint(s[j + 1]), __float_as_uint(s[j + 3])};
         const uint32_t alp[4] = {al[kk][0], al[kk][2], al[kk][1], al[kk][3]};
-        const uint32_t off = vt_head + (ks / 4) * D * 128 + (ks % 4) * 32;
+        const uint32_t off = vt_head + (ks / 4) * kD * 128 + (ks % 4) * 32;
         const uint64_t bh = desc(vt_base + off, 16, 1024, 128);
         const uint64_t bl = desc(lo_base + off, 16, 1024, 128);
-        wgmma_tf32<D>(o, alp, bh, !first || ks > 0);
-        wgmma_tf32<D>(o, ah, bl, 1);
-        wgmma_tf32<D>(o, ah, bh, 1);
+        wgmma_tf32<kD>(o, alp, bh, !first || ks > 0);
+        wgmma_tf32<kD>(o, ah, bl, 1);
+        wgmma_tf32<kD>(o, ah, bh, 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -583,7 +586,8 @@ __device__ __forceinline__ void consume(const Params& p, const Plan& pl, uint8_t
     prev_key = key;
 
     // the output: each thread's two rows, 8 bytes a store (a quad of threads
-    // writes 32 contiguous bytes of a row), rows past Lq skipped
+    // writes 32 contiguous bytes of a row), rows past Lq and the tile's
+    // columns past D skipped
     if (active) {
       const float f[2] = {n_kt == 1 ? 1.f : 1.f / l_r[0], n_kt == 1 ? 1.f : 1.f / l_r[1]};
       float* og = static_cast<float*>(p.out) + t.b * p.o_s[0] + head * p.o_s[1]
@@ -594,8 +598,9 @@ __device__ __forceinline__ void consume(const Params& p, const Plan& pl, uint8_t
         if (r0 + 8 * r < rows) {
 #pragma unroll
           for (int j = 0; j < NO / 4; ++j)
-            *reinterpret_cast<float2*>(row + 8 * j) =
-                make_float2(o[4 * j + 2 * r] * f[r], o[4 * j + 2 * r + 1] * f[r]);
+            if (8 * j < D)
+              *reinterpret_cast<float2*>(row + 8 * j) =
+                  make_float2(o[4 * j + 2 * r] * f[r], o[4 * j + 2 * r + 1] * f[r]);
         }
       }
     }
@@ -619,6 +624,7 @@ masked_attention_tf32_kernel(const __grid_constant__ Params p,
   const int start = static_cast<int>(static_cast<int64_t>(blockIdx.x) * pl.n_tiles / gridDim.x);
   const int end = static_cast<int>(static_cast<int64_t>(blockIdx.x + 1) * pl.n_tiles / gridDim.x);
   constexpr int kSplitWarps = kLoaders / 32;
+  constexpr int kD = tile_dim(D);
   if (threadIdx.x == 0) {
     for (int s = 0; s < kMaxQSlots; ++s) {
       bar_init(bars + 8 * (kQFull + s), 1);
@@ -642,7 +648,7 @@ masked_attention_tf32_kernel(const __grid_constant__ Params p,
   __syncthreads();
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(Regs<D, kN>::kProducer));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(Regs<kD, kN>::kProducer));
     const int warp = threadIdx.x / 32 % 4;
     if (warp == 0) {
       if (threadIdx.x % 32 == 0) produce<D, kN, 4, true>(pl, base, &tq, &tk, &tv, start, end);
@@ -650,17 +656,17 @@ masked_attention_tf32_kernel(const __grid_constant__ Params p,
       // after each key tile's bias: split its k once it lands, and once S
       // is done (k's buffers free) transpose its v into them
       const int tid = threadIdx.x % 128 - 32, lane = threadIdx.x % 32;
-      const uint32_t kv_bytes = pl.hb * kN * D * 4;
+      const uint32_t kv_bytes = pl.hb * kN * kD * 4;
       int slot = 0;
       uint32_t phase = 0;
       stage_bias<kN>(p, pl, smem, base, tid, start, end, [&] {
         const uint32_t kb = base + pl.off_kv + slot * pl.kv_stage_bytes;
         bar_wait(bars + 8 * (kKFull + slot), phase);
-        split_k<D, kN>(pl, kb, kb + 2 * kv_bytes, tid);
+        split_k<kD, kN>(pl, kb, kb + 2 * kv_bytes, tid);
         split_release(bars + 8 * (kKReady + slot), lane);
         bar_wait(bars + 8 * (kSDone + slot), phase);
         bar_wait(bars + 8 * (kVFull + slot), phase);
-        transpose_v<D, kN>(pl, kb + kv_bytes, kb, kb + 2 * kv_bytes, tid);
+        transpose_v<kD, kN>(pl, kb + kv_bytes, kb, kb + 2 * kv_bytes, tid);
         split_release(bars + 8 * (kVtReady + slot), lane);
         if (lane == 0) bar_arrive(bars + 8 * (kVEmpty + slot));
         if (++slot == pl.stages) {
@@ -670,7 +676,7 @@ masked_attention_tf32_kernel(const __grid_constant__ Params p,
       });
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(Regs<D, kN>::kConsumer));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(Regs<kD, kN>::kConsumer));
     consume<D, kN, kDrop>(p, pl, smem, base, wg, start, end);
   }
 }
@@ -703,7 +709,7 @@ cudaError_t launch(const Params& p, int hb, int order, cudaStream_t stream) {
       || !aligned16(p.out, p.o_s, 4))
     return cudaErrorMisalignedAddress;
   Plan pl;
-  cudaError_t err = make_plan(p, D, kN, 4, hb, order, &pl);
+  cudaError_t err = make_plan(p, tile_dim(D), kN, 4, hb, order, &pl);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
   if (encode<D, 4>(&tq, p.q, p.B, p.H, p.Lq, p.q_s, kRows * pl.qb, hb) != CUDA_SUCCESS
@@ -728,10 +734,10 @@ struct Choice {
   int kn, hb, order;
 };
 constexpr int kKeyTiles[] = {32, 64, 96, 128, 160};
-// key tiles instantiated at head dim D: five, two at D 128 (q, one k/v stage
-// and the split buffer of a wider tile would not fit shared memory)
+// key tiles instantiated at head dim D: five, two at D 128 and 72 (q, one k/v
+// stage and the split buffer of a wider tile would not fit shared memory)
 template <int D>
-constexpr int n_key_tiles() { return D < 128 ? 5 : 2; }
+constexpr int n_key_tiles() { return tile_dim(D) < 128 ? 5 : 2; }
 
 template <int D>
 Choice choose(const Params& p) {
@@ -739,7 +745,7 @@ Choice choose(const Params& p) {
            p.bias != nullptr && p.b_s[2] != 0 && p.b_s[1] == 0 ? 1 : 0};
   for (int i = 0; i < n_key_tiles<D>(); ++i) {
     Plan pl;
-    if (make_plan(p, D, kKeyTiles[i], 4, c.hb, c.order, &pl) != cudaSuccess) continue;
+    if (make_plan(p, tile_dim(D), kKeyTiles[i], 4, c.hb, c.order, &pl) != cudaSuccess) continue;
     if (kKeyTiles[i] >= p.Lk) {
       c.kn = kKeyTiles[i];
       break;
@@ -789,7 +795,7 @@ int fwd(const void* q, const void* k, const void* v, const void* bias, void* out
 // The plan masked_attention_fwd makes for an fp32 launch of these dims (as
 // masked_attention_fwd takes them; `has_bias` stands for the bias pointer):
 // out = {key tile, heads a tile, tile order, tiles, k/v stages, shared
-// memory bytes}
+// memory bytes, the head dim's tile width}
 template <int D>
 int plan(const int64_t* dims, int has_bias, int64_t* out) {
   Params p = parse_params(nullptr, nullptr, nullptr, nullptr, nullptr, dims, nullptr, 0, 1.0f);
@@ -799,18 +805,19 @@ int plan(const int64_t* dims, int has_bias, int64_t* out) {
   const Choice c = choose<D>(p);
   if (c.kn == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   Plan pl;
-  const cudaError_t err = make_plan(p, D, c.kn, 4, c.hb, c.order, &pl);
+  const cudaError_t err = make_plan(p, tile_dim(D), c.kn, 4, c.hb, c.order, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t got[6] = {c.kn, c.hb, c.order, pl.n_tiles, pl.stages, pl.smem_bytes};
-  for (int i = 0; i < 6; ++i) out[i] = got[i];
+  const int64_t got[7] = {c.kn, c.hb, c.order, pl.n_tiles, pl.stages, pl.smem_bytes,
+                          tile_dim(D)};
+  for (int i = 0; i < 7; ++i) out[i] = got[i];
   return 0;
 }
 
 // resident blocks per SM of the kernel without dropout at its 128-key tile
-// (64 at D 128), with the shared memory of a key-mask launch at Lq > 64
+// (64 at D 128 and 72), with the shared memory of a key-mask launch at Lq > 64
 template <int D>
 int blocks_per_sm(int* n) {
-  constexpr int kN = D < 128 ? 128 : 64;
+  constexpr int kN = tile_dim(D) < 128 ? 128 : 64;
   int sms = 0;
   cudaError_t err = prepare<D, kN, false>(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -819,7 +826,7 @@ int blocks_per_sm(int* n) {
   p.Lq = 2 * kRows;
   p.Lk = kN;
   Plan pl;
-  err = make_plan(p, D, kN, 4, 1, 0, &pl);
+  err = make_plan(p, tile_dim(D), kN, 4, 1, 0, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, masked_attention_tf32_kernel<D, kN, false>,

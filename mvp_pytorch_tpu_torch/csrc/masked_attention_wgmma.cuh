@@ -42,7 +42,9 @@
 //     up to 256 (70, 75, 90, 92, 105, 125, 140, 145, ...). Past 256 keys
 //     the kernel walks tiles of 256 with an online softmax. At D 128 the
 //     key tile stops at 64 (the tile's scores and output would not fit the
-//     registers beside each other), online beyond.
+//     registers beside each other), online beyond. D 72 (SigLIP) runs in
+//     the D 128 tile (`tile_dim`): TMA zero-fills q, k and v past column
+//     72, the output stores skip those columns.
 //   - Copies by TMA (`cp.async.bulk.tensor`, 4-D maps over (D, L, H, B)
 //     with the tensors' own strides, both layouts alike), 128-byte swizzled
 //     (64-byte at D 32) as `wgmma` reads them, each completing on an
@@ -317,8 +319,8 @@ template <int D, int kN, bool kDrop>
 __device__ __forceinline__ void consume(const Params& p, const Plan& pl, uint8_t* smem,
                                         uint32_t base, int w, int start, int end) {
   using C = Chunk<D, 2>;
-  constexpr int NS = kN / 2;  // score accumulators a thread
-  constexpr int NO = D / 2;   // output accumulators a thread
+  constexpr int NS = kN / 2;      // score accumulators a thread
+  constexpr int NO = C::kD / 2;   // output accumulators a thread (the tile's width)
   constexpr int NJ = kN / 8;  // 8-key blocks
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
@@ -330,7 +332,7 @@ __device__ __forceinline__ void consume(const Params& p, const Plan& pl, uint8_t
   const uint32_t q_chunk = 2 * kRows * C::kRowBytes;
   const uint32_t kv_chunk = pl.hb * kN * C::kRowBytes;
   const uint32_t kv_head = wh * kN * C::kRowBytes;
-  const uint32_t kv_bytes = pl.hb * kN * D * 2;
+  const uint32_t kv_bytes = pl.hb * kN * C::kD * 2;
   const int bias_row = pl.bias_rows > 1 ? r0 * pl.bias_pitch : 0;
   const int bias_row8 = pl.bias_rows > 1 ? 8 * pl.bias_pitch : 0;
   const int bias_blk = pl.bias_blocks == 2 ? w * pl.bias_blk_floats : 0;
@@ -348,7 +350,7 @@ __device__ __forceinline__ void consume(const Params& p, const Plan& pl, uint8_t
   auto issue_s = [&](float (&acc)[NS], uint32_t q_base, uint32_t st) {
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < C::kD / 16; ++kk) {
       const uint32_t c = kk / C::kKSteps, ko = (kk % C::kKSteps) * 32;
       wgmma_ss<kN>(acc, desc(q_base + c * q_chunk + ko, 16, 8 * C::kRowBytes, C::kRowBytes),
                    desc(st + c * kv_chunk + kv_head + ko, 16, 8 * C::kRowBytes, C::kRowBytes),
@@ -490,7 +492,7 @@ __device__ __forceinline__ void consume(const Params& p, const Plan& pl, uint8_t
 #pragma unroll
         for (int kk = 0; kk < kN / 16; ++kk) {
           const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2], pk[4 * kk + 3]};
-          wgmma_rs<D>(o, a,
+          wgmma_rs<C::kD>(o, a,
                       desc(st + kv_bytes + kv_head + kk * 16 * C::kRowBytes, kv_chunk,
                            8 * C::kRowBytes, C::kRowBytes),
                       kt > 0 || kk > 0);
@@ -510,7 +512,8 @@ __device__ __forceinline__ void consume(const Params& p, const Plan& pl, uint8_t
     prev_key = t.key;
 
     // the output: each thread's two rows, 4 bytes a store (a quad of
-    // threads writes 16 contiguous bytes of a row), rows past Lq skipped
+    // threads writes 16 contiguous bytes of a row), rows past Lq and the
+    // tile's columns past D skipped
     if (active) {
       const float f[2] = {pl.n_kt == 1 ? 1.f : 1.f / l_r[0], pl.n_kt == 1 ? 1.f : 1.f / l_r[1]};
       bf16* og = static_cast<bf16*>(p.out) + t.b * p.o_s[0] + head * p.o_s[1]
@@ -521,8 +524,9 @@ __device__ __forceinline__ void consume(const Params& p, const Plan& pl, uint8_t
         if (r0 + 8 * r < rows) {
 #pragma unroll
           for (int j = 0; j < NO / 4; ++j)
-            *reinterpret_cast<uint32_t*>(row + 8 * j) =
-                pack_bf16(o[4 * j + 2 * r] * f[r], o[4 * j + 2 * r + 1] * f[r]);
+            if (8 * j < D)
+              *reinterpret_cast<uint32_t*>(row + 8 * j) =
+                  pack_bf16(o[4 * j + 2 * r] * f[r], o[4 * j + 2 * r + 1] * f[r]);
         }
       }
     }
@@ -605,7 +609,7 @@ cudaError_t launch(const Params& p, int hb, int order, cudaStream_t stream) {
       || !aligned16(p.out, p.o_s, 2))
     return cudaErrorMisalignedAddress;
   Plan pl;
-  cudaError_t err = make_plan(p, D, kN, 2, hb, order, &pl);
+  cudaError_t err = make_plan(p, tile_dim(D), kN, 2, hb, order, &pl);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
   if (encode<D, 2>(&tq, p.q, p.B, p.H, p.Lq, p.q_s, kRows * pl.qb, hb) != CUDA_SUCCESS
@@ -636,10 +640,10 @@ struct Choice {
   int kn, hb, order;
 };
 constexpr int kKeyTiles[] = {32, 64, 96, 128, 160, 256};
-// key tiles instantiated at head dim D: all six, two at D 128 (the tile's
-// scores and output share the registers)
+// key tiles instantiated at head dim D: all six, two at D 128 and 72 (the
+// tile's scores and output share the registers)
 template <int D>
-constexpr int n_key_tiles() { return D < 128 ? 6 : 2; }
+constexpr int n_key_tiles() { return tile_dim(D) < 128 ? 6 : 2; }
 
 template <int D>
 Choice choose(const Params& p) {
@@ -694,7 +698,7 @@ int fwd(const void* q, const void* k, const void* v, const void* bias, void* out
 // The plan masked_attention_fwd makes for a bf16 launch of these dims (as
 // masked_attention_fwd takes them; `has_bias` stands for the bias pointer):
 // out = {key tile, heads a tile, tile order, tiles, k/v stages, shared
-// memory bytes}
+// memory bytes, the head dim's tile width}
 template <int D>
 int plan(const int64_t* dims, int has_bias, int64_t* out) {
   Params p = parse_params(nullptr, nullptr, nullptr, nullptr, nullptr, dims, nullptr, 0, 1.0f);
@@ -704,19 +708,20 @@ int plan(const int64_t* dims, int has_bias, int64_t* out) {
   const Choice c = choose<D>(p);
   Plan pl;
   const cudaError_t err = with_key_tile<D>(c.kn, [&](auto kn) {
-    return make_plan(p, D, decltype(kn)::value, 2, c.hb, c.order, &pl);
+    return make_plan(p, tile_dim(D), decltype(kn)::value, 2, c.hb, c.order, &pl);
   });
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t got[6] = {c.kn, c.hb, c.order, pl.n_tiles, pl.stages, pl.smem_bytes};
-  for (int i = 0; i < 6; ++i) out[i] = got[i];
+  const int64_t got[7] = {c.kn, c.hb, c.order, pl.n_tiles, pl.stages, pl.smem_bytes,
+                          tile_dim(D)};
+  for (int i = 0; i < 7; ++i) out[i] = got[i];
   return 0;
 }
 
 // resident blocks per SM of the kernel without dropout at its 128-key tile
-// (64 at D 128), with the shared memory of a key-mask launch at Lq > 64
+// (64 at D 128 and 72), with the shared memory of a key-mask launch at Lq > 64
 template <int D>
 int blocks_per_sm(int* n) {
-  constexpr int kN = D < 128 ? 128 : 64;
+  constexpr int kN = tile_dim(D) < 128 ? 128 : 64;
   int sms = 0;
   cudaError_t err = prepare<D, kN, false>(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -725,7 +730,7 @@ int blocks_per_sm(int* n) {
   p.Lq = 2 * kRows;
   p.Lk = kN;
   Plan pl;
-  err = make_plan(p, D, kN, 2, 1, 0, &pl);
+  err = make_plan(p, tile_dim(D), kN, 2, 1, 0, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, masked_attention_wgmma_kernel<D, kN, false>,

@@ -7,6 +7,7 @@ from .img_bert import (CaptioningModel, ImgBertForMultipleChoice,
                        ImgBertForPreTraining,
                        ImgBertForSequenceClassification, ImgBertModel)
 from .pretrain import BiPretrainModel, PretrainOutput
+from .siglip import SiglipConfig, SiglipModel
 from .tasks import (CaseModel, ClassificationModel, ClassificationPlusModel,
                     MLMModel, NLVRModel, REModel, RepModel, RetrievalModel,
                     RetrievalTrainOutput, VQAModel, WREModel)
@@ -18,5 +19,6 @@ __all__ = ["BiEncoder", "BiEncoderOutput", "BiPretrainModel",
            "ImgBertForPreTraining", "ImgBertForSequenceClassification",
            "ImgBertModel", "MLMModel", "ModelConfig", "NLVRModel",
            "PretrainOutput", "REModel", "RepModel", "RetrievalModel",
-           "RetrievalTrainOutput", "VQAModel", "WREModel", "l2_normalize",
+           "RetrievalTrainOutput", "SiglipConfig", "SiglipModel", "VQAModel",
+           "WREModel", "l2_normalize",
            "tiny_config"]

@@ -50,6 +50,7 @@ from .config import ModelConfig
 __all__ = [
     "ACT2FN", "Dense", "Dropout", "LayerNorm", "Embeddings", "SelfAttention",
     "AttentionBlock", "TransformerLayer", "StreamEncoder", "Pooler",
+    "PreLNAttention", "PreLNMLP", "PreLNLayer",
     "mask_to_bias", "compute_dtype", "dropout_generator", "hidden_dropouts",
     "resolve_device",
 ]
@@ -352,6 +353,58 @@ class TransformerLayer(nn.Module):
         if region is not None:
             y = shard_seq(y, region)
         return self.output(y, attn_out)
+
+
+class PreLNAttention(nn.Module):
+    """Multi-head self-attention of a pre-LN layer under SigLIP's names
+    (`q_proj`, `k_proj`, `v_proj`, `out_proj`), without dropout: q, k and v
+    stay in the projections' [B, L, H, D] layout for `masked_attention`."""
+
+    def __init__(self, hidden: int, heads: int, dtype: torch.dtype):
+        super().__init__()
+        self.heads = heads
+        self.q_proj = Dense(hidden, hidden, dtype)
+        self.k_proj = Dense(hidden, hidden, dtype)
+        self.v_proj = Dense(hidden, hidden, dtype)
+        self.out_proj = Dense(hidden, hidden, dtype)
+
+    def forward(self, x, bias=None):
+        b, l, h = x.shape
+        q, k, v = (p(x).view(b, l, self.heads, h // self.heads)
+                   for p in (self.q_proj, self.k_proj, self.v_proj))
+        ctx = masked_attention(q, k, v, bias, layout="blhd")
+        return self.out_proj(ctx.reshape(b, l, h))
+
+
+class PreLNMLP(nn.Module):
+    """fc1 -> tanh GELU -> fc2 (SigLIP's `gelu_pytorch_tanh` MLP)."""
+
+    def __init__(self, hidden: int, intermediate: int, dtype: torch.dtype):
+        super().__init__()
+        self.fc1 = Dense(hidden, intermediate, dtype)
+        self.fc2 = Dense(intermediate, hidden, dtype)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
+
+class PreLNLayer(nn.Module):
+    """One pre-LN layer (ViT, SigLIP): x + attn(LN1(x)), then that plus
+    mlp(LN2(that)). The residual stream stays in the compute dtype; the
+    LayerNorms take fp32 statistics. A class of its own beside the post-LN
+    `TransformerLayer`, which BERT's configurations run unchanged."""
+
+    def __init__(self, hidden: int, heads: int, intermediate: int,
+                 eps: float, dtype: torch.dtype):
+        super().__init__()
+        self.layer_norm1 = LayerNorm(hidden, eps, dtype)
+        self.self_attn = PreLNAttention(hidden, heads, dtype)
+        self.layer_norm2 = LayerNorm(hidden, eps, dtype)
+        self.mlp = PreLNMLP(hidden, intermediate, dtype)
+
+    def forward(self, x, bias=None):
+        x = x + self.self_attn(self.layer_norm1(x), bias)
+        return x + self.mlp(self.layer_norm2(x))
 
 
 def _layer_generator(layer: nn.Module) -> Optional[torch.Generator]:

@@ -16,7 +16,12 @@ on a CUDA tensor it launches the hand-written kernel `masked_attention_fwd`
 (csrc/, both dtypes on `wgmma` and TMA: bf16 in masked_attention_wgmma.cuh;
 fp32 in three TF32 passes (3xTF32), masked_attention_tf32.cuh) or raises.
 Each kernel picks its key-tile width, the heads of a tile and the tile
-order itself (`kernel_plan` reads them back).
+order itself (`kernel_plan` reads them back). Head dims: `HEAD_DIMS`. D 72
+(SigLIP's 16 heads of 1,152) runs in the kernels' D 128 tile: TMA fills the
+tile's columns past 72 with zeros on load and the stores skip them, so no
+padded copy of any tensor goes to device memory (`kernel_plan` and
+`kernel_bwd_plan` report the tile's width as `head_tile`); it has no
+dropout instantiation, and a D 72 call with dropout raises.
 Its backward saves only q, k, v, the bias and the dropout seed and
 recomputes the probabilities in fp32. On a CUDA tensor it launches the
 hand-written kernel `masked_attention_bwd` once a call
@@ -56,7 +61,9 @@ from . import _kernels
 MASK_VALUE = -10000.0  # finite, matches the reference numerics; safe in bf16
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 72, 128)
+# head dims whose kernels have no dropout instantiation
+NO_DROPOUT_DIMS = (72,)
 _M32 = 0xFFFFFFFF
 
 
@@ -296,17 +303,18 @@ def kernel_plan(lq: int, lk: int, h: int, d: int, bias_strides=None,
     the largest, walked by the online softmax; fp32: of those whose plan
     fits shared memory), heads (of a tile: 2 when Lq <= 64), order (1: head
     tiles innermost, for a per-query bias broadcast over heads), tiles,
-    stages (of k and v in shared memory) and smem_bytes (a block)."""
+    stages (of k and v in shared memory), smem_bytes (a block) and
+    head_tile (the width a head takes in the tile: d, or 128 at d 72)."""
     dims = [b, h, lq, lk, d, _DTYPE_CODE[dtype], 0] + [0] * 12
     dims += bias_strides or (0, 0, 0)
     arr = (ctypes.c_int64 * len(dims))(*dims)
-    out = (ctypes.c_int64 * 6)()
+    out = (ctypes.c_int64 * 7)()
     err = _kernels.library().masked_attention_plan(
         ctypes.addressof(arr), int(bias_strides is not None),
         ctypes.addressof(out))
     _kernels.check(err, "masked_attention_plan")
     return dict(zip(("key_tile", "heads", "order", "tiles", "stages",
-                     "smem_bytes"), out))
+                     "smem_bytes", "head_tile"), out))
 
 
 def tma_encode_us(layout: str = "blhd", iters: int = 1000) -> float:
@@ -359,7 +367,7 @@ def _tma_ready(t):
     16-byte multiples and no zero stride on a dim of extent > 1 (what TMA
     and the fp32 loads take), copied only when it is not."""
     if t.is_contiguous() and t.data_ptr() % 16 == 0:
-        return t               # rows of D in {32, 64, 128}: 16-byte strides
+        return t               # rows of D in HEAD_DIMS: 16-byte strides
     per16 = 16 // t.element_size()
     if (t.stride(-1) != 1 or t.data_ptr() % 16
             or any(s % per16 for s in t.stride()[:3])
@@ -431,7 +439,7 @@ def _kernel_attention_grads(q, k, v, bias, g, layout, bias_grad: bool,
     dims += bias_strides
     arr = (ctypes.c_int64 * len(dims))(*dims)
     lib = _kernels.library()
-    plan = (ctypes.c_int64 * 6)()
+    plan = (ctypes.c_int64 * 7)()
     _kernels.check(lib.masked_attention_bwd_plan(ctypes.addressof(arr),
                                                  ctypes.addressof(plan)),
                    "masked_attention_bwd_plan")
@@ -461,16 +469,17 @@ def kernel_bwd_plan(lq: int, lk: int, h: int = 12, d: int = 64, b: int = 1,
     read from the built library (host only): key_tile (the smallest
     instantiated width that holds Lk, else the largest), key_tiles, multi
     (1: past one key tile, two passes), acc_smem (1: dk and dv add up in
-    shared memory, 0: in a scratch buffer), smem_bytes (a block) and
-    scratch_floats."""
+    shared memory, 0: in a scratch buffer), smem_bytes (a block),
+    scratch_floats and head_tile (the width a head takes in the tile: d,
+    or 128 at d 72)."""
     dims = [b, h, lq, lk, d, _DTYPE_CODE[dtype], 0] + [0] * 24
     arr = (ctypes.c_int64 * len(dims))(*dims)
-    out = (ctypes.c_int64 * 6)()
+    out = (ctypes.c_int64 * 7)()
     err = _kernels.library().masked_attention_bwd_plan(ctypes.addressof(arr),
                                                        ctypes.addressof(out))
     _kernels.check(err, "masked_attention_bwd_plan")
     return dict(zip(("key_tile", "key_tiles", "multi", "acc_smem",
-                     "smem_bytes", "scratch_floats"), out))
+                     "smem_bytes", "scratch_floats", "head_tile"), out))
 
 
 class _BackwardKernel(torch.autograd.Function):
@@ -543,7 +552,8 @@ def masked_attention(q, k, v, bias: Optional[torch.Tensor] = None, *,
     `masked_attention.dropout_launches`) or raises. Its backward launches
     `masked_attention_bwd` on a CUDA tensor (one more
     `masked_attention.backward_launches`) and runs the plain recompute on a
-    CPU tensor.
+    CPU tensor. A head dim in `NO_DROPOUT_DIMS` (72) with dropout raises, on
+    either device: its kernels have no dropout instantiation.
     """
     if layout not in ("bhld", "blhd"):
         raise ValueError(f"unknown layout {layout!r}")
@@ -552,6 +562,10 @@ def masked_attention(q, k, v, bias: Optional[torch.Tensor] = None, *,
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"masked_attention: dropout_p {dropout_p} not in "
                          f"[0, 1)")
+    if dropout_p > 0 and q.shape[-1] in NO_DROPOUT_DIMS:
+        raise ValueError(f"masked_attention: head dim {q.shape[-1]} has no "
+                         f"dropout kernel; call it with dropout_p 0 (got "
+                         f"{dropout_p})")
     if dropout_p > 0:
         _check_seed(seed, q.device)
     else:

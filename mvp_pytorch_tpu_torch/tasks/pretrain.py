@@ -31,6 +31,14 @@ card unless `--platform cpu`:
     python -m mvp_pytorch_tpu_torch.tasks.pretrain --output_dir /tmp/pt \
         --synthetic --tiny --max_steps 10 --train_batch_size 8 --platform cpu
 
+With `--siglip_config CONFIG_JSON --synthetic` it trains SigLIP
+(`models/siglip.py`, a config.json in the published layout) on seeded
+image-text pairs (`SiglipSyntheticFetch`) with `siglip_loss_fn`:
+
+    python -m mvp_pytorch_tpu_torch.tasks.pretrain --output_dir /tmp/sl \
+        --siglip_config benchmark/configs/siglip-so400m.json --synthetic \
+        --max_steps 10 --train_batch_size 48 --scheduler constant
+
 With `--visual_learning` it trains the single-stream model over
 [text ; tags ; regions] (it needs `--tag2id`: the MRC head classifies the
 raw tag class ids); with `--extra_mode text_only | img_only` every batch
@@ -60,6 +68,7 @@ from ..data.datasets import (FeatureStore, ImgOnlyDataset,
 from ..data.tokenization import FastBertTokenizer
 from ..models.img_bert import ImgBertForPreTraining
 from ..models.pretrain import BiPretrainModel
+from ..models.siglip import SiglipConfig, SiglipModel
 from ..ops.moe import collect_aux, moe_aux_loss
 from ..parallel.collectives import LOCAL
 from ..training.loop import batch_on, train_on_batches
@@ -192,6 +201,70 @@ def single_stream_loss_fn(*, max_pred: int = 30):
     return loss_fn
 
 
+def siglip_loss_fn():
+    """The Trainer's loss_fn for `SiglipModel`: the sigmoid loss of a batch
+    of `pixel_values` [B, C, S, S] and `input_ids` [B, L] (text i pairs
+    with image i), with the logit scale exp(t) and bias b as metrics. SigLIP
+    draws nothing at random: the generator goes unused."""
+    def loss_fn(model, batch, generator):
+        out = model(batch["pixel_values"], batch["input_ids"])
+        return out.loss, {"logit_scale": model.logit_scale.detach().exp()[0],
+                          "logit_bias": model.logit_bias.detach()[0]}
+    return loss_fn
+
+
+class SiglipSyntheticFetch:
+    """Seeded image-text pairs for `--siglip_config --synthetic`: example
+    i's pixels normal(0, 1) [C, S, S] in float32, and a caption of
+    `caption_range` ids drawn from the table's rows but the pad id, padded
+    to the position table's length with the pad id (no attention mask, as
+    SigLIP pads). Drawn by numpy from (seed, i): every epoch and worker
+    gives example i the same pair. Picklable, for spawned loader workers."""
+
+    def __init__(self, config: SiglipConfig, seed: int,
+                 caption_range=(8, 40)):
+        self.vision, self.text = config.vision_config, config.text_config
+        self.seed = seed
+        self.caption_range = caption_range
+
+    def __call__(self, indices, epoch: int = 0) -> Dict[str, np.ndarray]:
+        v, t = self.vision, self.text
+        pixels, ids = [], []
+        for i in indices:
+            rng = np.random.default_rng([self.seed, int(i)])
+            pixels.append(rng.standard_normal(
+                (v.num_channels, v.image_size, v.image_size),
+                dtype=np.float32))
+            lo, hi = self.caption_range
+            n = int(rng.integers(lo, min(hi, t.max_position_embeddings) + 1))
+            row = np.full(t.max_position_embeddings, t.pad_token_id,
+                          np.int64)
+            words = rng.integers(0, t.vocab_size - 1, n)
+            row[:n] = words + (words >= t.pad_token_id)   # never the pad id
+            ids.append(row)
+        return {"pixel_values": np.stack(pixels), "input_ids": np.stack(ids)}
+
+
+def siglip_main(args, device, logger) -> dict:
+    """`--siglip_config`: SigLIP under the TrainLoop on seeded pairs (a
+    corpus of `train_batch_size x max_steps` examples)."""
+    if not args.synthetic:
+        raise ValueError("--siglip_config trains on seeded pairs only: it "
+                         "needs --synthetic")
+    cfg = SiglipConfig.from_json_file(args.siglip_config, dtype=args.dtype)
+    model = SiglipModel(cfg, device=device, seed=args.seed)
+    load_params_or_init(args, model, logger)
+    n = max(1, args.train_batch_size * args.max_steps)
+    logger.info(f"SigLIP from {args.siglip_config}: "
+                f"{sum(p.numel() for p in model.parameters()):,} parameters, "
+                f"{n} seeded pairs")
+    loop = TrainLoop(args, model, siglip_loss_fn(),
+                     SiglipSyntheticFetch(cfg, args.seed), n, logger)
+    out = {"train": loop.run()}
+    logger.info("pretraining done")
+    return out
+
+
 def train_pretrain(model, batches: Sequence[Mapping], steps: int, *,
                    learning_rate: float = 1e-4, warmup_steps: int = 0,
                    schedule: str = "linear", weight_decay: float = 0.01,
@@ -302,6 +375,10 @@ def get_args(argv=None):
                         "reference's --visual_learning mode "
                         "(run_pretrain_ml.py:161,596-600); requires "
                         "--tag2id (raw tag -> class-id json)")
+    p.add_argument("--siglip_config", type=str, default=None,
+                   help="train SigLIP (models/siglip.py) from this "
+                        "config.json (the published layout) on seeded "
+                        "image-text pairs; needs --synthetic")
     p.add_argument("--mlm_debug", action="store_true",
                    help="after training, dump one batch of MLM inputs + "
                         "top-1 predictions to output_dir/mlm_res.npz and "
@@ -549,6 +626,8 @@ def main(argv=None) -> dict:
     device = run_device(args)
     os.makedirs(args.output_dir, exist_ok=True)
     logger = setup_logger("pretrain", args.output_dir)
+    if args.siglip_config:
+        return siglip_main(args, device, logger)
     tokenizer = FastBertTokenizer(resolve_data(args))
     logger.info(f"device {device}; native tokenizer and feature decode: "
                 f"{'on' if tokenizer.native_active else 'off'}")

@@ -18,7 +18,9 @@ program's spans:
   `trainer.readback` (the host reading the step's numbers off the card);
 - `two_stage_scoring` (root): `tasks/retrieval.py::two_stage_scoring`;
   inside it `retrieval.encode_text`, `.encode_image`, `.coarse`,
-  `.rerank` and `.ranks`, each closed after a device synchronise.
+  `.rerank` and `.ranks`, each closed after a device synchronise;
+- `siglip.vision`, `siglip.text` and `siglip.loss`: `models/siglip.py`'s
+  forward (the towers and the sigmoid loss), inside `trainer.forward`.
 """
 
 from __future__ import annotations

@@ -20,7 +20,8 @@ import torch
 from mvp_pytorch_tpu_torch.models.img_bert import make_seq2seq_mask
 from mvp_pytorch_tpu_torch.ops import _kernels
 from mvp_pytorch_tpu_torch.ops import attention as attention_mod
-from mvp_pytorch_tpu_torch.ops.attention import (MaskedAttentionFn,
+from mvp_pytorch_tpu_torch.ops.attention import (_DTYPE_CODE,
+                                                 MaskedAttentionFn,
                                                  _attention_grads,
                                                  _kernel_attention,
                                                  _kernel_attention_grads,
@@ -1108,3 +1109,170 @@ def test_backward_kernel_time_falls_inside_a_range_around_the_backward(cuda):
     ranges = [e for e in prof.events() if e.name == "test.attn_bwd"
               and e.device_type == torch.autograd.DeviceType.CPU]
     assert ranges and all(e.device_time_total > 0 for e in ranges)
+
+
+# SigLIP's attention: head dim 72 in the kernels' D 128 tile (columns past 72
+# zero-filled on load, skipped on store). The vision tower's Lq = Lk = 729
+# (key tiles walked by the online softmax forward and in two passes
+# backward), the MAP probe's one query over 729 keys, the text's 64; with no
+# bias (SigLIP's) and with a key-mask bias.
+D72_SHAPES = {"vision": (2, 729, 729), "map_probe": (2, 1, 729),
+              "text": (2, 64, 64)}
+
+
+def d72_case(shape, bias_kind, layout, dtype, device, seed=21):
+    """q, k, v and the output's grad (in `layout`, `dtype`) and an fp32
+    key-mask bias (or None) at head dim 72, on `device`."""
+    b, lq, lk = D72_SHAPES[shape]
+    r = np.random.RandomState(seed + lq)
+    q, k, v = (r.randn(b, H, n, 72).astype(np.float32) for n in (lq, lk, lk))
+    g = r.randn(b, H, lq, 72).astype(np.float32)
+    x = [torch.from_numpy(_bhld_to(layout, t)).to(device, dtype)
+         for t in (q, k, v, g)]
+    bias = None
+    if bias_kind == "key":
+        mask = np.ones((b, lk), np.int32)
+        mask[1, lk - lk // 3:] = 0
+        bias = mask_to_bias(torch.from_numpy(mask)).to(device)
+    return (*x, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_kind", ["none", "key"])
+@pytest.mark.parametrize("dtype,atol,rel", [(torch.float32, 2e-5, 1e-4),
+                                            (torch.bfloat16, 0.05, 1e-2)])
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+@pytest.mark.parametrize("shape", list(D72_SHAPES))
+def test_d72_forward_matches_plain(cuda, shape, layout, dtype, atol, rel,
+                                   bias_kind):
+    """The forward kernel at head dim 72 against the plain version on the
+    same card: within the other head dims' absolute tolerances (fp32 2e-5,
+    bf16 0.05), and within `rel` of the plain output's norm. At Lk 729 an
+    output element's std is about sqrt(e / 729) = 0.06, as large as bf16's
+    0.05, so a kernel that mishandled the 25-key tail tile (729 = 11 x 64 +
+    25) could pass the absolute check alone; the relative one allows bf16
+    about two roundings (the kernel's output and the plain version's, each
+    2^-9 at most) and fp32 the 3xTF32 products."""
+    q, k, v, _, bias = d72_case(shape, bias_kind, layout, dtype, cuda)
+    plain = plain_attention_blhd if layout == "blhd" else plain_attention
+    before = masked_attention.launches
+    got = masked_attention(q, k, v, bias, layout=layout)
+    torch.cuda.synchronize()
+    assert masked_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    want = plain(q, k, v, bias)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert rel_err(got, want) <= rel, rel_err(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_kind", ["none", "key"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 4e-3)])
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+@pytest.mark.parametrize("shape", list(D72_SHAPES))
+def test_d72_backward_matches_the_plain_recompute(cuda, shape, layout, dtype,
+                                                  tol, bias_kind):
+    """dq, dk, dv (and dbias) of the backward kernel at head dim 72 against
+    `_attention_grads` on the same card, relative in each gradient's norm,
+    with the tolerances of test_backward_kernel_matches_the_plain_recompute
+    (fp32 1e-5: the same fp32 function summed in another order; bf16 4e-3:
+    about one bf16 rounding of the outputs)."""
+    q, k, v, g, bias = d72_case(shape, bias_kind, layout, dtype, cuda)
+    has = bias is not None
+    got = _kernel_attention_grads(q, k, v, bias, g, layout, has)
+    want = _attention_grads(q, k, v, bias, g, layout, has)
+    torch.cuda.synchronize()
+    for gname, a, b, t in zip(("dq", "dk", "dv", "dbias"), got, want,
+                              (q, k, v, bias)):
+        if t is None:
+            assert a is None and b is None
+            continue
+        assert a.dtype == t.dtype and a.shape == t.shape, gname
+        assert torch.isfinite(a.float()).all(), gname
+        assert rel_err(a, b) <= tol, (gname, rel_err(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_d72_autograd_launches_each_kernel_once(cuda, dtype):
+    """Through autograd a D 72 call launches the forward kernel once and the
+    backward kernel once, as SigLIP's training step does at every layer."""
+    q, k, v, g, _ = d72_case("text", "none", "blhd", dtype, cuda)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    before = (masked_attention.launches, masked_attention.backward_launches)
+    out = masked_attention(*leaves, None, layout="blhd")
+    torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (masked_attention.launches - before[0],
+            masked_attention.backward_launches - before[1]) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lq,lk", [(729, 729), (1, 729), (64, 64)])
+def test_d72_plans_report_the_padded_tile(cuda, dtype, lq, lk):
+    """Both plans give D 72 the D 128 tile and its key tiles (forward: 64
+    keys at most, 32 where fp32's 64 does not fit shared memory, online past
+    them; backward: 64, else bf16's 128 walked twice); the D 64 plans keep
+    their own width. The backward's dk, dv sums take 72 columns, not the
+    tile's 128: 2 x 64 x 72 floats a 64-key subtile of each key tile, in
+    shared memory where they fit, else in a scratch buffer of that size."""
+    fwd = kernel_plan(lq, lk, 16, 72, dtype=dtype, b=48)
+    bwd = kernel_bwd_plan(lq, lk, 16, 72, 48, dtype)
+    assert fwd["head_tile"] == bwd["head_tile"] == 128
+    assert fwd["key_tile"] <= 64
+    assert fwd == dict(kernel_plan(lq, lk, 16, 128, dtype=dtype, b=48))
+    wide = kernel_bwd_plan(lq, lk, 16, 128, 48, dtype)
+    for key in ("key_tile", "key_tiles", "multi", "head_tile"):
+        assert bwd[key] == wide[key], key
+    subtiles = bwd["key_tiles"] * -(-bwd["key_tile"] // 64)
+    sums = 48 * 16 * 2 * subtiles * 64 * 72
+    assert bwd["scratch_floats"] == (0 if bwd["acc_smem"] else sums)
+    assert wide["scratch_floats"] in (0, sums * 128 // 72)
+    assert kernel_plan(lq, lk, 16, 64, dtype=dtype, b=48)["head_tile"] == 64
+    assert bwd["multi"] == int(lk > bwd["key_tile"])
+
+
+def test_head_dim_72_is_dispatched_without_dropout():
+    """D 72 is one of the kernels' head dims, and one without a dropout
+    instantiation: a call with dropout raises before anything runs, on
+    either device."""
+    assert 72 in attention_mod.HEAD_DIMS
+    assert attention_mod.NO_DROPOUT_DIMS == (72,)
+    x = torch.zeros(1, 3, 2, 72)
+    with pytest.raises(ValueError, match="head dim 72 has no dropout"):
+        masked_attention(x, x, x, dropout_p=0.1,
+                         seed=torch.zeros(1, dtype=torch.int64))
+    out = masked_attention(x, x, x)          # the plain version, no dropout
+    assert out.shape == x.shape
+
+
+@pytest.mark.parametrize("layout", ["bhld", "blhd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrapper_hands_d72_rows_to_the_kernels_unpadded(monkeypatch, layout,
+                                                        dtype):
+    """The wrappers pass D 72 and the tensors' own (b, h, l) strides (rows of
+    144 bytes in bf16, 288 in fp32: 16-byte multiples) to both kernels, and
+    allocate outputs of 72 columns: no padded copy reaches the card."""
+    fake = _FakeLib()
+    monkeypatch.setattr(_kernels, "library", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    b, h, lq, lk = 2, 16, 1, 729
+    shape = (b, h, lq, 72) if layout == "bhld" else (b, lq, h, 72)
+    kshape = (b, h, lk, 72) if layout == "bhld" else (b, lk, h, 72)
+    q, k = torch.zeros(shape, dtype=dtype), torch.zeros(kshape, dtype=dtype)
+    out = _kernel_attention(q, k, k, None, layout)
+    view = (lambda t: t.transpose(1, 2)) if layout == "blhd" else (lambda t: t)
+    assert fake.dims[:7] == [b, h, lq, lk, 72, _DTYPE_CODE[dtype], 0]
+    assert fake.dims[7:10] == list(view(q).stride()[:3])
+    assert fake.dims[10:13] == list(view(k).stride()[:3])
+    assert fake.ptrs[0] == q.data_ptr() and fake.ptrs[1] == k.data_ptr()
+    assert out.shape == q.shape
+    bwd = _fake_bwd(monkeypatch)
+    dq, dk, dv, _ = _kernel_attention_grads(q, k, k, None, q, layout, False)
+    assert bwd.dims[4] == 72
+    assert bwd.ptrs[:2] == (q.data_ptr(), k.data_ptr())
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
