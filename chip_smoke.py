@@ -603,11 +603,14 @@ def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
     every kernel. Fails unless each kernel of both dtypes
     (`hopper::masked_attention_wgmma_kernel`, bf16, and
     `hopper::f32::masked_attention_tf32_kernel`, fp32) and of the backward
-    (`hopper::bwd::masked_attention_bwd_kernel`) has HGMMA and no HMMA in
-    its SASS, no kernel of the `mma.sync` families they replaced is
-    left (`masked_attention_mma`, `masked_attention_3xtf32`), no fp32
-    kernel at p = 0 and D <= 64 spills, and each dropout instantiation has
-    the counts of its p = 0 twin (in another translation unit). Kernels are
+    (`hopper::bwd::masked_attention_bwd_kernel`, and past one bf16 key tile
+    `masked_attention_bwd_stats_kernel` and
+    `masked_attention_bwd_outer_kernel`; `masked_attention_bwd_dq_kernel`
+    sums without the tensor cores) has
+    HGMMA and no HMMA in its SASS, no kernel of the `mma.sync` families they
+    replaced is left (`masked_attention_mma`, `masked_attention_3xtf32`), no
+    fp32 kernel at p = 0 and D <= 64 spills, and each dropout instantiation
+    has the counts of its p = 0 twin (in another translation unit). Kernels are
     listed by `kernel_key`, so that builds compare line by line. Returns
     the report of both families (the fp32 kernels' with their spills)."""
     ptxas = {kernel_key(n): v for n, v in ptxas_report(
@@ -621,7 +624,8 @@ def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
             + "  ".join(ptxas.get(name, ["no ptxas report"])))
     wgmma = [n for n in names if "masked_attention_wgmma" in n]
     tf32 = [n for n in names if "masked_attention_tf32_kernel" in n]
-    bwd = [n for n in names if "masked_attention_bwd_kernel" in n]
+    bwd = [n for n in names if any(f"masked_attention_bwd_{k}kernel" in n
+                                   for k in ("", "stats_", "outer_"))]
     for dn, family in (("bf16", wgmma), ("fp32", tf32), ("backward", bwd)):
         bad = [(n, sass.get(n)) for n in family
                if n not in sass or sass[n]["HGMMA"] == 0 or sass[n]["HMMA"]]
@@ -640,8 +644,10 @@ def phase1_kernel_report(torch, attn, kernels_mod, lib_path):
                              f"{[(n, spills[n]) for n in main]}")
     # each dropout instantiation (template argument kDrop = true, "Lb1E" in
     # the mangled name) runs the same products as its p = 0 twin; head dim
-    # 72 ("Li72E": no key tile is 72) has no dropout instantiation
-    paired = [n for n in names if "Li72E" not in n]
+    # 72 ("Li72E": no key tile is 72) has no dropout instantiation, nor has
+    # dq's sum (no bool template argument)
+    paired = [n for n in names if "Li72E" not in n
+              and ("Lb0EE" in n or "Lb1EE" in n)]
     drops = [n for n in paired if "Lb1EE" in n]
     if len(drops) != len(paired) // 2:
         raise AssertionError(f"{len(drops)} dropout kernels of {len(paired)}")
@@ -847,7 +853,15 @@ def phase2_kernel_vs_plain(torch, attn):
 def phase2_backward(torch, attn):
     """MaskedAttentionFn's grads against fp32 autograd of the plain version
     at the training shapes and SigLIP's head-dim-72 shapes, and the
-    forward/backward times."""
+    forward/backward times (with D 64 at Lk 257, past one key tile). Each
+    timed row's grads are held against the plain recompute
+    (`_attention_grads`) on the same inputs and seed, relative in each
+    gradient's norm (`D72_GRAD_REL_TOL`, the card tests' tolerances). Checks
+    `masked_attention.backward_key_outer`: once a bf16 call past one key
+    tile, else never (a parent without the counter reads 0)."""
+    def key_outer():
+        return getattr(attn.masked_attention, "backward_key_outer", 0)
+
     import torch.nn.functional as F
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -935,6 +949,7 @@ def phase2_backward(torch, attn):
                     leaves = [t.requires_grad_() for t in (q, k, v)]
                     before = (attn.masked_attention.launches,
                               attn.masked_attention.backward_launches)
+                    outer0 = key_outer()
                     out = attn.masked_attention(*leaves, bias, layout=layout)
                     got = torch.autograd.grad(out, leaves, g)
                     ref_in = [t.detach().float().requires_grad_()
@@ -947,6 +962,13 @@ def phase2_backward(torch, attn):
                     launched = (attn.masked_attention.launches - before[0],
                                 attn.masked_attention.backward_launches
                                 - before[1])
+                    plan = attn.kernel_bwd_plan(lq, lk, SIGLIP_H, SIGLIP_D, 8,
+                                                dt)
+                    outer = key_outer() - outer0
+                    if outer != plan.get("key_outer", 0):
+                        raise AssertionError(
+                            f"siglip {name} {dn}: {outer} key-outer calls, "
+                            f"the plan says {plan.get('key_outer', 0)}")
                     rel = max(((a.float() - w).norm() / w.norm()).item()
                               for a, w in zip(got, want))
                     finite = all(bool(torch.isfinite(a).all()) for a in got)
@@ -957,7 +979,7 @@ def phase2_backward(torch, attn):
                         f"Lq={lq:<4d} Lk={lk:<4d} D={SIGLIP_D} {dn:9s} "
                         f"{layout}  relative {rel:.3e}  tol="
                         f"{D72_GRAD_REL_TOL[dn]:g}  launches {launched}  "
-                        f"{'ok' if ok else 'FAIL'}")
+                        f"key outer {outer}  {'ok' if ok else 'FAIL'}")
                     if not ok:
                         raise AssertionError(
                             f"attention grads disagree: {label} {mk} {dn} "
@@ -967,10 +989,12 @@ def phase2_backward(torch, attn):
                     del q, k, v, g, bias, leaves, out, got, ref_in, want
 
     timings = {}
-    # (name, B, H, D, Lq, Lk, mask, dropouts): the cells' training rows and
-    # SigLIP's at the benchmark cell's B 48, unmasked and without dropout
+    # (name, B, H, D, Lq, Lk, mask, dropouts): the cells' training rows, D 64
+    # past one key tile (257 keys), and SigLIP's at the benchmark cell's
+    # B 48, unmasked and without dropout
     timed = ([(name, TRAIN_B, H, D, l, l, "key", (0.0, DROP_P))
-              for name, l in {**LENGTHS, "single": SINGLE_L}.items()]
+              for name, l in {**LENGTHS, "single": SINGLE_L,
+                              "lk257": 257}.items()]
              + [(f"siglip {name}", SIGLIP_B, SIGLIP_H, SIGLIP_D, lq, lk,
                  "none", (0.0,)) for name, lq, lk in SIGLIP_SHAPES])
     for name, b, h, d, lq, l, mk, drops in timed:
@@ -987,14 +1011,35 @@ def phase2_backward(torch, attn):
                 fwd = cuda_ms(lambda: attn.masked_attention(
                     q, k, v, bias, layout="blhd", dropout_p=p, seed=seed))
                 before = attn.masked_attention.backward_launches
+                outer0 = key_outer()
                 bwd = cuda_ms(lambda: torch.autograd.grad(out, qkv, g,
                                                           retain_graph=True))
+                plan = attn.kernel_bwd_plan(lq, l, h, d, b, dt)
                 # cuda_ms: 3 warm-up calls and 20 timed ones
                 if attn.masked_attention.backward_launches - before != 23:
                     raise AssertionError("the timed backward did not launch "
                                          "masked_attention_bwd once a call")
+                if key_outer() - outer0 != 23 * plan.get("key_outer", 0):
+                    raise AssertionError(
+                        f"{name} {dn}: {key_outer() - outer0} key-outer calls "
+                        f"of 23, the plan says {plan.get('key_outer', 0)}")
                 recompute = cuda_ms(lambda: attn._attention_grads(
                     q, k, v, bias, g, "blhd", False, p, seed), iters=5)
+                # the timed kernel against the plain recompute on the same
+                # inputs and seed, relative in each gradient's norm
+                got = torch.autograd.grad(out, qkv, g, retain_graph=True)
+                want = attn._attention_grads(q, k, v, bias, g, "blhd", False,
+                                             p, seed)[:3]
+                rel = max(((a.float() - w.float()).norm()
+                           / w.float().norm()).item()
+                          for a, w in zip(got, want))
+                finite = all(bool(torch.isfinite(a).all()) for a in got)
+                if not (finite and rel <= D72_GRAD_REL_TOL[dn]):
+                    raise AssertionError(
+                        f"timed attention grads disagree: {name} {dn} p={p} "
+                        f"relative {rel} (tol {D72_GRAD_REL_TOL[dn]:g}) "
+                        f"finite={finite}")
+                del got, want
                 plain_fwd = cuda_ms(lambda: attn.plain_attention_blhd(
                     q, k, v, bias, p, seed), iters=5)
                 p_out = attn.plain_attention_blhd(*qkv, bias, p, seed)
@@ -1014,7 +1059,6 @@ def phase2_backward(torch, attn):
                 bound, by = attention_bwd_bound_ms(b, lq, l, dn, bias, h, d)
                 fwd_bound, fwd_by = attention_bound_ms(b, lq, l, dn, bias, h,
                                                        d)
-                plan = attn.kernel_bwd_plan(lq, l, h, d, b, dt)
                 timings[(name, dn, p)] = dict(
                     fwd_ms=fwd, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
                     plain_fwd_ms=plain_fwd, bwd_ms=bwd,
@@ -1025,10 +1069,14 @@ def phase2_backward(torch, attn):
                     bwd_key_tiles=plan["key_tiles"],
                     bwd_head_tile=plan["head_tile"],
                     bwd_scratch_floats=plan["scratch_floats"],
+                    bwd_key_outer=plan.get("key_outer", 0),
+                    bwd_smem_bytes=plan["smem_bytes"],
                     grad_err=max((v_ for k_, v_ in errs.items()
-                                  if k_[:2] == (name, dn)), default=None))
+                                  if k_[:2] == (name, dn)), default=None),
+                    grad_rel=rel)
                 log(f"  time train {name:6s} B={b} H={h} D={d} Lq={lq} L={l} "
-                    f"{dn:9s} p={p} "
+                    f"{dn:9s} p={p} key outer {plan.get('key_outer', 0)} "
+                    f"grads relative {rel:.3e} (tol {D72_GRAD_REL_TOL[dn]:g}) "
                     f"blhd: kernel bwd {bwd:.4f} ms (bound {bound:.4f}, {by}"
                     f"; {bound / bwd:.1%} of it)  plain recompute "
                     f"{recompute:.4f} ms  plain autograd bwd "

@@ -9,7 +9,9 @@
 //   bias: fp32 or null; dq, dk, dv: the gradients, in the inputs' dtype;
 //   dbias: null, or an fp32 [B, H, Lq, Lk] buffer (contiguous) for ds;
 //   scratch: null, or fp32 of the plan's scratch floats
-//   (masked_attention_bwd_plan) when dk and dv's sums do not fit shared memory.
+//   (masked_attention_bwd_plan): dk and dv's sums when they do not fit shared
+//   memory, or, past one key tile in bf16, the row statistics and dq's
+//   partial sums.
 //   dims: B, H, Lq, Lk, D, dtype (0 fp32, 1 bf16), bias dtype (0 fp32), then
 //         the (b, h, l) strides, in elements, of q, k, v, g, dq, dk, dv and
 //         bias.
@@ -56,11 +58,13 @@ extern "C" int masked_attention_bwd(const void* q, const void* k, const void* v,
 }
 
 // The plan of the launch masked_attention_bwd makes for these dims (as it
-// takes them): out[0..6] = key tile, key tiles, 1 past one key tile, 1 when
+// takes them): out[0..9] = key tile, key tiles, 1 past one key tile, 1 when
 // dk and dv's sums sit in shared memory, shared-memory bytes a block, the
-// scratch floats the caller allocates (0 when the sums fit) and the head
-// dim's tile width (D, or 128 at D 72). Host only:
-// launches nothing. Returns a CUDA error code.
+// scratch floats the caller allocates (0 when none is needed), the head
+// dim's tile width (D, or 128 at D 72), 1 when the key tiles are the outer
+// loop (bf16 past one key tile), then that path's statistics floats (the
+// scratch's first part) and dq's partial slices. Host only: launches
+// nothing. Returns a CUDA error code.
 extern "C" int masked_attention_bwd_plan(const void* dims_ptr, int64_t* out) {
   const int64_t* dims = static_cast<const int64_t*>(dims_ptr);
   if (dims[5] == 0) {

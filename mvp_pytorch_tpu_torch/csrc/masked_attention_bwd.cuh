@@ -1,5 +1,6 @@
 // masked_attention_bwd: the backward of masked_attention_fwd for Hopper
-// (sm_90a), one kernel a call, for both dtypes.
+// (sm_90a), for both dtypes: one kernel a call, and three past one key
+// tile in bf16.
 //
 //   s = q.k^T * D^-1/2 + bias, p = softmax(s), m = keep / (1 - p_drop) (1
 //   without dropout), dP = g.v^T;
@@ -23,9 +24,10 @@
 // about 10 B H L^2 D operations (0.01-0.03 ms at the tensor cores' rate).
 // So bytes bound it; the hash, the exponentials and the shared-memory
 // traffic of the transposed operands are what the kernel spends its time
-// on beyond them.
+// on beyond them. SigLIP's vision call (B 48, H 16, Lq = Lk 729, D 72) is
+// bound by its operations: 0.297 ms.
 //
-// Design:
+// Design (one key tile, and fp32; the bf16 key-outer launches below):
 //   - One block of one warpgroup (128 threads) per (batch row, head). It
 //     holds the key tile's k and v in shared memory (TMA, loaded once when
 //     the tile holds every key) and walks the query blocks of 64 rows; the
@@ -61,10 +63,24 @@
 //     (The forward's 3xTF32 takes only K-major operands in shared memory;
 //     four of the backward's five products need a transposed one, which bf16
 //     `wgmma` reads as it lies.) Gradients return in the inputs' dtypes.
-//   - Past one key tile (no training shape; the forward takes any Lk), a
-//     first pass over the key tiles gathers the row max, sum and Di with the
-//     online rescale, then the gradient pass walks them again; dq adds up in
+//   - Past one key tile in fp32 (the forward takes any Lk), a first pass
+//     over the key tiles gathers the row max, sum and Di with the online
+//     rescale, then the gradient pass walks them again; dq adds up in
 //     registers over the key tiles (`kMulti`, a template parameter).
+//   - Past one key tile in bf16 (SigLIP's 729 keys), the key tiles are the
+//     outer loop, in FlashAttention-2's order, in three launches a call:
+//     `masked_attention_bwd_stats_kernel` (one warpgroup per (b, h, 64-row
+//     query block)) gathers each row's max, 1 / sum and Di as the first
+//     pass above does, into a workspace of the wrapper's;
+//     `masked_attention_bwd_outer_kernel` (one block per (b, h, 128-key
+//     tile): a producer warp and two consumer warpgroups of 64 keys) loads
+//     its k and v once, holds dk and dv in registers across every query
+//     block while q, g and the statistics stream through a TMA ring, and
+//     writes dq's share of its keys as an fp32 slice of the workspace;
+//     `masked_attention_bwd_dq_kernel` sums the slices in key order. No
+//     atomics: a call's gradients repeat bit for bit. The two-pass design
+//     re-read k and v and read-modified-wrote dk, dv in a scratch buffer
+//     for every query block (about 8 GB a call at SigLIP's vision shape).
 //   - The bias's gradient, when asked for, is ds in fp32 written to a
 //     [B, H, Lq, Lk] buffer that the wrapper sums to the bias's shape.
 //     Without the request nothing of that size is written.
@@ -73,13 +89,13 @@
 //     (`tile_dim`, masked_attention_hopper.cuh): TMA zero-fills the columns
 //     past 72 of q, k, v and g (the fp32 path's loads write zeros there), so
 //     S and dP are exact, and the stores of dq, dk and dv skip those
-//     columns. Its every launch (vision Lk 729, the MAP probe's Lq 1 over
-//     729, text Lk 64) takes the D 128 key tiles: 64 keys, or 128 walked
-//     twice past one tile.
+//     columns. The text's Lk 64 takes one 64-key tile; the vision tower's
+//     Lk 729 and the MAP probe's Lq 1 over 729 take the key-outer launches
+//     (bf16) or 64-key tiles walked twice (fp32).
 //
 // The C entry points are in masked_attention_bwd.cu, the instantiations in
 // masked_attention_bwd_{bf16,fp32}_d{32,64,128}{,_drop}.cu and
-// masked_attention_bwd_{bf16,fp32}_d72.cu (one kernel for one dtype, head dim
+// masked_attention_bwd_{bf16,fp32}_d72.cu (the kernels of one dtype, head dim
 // and dropout setting each, compiled in parallel).
 
 #pragma once
@@ -221,6 +237,106 @@ __device__ __forceinline__ void load_split(uint8_t* dst, uint32_t plane_bytes, i
     for (int t = 0; t < 3; ++t)
       *reinterpret_cast<uint4*>(dst + t * plane_bytes + off) =
           make_uint4(w[0][t], w[1][t], w[2][t], w[3][t]);
+  }
+}
+
+// The row arithmetic of a 64-row query block over one key tile of kN keys.
+// Thread (warp, lane) holds rows warp * 16 + lane / 4 (+ 8: index r) and, of
+// each 8-key block j, keys 8j + 2 (lane % 4) + e; element 4j + 2r + e of s
+// and dP. k0 is the thread's first key, c kN + 2 (lane % 4) of key tile c.
+
+// the fp32 scores as the plain backward forms them: q.k times D^-1/2, plus
+// the bias (two roundings, not one); keys past Lk -inf
+template <int kN>
+__device__ __forceinline__ void tile_scores(float (&s)[kN / 2], int k0, const BParams& p,
+                                            const float* const* brow) {
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * j + e, x = 4 * j + 2 * r + e;
+        const float bv = brow[r] != nullptr && key < p.Lk ? __ldg(brow[r] + key) : 0.f;
+        s[x] = key < p.Lk ? __fadd_rn(__fmul_rn(s[x], p.scale), bv) : -INFINITY;
+      }
+}
+
+// each row's max over the quad's keys
+template <int kN>
+__device__ __forceinline__ void tile_row_max(const float (&s)[kN / 2], float (&mx)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) m = fmaxf(m, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    mx[r] = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+  }
+}
+
+// each row's sum over the quad
+__device__ __forceinline__ void quad_sum(float (&x)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    x[r] += __shfl_xor_sync(0xffffffffu, x[r], 1);
+    x[r] += __shfl_xor_sync(0xffffffffu, x[r], 2);
+  }
+}
+
+// the exponential of the scores: fp32's expf, bf16's ex2.approx.ftz
+template <bool kF32>
+__device__ __forceinline__ float bwd_exp(float x) {
+  if constexpr (kF32) return expf(x);
+  else return exp_ftz(x);
+}
+
+// The row statistics past one key tile, one key tile at a time, as the
+// two-pass kernel's first pass and the key-outer path's statistics kernel
+// both gather them (one copy, so the same bits): s (q.k) becomes the scores,
+// then the online rescale of the running max m, sum l and d, and this
+// tile's terms, exp(s - m) into l and dP times the dropout factor
+// (keep / (1 - p) of flat index rb[r] + key) times it into d.
+template <int kN, bool kF32, bool kDrop>
+__device__ __forceinline__ void stats_add(float (&s)[kN / 2], const float (&dp)[kN / 2], int k0,
+                                          const BParams& p, const float* const* brow,
+                                          const DropMask& dm, const uint64_t (&rb)[2],
+                                          float (&m)[2], float (&l)[2], float (&d)[2]) {
+  float mx[2];
+  tile_scores<kN>(s, k0, p, brow);
+  tile_row_max<kN>(s, mx);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m[r], mx[r]), corr = bwd_exp<kF32>(m[r] - mn);
+    l[r] *= corr;
+    d[r] *= corr;
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * j + 2 * r + e;
+        const float w = bwd_exp<kF32>(s[x] - m[r]);
+        float f = 1.f;
+        if constexpr (kDrop) f = dm.factor(rb[r] + static_cast<uint64_t>(k0 + 8 * j + e));
+        l[r] += w;
+        d[r] += dp[x] * f * w;
+      }
+}
+
+// after the last key tile: l and d summed over the quad, then 1 / l and
+// Di = d / l
+__device__ __forceinline__ void stats_finish(float (&l)[2], float (&d)[2], float (&il)[2],
+                                             float (&di)[2]) {
+  quad_sum(l);
+  quad_sum(d);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    il[r] = 1.f / l[r];
+    di[r] = d[r] * il[r];
   }
 }
 
@@ -397,42 +513,8 @@ masked_attention_bwd_kernel(const __grid_constant__ BParams p, const __grid_cons
       fence_regs(s);
       fence_regs(dp);
     };
-    // the fp32 scores as the plain backward forms them: q.k times D^-1/2,
-    // plus the bias (two roundings, not one); keys past Lk -inf
-    auto scores = [&](float (&s)[NS], int c) {
-      const int k0 = c * kN + 2 * t4;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int key = k0 + 8 * j + e, x = 4 * j + 2 * r + e;
-            const float bv = brow[r] != nullptr && key < p.Lk ? __ldg(brow[r] + key) : 0.f;
-            s[x] = key < p.Lk ? __fadd_rn(__fmul_rn(s[x], p.scale), bv) : -INFINITY;
-          }
-    };
-    auto row_max = [&](const float (&s)[NS], float (&mx)[2]) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float m = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) m = fmaxf(m, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-        mx[r] = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-      }
-    };
-    auto quad_sum = [&](float (&x)[2]) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        x[r] += __shfl_xor_sync(0xffffffffu, x[r], 1);
-        x[r] += __shfl_xor_sync(0xffffffffu, x[r], 2);
-      }
-    };
-    auto ex = [&](float x) {
-      if constexpr (kF32) return expf(x);
-      else return exp_ftz(x);
-    };
+    auto scores = [&](float (&s)[NS], int c) { tile_scores<kN>(s, c * kN + 2 * t4, p, brow); };
+    auto ex = [&](float x) { return bwd_exp<kF32>(x); };
     // keep / (1 - p) of element (row r, key k0 + 8j + e) of key tile c
     auto factor = [&](int r, int c, int j, int e) {
       if constexpr (kDrop)
@@ -448,36 +530,11 @@ masked_attention_bwd_kernel(const __grid_constant__ BParams p, const __grid_cons
       float l[2] = {0.f, 0.f}, d[2] = {0.f, 0.f};
       for (int c = 0; c < pl.n_kt; ++c) {
         ensure_kv(c);
-        float s[NS], dp[NS], mx[2];
+        float s[NS], dp[NS];
         products(s, dp);
-        scores(s, c);
-        row_max(s, mx);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float mn = fmaxf(m_r[r], mx[r]), corr = ex(m_r[r] - mn);
-          l[r] *= corr;
-          d[r] *= corr;
-          m_r[r] = mn;
-        }
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int r = 0; r < 2; ++r)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int x = 4 * j + 2 * r + e;
-              const float w = ex(s[x] - m_r[r]);
-              l[r] += w;
-              d[r] += dp[x] * factor(r, c, j, e) * w;
-            }
+        stats_add<kN, kF32, kDrop>(s, dp, c * kN + 2 * t4, p, brow, dm, rb, m_r, l, d);
       }
-      quad_sum(l);
-      quad_sum(d);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        il[r] = 1.f / l[r];
-        di[r] = d[r] * il[r];
-      }
+      stats_finish(l, d, il, di);
     }
 
     float dq[NO];
@@ -494,7 +551,7 @@ masked_attention_bwd_kernel(const __grid_constant__ BParams p, const __grid_cons
         // one key tile: the exact row softmax, then Di; the keep bits kept
         // for p m (p itself is ds's factor even where the mask drops it)
         float mx[2], l[2] = {0.f, 0.f}, d[2] = {0.f, 0.f};
-        row_max(s, mx);
+        tile_row_max<kN>(s, mx);
 #pragma unroll
         for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -608,10 +665,11 @@ masked_attention_bwd_kernel(const __grid_constant__ BParams p, const __grid_cons
         if constexpr (kD != D) {
           // D 72: the elements of columns past 72 (8j + 2 (lane % 4) with
           // j >= 9, so e >= 36) are never stored and are not summed; the
-          // rest load in batches of 12 before their stores. At SigLIP's
-          // vision shape the sums sit in the scratch buffer, where a load
-          // waiting on the previous element's store cost a device-memory
-          // round trip each: 46.6 ms a call at B 48, 7.75 ms batched (H100).
+          // rest load in batches of 12 before their stores. Where the sums
+          // sit in the scratch buffer, a load waiting on the previous
+          // element's store cost a device-memory round trip each: 46.6 ms a
+          // bf16 call at SigLIP's vision shape (B 48), 7.75 ms batched
+          // (H100), before that shape took the key-outer launches.
           constexpr int kUsed = 4 * (D / 8), kBatch = 12;
           static_assert(kUsed % kBatch == 0, "whole batches");
 #pragma unroll
@@ -720,6 +778,536 @@ masked_attention_bwd_kernel(const __grid_constant__ BParams p, const __grid_cons
   }
 }
 
+// --- bf16 past one key tile: key tiles outer --------------------------------
+
+constexpr int kOuterKeys = 128;       // keys of a gradient block: 64 a consumer warpgroup
+constexpr int kOuterStages = 2;       // the ring of q, g and the statistics
+constexpr int kStatFloats = 3 * kRows;  // m, 1 / l and Di of a 64-row query block
+constexpr int kDsBytes = kOuterKeys * 128;  // a bf16 plane of ds^T: [128 keys][64 queries]
+constexpr int kOuterProducerRegs = 24, kOuterConsumerRegs = 240;
+
+// the statistics pass's key tile: the two-pass kernel's widest bf16 tile
+constexpr int stat_keys(int D) { return tile_dim(D) < 128 ? 160 : 128; }
+
+// What the host decided for a key-outer launch (`make_oplan`).
+struct OPlan {
+  int n_qb, n_kt, n_st;  // query blocks of 64; 128-key tiles; the statistics pass's key tiles
+  int slices;            // dq's partial sums: one a key tile (D 128 tile), else one a 64 keys
+  uint32_t st_smem;      // the statistics kernel's shared memory
+  uint32_t off_v, off_qg, off_ds, off_bar, stage_bytes, smem_bytes;  // the gradient kernel's
+  int64_t stats_floats, dq_floats;  // the workspace: the statistics, then dq's partial sums
+};
+
+// pins registers at this point of the program (the A fragments of a wgmma
+// in flight: no other value may take them before its wait)
+template <int N>
+__device__ __forceinline__ void fence_words(uint32_t (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i]) :: "memory");
+}
+
+// The row statistics of one 64-row query block over every key, by the
+// two-pass kernel's first pass (`stats_add`, `stats_finish`) over key
+// tiles of kN. One warpgroup per (b, h, query block), the
+// blocks of one (b, h) adjacent (k and v stay in L2); the next key tile's k
+// and v load while this one's exponentials run. Writes m, 1 / l and Di of
+// all 64 rows to the workspace. (H100, SigLIP's vision call: 0.68 ms; two
+// warpgroups a block sharing a two-deep k, v ring took 0.76 ms, dP's
+// products in a group of their own under S's exponentials 0.72-0.79.)
+template <int D, int kN, bool kDrop>
+__global__ void __launch_bounds__(kThreadsB, 2)
+masked_attention_bwd_stats_kernel(const __grid_constant__ BParams p,
+                                  const __grid_constant__ OPlan pl,
+                                  const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const __grid_constant__ CUtensorMap tg) {
+  using C = Chunk<D, 2>;
+  constexpr int kD = C::kD, NS = kN / 2;
+  constexpr uint32_t kRB = C::kRowBytes;
+  constexpr uint32_t kKv = kN * kD * 2, kQg = kRows * kD * 2;
+  constexpr uint32_t kKChunk = kN * kRB, kQChunk = kRows * kRB;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t k_s = base, v_s = base + kKv, q_s = base + 2 * kKv, g_s = q_s + kQg;
+  const uint32_t bar_kv = g_s + kQg, bar_q = bar_kv + 8;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, t4 = lane % 4;
+  const int r0 = warp * 16 + lane / 4;
+  const int bh = blockIdx.x / pl.n_qb, qb = blockIdx.x - bh * pl.n_qb, b = bh / p.H,
+            h = bh - b * p.H;
+  DropMask dm{};
+  if constexpr (kDrop) {
+    const uint64_t s = *static_cast<const uint64_t*>(p.seed);
+    dm = {static_cast<uint32_t>(s), static_cast<uint32_t>(s >> 32), p.drop_threshold,
+          p.drop_scale};
+  }
+  if (tid == 0) {
+    bar_init(bar_kv, 1);
+    bar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue_kv = [&](int c) {
+    bar_expect_tx(bar_kv, 2 * kKv);
+#pragma unroll
+    for (int cc = 0; cc < C::kChunks; ++cc) {
+      tma_load(k_s + cc * kKChunk, &tk, bar_kv, cc * C::kCC, c * kN, h, b);
+      tma_load(v_s + cc * kKChunk, &tv, bar_kv, cc * C::kCC, c * kN, h, b);
+    }
+  };
+  if (tid == 0) {
+    bar_expect_tx(bar_q, 2 * kQg);
+#pragma unroll
+    for (int cc = 0; cc < C::kChunks; ++cc) {
+      tma_load(q_s + cc * kQChunk, &tq, bar_q, cc * C::kCC, qb * kRows, h, b);
+      tma_load(g_s + cc * kQChunk, &tg, bar_q, cc * C::kCC, qb * kRows, h, b);
+    }
+    issue_kv(0);
+  }
+  const float* brow[2] = {nullptr, nullptr};
+  uint64_t rb[2];  // flat dropout index of (row, key 0)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qrow = qb * kRows + r0 + 8 * r;
+    if (p.bias != nullptr)
+      brow[r] = p.bias + b * p.b_s[0] + h * p.b_s[1] + (qrow < p.Lq ? qrow : 0) * p.b_s[2];
+    rb[r] = static_cast<uint64_t>(static_cast<int64_t>(bh) * p.Lq + qrow)
+            * static_cast<uint64_t>(p.Lk);
+  }
+  bar_wait(bar_q, 0);
+
+  float m_r[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, d[2] = {0.f, 0.f};
+  for (int c = 0; c < pl.n_st; ++c) {
+    bar_wait(bar_kv, static_cast<uint32_t>(c & 1));
+    float s[NS], dp[NS];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const uint32_t cc = kk / C::kKSteps, ko = (kk % C::kKSteps) * 32;
+      wgmma_ss<kN>(s, desc(q_s + cc * kQChunk + ko, 16, 8 * kRB, kRB),
+                   desc(k_s + cc * kKChunk + ko, 16, 8 * kRB, kRB), kk > 0);
+      wgmma_ss<kN>(dp, desc(g_s + cc * kQChunk + ko, 16, 8 * kRB, kRB),
+                   desc(v_s + cc * kKChunk + ko, 16, 8 * kRB, kRB), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    __syncthreads();  // every warp's products on this k and v are done
+    if (tid == 0 && c + 1 < pl.n_st) issue_kv(c + 1);
+    stats_add<kN, false, kDrop>(s, dp, c * kN + 2 * t4, p, brow, dm, rb, m_r, l, d);
+  }
+  float il[2], di[2];
+  stats_finish(l, d, il, di);
+  if (t4 == 0) {
+    float* out = p.scratch + static_cast<int64_t>(blockIdx.x) * kStatFloats;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      out[r0 + 8 * r] = m_r[r];
+      out[kRows + r0 + 8 * r] = il[r];
+      out[2 * kRows + r0 + 8 * r] = di[r];
+    }
+  }
+}
+
+// The gradients of one 128-key tile of one (b, h) over every query block:
+// two consumer warpgroups of 64 keys each and a producer warp (registers
+// given away, `setmaxnreg`) that loads the tile's k and v once and streams
+// q, g and the statistics of each query block by TMA into a ring of
+// kOuterStages. The blocks of one (b, h) are adjacent, so q and g stay in
+// L2. Per query block, in registers with keys as rows: S^T = k.q^T and
+// dP^T = v.g^T, p m and ds from the statistics as the two-pass kernel
+// forms them, then dv += (p m)^T.g and dk += ds^T.q with the A operand
+// from registers (hi + lo bf16 pairs, two products each); dk and dv stay
+// in registers across all query blocks and are written once. dq = ds.k
+// takes ds^T from shared memory (both warpgroups' keys: each warpgroup 64
+// of the tile's 128 columns; below the D 128 tile each its own 64 keys at
+// full width) and goes to the workspace as an fp32 partial sum, one slice
+// a key tile (or a 64 keys); `masked_attention_bwd_dq_kernel` sums the
+// slices in key order.
+// Schedule (H100, SigLIP's vision call, this kernel alone): the two
+// warpgroups in step, one block barrier a query block, 2.99 ms; S and dP
+// in two commit groups (dP's products under p's exponentials), 2.55 ms;
+// the warpgroups taking turns at S and dP (named barriers) with each
+// block's dq one block later, behind mbarriers on its ds^T buffer instead
+// of a block barrier, 2.33 ms; full tiles (every key and query in range,
+// no bias, no dropout) without the elementwise selects, 2.00 ms, and no
+// spill. Issuing dv before ds is formed spilled at the D 128 tile and took
+// 2.76 ms.
+template <int D, bool kDrop>
+__global__ void __launch_bounds__(kThreads, 1)
+masked_attention_bwd_outer_kernel(const __grid_constant__ BParams p,
+                                  const __grid_constant__ OPlan pl,
+                                  const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const __grid_constant__ CUtensorMap tg) {
+  using C = Chunk<D, 2>;
+  constexpr int kD = C::kD, NO = kD / 2;
+  constexpr bool kSplit = kD == 128;       // dq's columns split between the warpgroups
+  constexpr int kDqN = kSplit ? 64 : kD, NQ = kDqN / 2;
+  constexpr uint32_t kRB = C::kRowBytes;
+  constexpr uint32_t kQg = kRows * kD * 2;
+  constexpr uint32_t kKChunk = kOuterKeys * kRB, kQChunk = kRows * kRB;
+  constexpr int S = kOuterStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t k_s = base, v_s = base + pl.off_v, bars = base + pl.off_bar;
+  // barriers: k and v; each stage's full, then empty; each ds^T buffer's
+  // full (both warpgroups wrote it), then free (both read it)
+  const uint32_t bar_kv = bars, bar_full = bars + 8, bar_empty = bars + 8 * (1 + S);
+  const uint32_t bar_ds_full = bars + 8 * (1 + 2 * S), bar_ds_free = bar_ds_full + 16;
+  const int bh = blockIdx.x / pl.n_kt, kt = blockIdx.x - bh * pl.n_kt, b = bh / p.H,
+            h = bh - b * p.H;
+  if (threadIdx.x == 0) {
+    bar_init(bar_kv, 1);
+    for (int s = 0; s < S; ++s) {
+      bar_init(bar_full + 8 * s, 1);
+      bar_init(bar_empty + 8 * s, kConsumerWarps);
+    }
+    for (int i = 0; i < 2; ++i) {
+      bar_init(bar_ds_full + 8 * i, kConsumerWarps);
+      bar_init(bar_ds_free + 8 * i, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int w = threadIdx.x / 128;
+  if (w == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kOuterProducerRegs));
+    if (threadIdx.x % 128 == 0) {
+      bar_expect_tx(bar_kv, 2 * kOuterKeys * kD * 2);
+#pragma unroll
+      for (int cc = 0; cc < C::kChunks; ++cc) {
+        tma_load(k_s + cc * kKChunk, &tk, bar_kv, cc * C::kCC, kt * kOuterKeys, h, b);
+        tma_load(v_s + cc * kKChunk, &tv, bar_kv, cc * C::kCC, kt * kOuterKeys, h, b);
+      }
+      const float* stats = p.scratch + static_cast<int64_t>(bh) * pl.n_qb * kStatFloats;
+      int slot = 0;
+      uint32_t phase = 0;
+      for (int qb = 0; qb < pl.n_qb; ++qb) {
+        bar_wait(bar_empty + 8 * slot, phase ^ 1);
+        const uint32_t full = bar_full + 8 * slot, st = base + pl.off_qg + slot * pl.stage_bytes;
+        bar_expect_tx(full, 2 * kQg + kStatFloats * 4);
+#pragma unroll
+        for (int cc = 0; cc < C::kChunks; ++cc) {
+          tma_load(st + cc * kQChunk, &tq, full, cc * C::kCC, qb * kRows, h, b);
+          tma_load(st + kQg + cc * kQChunk, &tg, full, cc * C::kCC, qb * kRows, h, b);
+        }
+        bulk_load(st + 2 * kQg, stats + qb * kStatFloats, kStatFloats * 4, full);
+        if (++slot == S) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kOuterConsumerRegs));
+
+  // consumer warpgroup w: keys kt * 128 + 64 w + (0 .. 63); thread (warp,
+  // lane) holds keys r0, r0 + 8 of them (the accumulator rows) and, of each
+  // 8-column block j, columns 8j + 2 (lane % 4), + 1
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, t4 = lane % 4;
+  const int r0 = warp * 16 + lane / 4;
+  const int key0 = kt * kOuterKeys + w * 64 + r0;
+  const bool key_ok[2] = {key0 < p.Lk, key0 + 8 < p.Lk};
+  const float* bias = p.bias == nullptr ? nullptr : p.bias + b * p.b_s[0] + h * p.b_s[1];
+  const uint64_t row_base = static_cast<uint64_t>(static_cast<int64_t>(bh) * p.Lq);
+  const uint32_t kw_s = k_s + w * 64 * kRB, vw_s = v_s + w * 64 * kRB;
+  DropMask dm{};
+  if constexpr (kDrop) {
+    const uint64_t s = *static_cast<const uint64_t*>(p.seed);
+    dm = {static_cast<uint32_t>(s), static_cast<uint32_t>(s >> 32), p.drop_threshold,
+          p.drop_scale};
+  }
+  const int slice = kSplit ? kt : 2 * kt + w, col0 = kSplit ? 64 * w : 0;
+  float* const part = p.scratch + pl.stats_floats
+                      + (static_cast<int64_t>(slice) * p.B * p.H + bh) * p.Lq * D;
+
+  // dq (+)= ds.k of query block i over the tile's keys, once both
+  // warpgroups' ds^T of it are in its planes: ds^T MN-major A (M =
+  // queries), k MN-major B; then the planes are free again, and dq goes to
+  // this warpgroup's slice
+  auto dq_step = [&](int i) {
+    const uint32_t buf = static_cast<uint32_t>(i & 1);
+    bar_wait(bar_ds_full + 8 * buf, static_cast<uint32_t>((i >> 1) & 1));
+    const uint32_t ds_s = base + pl.off_ds + buf * 2 * kDsBytes;
+    float dq[NQ];
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      if constexpr (kSplit) {
+#pragma unroll
+        for (int kk = 0; kk < kOuterKeys / 16; ++kk)
+          wgmma_t<1, 1, kDqN>(dq, desc(ds_s + t * kDsBytes + kk * 2048, kDsBytes, 1024, 128),
+                              desc(k_s + w * kKChunk + kk * 16 * kRB, kKChunk, 8 * kRB, kRB),
+                              t + kk > 0);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_t<1, 1, kDqN>(dq,
+                              desc(ds_s + t * kDsBytes + (w * 64 + kk * 16) * 128, kDsBytes,
+                                   1024, 128),
+                              desc(k_s + (w * 64 + kk * 16) * kRB, kKChunk, 8 * kRB, kRB),
+                              t + kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    warp_release(bar_ds_free + 8 * buf, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int query = i * kRows + r0 + 8 * r;
+      if (query >= p.Lq) continue;
+      float* row = part + static_cast<int64_t>(query) * D + col0 + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < NQ / 4; ++j)
+        if (col0 + 8 * j < D)
+          *reinterpret_cast<float2*>(row + 8 * j) =
+              make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+    }
+  };
+
+  float dk[NO], dv[NO];
+  bar_wait(bar_kv, 0);
+  // the warpgroups take turns at S and dP's products (named barriers 1 and
+  // 2): each one's exponentials run under the other's products
+  if (w == 1) asm volatile("bar.arrive 1, %0;\n" :: "n"(kConsumers * 128) : "memory");
+  int slot = 0;
+  uint32_t phase = 0;
+  for (int qb = 0; qb < pl.n_qb; ++qb) {
+    const uint32_t q_s = base + pl.off_qg + slot * pl.stage_bytes, g_s = q_s + kQg;
+    const float* stat =
+        reinterpret_cast<const float*>(smem + pl.off_qg + slot * pl.stage_bytes + 2 * kQg);
+    bar_wait(bar_full + 8 * slot, phase);
+
+    // S^T = k.q^T and dP^T = v.g^T: this warpgroup's 64 keys x 64 queries,
+    // in two groups, so that dP's products run under p's exponentials
+    float s[32], dp[32];
+    if (w == 0) asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers * 128) : "memory");
+    else asm volatile("bar.sync 2, %0;\n" :: "n"(kConsumers * 128) : "memory");
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const uint32_t cc = kk / C::kKSteps, ko = (kk % C::kKSteps) * 32;
+      wgmma_ss<64>(s, desc(kw_s + cc * kKChunk + ko, 16, 8 * kRB, kRB),
+                   desc(q_s + cc * kQChunk + ko, 16, 8 * kRB, kRB), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const uint32_t cc = kk / C::kKSteps, ko = (kk % C::kKSteps) * 32;
+      wgmma_ss<64>(dp, desc(vw_s + cc * kKChunk + ko, 16, 8 * kRB, kRB),
+                   desc(g_s + cc * kQChunk + ko, 16, 8 * kRB, kRB), kk > 0);
+    }
+    wgmma_commit();
+    if (w == 0)
+      asm volatile("bar.arrive 2, %0;\n" :: "n"(kConsumers * 128) : "memory");
+    else if (qb + 1 < pl.n_qb)
+      asm volatile("bar.arrive 1, %0;\n" :: "n"(kConsumers * 128) : "memory");
+    wgmma_wait<1>();
+    fence_regs(s);
+
+    // p = e^(s - m) / l from the fp32 scores and the row statistics (keys
+    // past Lk score -inf); without a bias and past Lk the scores are q.k
+    // times D^-1/2 alone (the bias's + 0 changes no bit of p)
+    if (bias == nullptr && kt + 1 < pl.n_kt) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 m2 = *reinterpret_cast<const float2*>(stat + 8 * j + 2 * t4);
+        const float2 i2 = *reinterpret_cast<const float2*>(stat + kRows + 8 * j + 2 * t4);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int x = 4 * j + 2 * r;
+          s[x] = exp_ftz(__fmul_rn(s[x], p.scale) - m2.x) * i2.x;
+          s[x + 1] = exp_ftz(__fmul_rn(s[x + 1], p.scale) - m2.y) * i2.y;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t4;
+        const float2 m2 = *reinterpret_cast<const float2*>(stat + c);
+        const float2 i2 = *reinterpret_cast<const float2*>(stat + kRows + c);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int query = qb * kRows + c + e;
+          const float m = e ? m2.y : m2.x, il = e ? i2.y : i2.x;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int x = 4 * j + 2 * r + e, key = key0 + 8 * r;
+            const float bv = bias != nullptr && key_ok[r]
+                                 ? __ldg(bias + (query < p.Lq ? query : 0) * p.b_s[2] + key)
+                                 : 0.f;
+            const float sc = key_ok[r] ? __fadd_rn(__fmul_rn(s[x], p.scale), bv) : -INFINITY;
+            s[x] = exp_ftz(sc - m) * il;
+          }
+        }
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    // p m into s and ds = p (dP m - Di) into dp; queries past Lq take 0
+    if (!kDrop && p.dbias == nullptr && (qb + 1) * kRows <= p.Lq) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(stat + 2 * kRows + 8 * j + 2 * t4);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int x = 4 * j + 2 * r;
+          dp[x] = s[x] * (dp[x] - d2.x);
+          dp[x + 1] = s[x + 1] * (dp[x + 1] - d2.y);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t4;
+        const float2 d2 = *reinterpret_cast<const float2*>(stat + 2 * kRows + c);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int query = qb * kRows + c + e;
+          const bool q_ok = query < p.Lq;
+          const float di = e ? d2.y : d2.x;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int x = 4 * j + 2 * r + e, key = key0 + 8 * r;
+            const float pr = s[x];
+            float f = 1.f;
+            if constexpr (kDrop)
+              f = dm.factor((row_base + static_cast<uint64_t>(query)) * static_cast<uint64_t>(p.Lk)
+                            + static_cast<uint64_t>(key));
+            const float ds = pr * (dp[x] * f - di);
+            if (p.dbias != nullptr && q_ok && key_ok[r])
+              p.dbias[(static_cast<int64_t>(bh) * p.Lq + query) * p.Lk + key] = ds;
+            s[x] = q_ok ? pr * f : 0.f;
+            dp[x] = q_ok ? ds : 0.f;
+          }
+        }
+      }
+    }
+
+    // p m and ds as hi + lo bf16 A fragments (the accumulator layout of S^T
+    // is the A layout of an m64k16 product over the queries)
+    uint32_t ph[16], plo[16], dh[16], dl[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint32_t t[2];
+        split_pair<2>(s[4 * j + 2 * r], s[4 * j + 2 * r + 1], t);
+        ph[2 * j + r] = t[0];
+        plo[2 * j + r] = t[1];
+        split_pair<2>(dp[4 * j + 2 * r], dp[4 * j + 2 * r + 1], t);
+        dh[2 * j + r] = t[0];
+        dl[2 * j + r] = t[1];
+      }
+    // dv += (p m)^T.g and dk += ds^T.q over the block's 64 queries (g, q
+    // MN-major B operands as they lie)
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bg = desc(g_s + kk * 16 * kRB, kQChunk, 8 * kRB, kRB);
+      const uint64_t bq = desc(q_s + kk * 16 * kRB, kQChunk, 8 * kRB, kRB);
+      const uint32_t a0[4] = {ph[4 * kk], ph[4 * kk + 1], ph[4 * kk + 2], ph[4 * kk + 3]};
+      const uint32_t a1[4] = {plo[4 * kk], plo[4 * kk + 1], plo[4 * kk + 2], plo[4 * kk + 3]};
+      const uint32_t a2[4] = {dh[4 * kk], dh[4 * kk + 1], dh[4 * kk + 2], dh[4 * kk + 3]};
+      const uint32_t a3[4] = {dl[4 * kk], dl[4 * kk + 1], dl[4 * kk + 2], dl[4 * kk + 3]};
+      wgmma_rs<kD>(dv, a0, bg, qb > 0 || kk > 0);
+      wgmma_rs<kD>(dv, a1, bg, 1);
+      wgmma_rs<kD>(dk, a2, bq, qb > 0 || kk > 0);
+      wgmma_rs<kD>(dk, a3, bq, 1);
+    }
+    wgmma_commit();
+
+    // ds^T hi and lo into this query block's planes (two buffers: the
+    // block's dq runs one block later, once both warpgroups wrote it)
+    const uint32_t buf = static_cast<uint32_t>(qb & 1);
+    if (qb >= 2) bar_wait(bar_ds_free + 8 * buf, static_cast<uint32_t>(((qb >> 1) - 1) & 1));
+    const uint32_t ds_off = pl.off_ds + buf * 2 * kDsBytes;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = w * 64 + r0 + 8 * r;
+        const uint32_t off = ds_off + row * 128 + ((j ^ (row & 7)) * 16) + t4 * 4;
+        *reinterpret_cast<uint32_t*>(smem + off) = dh[2 * j + r];
+        *reinterpret_cast<uint32_t*>(smem + off + kDsBytes) = dl[2 * j + r];
+      }
+    fence_proxy_async();
+    warp_release(bar_ds_full + 8 * buf, lane);
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_words(ph);
+    fence_words(plo);
+    fence_words(dh);
+    fence_words(dl);
+    warp_release(bar_empty + 8 * slot, lane);  // q, g and the statistics are read
+    if (qb > 0) dq_step(qb - 1);
+    if (++slot == S) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+  dq_step(pl.n_qb - 1);
+
+  // dv, and dk times D^-1/2: keys past Lk and the tile's columns past D
+  // skipped
+  auto store = [&](__nv_bfloat16* out, const int64_t* os, const float (&acc)[NO], float sc) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!key_ok[r]) continue;
+      __nv_bfloat16* row = out + b * os[0] + h * os[1] + (key0 + 8 * r) * os[2] + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < NO / 4; ++j)
+        if (8 * j < D)
+          *reinterpret_cast<uint32_t*>(row + 8 * j) =
+              pack_bf16(acc[4 * j + 2 * r] * sc, acc[4 * j + 2 * r + 1] * sc);
+    }
+  };
+  store(static_cast<__nv_bfloat16*>(p.dv), p.dv_s, dv, 1.f);
+  store(static_cast<__nv_bfloat16*>(p.dk), p.dk_s, dk, p.scale);
+}
+
+// dq = (the slices' sum, in key order) times D^-1/2, in bf16 at dq's
+// strides: four columns a thread
+template <int D>
+__global__ void __launch_bounds__(256)
+masked_attention_bwd_dq_kernel(const __grid_constant__ BParams p,
+                               const __grid_constant__ OPlan pl) {
+  constexpr int kG = D / 4;
+  const int64_t rows = static_cast<int64_t>(p.B) * p.H * p.Lq, plane = rows * D;
+  const float* part = p.scratch + pl.stats_floats;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < rows * kG;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t row = i / kG;
+    const int c = 4 * static_cast<int>(i - row * kG);
+    const float* at = part + row * D + c;
+    float4 acc = __ldg(reinterpret_cast<const float4*>(at));
+    for (int s = 1; s < pl.slices; ++s) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(at + s * plane));
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    const int64_t bh = row / p.Lq;
+    const int q = static_cast<int>(row - bh * p.Lq), b = static_cast<int>(bh / p.H),
+              h = static_cast<int>(bh - static_cast<int64_t>(b) * p.H);
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_s[0] + h * p.dq_s[1]
+                         + q * p.dq_s[2] + c;
+    *reinterpret_cast<uint2*>(out) = make_uint2(pack_bf16(acc.x * p.scale, acc.y * p.scale),
+                                                pack_bf16(acc.z * p.scale, acc.w * p.scale));
+  }
+}
+
 // --- host ------------------------------------------------------------------
 
 // The key tile of a launch: the smallest instantiated width that holds Lk,
@@ -808,6 +1396,88 @@ cudaError_t launch(const BParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The key-outer plan of a bf16 launch at head dim D: the statistics
+// kernel's k, v (stat_keys rows), q and g; the gradient kernel's k, v (128
+// rows), kOuterStages of q, g and the statistics, two buffers of ds^T hi and
+// lo planes, the barriers; the workspace's statistics and dq slices.
+template <int D>
+cudaError_t make_oplan(const BParams& p, OPlan* pl) {
+  constexpr int kD = tile_dim(D);
+  constexpr uint32_t kKv = kOuterKeys * kD * 2, kQg = kRows * kD * 2;
+  *pl = OPlan{};
+  pl->n_qb = (p.Lq + kRows - 1) / kRows;
+  pl->n_kt = (p.Lk + kOuterKeys - 1) / kOuterKeys;
+  pl->n_st = (p.Lk + stat_keys(D) - 1) / stat_keys(D);
+  pl->slices = kD == 128 ? pl->n_kt : 2 * pl->n_kt;
+  pl->st_smem = 2 * stat_keys(D) * kD * 2 + 2 * kQg + 16 + 1024;
+  pl->off_v = kKv;
+  pl->off_qg = 2 * kKv;
+  pl->stage_bytes = round_up(2 * kQg + kStatFloats * 4, 1024);
+  pl->off_ds = pl->off_qg + kOuterStages * pl->stage_bytes;
+  pl->off_bar = pl->off_ds + 4 * kDsBytes;
+  pl->smem_bytes = pl->off_bar + 8 * (5 + 2 * kOuterStages) + 1024;
+  const int64_t bh = static_cast<int64_t>(p.B) * p.H;
+  pl->stats_floats = bh * pl->n_qb * kStatFloats;
+  pl->dq_floats = static_cast<int64_t>(pl->slices) * bh * p.Lq * D;
+  if (pl->smem_bytes > static_cast<uint32_t>(kSmemLimit)
+      || bh * pl->n_qb > 0x7fffffffLL || bh * pl->n_kt > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  return cudaSuccess;
+}
+
+// bf16 past one key tile: the statistics pass, the key-outer gradients,
+// dq's sum; p.scratch is the workspace (OPlan's stats_floats + dq_floats)
+template <int D, bool kDrop>
+cudaError_t launch_outer(const BParams& p, cudaStream_t stream) {
+  constexpr int kStat = stat_keys(D);
+  if (!aligned16(p.q, p.q_s, 2) || !aligned16(p.k, p.k_s, 2) || !aligned16(p.v, p.v_s, 2)
+      || !aligned16(p.g, p.g_s, 2))
+    return cudaErrorMisalignedAddress;
+  OPlan pl;
+  cudaError_t err = make_oplan<D>(p, &pl);
+  if (err != cudaSuccess) return err;
+  if (p.scratch == nullptr) return cudaErrorInvalidValue;
+  alignas(64) CUtensorMap tq{}, tg{}, tk{}, tv{}, tks{}, tvs{};
+  if (encode<D, 2>(&tq, p.q, p.B, p.H, p.Lq, p.q_s, kRows, 1) != CUDA_SUCCESS
+      || encode<D, 2>(&tg, p.g, p.B, p.H, p.Lq, p.g_s, kRows, 1) != CUDA_SUCCESS
+      || encode<D, 2>(&tk, p.k, p.B, p.H, p.Lk, p.k_s, kOuterKeys, 1) != CUDA_SUCCESS
+      || encode<D, 2>(&tv, p.v, p.B, p.H, p.Lk, p.v_s, kOuterKeys, 1) != CUDA_SUCCESS
+      || encode<D, 2>(&tks, p.k, p.B, p.H, p.Lk, p.k_s, kStat, 1) != CUDA_SUCCESS
+      || encode<D, 2>(&tvs, p.v, p.B, p.H, p.Lk, p.v_s, kStat, 1) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  static bool attr[64] = {false};
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!attr[dev]) {
+    err = cudaFuncSetAttribute(masked_attention_bwd_stats_kernel<D, kStat, kDrop>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(masked_attention_bwd_outer_kernel<D, kDrop>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    attr[dev] = true;
+  }
+  const int64_t bh = static_cast<int64_t>(p.B) * p.H;
+  masked_attention_bwd_stats_kernel<D, kStat, kDrop>
+      <<<static_cast<unsigned>(bh * pl.n_qb), kThreadsB, pl.st_smem, stream>>>(p, pl, tq, tks,
+                                                                                 tvs, tg);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  masked_attention_bwd_outer_kernel<D, kDrop>
+      <<<static_cast<unsigned>(bh * pl.n_kt), kThreads, pl.smem_bytes, stream>>>(p, pl, tq, tk,
+                                                                                  tv, tg);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t groups = bh * p.Lq * (D / 4);
+  const int64_t blocks = (groups + 255) / 256;
+  masked_attention_bwd_dq_kernel<D>
+      <<<static_cast<unsigned>(blocks < 0x7fffffffLL ? blocks : 0x7fffffffLL), 256, 0, stream>>>(
+          p, pl);
+  return cudaGetLastError();
+}
+
 // masked_attention_bwd's arguments as BParams (dims: see masked_attention_bwd.cu)
 inline BParams parse_bparams(const void* q, const void* k, const void* v, const void* g,
                              const void* bias, void* dq, void* dk, void* dv, void* dbias,
@@ -854,8 +1524,8 @@ int run(const void* q, const void* k, const void* v, const void* g, const void* 
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int kn = key_tile<D, kF32>(p.Lk);
   if (p.Lk > kn) {
-    constexpr int kMax = kF32 ? 64 : tile_dim(D) < 128 ? 160 : 128;
-    return static_cast<int>(launch<T, D, kMax, true, kDrop>(p, stream));
+    if constexpr (kF32) return static_cast<int>(launch<T, D, 64, true, kDrop>(p, stream));
+    else return static_cast<int>(launch_outer<D, kDrop>(p, stream));
   }
   if constexpr (kF32) {
     return static_cast<int>(launch<T, D, 64, false, kDrop>(p, stream));
@@ -877,9 +1547,13 @@ int run(const void* q, const void* k, const void* v, const void* g, const void* 
 }
 
 // The plan of a launch of these dims (host only): out = {key tile, key
-// tiles, multi (past one tile), sums in shared memory, shared-memory bytes,
-// scratch floats the wrapper allocates (0 when the sums fit), the head
-// dim's tile width}
+// tiles, multi (past one tile), dk and dv's sums in shared memory,
+// shared-memory bytes, scratch floats the wrapper allocates, the head dim's
+// tile width, key outer (1: bf16 past one tile), the statistics' floats, dq's
+// slices}. The two-pass kernel's scratch holds dk and dv's sums when they do
+// not fit shared memory (else 0 floats); the key-outer path's holds the
+// statistics and dq's slices, and its key tile and shared memory are the
+// gradient kernel's.
 template <int D, bool kF32>
 int plan(const int64_t* dims, int64_t* out) {
   BParams p = parse_bparams(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
@@ -887,13 +1561,23 @@ int plan(const int64_t* dims, int64_t* out) {
   if (p.B <= 0 || p.H <= 0 || p.Lq <= 0 || p.Lk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int kn = key_tile<D, kF32>(p.Lk);
+  if (!kF32 && p.Lk > kn) {
+    OPlan pl;
+    const cudaError_t err = make_oplan<D>(p, &pl);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int64_t got[10] = {kOuterKeys, pl.n_kt, 1, 0, pl.smem_bytes,
+                             pl.stats_floats + pl.dq_floats, tile_dim(D), 1, pl.stats_floats,
+                             pl.slices};
+    for (int i = 0; i < 10; ++i) out[i] = got[i];
+    return 0;
+  }
   BPlan pl;
   const cudaError_t err = make_bplan(p, tile_dim(D), D, kn, kF32, &pl);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t got[7] = {kn, pl.n_kt, p.Lk > kn, pl.acc_smem, pl.smem_bytes,
-                          pl.acc_smem ? 0 : static_cast<int64_t>(p.B) * p.H * pl.acc_floats,
-                          tile_dim(D)};
-  for (int i = 0; i < 7; ++i) out[i] = got[i];
+  const int64_t got[10] = {kn, pl.n_kt, p.Lk > kn, pl.acc_smem, pl.smem_bytes,
+                           pl.acc_smem ? 0 : static_cast<int64_t>(p.B) * p.H * pl.acc_floats,
+                           tile_dim(D), 0, 0, 0};
+  for (int i = 0; i < 10; ++i) out[i] = got[i];
   return 0;
 }
 

@@ -441,6 +441,30 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// Binds the current device's primary context to the calling host thread
+// when none is bound. cuTensorMapEncodeTiled is a driver call and acts on
+// the thread's current context, and a thread may have none: the runtimes
+// bind one lazily, at the thread's first call that needs it, and a thread
+// that has only taken PyTorch's cached memory has made none. The runtime's
+// cudaFree(nullptr) binds it, as PyTorch does before its own driver calls.
+inline CUresult bind_context() {
+  using CtxGetCurrent = CUresult (*)(CUcontext*);
+  static const CtxGetCurrent fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuCtxGetCurrent", &ptr, cudaEnableDefault, &found)
+            != cudaSuccess
+        || found != cudaDriverEntryPointSuccess)
+      return static_cast<CtxGetCurrent>(nullptr);
+    return reinterpret_cast<CtxGetCurrent>(ptr);
+  }();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  CUcontext ctx = nullptr;
+  const CUresult got = fn(&ctx);
+  if (got != CUDA_SUCCESS || ctx != nullptr) return got;
+  return cudaFree(nullptr) == cudaSuccess ? CUDA_SUCCESS : CUDA_ERROR_INVALID_CONTEXT;
+}
+
 // a [B, H, L, D] tensor of kElem-byte elements (2: bf16, 4: fp32) with
 // element strides s (b, h, l) as a 4-D map over (D, L, H, B), in boxes of
 // (kCC, rows, heads, 1); a dim of extent 1 gets a stride that TMA accepts
@@ -453,6 +477,8 @@ int encode(CUtensorMap* map, const void* ptr, int B, int H, int L, const int64_t
   using C = Chunk<D, kElem>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const CUresult bound = bind_context();
+  if (bound != CUDA_SUCCESS) return bound;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const int64_t ext[3] = {L, H, B}, elem[3] = {s[2], s[1], s[0]};

@@ -23,12 +23,14 @@ padded copy of any tensor goes to device memory (`kernel_plan` and
 `kernel_bwd_plan` report the tile's width as `head_tile`); it has no
 dropout instantiation, and a D 72 call with dropout raises.
 Its backward saves only q, k, v, the bias and the dropout seed and
-recomputes the probabilities in fp32. On a CUDA tensor it launches the
-hand-written kernel `masked_attention_bwd` once a call
+recomputes the probabilities in fp32. On a CUDA tensor it calls the
+hand-written `masked_attention_bwd` once a call
 (csrc/masked_attention_bwd.cuh: `wgmma` and TMA, the recompute, the dropout
-hash and dq, dk, dv in one launch, nothing of size [B, H, Lq, Lk] in device
-memory) or raises. That kernel replaces no TPU kernel: the JAX package's
-backward was XLA einsums (`_attn_bwd`, git 8625894^,
+hash and dq, dk, dv, nothing of size [B, H, Lq, Lk] in device memory) or
+raises: one launch where the keys fit one key tile; in bf16 past it three,
+with the key tiles as the outer loop (FlashAttention-2's order, counted by
+`masked_attention.backward_key_outer`). That kernel replaces no TPU kernel:
+the JAX package's backward was XLA einsums (`_attn_bwd`, git 8625894^,
 `mvp_pytorch_tpu/ops/attention.py:200-218`). It was added because the
 plain recompute of those einsums, about 60 launches over fp32 and int64
 [B, H, Lq, Lk] tensors a call, took 70 ms of a training step on the H100;
@@ -379,7 +381,9 @@ def _tma_ready(t):
 def _kernel_attention_grads(q, k, v, bias, g, layout, bias_grad: bool,
                             dropout_p: float = 0.0, seed=None):
     """Launch `masked_attention_bwd` on CUDA tensors (no fallback): the
-    gradients of `_attention_grads` in one kernel, which recomputes the
+    gradients of `_attention_grads` in one kernel (in bf16 past one key
+    tile three launches, the key tiles outer, counted by
+    `masked_attention.backward_key_outer`), which recomputes the
     probabilities from q, k and the bias and regenerates the dropout mask
     from `seed`. dq, dk, dv come back in the inputs' dtype and layout; with
     `bias_grad` the kernel writes ds in fp32, summed here to the bias's
@@ -439,10 +443,11 @@ def _kernel_attention_grads(q, k, v, bias, g, layout, bias_grad: bool,
     dims += bias_strides
     arr = (ctypes.c_int64 * len(dims))(*dims)
     lib = _kernels.library()
-    plan = (ctypes.c_int64 * 7)()
+    plan = (ctypes.c_int64 * len(_BWD_PLAN))()
     _kernels.check(lib.masked_attention_bwd_plan(ctypes.addressof(arr),
                                                  ctypes.addressof(plan)),
                    "masked_attention_bwd_plan")
+    # dk and dv's sums, or the key-outer path's statistics and dq slices
     scratch = (torch.empty(plan[5], dtype=torch.float32, device=q.device)
                if plan[5] else None)
     seed_ptr, threshold, scale = None, 0, 1.0
@@ -458,28 +463,40 @@ def _kernel_attention_grads(q, k, v, bias, g, layout, bias_grad: bool,
         ctypes.addressof(arr), torch.cuda.current_stream(q.device).cuda_stream,
         seed_ptr, threshold, scale)
     _kernels.check(err, "masked_attention_bwd")
+    if plan[7]:
+        masked_attention.backward_key_outer += 1
     if dbias is not None:
         dbias = dbias.sum_to_size(bias.shape).to(bias.dtype)
     return (*grads, dbias)
 
 
+_BWD_PLAN = ("key_tile", "key_tiles", "multi", "acc_smem", "smem_bytes",
+             "scratch_floats", "head_tile", "key_outer", "stats_floats",
+             "dq_slices")
+
+
 def kernel_bwd_plan(lq: int, lk: int, h: int = 12, d: int = 64, b: int = 1,
                     dtype: torch.dtype = torch.bfloat16) -> dict:
     """The plan `masked_attention_bwd` makes for a launch of these dims,
-    read from the built library (host only): key_tile (the smallest
-    instantiated width that holds Lk, else the largest), key_tiles, multi
-    (1: past one key tile, two passes), acc_smem (1: dk and dv add up in
-    shared memory, 0: in a scratch buffer), smem_bytes (a block),
-    scratch_floats and head_tile (the width a head takes in the tile: d,
-    or 128 at d 72)."""
+    read from the built library (host only): key_tile (one kernel: the
+    smallest instantiated width that holds Lk, else the largest; key outer:
+    the gradient kernel's 128), key_tiles, multi (1: past one key tile),
+    acc_smem (1: dk and dv add up in shared memory), smem_bytes (a block of
+    the kernel, or of the key-outer gradient kernel), scratch_floats (the
+    fp32 buffer the wrapper allocates: dk and dv's sums where they do not
+    fit shared memory, or the key-outer path's statistics and dq slices),
+    head_tile (the width a head takes in the tile: d, or 128 at d 72),
+    key_outer (1: bf16 past one key tile, the key tiles the outer loop in
+    three launches), stats_floats (its row statistics, 3 x 64 floats a
+    query block) and dq_slices (its fp32 partial sums of dq: one a 128-key
+    tile in the D 128 tile, else one a 64 keys)."""
     dims = [b, h, lq, lk, d, _DTYPE_CODE[dtype], 0] + [0] * 24
     arr = (ctypes.c_int64 * len(dims))(*dims)
-    out = (ctypes.c_int64 * 7)()
+    out = (ctypes.c_int64 * len(_BWD_PLAN))()
     err = _kernels.library().masked_attention_bwd_plan(ctypes.addressof(arr),
                                                        ctypes.addressof(out))
     _kernels.check(err, "masked_attention_bwd_plan")
-    return dict(zip(("key_tile", "key_tiles", "multi", "acc_smem",
-                     "smem_bytes", "scratch_floats", "head_tile"), out))
+    return dict(zip(_BWD_PLAN, out))
 
 
 class _BackwardKernel(torch.autograd.Function):
@@ -500,7 +517,7 @@ class _BackwardKernel(torch.autograd.Function):
 class MaskedAttentionFn(torch.autograd.Function):
     """Differentiable masked attention: forward on the kernel (CUDA) or the
     plain version (CPU); backward on the kernel `masked_attention_bwd`
-    (CUDA, one launch a call, counted by
+    (CUDA, once a call, counted by
     `masked_attention.backward_launches`) or by the plain recompute
     (`_attention_grads`, CPU). Saves q, k, v, the bias and the dropout seed
     only, never the [B, H, Lq, Lk] probabilities or the mask."""
@@ -549,11 +566,14 @@ def masked_attention(q, k, v, bias: Optional[torch.Tensor] = None, *,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (and adds one to `masked_attention.launches`, and with dropout to
-    `masked_attention.dropout_launches`) or raises. Its backward launches
+    `masked_attention.dropout_launches`) or raises. Its backward calls
     `masked_attention_bwd` on a CUDA tensor (one more
-    `masked_attention.backward_launches`) and runs the plain recompute on a
-    CPU tensor. A head dim in `NO_DROPOUT_DIMS` (72) with dropout raises, on
-    either device: its kernels have no dropout instantiation.
+    `masked_attention.backward_launches`; one more
+    `masked_attention.backward_key_outer` when the bf16 keys span more than
+    one key tile and the key tiles are the outer loop) and runs the plain
+    recompute on a CPU tensor. A head dim in `NO_DROPOUT_DIMS` (72) with
+    dropout raises, on either device: its kernels have no dropout
+    instantiation.
     """
     if layout not in ("bhld", "blhd"):
         raise ValueError(f"unknown layout {layout!r}")
@@ -577,3 +597,4 @@ def masked_attention(q, k, v, bias: Optional[torch.Tensor] = None, *,
 masked_attention.launches = 0
 masked_attention.dropout_launches = 0
 masked_attention.backward_launches = 0
+masked_attention.backward_key_outer = 0

@@ -11,6 +11,7 @@ the build's missing-compiler error run everywhere.
 
 import ctypes
 import shutil
+import threading
 from types import SimpleNamespace
 
 import numpy as np
@@ -919,32 +920,47 @@ def test_backward_launches_the_kernel_once_a_call(cuda, monkeypatch, dtype):
     (40, 64, torch.bfloat16, (64, 1, 0)), (70, 64, torch.bfloat16, (96, 1, 0)),
     (125, 64, torch.bfloat16, (128, 1, 0)),
     (145, 64, torch.bfloat16, (160, 1, 0)),
-    (257, 64, torch.bfloat16, (160, 2, 1)),
+    (257, 64, torch.bfloat16, (128, 3, 1)),
     (125, 128, torch.bfloat16, (128, 1, 0)),
     (145, 128, torch.bfloat16, (128, 2, 1)),
     (64, 64, torch.float32, (64, 1, 0)), (125, 64, torch.float32, (64, 2, 1))])
 def test_backward_plan_sizes_the_key_tile_to_lk(cuda, lk, d, dtype, want):
-    """The smallest instantiated key tile that holds Lk (one pass), else the
-    largest, walked twice; every plan fits shared memory, and dk and dv's
-    sums sit there at the two-stream training shapes."""
+    """The smallest instantiated key tile that holds Lk (one pass); past
+    it fp32 walks its largest twice and bf16 takes the key-outer launches
+    over 128-key tiles. Every plan fits shared memory; dk and dv's sums sit
+    there at the two-stream training shapes; the key-outer scratch holds
+    the statistics (3 x 64 floats a query block) and dq's slices (one a key
+    tile in the D 128 tile, else one a 64 keys)."""
     plan = kernel_bwd_plan(lk, lk, 12, d, 96, dtype)
     assert (plan["key_tile"], plan["key_tiles"], plan["multi"]) == want
     assert plan["smem_bytes"] <= 232448
     assert (plan["scratch_floats"] == 0) == bool(plan["acc_smem"])
     if dtype == torch.bfloat16 and d == 64 and lk <= 160:
         assert plan["acc_smem"] == 1
+    outer = int(dtype == torch.bfloat16 and plan["multi"] == 1)
+    assert plan["key_outer"] == outer
+    if outer:
+        slices = plan["key_tiles"] * (1 if plan["head_tile"] == 128 else 2)
+        stats = 96 * 12 * -(-lk // 64) * 192
+        assert (plan["stats_floats"], plan["dq_slices"]) == (stats, slices)
+        assert plan["scratch_floats"] == stats + slices * 96 * 12 * lk * d
+    else:
+        assert (plan["stats_floats"], plan["dq_slices"]) == (0, 0)
 
 
 class _FakeBwdLib:
     """Stands in for the built library's backward entry points: records what
-    the wrapper passes, and plans `scratch` floats."""
+    the wrapper passes, and plans `scratch` floats (on the key-outer path
+    when `key_outer`)."""
 
-    def __init__(self, scratch=0):
+    def __init__(self, scratch=0, key_outer=0):
         self.scratch = scratch
+        self.key_outer = key_outer
 
     def masked_attention_bwd_plan(self, dims, out):
-        plan = (ctypes.c_int64 * 6).from_address(out)
-        plan[:] = [128, 1, 0, int(self.scratch == 0), 1024, self.scratch]
+        plan = (ctypes.c_int64 * 8).from_address(out)
+        plan[:] = [128, 1, 0, int(self.scratch == 0), 1024, self.scratch, 64,
+                   self.key_outer]
         return 0
 
     def masked_attention_bwd(self, *args):
@@ -954,12 +970,26 @@ class _FakeBwdLib:
         return 0
 
 
-def _fake_bwd(monkeypatch, scratch=0):
-    fake = _FakeBwdLib(scratch)
+def _fake_bwd(monkeypatch, scratch=0, key_outer=0):
+    fake = _FakeBwdLib(scratch, key_outer)
     monkeypatch.setattr(_kernels, "library", lambda: fake)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: SimpleNamespace(cuda_stream=0))
     return fake
+
+
+@pytest.mark.parametrize("key_outer", [0, 1])
+def test_backward_wrapper_counts_the_key_outer_calls(monkeypatch, key_outer):
+    """A call whose plan takes the key-outer launches adds one to
+    `masked_attention.backward_key_outer` and hands the kernel a workspace
+    of the plan's scratch floats; any other call leaves the counter."""
+    fake = _fake_bwd(monkeypatch, scratch=4096 * key_outer,
+                     key_outer=key_outer)
+    q = torch.zeros(2, 4, 5, 64, dtype=torch.bfloat16)
+    before = masked_attention.backward_key_outer
+    _kernel_attention_grads(q, q, q, None, q, "bhld", False)
+    assert masked_attention.backward_key_outer - before == key_outer
+    assert (fake.ptrs[9] is not None) == bool(key_outer)
 
 
 @pytest.mark.parametrize("bias_kind", ["none", "key", "query", "head"])
@@ -1215,24 +1245,138 @@ def test_d72_autograd_launches_each_kernel_once(cuda, dtype):
 def test_d72_plans_report_the_padded_tile(cuda, dtype, lq, lk):
     """Both plans give D 72 the D 128 tile and its key tiles (forward: 64
     keys at most, 32 where fp32's 64 does not fit shared memory, online past
-    them; backward: 64, else bf16's 128 walked twice); the D 64 plans keep
-    their own width. The backward's dk, dv sums take 72 columns, not the
-    tile's 128: 2 x 64 x 72 floats a 64-key subtile of each key tile, in
-    shared memory where they fit, else in a scratch buffer of that size."""
+    them; backward: 64, else fp32's 64 walked twice and bf16's key-outer
+    launches over 128-key tiles); the D 64 plans keep their own width. The
+    backward's fp32 sums take 72 columns, not the tile's 128: dk, dv's
+    2 x 64 x 72 floats a 64-key subtile of each key tile (in shared memory
+    where they fit, else in a scratch buffer of that size), and the
+    key-outer path's dq slices 72 floats a query row."""
     fwd = kernel_plan(lq, lk, 16, 72, dtype=dtype, b=48)
     bwd = kernel_bwd_plan(lq, lk, 16, 72, 48, dtype)
     assert fwd["head_tile"] == bwd["head_tile"] == 128
     assert fwd["key_tile"] <= 64
     assert fwd == dict(kernel_plan(lq, lk, 16, 128, dtype=dtype, b=48))
     wide = kernel_bwd_plan(lq, lk, 16, 128, 48, dtype)
-    for key in ("key_tile", "key_tiles", "multi", "head_tile"):
+    for key in ("key_tile", "key_tiles", "multi", "head_tile", "key_outer",
+                "stats_floats", "dq_slices"):
         assert bwd[key] == wide[key], key
-    subtiles = bwd["key_tiles"] * -(-bwd["key_tile"] // 64)
-    sums = 48 * 16 * 2 * subtiles * 64 * 72
-    assert bwd["scratch_floats"] == (0 if bwd["acc_smem"] else sums)
-    assert wide["scratch_floats"] in (0, sums * 128 // 72)
+    assert bwd["key_outer"] == int(dtype == torch.bfloat16 and lk > 128)
+    if bwd["key_outer"]:
+        rows = 48 * 16 * lq * bwd["dq_slices"]
+        assert bwd["scratch_floats"] == bwd["stats_floats"] + rows * 72
+        assert wide["scratch_floats"] == wide["stats_floats"] + rows * 128
+    else:
+        subtiles = bwd["key_tiles"] * -(-bwd["key_tile"] // 64)
+        sums = 48 * 16 * 2 * subtiles * 64 * 72
+        assert bwd["scratch_floats"] == (0 if bwd["acc_smem"] else sums)
+        assert wide["scratch_floats"] in (0, sums * 128 // 72)
     assert kernel_plan(lq, lk, 16, 64, dtype=dtype, b=48)["head_tile"] == 64
     assert bwd["multi"] == int(lk > bwd["key_tile"])
+
+
+# which calls take the key-outer launches: bf16 past one key tile (SigLIP's
+# vision tower and MAP probe, D 64 and D 32 over 257 keys), and no call
+# that one key tile holds (SigLIP's text, the two-stream and single-stream
+# training lengths)
+KEY_OUTER_CASES = {"vision": 1, "map_probe": 1, "text": 0, "lk257": 1,
+                   "lk257_d32": 1, "two_stream_fused": 0, "two_stream_text": 0,
+                   "two_stream_vision": 0, "single_stream": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(KEY_OUTER_CASES))
+def test_backward_key_outer_runs_past_one_bf16_key_tile(cuda, name):
+    """Through autograd a bf16 call's backward takes the key-outer launches
+    (`masked_attention.backward_key_outer` once) exactly when its plan says
+    so, which is when Lk passes one key tile; its plan's workspace is the
+    statistics of every 64-row query block and dq's slices."""
+    if name in D72_SHAPES:
+        q, k, v, g, bias = d72_case(name, "none", "blhd", torch.bfloat16,
+                                    cuda)
+    else:
+        q, k, v, g, bias = bwd_case(name, "blhd", torch.bfloat16, cuda)
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    plan = kernel_bwd_plan(lq, lk, h, d, b, torch.bfloat16)
+    want = KEY_OUTER_CASES[name]
+    assert plan["key_outer"] == want == plan["multi"]
+    assert plan["stats_floats"] == want * b * h * -(-lq // 64) * 192
+    assert plan["dq_slices"] == want * plan["key_tiles"] * (
+        1 if plan["head_tile"] == 128 else 2)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    before = (masked_attention.backward_launches,
+              masked_attention.backward_key_outer)
+    out = masked_attention(*leaves, bias, layout="blhd")
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (masked_attention.backward_launches - before[0],
+            masked_attention.backward_key_outer - before[1]) == (1, want)
+    assert all(torch.isfinite(t.float()).all() for t in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,p", [("vision", 0.0), ("lk257", 0.1)])
+def test_backward_key_outer_repeats_bit_for_bit(cuda, name, p):
+    """Two calls on the same inputs give the same bits of dq, dk and dv:
+    the key-outer path sums dq's slices in a fixed order and uses no
+    floating-point atomics."""
+    if name in D72_SHAPES:
+        q, k, v, g, bias = d72_case(name, "none", "bhld", torch.bfloat16,
+                                    cuda)
+    else:
+        q, k, v, g, bias = bwd_case(name, "bhld", torch.bfloat16, cuda)
+    seed = card_seed(2 ** 41 + 3) if p else None
+    before = masked_attention.backward_key_outer
+    first = _kernel_attention_grads(q, k, v, bias, g, "bhld", False, p, seed)
+    second = _kernel_attention_grads(q, k, v, bias, g, "bhld", False, p, seed)
+    torch.cuda.synchronize()
+    assert masked_attention.backward_key_outer - before == 2
+    for gname, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), gname
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype", [("two_stream_text", torch.bfloat16),
+                                        ("two_stream_text", torch.float32),
+                                        ("vision", torch.bfloat16)])
+def test_kernels_run_from_a_thread_without_a_context(cuda, name, dtype):
+    """The forward and the backward launched from a host thread with no
+    current CUDA context (a plain `threading.Thread` that has only taken
+    PyTorch's cached memory has none) give the main thread's bits: the
+    kernels' tensor-map encoding is a driver call on the thread's current
+    context, and the launchers bind the device's primary context first."""
+    if name in D72_SHAPES:
+        q, k, v, g, bias = d72_case(name, "none", "blhd", dtype, cuda)
+    else:
+        q, k, v, g, bias = bwd_case(name, "blhd", dtype, cuda)
+    def run():
+        out = masked_attention(q, k, v, bias, layout="blhd")
+        return (out, *_kernel_attention_grads(q, k, v, bias, g, "blhd",
+                                              False)[:3])
+    want = run()
+    torch.cuda.synchronize()
+    driver = ctypes.CDLL("libcuda.so.1")
+    got = {}
+
+    def work():
+        current = ctypes.c_void_p()
+        try:
+            driver.cuCtxSetCurrent(ctypes.c_void_p(None))
+            driver.cuCtxGetCurrent(ctypes.byref(current))
+            got["unbound"] = current.value is None
+            got["out"] = run()
+            torch.cuda.synchronize()
+        except Exception as e:   # re-raised below, on the test's thread
+            got["error"] = e
+
+    thread = threading.Thread(target=work)
+    thread.start()
+    thread.join()
+    if "error" in got:
+        raise got["error"]
+    assert got["unbound"]
+    for gname, a, b in zip(("out", "dq", "dk", "dv"), got["out"], want):
+        assert torch.equal(a, b), gname
 
 
 def test_head_dim_72_is_dispatched_without_dropout():
