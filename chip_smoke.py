@@ -417,12 +417,10 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor cores
-              "float32": 495e12}     # dense TF32 tensor cores
-# tensor-core passes per product: fp32 at fp32 accuracy takes three TF32
-# passes (3xTF32: lo.hi + hi.lo + hi.hi)
-PASSES = {"bfloat16": 1, "float32": 3}
+# the attention kernels' least times (the benchmark's, at the card's peaks)
+from benchmark.flops.attention import bound_s as fwd_bound_s
+from benchmark.flops.attention_bwd import bound_s as bwd_bound_s
+
 TOL = {"float32": 2e-5, "bfloat16": 0.05}
 E2E_TOL = {"float32": 1e-4, "bfloat16": 0.02}
 # attention grads against fp32 autograd of the plain version: fp32, the same
@@ -521,33 +519,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def attention_bound_ms(b, lq, lk, dtype_name, bias, h=H, d=D) -> tuple:
-    """(bound ms, 'bytes' | 'operations'): q, k, v, out and the bias read or
-    written once, against 4 B H Lq Lk D operations per pass at the type's
-    tensor-core peak (at head dim d itself, not the tile's width)."""
-    elem = 2 if dtype_name == "bfloat16" else 4
-    nbytes = elem * h * d * b * (2 * lq + 2 * lk)
-    if bias is not None:
-        nbytes += bias.numel() * bias.element_size()
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (PASSES[dtype_name] * 4.0 * b * h * lq * lk * d
-             / PEAK_FLOPS[dtype_name] * 1e3)
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def attention_bwd_bound_ms(b, lq, lk, dtype_name, bias, h=H, d=D) -> tuple:
-    """(bound ms, 'bytes' | 'operations') of the backward: q, k, v, the
-    output's grad and the bias read once, dq, dk, dv written once, against
-    10 B H Lq Lk D operations per pass (q.k^T again, g.v^T, p^T.g, ds.k,
-    ds^T.q)."""
-    elem = 2 if dtype_name == "bfloat16" else 4
-    nbytes = elem * h * d * b * (3 * lq + 4 * lk)
-    if bias is not None:
-        nbytes += bias.numel() * bias.element_size()
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (PASSES[dtype_name] * 10.0 * b * h * lq * lk * d
-             / PEAK_FLOPS[dtype_name] * 1e3)
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def nbytes(t) -> int:
+    """A tensor's bytes, 0 for None (an attention call without a bias)."""
+    return 0 if t is None else t.numel() * t.element_size()
 
 
 def ptxas_report(path) -> dict:
@@ -836,13 +810,12 @@ def phase2_kernel_vs_plain(torch, attn):
                 qh, kh, vh, attn_mask=mask_lib).transpose(1, 2).float()
                 - attn.plain_attention_blhd(q, k, v, bias).float()
             ).abs().max().item()
-            bound, by = attention_bound_ms(b, l, l, dn, bias)
+            bound = 1e3 * fwd_bound_s(b, H, l, l, D, dn, nbytes(bias))
             timings[(name, dn)] = dict(ms=ms, plain_ms=plain_ms,
-                                       library_ms=lib_ms, bound_ms=bound,
-                                       bound_by=by)
+                                       library_ms=lib_ms, bound_ms=bound)
             log(f"  time {name:5s} B={b} L={l} {dn:9s} blhd: kernel "
                 f"{ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms "
-                f"(|sdpa-plain| {lib_err:.2e})  bound {bound:.4f} ms ({by})  "
+                f"(|sdpa-plain| {lib_err:.2e})  bound {bound:.4f} ms  "
                 f"bound/kernel {bound / ms:.3f}  kernel/sdpa {ms / lib_ms:.3f}")
             del q, k, v, bias, qh, kh, vh, mask_lib
     torch.cuda.synchronize()
@@ -1056,16 +1029,15 @@ def phase2_backward(torch, attn):
                                                    attn_mask=mask_lib,
                                                    dropout_p=p),
                     (qh, kh, vh), gh))
-                bound, by = attention_bwd_bound_ms(b, lq, l, dn, bias, h, d)
-                fwd_bound, fwd_by = attention_bound_ms(b, lq, l, dn, bias, h,
-                                                       d)
+                bound = 1e3 * bwd_bound_s(b, h, lq, l, d, dn, nbytes(bias))
+                fwd_bound = 1e3 * fwd_bound_s(b, h, lq, l, d, dn, nbytes(bias))
                 timings[(name, dn, p)] = dict(
-                    fwd_ms=fwd, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
+                    fwd_ms=fwd, fwd_bound_ms=fwd_bound,
                     plain_fwd_ms=plain_fwd, bwd_ms=bwd,
                     recompute_bwd_ms=recompute,
                     plain_bwd_ms=plain_bwd, sdpa_fwd_ms=sdpa_fwd,
                     sdpa_fwd_bwd_ms=sdpa_fb, bwd_bound_ms=bound,
-                    bwd_bound_by=by, bwd_key_tile=plan["key_tile"],
+                    bwd_key_tile=plan["key_tile"],
                     bwd_key_tiles=plan["key_tiles"],
                     bwd_head_tile=plan["head_tile"],
                     bwd_scratch_floats=plan["scratch_floats"],
@@ -1077,7 +1049,7 @@ def phase2_backward(torch, attn):
                 log(f"  time train {name:6s} B={b} H={h} D={d} Lq={lq} L={l} "
                     f"{dn:9s} p={p} key outer {plan.get('key_outer', 0)} "
                     f"grads relative {rel:.3e} (tol {D72_GRAD_REL_TOL[dn]:g}) "
-                    f"blhd: kernel bwd {bwd:.4f} ms (bound {bound:.4f}, {by}"
+                    f"blhd: kernel bwd {bwd:.4f} ms (bound {bound:.4f}"
                     f"; {bound / bwd:.1%} of it)  plain recompute "
                     f"{recompute:.4f} ms  plain autograd bwd "
                     f"{plain_bwd:.4f} ms  sdpa fwd+bwd {sdpa_fb:.4f} ms  "
@@ -1286,17 +1258,17 @@ def phase2_dropout(torch, attn):
                 out_d, qkv, g, retain_graph=True), iters=5)
             bwd_p0_ms = cuda_ms(lambda: torch.autograd.grad(
                 out_0, qkv, g, retain_graph=True), iters=5)
-            bound, by = attention_bound_ms(TRAIN_B, l, l, dn, bias)
+            bound = 1e3 * fwd_bound_s(TRAIN_B, H, l, l, D, dn, nbytes(bias))
             timings[(name, dn)] = dict(
                 ms=drop_ms, p0_ms=p0_ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
-                bound_ms=bound, bound_by=by, bwd_ms=bwd_ms,
+                bound_ms=bound, bwd_ms=bwd_ms,
                 bwd_p0_ms=bwd_p0_ms,
                 max_abs_err=max(errs[(name, dn, lay)][0]
                                 for lay in ("blhd", "bhld")))
             log(f"  time dropout {name:5s} B={TRAIN_B} L={l} {dn:9s} blhd: "
                 f"kernel p=0.1 {drop_ms:.4f} ms  p=0 {p0_ms:.4f} ms "
                 f"(ratio {drop_ms / p0_ms:.3f})  plain {plain_ms:.4f} ms  "
-                f"sdpa p=0.1 {sdpa_ms:.4f} ms  bound {bound:.4f} ms ({by})  "
+                f"sdpa p=0.1 {sdpa_ms:.4f} ms  bound {bound:.4f} ms  "
                 f"kernel bwd p=0.1 {bwd_ms:.4f} ms  p=0 {bwd_p0_ms:.4f} ms")
             del q, k, v, g, qkv, out_d, out_0, bias, qh, kh, vh, mask_lib
     torch.cuda.synchronize()
@@ -2540,7 +2512,7 @@ def attention_times(torch, attn, shapes, seed):
                                dtype=torch.int64, device=DEVICE,
                                generator=gen)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        bound, by = attention_bound_ms(b, l, l, dn, bias)
+        bound = 1e3 * fwd_bound_s(b, H, l, l, D, dn, nbytes(bias))
         for p in rates:
             s = seed_t if p else None
             got = attn.masked_attention(q, k, v, bias, layout="blhd",
@@ -2551,7 +2523,7 @@ def attention_times(torch, attn, shapes, seed):
                 raise AssertionError(f"kernel vs plain {name} B {b} L {l} "
                                      f"{dn} p {p}: {err}")
             row = dict(
-                max_abs_err=err, bound_ms=bound, bound_by=by,
+                max_abs_err=err, bound_ms=bound,
                 ms=cuda_ms(lambda: attn.masked_attention(
                     q, k, v, bias, layout="blhd", dropout_p=p, seed=s)),
                 plain_ms=cuda_ms(lambda: attn.plain_attention_blhd(
@@ -2564,7 +2536,7 @@ def attention_times(torch, attn, shapes, seed):
             log(f"  kernel {name:5s} B={b} L={l} {dn} p={p:g}: max|err| "
                 f"{err:.3e}  kernel {row['ms']:.4f} ms  plain "
                 f"{row['plain_ms']:.4f} ms  sdpa {row['sdpa_ms']:.4f} ms  "
-                f"bound {bound:.4f} ms ({by})")
+                f"bound {bound:.4f} ms")
         del q, k, v, qh, kh, vh, bias, got, want
     torch.cuda.synchronize()
     return out
@@ -4659,9 +4631,9 @@ def phase12_kernel(torch, attn):
                     continue
                 x = [t.detach() for t in (q, k, v)]
                 xh = [t.transpose(1, 2) for t in x]
-                bound, by = attention_bound_ms(n, lq, lk, dn, bias)
+                bound = 1e3 * fwd_bound_s(n, H, lq, lk, D, dn, nbytes(bias))
                 row = dict(
-                    max_abs_err=f_err, bound_ms=bound, bound_by=by,
+                    max_abs_err=f_err, bound_ms=bound,
                     ms=cuda_ms(lambda: attn.masked_attention(
                         *x, bias, layout="blhd", dropout_p=p, seed=seed)),
                     plain_ms=cuda_ms(lambda: attn.plain_attention_blhd(
@@ -4671,7 +4643,7 @@ def phase12_kernel(torch, attn):
                 times[key + (" fp32" if dn == "float32" else "")] = row
                 log(f"  kernel {key} {dn}: kernel {row['ms']:.4f} ms  plain "
                     f"{row['plain_ms']:.4f} ms  sdpa {row['sdpa_ms']:.4f} ms"
-                    f"  bound {bound:.4f} ms ({by})")
+                    f"  bound {bound:.4f} ms")
                 del leaves, out, want
             del q, k, v, bias
     torch.cuda.empty_cache()
@@ -4885,14 +4857,47 @@ def decode_launches(layers, mode):
     return len(lengths), lengths
 
 
+KERNEL_CLASSES = (   # first match wins, on the lower-cased kernel name
+    ("attention (masked_attention_fwd)", ("masked_attention",)),
+    ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+    ("layer_norm", ("layer_norm",)),
+    ("gather / cat / copy", ("index", "gather", "catarray", "copy",
+                             "embedding")),
+    ("elementwise", ("elementwise", "gelu", "tanh")),
+)
+
+
+def classify(name: str) -> str:
+    """A kernel's class in KERNEL_CLASSES, else "other"."""
+    low = name.lower()
+    for label, keys in KERNEL_CLASSES:
+        if any(k in low for k in keys):
+            return label
+    return "other"
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
 def device_profile(torch, fn) -> dict:
     """The card's work during one call of `fn` under `torch.profiler` (whose
     host overhead stretches the window, not the kernels): the busy seconds
-    (the union of the device events' intervals), the device ms by
-    `profile_two_stage` kernel class and the five kernels with the most."""
+    (the union of the device events' intervals), the device ms by kernel
+    class (`classify`) and the five kernels with the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from profile_two_stage import busy_us, classify
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
@@ -5900,9 +5905,9 @@ def phase13_kernel(torch, attn):
             x = [t.detach() for t in (q, k, v)]
             xh = [t.transpose(1, 2) for t in x]
             mask_lib = bias.to(dt)
-            bound, by = attention_bound_ms(n, lq, lk, dn, bias)
+            bound = 1e3 * fwd_bound_s(n, H, lq, lk, D, dn, nbytes(bias))
             row = dict(
-                max_abs_err=f_err, bound_ms=bound, bound_by=by,
+                max_abs_err=f_err, bound_ms=bound,
                 ms=cuda_ms(lambda: attn.masked_attention(*x, bias,
                                                          layout="blhd")),
                 plain_ms=cuda_ms(lambda: attn.plain_attention_blhd(*x, bias),
@@ -5916,11 +5921,10 @@ def phase13_kernel(torch, attn):
                 qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
                               for t in (q, k, v))
                 gh = g.transpose(1, 2)
-                bwd_bound, bwd_by = attention_bwd_bound_ms(n, lq, lk, dn,
-                                                           bias)
+                bwd_bound = 1e3 * bwd_bound_s(n, H, lq, lk, D, dn,
+                                              nbytes(bias))
                 row.update(
                     grad_err=b_err, bwd_bound_ms=bwd_bound,
-                    bwd_bound_by=bwd_by,
                     bwd_ms=cuda_ms(lambda: torch.autograd.grad(
                         o, qkv, g, retain_graph=True)),
                     plain_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
@@ -5933,11 +5937,11 @@ def phase13_kernel(torch, attn):
             times[key + (" fp32" if dn == "float32" else "")] = row
             log(f"  kernel {key} {dn}: kernel {row['ms']:.4f} ms  plain "
                 f"{row['plain_ms']:.4f}  sdpa {row['sdpa_ms']:.4f}  bound "
-                f"{bound:.4f} ({by})" + (
+                f"{bound:.4f}" + (
                     f"; backward {row['bwd_ms']:.4f}  plain "
                     f"{row['plain_bwd_ms']:.4f}  sdpa fwd+bwd "
                     f"{row['sdpa_fwd_bwd_ms']:.4f}  bound "
-                    f"{row['bwd_bound_ms']:.4f} ({row['bwd_bound_by']})"
+                    f"{row['bwd_bound_ms']:.4f}"
                     if grads else ""))
             del q, k, v, g, bias, leaves, out, want, x, xh, mask_lib
     torch.cuda.empty_cache()
@@ -6998,8 +7002,8 @@ def phase16_runbook(torch, attn, root):
     times = attention_times(torch, attn, P16_TIMED, seed=16)
     for k, row in times.items():
         log(f"  kernel at {k}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f},"
-            f" SDPA {row['sdpa_ms']:.4f}, bound {row['bound_ms']:.4f} by "
-            f"{row['bound_by']}), max abs err {row['max_abs_err']:.2e}")
+            f" SDPA {row['sdpa_ms']:.4f}, bound {row['bound_ms']:.4f}), max "
+            f"abs err {row['max_abs_err']:.2e}")
     return dict(images=P16_IMAGES, captions=n_cap, pairs=n_pairs,
                 params=n_params, launches=runs[0]["launches"],
                 eval_wall_s=[r["wall_s"] for r in runs],
@@ -7173,9 +7177,9 @@ def kernel_table(torch, attn):
                                  f"relative {rel}")
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         mask_lib = None if bias is None else bias.to(dt)
-        bound, by = attention_bound_ms(b, lq, lk, dn, bias, h, d)
+        bound = 1e3 * fwd_bound_s(b, h, lq, lk, d, dn, nbytes(bias))
         row = dict(
-            max_abs_err=err, rel_err=rel, bound_ms=bound, bound_by=by,
+            max_abs_err=err, rel_err=rel, bound_ms=bound,
             ms=cuda_ms(lambda: attn.masked_attention(
                 q, k, v, bias, layout="blhd", dropout_p=p, seed=seed)),
             plain_ms=cuda_ms(lambda: attn.plain_attention_blhd(
@@ -7197,7 +7201,7 @@ def kernel_table(torch, attn):
         rows[key] = row
         log(f"  {key:52s} kernel {row['ms']:.4f} ms  plain "
             f"{row['plain_ms']:.4f}  sdpa {row['sdpa_ms']:.4f}  bound "
-            f"{bound:.4f} ({by}, {row['share_of_bound']:.0%})  kernel/sdpa "
+            f"{bound:.4f} ({row['share_of_bound']:.0%})  kernel/sdpa "
             f"{row['ms'] / row['sdpa_ms']:.3f}  max|err| {err:.2e} relative "
             f"{rel:.2e}{plan}")
         del q, k, v, bias, got, want, qh, kh, vh, mask_lib
@@ -7325,7 +7329,7 @@ def main(argv) -> int:
                 "replaces": REPLACES, "launches": None,
                 "max_abs_err": main["max_abs_err"], "ms": main["ms"],
                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-                "bound_by": main["bound_by"], "library_ms": main["sdpa_ms"],
+                "library_ms": main["sdpa_ms"],
                 "rows": {k: v for k, v in rows.items() if dn in k}})
         entries[0]["build"] = build
         log(f"  total {time.perf_counter() - t_all:.1f} s")
@@ -7519,7 +7523,7 @@ def main(argv) -> int:
         "source": KERNEL_SOURCE_BF16, "replaces": REPLACES,
         "launches": sweep["launches"], "max_abs_err": main_err,
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
-        "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
+        "bound_ms": main_t["bound_ms"],
         "library_ms": main_t["library_ms"],
         "training": {
             "launches": train["launches"],
@@ -7532,7 +7536,6 @@ def main(argv) -> int:
             "bwd_plain_ms": train_t["plain_bwd_ms"],
             "bwd_recompute_ms": train_t["recompute_bwd_ms"],
             "bwd_bound_ms": train_t["bwd_bound_ms"],
-            "bwd_bound_by": train_t["bwd_bound_by"],
             "bwd_max_abs_err": train_t["grad_err"],
             "sdpa_fwd_ms": train_t["sdpa_fwd_ms"],
             "sdpa_fwd_bwd_ms": train_t["sdpa_fwd_bwd_ms"],
@@ -7551,7 +7554,6 @@ def main(argv) -> int:
             "dropout_plain_ms": drop_t["plain_ms"],
             "dropout_max_abs_err": drop_t["max_abs_err"],
             "dropout_bound_ms": drop_t["bound_ms"],
-            "dropout_bound_by": drop_t["bound_by"],
             "sdpa_dropout_ms": drop_t["sdpa_ms"],
             "dropout_bwd_ms": drop_t["bwd_ms"],
             "p0_bwd_ms": drop_t["bwd_p0_ms"],
@@ -7577,7 +7579,7 @@ def main(argv) -> int:
         "max_abs_err": errors[("fused 2-D padded keys", 1000, "float32",
                                "blhd", "float32", D)],
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
-        "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
+        "bound_ms": t32["bound_ms"],
         "library_ms": t32["library_ms"],
         "sweep_pairs_per_s": sweep32["pairs_per_s"][0],
         "sweep_peak_gb": sweep32["peak_gb"],
@@ -7586,14 +7588,13 @@ def main(argv) -> int:
             "fwd_ms": train32["fwd_ms"],
             "fwd_plain_ms": train32["plain_fwd_ms"],
             "fwd_bound_ms": train32["fwd_bound_ms"],
-            "fwd_bound_by": train32["fwd_bound_by"],
             "sdpa_fwd_ms": train32["sdpa_fwd_ms"]},
         "dropout": {
             "shape": f"B {TRAIN_B} L 125 fp32 blhd p {DROP_P}",
             "ms": drop32["ms"], "p0_ms": drop32["p0_ms"],
             "plain_ms": drop32["plain_ms"],
             "max_abs_err": drop32["max_abs_err"],
-            "bound_ms": drop32["bound_ms"], "bound_by": drop32["bound_by"],
+            "bound_ms": drop32["bound_ms"],
             "sdpa_ms": drop32["sdpa_ms"]},
         "nlvr_attention": {k: v for k, v in nlvr_times.items()
                            if k.endswith("fp32")},

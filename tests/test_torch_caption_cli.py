@@ -8,11 +8,12 @@ metrics (`utils/`) on the CPU.
   `porter_stem` equal to the JAX package's on fixed token lists, and SPICE
   left out without its jar;
 - `python -m mvp_pytorch_tpu_torch.tasks.captioning --synthetic --tiny
-  --platform cpu --do_train --do_eval` through spawned loader workers (a
-  60 s deadline on every wait): step 1's loss equal to the same batch's
-  step in memory, the scores logged, and a standalone `--do_eval` of the
-  checkpoint writes `test_eval.json` with the captions the training run
-  decoded, in both decode modes, restoring `max_gen_length`;
+  --platform cpu --do_train --do_eval` through loader workers started from
+  a fork server (a 60 s deadline on every wait): step 1's loss equal to the
+  same batch's step in memory, the scores logged, and a standalone
+  `--do_eval` of the checkpoint writes `test_eval.json` with the captions
+  the training run decoded, in both decode modes, restoring
+  `max_gen_length`;
 - `--scst` (finite SCST losses, the eval after it) and `--use_cbs` (the
   constrained captions and hits in cbs_captions.json) on a seeded model and
   after training; a pipeline-staged checkpoint raises, naming item 6,
@@ -20,7 +21,6 @@ metrics (`utils/`) on the CPU.
   CUDA.
 """
 
-import functools
 import json
 import math
 import os
@@ -38,15 +38,15 @@ from mvp_pytorch_tpu.utils import caption_eval as jeval
 from mvp_pytorch_tpu.utils import cider as jcider
 from mvp_pytorch_tpu.utils import meteor_rouge as jmr
 from mvp_pytorch_tpu_torch.data.datasets import FeatureStore
-from mvp_pytorch_tpu_torch.data.loader import BatchSampler, ProcessLoader
+from mvp_pytorch_tpu_torch.data.loader import BatchSampler
 from mvp_pytorch_tpu_torch.data.tokenization import FastBertTokenizer
 from mvp_pytorch_tpu_torch.tasks import captioning as cap
-from mvp_pytorch_tpu_torch.tasks import common
 from mvp_pytorch_tpu_torch.training.loop import train_on_batches
 from mvp_pytorch_tpu_torch.utils import caption_eval as peval
 from mvp_pytorch_tpu_torch.utils import cider as pcider
 from mvp_pytorch_tpu_torch.utils import meteor_rouge as pmr
 from mvp_pytorch_tpu_torch.utils import spice as pspice
+from torch_flags import WORKERS, bounded_loader
 
 B, STEPS = 8, 4
 LOSS_TOL = 1e-5
@@ -55,8 +55,8 @@ TRAIN = ["--synthetic", "--tiny", "--platform", "cpu", "--do_train",
          "--log_period", "1", "--train_batch_size", str(B),
          "--eval_batch_size", "5", "--dtype", "float32",
          "--learning_rate", "1e-3", "--max_gen_length", "12",
-         "--drop_worst_ratio", "0.2", "--drop_worst_after", "2",
-         "--worker_start_method", "spawn", "--num_workers", "1"]
+         "--drop_worst_ratio", "0.2", "--drop_worst_after",
+         "2"] + WORKERS + ["1"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -165,13 +165,11 @@ def test_spice_is_left_out_without_its_jar(monkeypatch, tmp_path):
 
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
-    """One `--do_train --do_eval` run through spawned workers, which must
-    answer within 60 s or the run fails instead of waiting, and the same
-    first batch's step in memory."""
+    """One `--do_train --do_eval` run, whose loader workers must answer
+    within 60 s or the run fails instead of waiting, and the same first
+    batch's step in memory."""
     out = str(tmp_path_factory.mktemp("caption_cli"))
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(common, "ProcessLoader",
-                   functools.partial(ProcessLoader, timeout=60.0))
+    with bounded_loader():
         res = cap.main(["--output_dir", out] + TRAIN)
     args = cap.get_args(["--output_dir", out] + TRAIN)
     paths = json.load(open(os.path.join(out, "synth", "paths.json")))
@@ -276,10 +274,10 @@ def test_scst_and_cbs_after_training(tmp_path):
     res = cap.main(["--output_dir", str(out), "--synthetic", "--tiny",
                     "--platform", "cpu", "--do_train", "--do_eval",
                     "--max_steps", "2", "--ckpt_period", "2",
-                    "--train_batch_size", "8", "--num_workers", "0",
-                    "--dtype", "float32", "--max_gen_length", "10", "--scst",
-                    "--scst_steps", "2", "--scst_lr", "1e-3", "--use_cbs",
-                    "--cbs_beams", "2"])
+                    "--train_batch_size", "8", "--dtype", "float32",
+                    "--max_gen_length", "10", "--scst", "--scst_steps", "2",
+                    "--scst_lr", "1e-3", "--use_cbs", "--cbs_beams", "2"]
+                   + WORKERS + ["1"])
     assert len(res["train"]) == 2 and len(res["scst"]) == 2
     assert all(math.isfinite(h["loss"]) for h in res["scst"])
     log = open(out / "log.txt").read()

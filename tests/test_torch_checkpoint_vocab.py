@@ -29,11 +29,11 @@ from mvp_pytorch_tpu_torch.tasks import pretrain as port_pretrain
 from mvp_pytorch_tpu_torch.tasks import retrieval as port_retrieval
 from mvp_pytorch_tpu_torch.training.checkpoint import (
     TOKENIZER_FILES, AsyncSaver, CheckpointManager)
+from torch_flags import WORKERS
 
-# the drivers' loader runs on the main thread: this process holds JAX
 RUN = ["--synthetic", "--tiny", "--platform", "cpu", "--do_train",
        "--max_steps", "2", "--ckpt_period", "2", "--train_batch_size", "8",
-       "--dtype", "float32", "--num_workers", "0"]
+       "--dtype", "float32"] + WORKERS + ["1"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -128,7 +128,7 @@ def test_finetuning_starts_from_the_checkpoint_alone(cli_checkpoints,
         "--feature_tsv", os.path.join(synth, "features", "predictions.tsv"),
         "--id2phrase", os.path.join(synth, "id2phrase.json"),
         "--platform", "cpu", "--do_train", "--do_eval", "--max_steps", "1",
-        "--train_batch_size", "8", "--num_workers", "0"])
+        "--train_batch_size", "8"] + WORKERS + ["1"])
     assert len(res["train"]) == 1
     assert np.isfinite(res["train"][0]["loss"])
     assert "fine" in res["eval"]

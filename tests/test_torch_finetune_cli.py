@@ -16,9 +16,9 @@ Every step's loss (and VE's `acc`) agrees within 5e-4, the eval metrics in
 `eval_logs.json` are equal, and so is VQA's `{split}_results.json`.
 
 Also: an eval-only rerun from a checkpoint restores its training settings;
-each driver runs on CUDA unless asked for the CPU; the tooling flags that
-once raised as later port items (`--profile_dir`, `--async_ckpt`) run. The
-port's loader workers are spawned: this process holds JAX.
+each driver runs on CUDA unless asked for the CPU; the tooling flags
+(`--profile_dir`, `--async_ckpt`) run. The port's loader workers start from
+a fork server: this process holds JAX.
 """
 
 import functools
@@ -47,7 +47,8 @@ from mvp_pytorch_tpu_torch.tasks import re_task as port_re
 from mvp_pytorch_tpu_torch.tasks import ve as port_ve
 from mvp_pytorch_tpu_torch.tasks import vqa as port_vqa
 from mvp_pytorch_tpu_torch.training.checkpoint import CheckpointManager
-from torch_flags import TOOLING_FLAGS, check_tooling_flag
+from torch_flags import (TOOLING_FLAGS, WORKERS, bounded_loader,
+                         check_tooling_flag, tooling_runs)
 
 B, STEPS = 8, 4
 LOSS_TOL = 5e-4
@@ -57,7 +58,7 @@ COMMON = ["--synthetic", "--tiny", "--platform", "cpu",
           "--ckpt_period", str(STEPS), "--log_period", "1",
           "--train_batch_size", str(B), "--eval_batch_size", "16",
           "--dtype", "float32", "--learning_rate", "1e-3"]
-SPAWN = ["--worker_start_method", "spawn", "--num_workers", "1"]
+LOADER = WORKERS + ["1"]
 DRIVERS = {"vqa": (jax_vqa, port_vqa), "ve": (jax_ve, port_ve),
            "re_task": (jax_re, port_re)}
 # weights -> (driver, model, build_config keywords)
@@ -91,13 +92,9 @@ def _torch_one_thread():
 
 
 @pytest.fixture(autouse=True)
-def _bounded_loader(monkeypatch):
-    """The drivers' loader workers must answer within 60 s, or the test
-    fails instead of waiting."""
-    from mvp_pytorch_tpu_torch.data.loader import ProcessLoader
-    from mvp_pytorch_tpu_torch.tasks import common
-    monkeypatch.setattr(common, "ProcessLoader",
-                        functools.partial(ProcessLoader, timeout=60.0))
+def _bounded_loader():
+    with bounded_loader():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -164,7 +161,7 @@ def test_cli_matches_jax_driver(weights, tmp_path, case):
     jax_main(["--output_dir", jout, "--model_name_or_path", jdir] + COMMON
              + with_paths(extra, jout))
     res = port_main(["--output_dir", pout, "--model_name_or_path", pdir]
-                    + COMMON + with_paths(extra, pout) + SPAWN)
+                    + COMMON + with_paths(extra, pout) + LOADER)
     want, got = read_metrics(jout), read_metrics(pout)
     assert [m["step"] for m in got] == [m["step"] for m in want] == \
         list(range(1, STEPS + 1))
@@ -196,7 +193,7 @@ def test_eval_only_restores_training_settings(weights, tmp_path, driver):
     wname = {"vqa": "vqa", "ve": "ve", "re_task": "re"}[driver]
     out = str(tmp_path / "train")
     port_main(["--output_dir", out, "--model_name_or_path",
-               weights[wname][1], "--max_seq_length", "20"] + COMMON + SPAWN)
+               weights[wname][1], "--max_seq_length", "20"] + COMMON + LOADER)
     ckpt = os.path.join(out, f"checkpoint-{STEPS:07d}")
     shutil.copy(os.path.join(out, "synth", "vocab.txt"), ckpt)
     flags = ["--output_dir", str(tmp_path / "eval"), "--model_name_or_path",
@@ -221,16 +218,19 @@ def test_runs_on_cuda_unless_asked_for_the_cpu(tmp_path, driver):
     assert not os.path.exists(tmp_path / "synth")
 
 
-# (driver, flag) for each tooling flag, which each driver takes
-LATER = [(d, f) for d in DRIVERS for f in TOOLING_FLAGS]
+@pytest.fixture(scope="module")
+def tooling(tmp_path_factory):
+    """{driver: its tooling_runs}"""
+    return {d: tooling_runs(port.main, str(tmp_path_factory.mktemp(d)),
+                            ["--train_batch_size", str(B)])
+            for d, (_, port) in DRIVERS.items()}
 
 
-@pytest.mark.parametrize("driver,flag", LATER)
-def test_flags_of_later_items_raise(tmp_path, driver, flag):
-    """The flags that raised until the tooling was ported now run: one
-    trace, or an async checkpoint equal to the synchronous one."""
-    check_tooling_flag(DRIVERS[driver][1].main, flag, str(tmp_path),
-                       ["--train_batch_size", str(B)])
+@pytest.mark.parametrize("driver,flag",
+                         [(d, f) for d in DRIVERS for f in TOOLING_FLAGS])
+def test_tooling_flags_run(tooling, driver, flag):
+    """One trace, or an async checkpoint equal to the synchronous one."""
+    check_tooling_flag(tooling[driver], flag)
 
 
 def test_vqa_flag_checks(tmp_path):

@@ -27,8 +27,9 @@ The CLI: JAX-seeded tiny weights saved for both drivers; both run `--synthetic
 `acc` within 5e-4 of the JAX driver's, equal `nlvr_accuracy`; step 1's loss
 equal to the same batch's loss in memory, and the eval accuracy equal to the
 checkpoint's forward over the eval split. Also: the driver runs on CUDA
-unless asked for the CPU, and the tooling flags that once raised as later
-port items (`--profile_dir`, `--async_ckpt`) run.
+unless asked for the CPU, and the tooling flags (`--profile_dir`,
+`--async_ckpt`) run. The port's loader workers start from a fork server:
+this process holds JAX.
 """
 
 import dataclasses
@@ -65,7 +66,8 @@ from mvp_pytorch_tpu_torch.tasks.common import (NLVR_INPUT_NAMES,
                                                 predict)
 from mvp_pytorch_tpu_torch.training.checkpoint import CheckpointManager
 from mvp_pytorch_tpu_torch.training.loop import batch_on
-from torch_flags import TOOLING_FLAGS, check_tooling_flag
+from torch_flags import (TOOLING_FLAGS, WORKERS, bounded_loader,
+                         check_tooling_flag, tooling_runs)
 
 SHAPES = {"small": (4, 10, 5, 4), "lk140": (4, 40, 20, 50)}
 LOGIT_TOL, LOSS_TOL, FUSED_TOL = 1e-5, 1e-5, 5e-4
@@ -82,13 +84,9 @@ def _torch_one_thread():
 
 
 @pytest.fixture(autouse=True)
-def _bounded_loader(monkeypatch):
-    """The driver's loader workers must answer within 60 s, or the test
-    fails instead of waiting."""
-    from mvp_pytorch_tpu_torch.data.loader import ProcessLoader
-    from mvp_pytorch_tpu_torch.tasks import common
-    monkeypatch.setattr(common, "ProcessLoader",
-                        functools.partial(ProcessLoader, timeout=60.0))
+def _bounded_loader():
+    with bounded_loader():
+        yield
 
 
 def make_inputs(cfg, b, la, t, r, seed=0):
@@ -329,7 +327,6 @@ COMMON = ["--synthetic", "--tiny", "--platform", "cpu",
           "--ckpt_period", str(STEPS), "--log_period", "1",
           "--train_batch_size", str(B), "--eval_batch_size", "16",
           "--dtype", "float32", "--learning_rate", "1e-3"]
-SPAWN = ["--worker_start_method", "spawn", "--num_workers", "1"]
 
 
 @pytest.fixture(scope="module")
@@ -373,7 +370,7 @@ def test_cli_matches_jax_driver_and_memory(weights, tmp_path):
     jax_nlvr.main(["--output_dir", jout, "--model_name_or_path", jdir]
                   + COMMON)
     res = port_nlvr.main(["--output_dir", pout, "--model_name_or_path", pdir]
-                         + COMMON + SPAWN)
+                         + COMMON + WORKERS + ["1"])
     want = read_jsonl(jout, "train_logs", "metrics.jsonl")
     got = read_jsonl(pout, "train_logs", "metrics.jsonl")
     assert [m["step"] for m in got] == [m["step"] for m in want] == \
@@ -431,9 +428,14 @@ def test_runs_on_cuda_unless_asked_for_the_cpu(tmp_path):
     assert not os.path.exists(tmp_path / "synth")
 
 
+@pytest.fixture(scope="module")
+def tooling(tmp_path_factory):
+    return tooling_runs(port_nlvr.main,
+                        str(tmp_path_factory.mktemp("tooling")),
+                        ["--train_batch_size", str(B)])
+
+
 @pytest.mark.parametrize("flag", TOOLING_FLAGS)
-def test_flags_of_later_items_raise(tmp_path, flag):
-    """The flags that raised until the tooling was ported now run: one
-    trace, or an async checkpoint equal to the synchronous one."""
-    check_tooling_flag(port_nlvr.main, flag, str(tmp_path),
-                       ["--train_batch_size", str(B)])
+def test_tooling_flags_run(tooling, flag):
+    """One trace, or an async checkpoint equal to the synchronous one."""
+    check_tooling_flag(tooling, flag)

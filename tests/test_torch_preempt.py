@@ -21,6 +21,8 @@ import time
 import pytest
 import torch
 
+from torch_flags import subprocess_env
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEADLINE_S = 90
 RUN = [sys.executable, "-m", "mvp_pytorch_tpu_torch.tasks.retrieval",
@@ -38,20 +40,16 @@ def _torch_one_thread():
     torch.set_num_threads(1)
 
 
-def env():
-    return {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-
-
 def run(args, timeout=DEADLINE_S):
-    res = subprocess.run(args, cwd=ROOT, env=env(), capture_output=True,
-                         text=True, timeout=timeout)
+    res = subprocess.run(args, cwd=ROOT, env=subprocess_env(),
+                         capture_output=True, text=True, timeout=timeout)
     assert res.returncode == 0, res.stderr[-3000:]
     return res
 
 
 def start(args):
     """`args` in a new session (its own process group)."""
-    return subprocess.Popen(args, cwd=ROOT, env=env(), text=True,
+    return subprocess.Popen(args, cwd=ROOT, env=subprocess_env(), text=True,
                             start_new_session=True, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT)
 

@@ -14,9 +14,9 @@ streams never agree). Every step's total, `vis_mlm`, `clip`, `mlm`, `itm`,
 labels, weights and predictions.
 
 Also: 2 steps and a rerun to 4 equal an uninterrupted 4; the tooling flags
-that once raised as later port items (`--profile_dir`, `--async_ckpt`) run;
-without `--platform cpu` the driver runs on CUDA and raises where there is
-no card.
+(`--profile_dir`, `--async_ckpt`) run; without `--platform cpu` the driver
+runs on CUDA and raises where there is no card. The port's loader workers
+start from a fork server: this process holds JAX.
 """
 
 import dataclasses
@@ -41,7 +41,8 @@ from mvp_pytorch_tpu_torch.models import BiPretrainModel, ModelConfig
 from mvp_pytorch_tpu_torch.tasks import pretrain as port_pretrain
 from mvp_pytorch_tpu_torch.tasks.common import LATER_ITEMS
 from mvp_pytorch_tpu_torch.training.checkpoint import CheckpointManager
-from torch_flags import TOOLING_FLAGS, check_tooling_flag
+from torch_flags import (TOOLING_FLAGS, WORKERS, bounded_loader,
+                         check_tooling_flag, tooling_runs)
 
 B, STEPS = 8, 4
 LOSS_TOL = 5e-4
@@ -53,8 +54,7 @@ COMMON = ["--synthetic", "--tiny", "--platform", "cpu",
           "--max_steps", str(STEPS), "--ckpt_period", str(STEPS),
           "--log_period", "1", "--train_batch_size", str(B),
           "--dtype", "float32", "--learning_rate", "1e-3"]
-# the port's loader workers are spawned: this process holds JAX
-SPAWN = ["--worker_start_method", "spawn", "--num_workers", "2"]
+LOADER = WORKERS + ["2"]
 # case -> (flags of both drivers, (qa_head, qa_seq_relation) in the weights)
 CASES = {
     "default": (["--mlm_debug"], (False, False)),
@@ -72,13 +72,9 @@ def _torch_one_thread():
 
 
 @pytest.fixture(autouse=True)
-def _bounded_loader(monkeypatch):
-    """The drivers' loader workers must answer within 60 s, or the test
-    fails instead of waiting."""
-    from mvp_pytorch_tpu_torch.data.loader import ProcessLoader
-    from mvp_pytorch_tpu_torch.tasks import common
-    monkeypatch.setattr(common, "ProcessLoader",
-                        functools.partial(ProcessLoader, timeout=60.0))
+def _bounded_loader():
+    with bounded_loader():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -171,7 +167,7 @@ def test_cli_matches_jax_driver(weights, pinned, tmp_path, case):
     jax_pretrain.main(["--output_dir", jout, "--model_name_or_path", jdir]
                       + COMMON + extra)
     res = port_pretrain.main(["--output_dir", pout, "--model_name_or_path",
-                              pdir] + COMMON + extra + SPAWN)
+                              pdir] + COMMON + extra + LOADER)
     want, got = read_metrics(jout), read_metrics(pout)
     assert [m["step"] for m in got] == [m["step"] for m in want] == \
         list(range(1, STEPS + 1))
@@ -206,7 +202,7 @@ def test_resume_equals_an_uninterrupted_run(weights, pinned, tmp_path):
     pdir = weights[0]["default"][1]
     flags = (["--model_name_or_path", pdir, "--scheduler", "constant",
               "--ckpt_period", "2"] + COMMON[:COMMON.index("--ckpt_period")]
-             + COMMON[COMMON.index("--ckpt_period") + 2:] + SPAWN)
+             + COMMON[COMMON.index("--ckpt_period") + 2:] + LOADER)
     whole = port_pretrain.main(["--output_dir", str(tmp_path / "a")]
                                + flags)["train"]
     out = str(tmp_path / "b")
@@ -220,14 +216,19 @@ def test_resume_equals_an_uninterrupted_run(weights, pinned, tmp_path):
     assert "resumed from" in open(os.path.join(out, "log.txt")).read()
 
 
+@pytest.fixture(scope="module")
+def tooling(tmp_path_factory):
+    return tooling_runs(port_pretrain.main,
+                        str(tmp_path_factory.mktemp("tooling")),
+                        ["--train_batch_size", "8"])
+
+
 @pytest.mark.parametrize("flag", TOOLING_FLAGS)
-def test_flags_of_later_items_raise(tmp_path, flag):
-    """The flags that raised until the tooling was ported now run: one
-    trace, or an async checkpoint equal to the synchronous one; no flag is
-    left for a later item."""
+def test_tooling_flags_run(tooling, flag):
+    """One trace, or an async checkpoint equal to the synchronous one; no
+    flag is left for a later item."""
     assert not port_pretrain.LATER_ITEMS and not LATER_ITEMS
-    check_tooling_flag(port_pretrain.main, flag, str(tmp_path),
-                       ["--train_batch_size", "8"])
+    check_tooling_flag(tooling, flag)
 
 
 def test_runs_on_cuda_unless_asked_for_the_cpu(tmp_path):

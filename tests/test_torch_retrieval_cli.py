@@ -9,9 +9,9 @@ then run `--synthetic --tiny --platform cpu` at dropouts 0 with `--do_train
 pinned on both sides (the two random streams never agree). Every step's
 losses agree within 5e-4, and the coarse and fine R@K are equal.
 
-The tooling flags that once raised as later port items (`--profile_dir`,
-`--async_ckpt`) run; without `--platform cpu` the driver runs on CUDA and
-raises where there is no card.
+The tooling flags (`--profile_dir`, `--async_ckpt`) run; without
+`--platform cpu` the driver runs on CUDA and raises where there is no card.
+The port's loader workers start from a fork server: this process holds JAX.
 """
 
 import functools
@@ -35,7 +35,8 @@ from mvp_pytorch_tpu_torch.models import ModelConfig
 from mvp_pytorch_tpu_torch.models import tasks as port_tasks
 from mvp_pytorch_tpu_torch.tasks import retrieval as port_retrieval
 from mvp_pytorch_tpu_torch.training.checkpoint import CheckpointManager
-from torch_flags import TOOLING_FLAGS, check_tooling_flag
+from torch_flags import (TOOLING_FLAGS, WORKERS, bounded_loader,
+                         check_tooling_flag, tooling_runs)
 
 B, STEPS = 8, 4
 LOSS_TOL = 5e-4
@@ -57,13 +58,9 @@ def _torch_one_thread():
 
 
 @pytest.fixture(autouse=True)
-def _bounded_loader(monkeypatch):
-    """The drivers' loader workers must answer within 60 s, or the test
-    fails instead of waiting."""
-    from mvp_pytorch_tpu_torch.data.loader import ProcessLoader
-    from mvp_pytorch_tpu_torch.tasks import common
-    monkeypatch.setattr(common, "ProcessLoader",
-                        functools.partial(ProcessLoader, timeout=60.0))
+def _bounded_loader():
+    with bounded_loader():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -116,12 +113,10 @@ def read_metrics(out):
         return [json.loads(line) for line in f]
 
 
-# the port's loader workers are spawned: this process holds JAX
-SPAWN = ["--worker_start_method", "spawn", "--num_workers"]
 CASES = {
-    "plain": ([], SPAWN + ["2"]),
+    "plain": ([], WORKERS + ["2"]),
     "use_phrase_cross_image": (["--use_phrase", "--phrase_layer", "1",
-                                "--cross_image_eval"], SPAWN + ["1"]),
+                                "--cross_image_eval"], WORKERS + ["1"]),
 }
 
 
@@ -166,7 +161,7 @@ def test_eval_only_restores_training_settings_and_caption_index(
     pdir = weights[1]
     out = str(tmp_path / "train")
     port_retrieval.main(["--output_dir", out, "--model_name_or_path", pdir,
-                         "--max_seq_length", "20"] + SPAWN + ["1"]
+                         "--max_seq_length", "20"] + WORKERS + ["1"]
                         + [a for a in COMMON if a != "--do_eval"])
     ckpt = os.path.join(out, f"checkpoint-{STEPS:07d}")
     synth = os.path.join(out, "synth")
@@ -203,12 +198,17 @@ def test_eval_only_restores_training_settings_and_caption_index(
              str(tmp_path / "index.json")] + data)
 
 
+@pytest.fixture(scope="module")
+def tooling(tmp_path_factory):
+    return tooling_runs(port_retrieval.main,
+                        str(tmp_path_factory.mktemp("tooling")),
+                        ["--train_batch_size", str(B)])
+
+
 @pytest.mark.parametrize("flag", TOOLING_FLAGS)
-def test_flags_of_later_items_raise(tmp_path, flag):
-    """The flags that raised until the tooling was ported now run: one
-    trace, or an async checkpoint equal to the synchronous one."""
-    check_tooling_flag(port_retrieval.main, flag, str(tmp_path),
-                       ["--train_batch_size", str(B)])
+def test_tooling_flags_run(tooling, flag):
+    """One trace, or an async checkpoint equal to the synchronous one."""
+    check_tooling_flag(tooling, flag)
 
 
 def test_runs_on_cuda_unless_asked_for_the_cpu(tmp_path):

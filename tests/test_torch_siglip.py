@@ -27,6 +27,7 @@ from mvp_pytorch_tpu_torch.tasks import pretrain
 from mvp_pytorch_tpu_torch.training import profiler
 from mvp_pytorch_tpu_torch.training.optim import make_optimizer
 from mvp_pytorch_tpu_torch.training.trainer import Trainer
+from torch_flags import WORKERS
 
 TINY = {
     "text_config": {"vocab_size": 300, "hidden_size": 72,
@@ -289,8 +290,8 @@ def test_cli_trains_a_tiny_siglip_config(tmp_path):
         "--output_dir", str(tmp_path / "run"), "--siglip_config", str(path),
         "--synthetic", "--platform", "cpu", "--dtype", "float32",
         "--max_steps", "3", "--train_batch_size", "4", "--ckpt_period", "3",
-        "--scheduler", "constant", "--learning_rate", "1e-3",
-        "--worker_start_method", "spawn", "--num_workers", "1"])
+        "--scheduler", "constant", "--learning_rate", "1e-3"]
+        + WORKERS + ["1"])
     losses = [m["loss"] for m in out["train"]]
     assert len(losses) == 3 and all(math.isfinite(x) for x in losses)
     saved = list((tmp_path / "run").rglob("config.json"))

@@ -15,7 +15,8 @@ weights with `--visual_learning` (an `ImgBertForPreTraining`) and with
 slot permutation and the WRA draws pinned on both sides): every step's
 losses within 5e-4; step 1's loss equal to the port's in-memory step on the
 sampler's first batch. Flags that `--visual_learning` refuses raise before
-anything is written.
+anything is written. The command line's loader workers start from a fork
+server: this process holds JAX.
 """
 
 import dataclasses
@@ -52,8 +53,8 @@ from mvp_pytorch_tpu_torch.models import (BiPretrainModel,
 from mvp_pytorch_tpu_torch.tasks import pretrain as port_pretrain
 from mvp_pytorch_tpu_torch.training.checkpoint import CheckpointManager
 from mvp_pytorch_tpu_torch.training.loop import batch_on
+from torch_flags import LOADER_TIMEOUT, WORKERS, bounded_loader
 
-LOADER_TIMEOUT = 60.0
 TCFG = dict(max_seq_length=12, max_phrases=3, max_tag_length=7,
             max_img_seq_length=6)
 LOSS_TOL = 5e-4
@@ -67,7 +68,6 @@ COMMON = ["--synthetic", "--tiny", "--platform", "cpu",
           "--max_steps", str(STEPS), "--ckpt_period", str(STEPS),
           "--log_period", "1", "--dtype", "float32", "--learning_rate",
           "1e-3"]
-SPAWN = ["--worker_start_method", "spawn", "--num_workers", "2"]
 CASES = {
     "visual_learning": ["--visual_learning"],
     "img_only": ["--extra_mode", "img_only", "--extra_batch_divisor", "2"],
@@ -357,13 +357,9 @@ def test_trainer_splits_each_sub_batch_by_its_own_rows():
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(autouse=True)
-def _bounded_loader(monkeypatch):
-    """The command lines' loader workers must answer within 60 s, or the test
-    fails instead of waiting."""
-    from mvp_pytorch_tpu_torch.tasks import common
-    monkeypatch.setattr(common, "ProcessLoader",
-                        functools.partial(ProcessLoader,
-                                          timeout=LOADER_TIMEOUT))
+def _bounded_loader():
+    with bounded_loader():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -471,7 +467,7 @@ def test_cli_matches_jax_driver(weights, pinned, tmp_path, case):
     jax_pretrain.main(["--output_dir", jout, "--model_name_or_path", jdir]
                       + flags)
     argv = ["--output_dir", pout, "--model_name_or_path", pdir] + flags
-    res = port_pretrain.main(argv + SPAWN)
+    res = port_pretrain.main(argv + WORKERS + ["2"])
     want, got = read_metrics(jout), read_metrics(pout)
     assert [m["step"] for m in got] == [m["step"] for m in want] == \
         list(range(1, STEPS + 1))

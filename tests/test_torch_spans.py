@@ -26,6 +26,15 @@ READERS = {"mvptr-base.pretrain-b96": TRAIN_READERS,
 STAGES = ("encode_text", "encode_image", "coarse", "rerank", "ranks")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _torch_one_thread():
+    """torch single-threaded in this process: a thread per core in each of
+    the suite's workers oversubscribes the host and slows the tiny cells'
+    steps many times; and no intra-op thread pool is left behind for a later
+    test in the same worker that forks."""
+    torch.set_num_threads(1)
+
+
 def test_nested_spans_add_to_their_root():
     with annotate("spans.root"):
         with annotate("spans.a"):

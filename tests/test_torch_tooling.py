@@ -48,7 +48,7 @@ from mvp_pytorch_tpu_torch.training.optim import make_optimizer
 from mvp_pytorch_tpu_torch.training.trainer import Trainer
 from mvp_pytorch_tpu_torch.utils import file_utils as port_files
 from mvp_pytorch_tpu_torch.utils import misc as port_misc
-from torch_flags import assert_tensors_equal, trace_events
+from torch_flags import WORKERS, assert_tensors_equal, trace_events
 
 # the JAX loop's memory keys on the CPU (live jax arrays; XLA's buffer
 # assignment), which the port has no counterpart of there: on the card it
@@ -254,7 +254,7 @@ def test_inspect_ckpt_reads_a_sharded_optimizer(tmp_path):
 TINY = ["--synthetic", "--tiny", "--platform", "cpu", "--do_train",
         "--max_steps", "2", "--log_period", "1", "--train_batch_size", "8",
         "--dtype", "float32"]
-SPAWN = ["--worker_start_method", "spawn", "--num_workers", "1"]
+LOADER = WORKERS + ["1"]
 
 
 def log_lines(out):
@@ -270,7 +270,7 @@ def keys_of(line):
 def test_cli_log_lines_carry_the_jax_telemetry(tmp_path):
     jout, pout = str(tmp_path / "jax"), str(tmp_path / "port")
     jax_retrieval.main(["--output_dir", jout] + TINY)
-    port_retrieval.main(["--output_dir", pout] + TINY + SPAWN)
+    port_retrieval.main(["--output_dir", pout] + TINY + LOADER)
     jlines, plines = log_lines(jout), log_lines(pout)
     assert [m["step"] for m in plines] == [m["step"] for m in jlines] == [1, 2]
     for p, j in zip(plines, jlines):
@@ -290,7 +290,7 @@ def test_profile_window_on_a_resumed_run(tmp_path):
     steps from where it resumed, once, into one trace file."""
     out = str(tmp_path / "run")
     # the last --max_steps on a command line wins
-    base = ["--output_dir", out, "--ckpt_period", "3"] + TINY + SPAWN
+    base = ["--output_dir", out, "--ckpt_period", "3"] + TINY + LOADER
     port_retrieval.main(base + ["--max_steps", "3"])
     prof = str(tmp_path / "prof")
     hist = port_retrieval.main(base + [
